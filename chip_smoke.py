@@ -5,23 +5,55 @@
 Phases (the first that fails ends the run with a non-zero exit):
 
 1. Environment: torch/CUDA/nvcc versions, the card and its power limit;
-   build the CUDA sphere kernel from csgrenderer_tpu_torch/kernels/csrc.
-2. Kernel against its plain torch version on the card, in brute mode
-   (two spheres; the small RTIOW scene) and grid mode (the RTIOW final
-   scene at 320x180, 4 spp, 8 bounces), and grid mode against forced brute
-   mode; then each mode at the frame the main path gives it (1920x1080:
-   grid on the RTIOW final scene, brute on the two-sphere scene), whose
-   errors and times the kernel line reports. Bounds
-   (tests/test_kernels.py::compare): RMSE <= 2e-2, at most 1% of pixels
-   off by more than 0.05 in any channel, rays within max(2e-3 * ref, 8).
-3. The main path: the benchmark (python -m csgrenderer_tpu_torch.bench) at
-   1920x1080, 64 spp, 8 bounces plus the 16-spp p50, and the render CLI on
-   the two-sphere scene (brute mode) at 1920x1080, 16 spp. Each kernel
-   mode must have launched in this phase.
+   build both CUDA kernels from csgrenderer_tpu_torch/kernels/csrc (one
+   nvcc each, started together) and print ptxas' registers and spills.
+2. Each kernel against its plain torch version on the card. The sphere
+   kernel in brute mode (two spheres; the small RTIOW scene) and grid mode
+   (the RTIOW final scene at 320x180, 4 spp, 8 bounces), grid against
+   forced brute, then each mode at the frame the main path gives it
+   (1920x1080: grid on the RTIOW final scene, brute on the two-sphere
+   scene). The tape kernel on config3 (BASELINE's 512x512, 16 spp, 6
+   bounces), on config5 (the depth-8 animated CSG chain at t = 1.0) at the
+   bench's 1920x1080 with 2 spp, 5 bounces, clustered and again global
+   (and the two kernel images against each other), on
+   many_objects_scene(99) at 640x360, 2 spp, 8 bounces (clustered; the
+   global kernel is timed beside it and its image compared), on the render
+   CLI's manyobjects tape and camera at its 1920x1080 with 2 spp, 8
+   bounces, and on a rotated-box / glass-cylinder / half-space scene and a
+   normal-map scene at 256x256. Kernel and plain version are timed with
+   CUDA events at the frames the kernel line reports. Bounds
+   (tests/test_kernels.py::compare):
+   RMSE <= 2e-2, at most 1% of pixels off by more than 0.05 in any
+   channel, rays within max(2e-3 * ref, 8).
+3. The main path, counts from zero: the sphere benchmark (python -m
+   csgrenderer_tpu_torch.bench) at 1920x1080, 64 spp, 8 bounces plus the
+   16-spp p50; the config5 benchmark (--scene deepcsg) at 1920x1080, 64
+   spp, 5 bounces plus the 16-spp p50; the render CLI on the two-sphere
+   scene, on csg and on manyobjects, each at 1920x1080, 16 spp. The sphere
+   kernel's grid and brute modes and the tape kernel's clustered mode must
+   have launched in this phase; the tape kernel's global mode must have
+   launched in phase 2.
 
 The last line of output is the device JSON; the line before it lists the
-kernels with their launch counts, errors and times. There is no CPU
-fallback: without CUDA the script exits non-zero.
+kernels with their launch counts, errors, times and bounds. There is no
+CPU fallback: without CUDA the script exits non-zero.
+
+Each kernel's ``bound_ms`` is the least time the card could take for the
+frame's work: the larger of its FP32 operations over the card's FP32 rate
+and its bytes (tables read once, outputs written once) over 3.35 TB/s.
+Operations are counted from the kernel sources (``OPS`` below): one per
+FP32 add, subtract, multiply, divide, square root, min, max, absolute
+value or comparison, and one per cosf/sinf call; integer work, selects and
+loads are not counted. Where the count depends on the data, only what must
+run is counted, so each bound is a floor: a segment that is not known to
+hit is counted as a miss, the grid walk's sphere tests are left out, a
+tape candidate costs its first test only (the others are short-circuited
+when it fails), and a tape segment walks the ops of one cluster, the
+smallest, only if it surely hits (a candidate past the best t, or outside
+(eps, cut), is skipped without a walk; a miss may walk none). The FP32
+rate is 132 SMs x 128 lanes x the SM clock read under load, one operation
+per lane per cycle: the kernels are built with -fmad=false, so no
+multiply-add fuses two.
 """
 
 from __future__ import annotations
@@ -35,8 +67,28 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
-SOURCE = "csgrenderer_tpu_torch/kernels/csrc/sphere_megakernel.cu"
-REPLACES = "csgrenderer_tpu/kernels/megakernel.py:775"
+CSRC = "csgrenderer_tpu_torch/kernels/csrc"
+KERNELS = {
+    "sphere_megakernel": (f"{CSRC}/sphere_megakernel.cu", "csgrenderer_tpu/kernels/megakernel.py:775"),
+    "tape_kernel": (f"{CSRC}/tape_kernel.cu", "csgrenderer_tpu/kernels/tape_kernel.py:744"),
+}
+SMS, LANES = 132, 128
+HBM_BYTES_PER_S = 3.35e12
+
+# FP32 operations counted from the kernel sources (see the docstring's rule)
+OPS = {
+    "ray": 16,  # sphere kernel: o.d, o.o, d.d, 1/d.d
+    "sphere_test": 20,  # sphere_t up to the disc test, plus the t < t_best test
+    "segment": 12,  # 1/|d|, the unit direction, the hit test
+    "miss": 17,  # add_sky
+    "sphere_hit": 58,  # hit point, normal, front test, face-forward, a Lambertian scatter
+    "leaf_transform": 63,  # o - pos and two quaternion rotations
+    "interval": {0: 29, 1: 14, 2: 31, 3: 34},  # sphere, half-space, box, cylinder
+    "candidate_test": 1,  # tj > eps (tj < cut, tj < t only where it holds)
+    "walk_push": 4,  # below and above membership of one leaf at tj
+    "tape_hit": 85,  # hit point, winner's normal to world, face-forward, scatter
+    "attribution": {0: 47, 1: 40, 2: 69, 3: 61},  # per leaf: transform, score, best test
+}
 
 
 def fail(msg: str) -> None:
@@ -77,6 +129,63 @@ def timed(fn, reps):
     return out, start.elapsed_time(end) / reps
 
 
+def sm_clock_under_load(fn, ms_per_call):
+    """The SM clock (MHz) read by nvidia-smi while about 1.5 s of fn's
+    launches are queued on the card."""
+    import torch
+
+    reps = max(2, int(1500 / max(ms_per_call, 1e-3)))
+    for _ in range(reps):
+        fn()
+    time.sleep(0.3)
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=30, check=True).stdout
+        mhz = float(out.splitlines()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        mhz = None
+    torch.cuda.synchronize()
+    if mhz is None:
+        fail("nvidia-smi gave no SM clock")
+    return mhz
+
+
+def hits_floor(rays, width, height, spp):
+    """Segments that surely hit: every sample's path has at most one miss."""
+    return max(int(rays) - width * height * spp, 0)
+
+
+def sphere_ops(n_brute, rays, width, height, spp):
+    hits = hits_floor(rays, width, height, spp)
+    per_segment = OPS["ray"] + n_brute * OPS["sphere_test"] + OPS["segment"]
+    return int(rays) * per_segment + hits * OPS["sphere_hit"] + (int(rays) - hits) * OPS["miss"]
+
+
+def tape_ops(packed, rays, width, height, spp):
+    types = packed.tape.leaf_types
+    min_lc = min(len(c_leaves) for _, c_leaves in packed.clusters)
+    per_segment = (sum(OPS["leaf_transform"] + OPS["interval"][t] for t in types)
+                   + 2 * len(types) * OPS["candidate_test"] + OPS["segment"])
+    # at least one walk (the taken candidate's) per hit, none per miss
+    per_hit = OPS["tape_hit"] + sum(OPS["attribution"][t] for t in types) + min_lc * OPS["walk_push"]
+    hits = hits_floor(rays, width, height, spp)
+    return int(rays) * per_segment + hits * per_hit + (int(rays) - hits) * OPS["miss"]
+
+
+def bound(ops, table_bytes, width, height, mhz):
+    """(bound_ms, bound_by, ops, bytes) for one frame."""
+    out_bytes = width * height * (3 * 4 + 4)  # rgb f32 + int32 rays
+    total_bytes = table_bytes + out_bytes + 24 * 4
+    ops_ms = ops / (SMS * LANES * mhz * 1e6) * 1e3
+    bytes_ms = total_bytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations", ops, total_bytes) if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes", ops, total_bytes)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def main() -> None:
     import torch
 
@@ -87,7 +196,16 @@ def main() -> None:
     from csgrenderer_tpu_torch.camera import Camera
     from csgrenderer_tpu_torch.kernels import build
     from csgrenderer_tpu_torch.kernels import megakernel as mk
-    from csgrenderer_tpu_torch.models import rtiow_final_scene, two_spheres_scene
+    from csgrenderer_tpu_torch.kernels import tape_kernel as tk
+    from csgrenderer_tpu_torch.math import quaternion as quat
+    from csgrenderer_tpu_torch.models import (
+        animated_csg_scene,
+        config3_csg_scene,
+        many_objects_scene,
+        rtiow_final_scene,
+        two_spheres_scene,
+    )
+    from csgrenderer_tpu_torch.scene import Material, NodeArgument, SceneGraph
 
     dev = torch.device("cuda")
 
@@ -101,41 +219,48 @@ def main() -> None:
     if card is None:
         fail("nvidia-smi gave no card name and power limit")
     print(card, flush=True)
-    _, b = build.load(mk.KERNEL_SOURCE)
-    print(f"[chip_smoke] built {b.path.name} in {b.seconds:.1f} s", flush=True)
-    for line in b.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[chip_smoke] ptxas: {line.strip()}", flush=True)
+    t0 = time.perf_counter()
+    builds = build.load_all([mk.KERNEL_SOURCE, tk.KERNEL_SOURCE])
+    print(f"[chip_smoke] built {len(builds)} kernels in {time.perf_counter() - t0:.1f} s "
+          f"(in parallel)", flush=True)
+    for name, b in builds.items():
+        print(f"[chip_smoke] {b.path.name}: nvcc {b.seconds:.1f} s", flush=True)
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[chip_smoke] ptxas {name}: {line.strip()}", flush=True)
 
-    # --- phase 2: kernel against the plain version on the card
+    # --- phase 2: each kernel against its plain version on the card
     print("[chip_smoke] bounds: rmse <= 2e-2, divergent (max channel err > 0.05) <= 1%, "
           "|rays - ref| <= max(2e-3 * ref, 8)", flush=True)
-    launches0 = mk.LAUNCHES
+    mk_launches0, tk_launches0 = mk.LAUNCHES, tk.LAUNCHES
+    tk_global0 = tk.LAUNCHES_BY_MODE["global"]
+
+    def cam_at(eye, at, vfov, aspect, **kw):
+        return Camera.look_at(eye, at, vfov_degrees=vfov, aspect_ratio=aspect, device=dev, **kw)
 
     def diffuse_cam(aspect):
-        return Camera.look_at((0, 0, 0), (0, 0, -1), vfov_degrees=90, aspect_ratio=aspect,
-                              device=dev)
+        return cam_at((0, 0, 0), (0, 0, -1), 90, aspect)
 
     def rtiow_cam(aspect):
-        return Camera.look_at((13, 2, 3), (0, 0, 0), vfov_degrees=20.0, aspect_ratio=aspect,
-                              aperture=0.1, focus_dist=10.0, device=dev)
+        return cam_at((13, 2, 3), (0, 0, 0), 20.0, aspect, aperture=0.1, focus_dist=10.0)
 
-    def check(label, packed, cam, mode, kw, plain_reps=0):
+    def check(label, packed, cam, mode, kw, plain_reps=0, kernel=mk.render_image_kernel,
+              plain=mk.render_image_plain):
         """Kernel vs plain on the same inputs; with plain_reps, also times
         both (kernel: 5 calls). Returns (max_abs, ms, plain_ms, image, rays)."""
         if packed.mode != mode:
             fail(f"{label}: expected {mode} mode, got {packed.mode}")
-        run = functools.partial(mk.render_image_kernel, packed, cam, **kw)
-        plain = functools.partial(mk.render_image_plain, packed, cam, **kw)
+        run = functools.partial(kernel, packed, cam, **kw)
+        run_plain = functools.partial(plain, packed, cam, **kw)
         if plain_reps:
             (img, rays), ms = timed(run, reps=5)
-            (ref, ref_rays), plain_ms = timed(plain, reps=plain_reps)
+            (ref, ref_rays), plain_ms = timed(run_plain, reps=plain_reps)
             print(f"[chip_smoke] {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})",
                   flush=True)
         else:
             (img, rays), ms, plain_ms = run(), None, None
             torch.cuda.synchronize()
-            ref, ref_rays = plain()
+            ref, ref_rays = run_plain()
             torch.cuda.synchronize()
         _, _, max_abs = compare(f"{label} kernel vs plain", ref, ref_rays, img, rays)
         return max_abs, ms, plain_ms, img, rays
@@ -155,55 +280,169 @@ def main() -> None:
     }
     compare("rtiow 320x180 kernel grid vs kernel worklist=False", *images["brute"], *images["grid"])
 
-    # each mode at the frame the main path gives it (bench: grid; render CLI: brute)
+    # each sphere mode at the frame the main path gives it (bench: grid; render CLI: brute)
     w, h = bench.FULL[:2]
-    stats = {}
+    stats, frames = {}, {}
     for mode, label, scene, cam, extra in (
         ("grid", "grid rtiow 1920x1080 spp2 b8 lens", rtiow, rtiow_cam(w / h),
          dict(spp=2, lens=True)),
         ("brute", "brute two_spheres 1920x1080 spp4 b8", two_spheres_scene(device=dev),
          diffuse_cam(w / h), dict(spp=4)),
     ):
-        max_abs, ms, plain_ms, _, _ = check(
-            label, mk.pack_scene(scene), cam, mode,
-            dict(width=w, height=h, max_bounces=8, seed=0, **extra), plain_reps=1)
-        stats[mode] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
-    if mk.LAUNCHES <= launches0:
-        fail("LAUNCHES did not increase in phase 2")
-    print(f"[chip_smoke] phase 2 ok: {mk.LAUNCHES - launches0} kernel launches", flush=True)
+        packed = mk.pack_scene(scene)
+        max_abs, ms, plain_ms, _, rays = check(
+            label, packed, cam, mode, dict(width=w, height=h, max_bounces=8, seed=0, **extra),
+            plain_reps=1)
+        stats[f"sphere_megakernel[{mode}]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        frames[f"sphere_megakernel[{mode}]"] = (
+            sphere_ops(packed.n_brute, rays, w, h, extra["spp"]),
+            nbytes(packed.spheres) + (0 if packed.grid is None else nbytes(packed.grid.cell_ids)),
+        )
 
-    # --- phase 3: the main path (benchmark + render CLI), counts from zero
+    # the tape kernel
+    tape_check = functools.partial(check, kernel=tk.render_image_tape_kernel,
+                                   plain=tk.render_image_tape_plain)
+    c3 = tk.pack_program(config3_csg_scene().compile(device=dev))
+    tape_check("tape config3 512x512 spp16 b6", c3, cam_at((3, 2.5, 4), (0.1, 0, 0), 35.0, 1.0),
+               "global", dict(width=512, height=512, spp=16, max_bounces=6, seed=3))
+
+    graph5, animate5 = animated_csg_scene(8)
+    tape5 = animate5(graph5.compile(k=4, device=dev), 1.0)
+    w5, h5, _, b5 = bench.FRAMES["deepcsg"][0]
+    cam5 = cam_at((0, 2.0, 7.0), (0.5, 0, 0), 40.0, w5 / h5)
+    kw5 = dict(width=w5, height=h5, spp=2, max_bounces=b5, seed=0)
+    tape_images = {}
+    for mode, partition in (("clustered", "auto"), ("global", False)):
+        packed = tk.pack_program(tape5, partition)
+        max_abs, ms, plain_ms, img, rays = tape_check(
+            f"tape config5 {mode} {w5}x{h5} spp2 b{b5}", packed, cam5, mode, kw5, plain_reps=1)
+        tape_images[mode] = (img, rays)
+        stats[f"tape_kernel[{mode}]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        frames[f"tape_kernel[{mode}]"] = (
+            tape_ops(packed, rays, w5, h5, kw5["spp"]),
+            nbytes(packed.leaf_table, packed.leaf_types, packed.ops, packed.cluster_table,
+                   packed.leaf_ids),
+        )
+        if mode == "clustered":
+            mhz = sm_clock_under_load(functools.partial(tk.render_image_tape_kernel, packed, cam5,
+                                                        **kw5), ms)
+            print(f"[chip_smoke] SM clock under load: {mhz:.0f} MHz ({card})", flush=True)
+    compare("tape config5 kernel clustered vs kernel global", *tape_images["global"],
+            *tape_images["clustered"])
+
+    tape99 = many_objects_scene(99).compile(k=4, device=dev)
+    cam99 = cam_at((0, 7.0, 9.0), (0, 0.4, 0), 45.0, 640 / 360)
+    kw99 = dict(width=640, height=360, spp=2, max_bounces=8, seed=1)
+    _, _, _, img99, rays99 = tape_check("tape many_objects(99) 640x360 spp2 b8",
+                                        tk.pack_program(tape99), cam99, "clustered", kw99)
+    ms99 = {}
+    for mode, partition in (("clustered", "auto"), ("global", False)):
+        (img, rays), ms99[mode] = timed(functools.partial(
+            tk.render_image_tape_kernel, tk.pack_program(tape99, partition), cam99, **kw99), reps=3)
+    compare("tape many_objects(99) kernel global vs kernel clustered", img99, rays99, img, rays)
+    print(f"[chip_smoke] tape many_objects(99) 640x360 spp2 b8: kernel clustered "
+          f"{ms99['clustered']:.3f} ms, global {ms99['global']:.3f} ms "
+          f"({ms99['global'] / ms99['clustered']:.1f}x; {card})", flush=True)
+
+    # the render CLI's manyobjects tape and camera at the main path's frame
+    tape_check("tape CLI manyobjects 1920x1080 spp2 b8",
+               tk.pack_program(many_objects_scene().compile(device=dev)),
+               cam_at((9.0, 7.5, 12.0), (0.0, 0.3, 0.0), 42.0, w / h), "clustered",
+               dict(width=w, height=h, spp=2, max_bounces=8, seed=0))
+
+    g = SceneGraph()
+    rot = tuple(float(x) for x in quat.from_axis_angle([0.0, 1.0, 0.0], 0.6))
+    box = g.add_box_node((0.7, 0.7, 0.7), Material.metal((0.9, 0.8, 0.6), 0.05))
+    cyl = g.add_cylinder_node(0.5, 1.2, Material.dielectric(1.5))
+    half = g.add_infinite_planar_partition_node((0.0, 1.0, 0.0), Material.lambertian((0.4, 0.5, 0.6)))
+    u = g.add_union_of_node(NodeArgument(box, orientation=rot), NodeArgument(cyl))
+    g.add_union_of_node(NodeArgument(u), NodeArgument(half, offset=(0, -1.2, 0)))
+    tape_check("tape rotated box, glass, half-space 256x256 spp4 b6",
+               tk.pack_program(g.compile(k=2, device=dev), partition=False),
+               cam_at((3, 2, 4), (0, 0, 0), 40.0, 1.0), "global",
+               dict(width=256, height=256, spp=4, max_bounces=6, seed=7))
+    g = SceneGraph(max_node_count=16)
+    s = g.add_sphere_node(1.0, Material.normal_map())
+    b = g.add_box_node((0.8, 0.8, 0.8), Material.normal_map())
+    c = g.add_cylinder_node(0.55, 1.6, Material.normal_map())
+    u = g.add_union_of_node(NodeArgument(s, offset=(-0.3, 0, 0)), NodeArgument(b, offset=(0.5, 0, 0)))
+    g.add_difference_of_node(NodeArgument(u), NodeArgument(c))
+    tape_check("tape normal-map attribution 256x256 spp1 b1", tk.pack_program(g.compile(k=2, device=dev)),
+               cam_at((3, 2.5, 4), (0.1, 0, 0), 35.0, 1.0), "global",
+               dict(width=256, height=256, spp=1, max_bounces=1, seed=3))
+
+    if mk.LAUNCHES <= mk_launches0 or tk.LAUNCHES <= tk_launches0:
+        fail("LAUNCHES did not increase in phase 2")
+    global_launches = tk.LAUNCHES_BY_MODE["global"] - tk_global0
+    if global_launches == 0:
+        fail("tape_kernel[global] never launched in phase 2")
+    print(f"[chip_smoke] phase 2 ok: {mk.LAUNCHES - mk_launches0} sphere and "
+          f"{tk.LAUNCHES - tk_launches0} tape kernel launches ({global_launches} global)", flush=True)
+
+    # --- phase 3: the main paths (benchmarks + render CLI), counts from zero
     os.makedirs(OUT_DIR, exist_ok=True)
-    mk.LAUNCHES = 0
-    for k in mk.LAUNCHES_BY_MODE:
-        mk.LAUNCHES_BY_MODE[k] = 0
+    for mod in (mk, tk):
+        mod.LAUNCHES = 0
+        for k in mod.LAUNCHES_BY_MODE:
+            mod.LAUNCHES_BY_MODE[k] = 0
     t0 = time.perf_counter()
     result, img = bench.run_bench(quick=False, frames=3, device="cuda")
-    png = os.path.join(OUT_DIR, "diffuse_1080p.png")
-    cli_main(["render", "--scene", "diffuse", "--width", "1920", "--height", "1080",
-              "--spp", "16", "--device", "cuda", "--out", png])
+    result5, img5 = bench.run_bench(scene="deepcsg", quick=False, frames=3, device="cuda")
+    pngs = {}
+    for scene in ("diffuse", "csg", "manyobjects"):
+        pngs[scene] = os.path.join(OUT_DIR, f"{scene}_1080p.png")
+        cli_main(["render", "--scene", scene, "--width", "1920", "--height", "1080",
+                  "--spp", "16", "--device", "cuda", "--out", pngs[scene]])
     torch.cuda.synchronize()
-    counts = dict(mk.LAUNCHES_BY_MODE)
+    counts = {f"sphere_megakernel[{m}]": n for m, n in mk.LAUNCHES_BY_MODE.items()}
+    counts.update({f"tape_kernel[{m}]": n for m, n in tk.LAUNCHES_BY_MODE.items()})
     print(f"[chip_smoke] main path took {time.perf_counter() - t0:.1f} s; launches {counts}",
           flush=True)
     print(json.dumps(result), flush=True)
-    spp = bench.FULL[2]
-    if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
-        fail(f"bench image has shape {tuple(img.shape)} or non-finite pixels")
-    per_frame = result["rays"] // result["frames"]
-    if per_frame < w * h * spp:
-        fail(f"bench traced {per_frame} rays per frame, fewer than one per sample")
-    if not os.path.isfile(png):
-        fail("render CLI wrote no PNG")
-    missing = [m for m, n in counts.items() if n == 0]
+    print(json.dumps(result5), flush=True)
+    for name, res, image, full in (("rtiow", result, img, bench.FRAMES["rtiow"][0]),
+                                   ("deepcsg", result5, img5, bench.FRAMES["deepcsg"][0])):
+        fw, fh, fspp, _ = full
+        if tuple(image.shape) != (fh, fw, 3) or not bool(torch.isfinite(image).all()):
+            fail(f"{name} bench image has shape {tuple(image.shape)} or non-finite pixels")
+        if res["rays"] // res["frames"] < fw * fh * fspp:
+            fail(f"{name} bench traced fewer rays per frame than one per sample")
+    missing = [p for p in pngs.values() if not os.path.isfile(p)]
     if missing:
-        fail(f"kernel modes never launched on the main path: {missing}")
+        fail(f"render CLI wrote no PNG: {missing}")
+    idle = [k for k in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",
+                        "tape_kernel[clustered]") if counts[k] == 0]
+    if idle:
+        fail(f"kernel modes never launched on the main path: {idle}")
 
-    kernels = [
-        dict(name=f"sphere_megakernel[{m}]", route="cuda", source=SOURCE, replaces=REPLACES,
-             launches=counts[m], **stats[m])
-        for m in ("grid", "brute")
-    ]
+    kernels = []
+    for name in ("sphere_megakernel[grid]", "sphere_megakernel[brute]", "tape_kernel[clustered]",
+                 "tape_kernel[global]"):
+        base = name.split("[")[0]
+        source, replaces = KERNELS[base]
+        ops, table_bytes = frames[name]
+        fw, fh = (w5, h5) if base == "tape_kernel" else (w, h)
+        bound_ms, bound_by, _, total_bytes = bound(ops, table_bytes, fw, fh, mhz)
+        print(f"[chip_smoke] {name} frame: {ops} FP32 ops, {total_bytes} bytes -> bound "
+              f"{bound_ms:.3f} ms ({bound_by}; {SMS}x{LANES} lanes at {mhz:.0f} MHz, "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s)", flush=True)
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            launches=counts[name], **stats[name], bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None))
+    # the benchmark frames' bounds, beside their median kernel-frame time
+    for name, res, packed_ops in (
+        ("rtiow", result, lambda r, fw, fh, fspp: sphere_ops(
+            mk.pack_scene(rtiow).n_brute, r, fw, fh, fspp)),
+        ("deepcsg", result5, lambda r, fw, fh, fspp: tape_ops(
+            tk.pack_program(tape5), r, fw, fh, fspp)),
+    ):
+        fw, fh, fspp, _ = bench.FRAMES[name][0]
+        per_frame = res["rays"] // res["frames"]
+        ms_bound, by, ops, _ = bound(packed_ops(per_frame, fw, fh, fspp), 0, fw, fh, mhz)
+        frame_ms = sorted(res["frame_times_s"])[len(res["frame_times_s"]) // 2] * 1e3
+        print(f"[chip_smoke] bench {name} frame {fw}x{fh} spp{fspp}: {per_frame} segments, "
+              f"{ops} FP32 ops, bound {ms_bound:.3f} ms ({by}), median frame {frame_ms:.3f} ms "
+              f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,19 +3,24 @@
 The JAX package beside this one is the reference: every module here has a
 twin there, and the tests hold each against it on the CPU. This package
 imports ``torch`` and never ``jax``; it runs on a host without JAX. Its
-hot path is a hand-written CUDA kernel for Hopper (``sm_90a``), built from
-``kernels/csrc`` at first use.
+hot paths are hand-written CUDA kernels for Hopper (``sm_90a``), built
+from ``kernels/csrc`` at first use.
 
 Layer map (bottom-up), mirroring ``csgrenderer_tpu``:
 
-- ``math``     vec3 ops over ``[..., 3]`` tensors
+- ``math``     vec3 ops over ``[..., 3]`` tensors, quaternions
 - ``camera``   the RTIOW thin-lens camera
-- ``render``   counter-based RNG, materials, sphere intersection, the plain
-               torch integrator (the reference path) and tonemapping
+- ``scene``    the CSG scene graph, its postfix tape compiler and the
+               disjoint-cluster decomposition
+- ``render``   counter-based RNG, materials, sphere and CSG-leaf
+               intersection, interval lists and the tape evaluator, the
+               plain torch integrator (the reference path) and tonemapping
 - ``kernels``  the grid packer with its plain DDA, the CUDA sphere
-               megakernel (grid and brute modes) and its build
+               megakernel (grid and brute modes), the CUDA CSG tape kernel
+               (event flip, global and clustered), and their build
 - ``io``       PNG/PPM
-- ``models``   built-in sphere scenes (two spheres, RTIOW final)
+- ``models``   built-in scenes (two spheres, RTIOW final, the CSG configs
+               3 and 5, many objects)
 - ``convert``  numpy state of the JAX package -> this package's containers
 
 Importing the package initialises no CUDA context and imports no

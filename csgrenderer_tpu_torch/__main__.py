@@ -1,7 +1,9 @@
 """CLI: ``python -m csgrenderer_tpu_torch <command> ...``.
 
 Commands:
-  render     render a built-in sphere scene to PNG (rtiow, diffuse)
+  render     render a built-in scene to PNG: the sphere scenes rtiow and
+             diffuse, the CSG tapes csg (config 3), deepcsg (config 5 at
+             t = 1.0) and manyobjects
   bench      run the benchmark (same as ``python -m csgrenderer_tpu_torch.bench``)
 
 The other scenes of the JAX package's CLI are not ported yet.
@@ -14,14 +16,35 @@ import sys
 
 import torch
 
-PORTED = ("rtiow", "diffuse")
-NOT_PORTED = ("milestone01", "csg", "deepcsg", "csgnight", "manyobjects", "meshnight")
+PORTED = ("rtiow", "diffuse", "csg", "deepcsg", "manyobjects")
+NOT_PORTED = ("milestone01", "csgnight", "meshnight")
+TAPE_SCENES = ("csg", "deepcsg", "manyobjects")
 
 
 def _build(scene_name: str, aspect: float, device):
+    """(scene or tape, camera, extra render options): the JAX CLI's set-ups."""
     from .camera import Camera
-    from .models import rtiow_final_scene, two_spheres_scene
+    from .models import (
+        animated_csg_scene,
+        config3_csg_scene,
+        many_objects_scene,
+        rtiow_final_scene,
+        two_spheres_scene,
+    )
 
+    if scene_name == "csg":
+        cam = Camera.look_at((3, 2.5, 4), (0.1, 0, 0), vfov_degrees=35.0, aspect_ratio=aspect,
+                             device=device)
+        return config3_csg_scene().compile(device=device), cam, dict()
+    if scene_name == "deepcsg":
+        graph, animate = animated_csg_scene(8)
+        cam = Camera.look_at((0, 2.0, 7.0), (0.5, 0, 0), vfov_degrees=40.0, aspect_ratio=aspect,
+                             device=device)
+        return animate(graph.compile(device=device), 1.0), cam, dict()
+    if scene_name == "manyobjects":
+        cam = Camera.look_at((9.0, 7.5, 12.0), (0.0, 0.3, 0.0), vfov_degrees=42.0,
+                             aspect_ratio=aspect, device=device)
+        return many_objects_scene().compile(device=device), cam, dict()
     if scene_name == "diffuse":
         cam = Camera.look_at((0, 0, 0), (0, 0, -1), vfov_degrees=90.0,
                              aspect_ratio=aspect, device=device)
@@ -37,11 +60,13 @@ def cmd_render(args) -> None:
                          f"ported: {', '.join(PORTED)}")
     from .io import image
     from .kernels.megakernel import render_image_kernel
+    from .kernels.tape_kernel import render_image_tape_kernel
     from .render.tonemap import tonemap, to_uint8
 
     device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
     scene, camera, extra = _build(args.scene, args.width / args.height, device)
-    img, rays = render_image_kernel(
+    render = render_image_tape_kernel if args.scene in TAPE_SCENES else render_image_kernel
+    img, rays = render(
         scene, camera, args.width, args.height, spp=args.spp,
         max_bounces=args.bounces, seed=args.seed, **extra,
     )

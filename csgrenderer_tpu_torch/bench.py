@@ -1,11 +1,24 @@
-"""Benchmark: Mrays/s of traced segments on the RTIOW final scene.
+"""Benchmark: Mrays/s of traced segments, per scene.
 
 The port's counterpart of the repository's ``bench.py`` (which measures
-the JAX package). One frame is the RTIOW final scene (487 spheres, grid
-mode) through the thin-lens camera at 1920x1080, 64 spp, 8 bounces,
-rendered by the CUDA sphere kernel. Prints ONE JSON line:
+the JAX package) and ``tools/bench_tape.py``. ``--scene`` picks the frame:
+
+- ``rtiow`` (the default): the RTIOW final scene (487 spheres, grid mode)
+  through the thin-lens camera at 1920x1080, 64 spp, 8 bounces, rendered
+  by the CUDA sphere kernel;
+- ``deepcsg``: BASELINE config 5 as ``tools/bench_tape.py`` builds it, the
+  depth-8 animated CSG chain at t = 1.0 (``compile(k=4)``), camera
+  (0, 2, 7) -> (0.5, 0, 0), vfov 40, clustered (``partition="auto"``), at
+  1920x1080, 64 spp, 5 bounces, rendered by the CUDA tape kernel;
+- ``manyobjects``: ``many_objects_scene(99).compile(k=4)`` (199 leaves,
+  100 clusters), camera (0, 7, 9) -> (0, 0.4, 0), vfov 45, at 1280x720,
+  16 spp, 8 bounces, through the tape kernel.
+
+Prints ONE JSON line:
 
   {"metric": "Mrays/sec/chip", "value": N, "p50_frame_ms_16spp": N, ...}
+
+(the CSG scenes add ``"scene"``).
 
 ``value`` is the median-frame throughput over ``--frames`` identical
 frames (fresh sample offsets each), ``value_mean`` the mean; rays are
@@ -14,8 +27,9 @@ count is read back to the host, after ``torch.cuda.synchronize()``,
 inside the timed window. The p50 frame time is measured at 16 spp.
 
 Usage:
-  python -m csgrenderer_tpu_torch.bench            # full frame, on the GPU
-  python -m csgrenderer_tpu_torch.bench --quick    # 320x180, 4 spp
+  python -m csgrenderer_tpu_torch.bench                   # full frame, on the GPU
+  python -m csgrenderer_tpu_torch.bench --quick           # 320x180, 4 spp
+  python -m csgrenderer_tpu_torch.bench --scene deepcsg   # config 5, 1080p/64 spp
 
 Without a CUDA device (or with ``--device cpu``) the plain torch version
 runs on the CPU and the line says ``"platform": "cpu"``, ``"backend":
@@ -35,11 +49,17 @@ import time
 import torch
 
 from .camera import Camera
-from .kernels.megakernel import pack_scene, render_image_kernel
-from .models import rtiow_final_scene
+from .kernels import megakernel, tape_kernel
+from .models import animated_csg_scene, many_objects_scene, rtiow_final_scene
 
-FULL = (1920, 1080, 64, 8)
-QUICK = (320, 180, 4, 8)
+# scene -> (full, quick) frames as (width, height, spp, bounces)
+FRAMES = {
+    "rtiow": ((1920, 1080, 64, 8), (320, 180, 4, 8)),
+    "deepcsg": ((1920, 1080, 64, 5), (320, 180, 4, 5)),
+    "manyobjects": ((1280, 720, 16, 8), (320, 180, 4, 8)),
+}
+FULL, QUICK = FRAMES["rtiow"]
+KERNEL_NAME = {"rtiow": "sphere_megakernel", "deepcsg": "tape_kernel", "manyobjects": "tape_kernel"}
 
 
 def card_info() -> str | None:
@@ -55,19 +75,36 @@ def card_info() -> str | None:
     return out.splitlines()[0].strip() if out.strip() else None
 
 
-def build_renderer(width: int, height: int, spp: int, bounces: int, device):
+def build_renderer(width: int, height: int, spp: int, bounces: int, device, scene: str = "rtiow"):
     """run(sample_offset) -> (image, rays) for the benchmark frame; the scene
-    is packed once, outside any timed window."""
-    packed = pack_scene(rtiow_final_scene(device=device))
-    camera = Camera.look_at(
-        (13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov_degrees=20.0,
-        aspect_ratio=width / height, aperture=0.1, focus_dist=10.0, device=device,
-    )
+    is packed once (for a tape: clustered on the host), outside any timed
+    window."""
+    aspect = width / height
+    if scene == "rtiow":
+        packed = megakernel.pack_scene(rtiow_final_scene(device=device))
+        camera = Camera.look_at(
+            (13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov_degrees=20.0,
+            aspect_ratio=aspect, aperture=0.1, focus_dist=10.0, device=device,
+        )
+        render, extra = megakernel.render_image_kernel, dict(lens=True)
+    elif scene == "deepcsg":
+        graph, animate = animated_csg_scene(n_levels=8)
+        packed = tape_kernel.pack_program(animate(graph.compile(k=4, device=device), 1.0))
+        camera = Camera.look_at((0.0, 2.0, 7.0), (0.5, 0.0, 0.0), vfov_degrees=40.0,
+                                aspect_ratio=aspect, device=device)
+        render, extra = tape_kernel.render_image_tape_kernel, dict()
+    elif scene == "manyobjects":
+        packed = tape_kernel.pack_program(many_objects_scene(99).compile(k=4, device=device))
+        camera = Camera.look_at((0.0, 7.0, 9.0), (0.0, 0.4, 0.0), vfov_degrees=45.0,
+                                aspect_ratio=aspect, device=device)
+        render, extra = tape_kernel.render_image_tape_kernel, dict()
+    else:
+        raise ValueError(f"unknown scene {scene!r}; choose from {sorted(FRAMES)}")
 
     def run(sample_offset: int):
-        return render_image_kernel(
+        return render(
             packed, camera, width, height, spp=spp, max_bounces=bounces,
-            seed=0, lens=True, sample_offset=sample_offset,
+            seed=0, sample_offset=sample_offset, **extra,
         )
 
     return run, packed.mode
@@ -92,7 +129,7 @@ def time_frames(fn, n_frames: int, device):
     return times, total_rays, img
 
 
-def trace_frame(fn, device) -> dict:
+def trace_frame(fn, device, kernel_name: str = "sphere_megakernel") -> dict:
     """One more frame under torch.profiler (after the timed frames, so the
     tracing cost stays out of them): the kernel's device time, all device
     time, the frame's host time and the device's idle share of it."""
@@ -106,7 +143,7 @@ def trace_frame(fn, device) -> dict:
         frame_s = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in events)
-    kernel_us = sum(e.self_device_time_total for e in events if "sphere_megakernel" in e.key)
+    kernel_us = sum(e.self_device_time_total for e in events if kernel_name in e.key)
     return {
         "frame_ms": frame_s * 1e3,
         "device_busy_ms": device_us / 1e3 if device_us else None,  # None: not measured
@@ -115,21 +152,24 @@ def trace_frame(fn, device) -> dict:
     }
 
 
-def run_bench(quick: bool = False, frames: int = 5, device="cuda", trace: bool = False):
+def run_bench(quick: bool = False, frames: int = 5, device="cuda", trace: bool = False,
+              scene: str = "rtiow"):
     """Measure; returns (the JSON-able result, the last full-config image)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the benchmark measures the GPU kernel")
-    width, height, spp, bounces = QUICK if quick else FULL
+    if scene not in FRAMES:
+        raise ValueError(f"unknown scene {scene!r}; choose from {sorted(FRAMES)}")
+    width, height, spp, bounces = FRAMES[scene][1 if quick else 0]
 
-    fn, mode = build_renderer(width, height, spp, bounces, device)
+    fn, mode = build_renderer(width, height, spp, bounces, device, scene)
     int(fn(0)[1])  # warm-up: builds the kernel on first use
     times, rays, img = time_frames(fn, frames, device)
     mrays = rays / len(times) / statistics.median(times) / 1e6
     mrays_mean = rays / sum(times) / 1e6
-    traced = trace_frame(fn, device) if trace and device.type == "cuda" else None
+    traced = trace_frame(fn, device, KERNEL_NAME[scene]) if trace and device.type == "cuda" else None
 
-    fn16, _ = build_renderer(width, height, 2 if quick else 16, bounces, device)
+    fn16, _ = build_renderer(width, height, 2 if quick else 16, bounces, device, scene)
     int(fn16(0)[1])
     t16, _, _ = time_frames(fn16, max(frames, 3), device)
     p50_ms = statistics.median(t16) * 1e3
@@ -140,11 +180,13 @@ def run_bench(quick: bool = False, frames: int = 5, device="cuda", trace: bool =
         device_name = torch.cuda.get_device_name(device)
     else:
         card, power, device_name = None, None, "cpu"
+    label = {"rtiow": "RTIOW-final", "deepcsg": "config5-deepcsg-t1",
+             "manyobjects": "many-objects-99"}[scene]
     result = {
         "metric": "Mrays/sec/chip",
         "value": mrays,
         "unit": "Mrays/s",
-        "config": f"RTIOW-final {width}x{height} spp={spp} bounces={bounces} mode={mode}",
+        "config": f"{label} {width}x{height} spp={spp} bounces={bounces} mode={mode}",
         "p50_frame_ms_16spp": p50_ms,
         "backend": "cuda-kernel" if device.type == "cuda" else "torch-plain",
         "platform": "gpu" if device.type == "cuda" else "cpu",
@@ -158,12 +200,16 @@ def run_bench(quick: bool = False, frames: int = 5, device="cuda", trace: bool =
     }
     if trace:
         result["trace"] = traced
+    if scene != "rtiow":
+        result["scene"] = scene
     return result, img
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m csgrenderer_tpu_torch.bench", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--scene", default="rtiow", choices=sorted(FRAMES),
+                    help="rtiow (spheres, the default), deepcsg (config 5) or manyobjects")
     ap.add_argument("--quick", action="store_true", help="320x180, 4 spp")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--device", default=None,
@@ -173,7 +219,7 @@ def main(argv=None) -> int:
                     help="add one profiled frame: kernel and device busy time, idle share")
     args = ap.parse_args(argv)
     device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
-    result, _ = run_bench(args.quick, args.frames, device, args.trace)
+    result, _ = run_bench(args.quick, args.frames, device, args.trace, args.scene)
     print(json.dumps(result))
     return 0
 

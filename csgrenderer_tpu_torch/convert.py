@@ -1,9 +1,10 @@
 """Carry state from the JAX package into this one.
 
-The JAX package's scenes and cameras are pytrees of arrays; handed over as
-numpy arrays (``np.asarray(field)``), these functions rebuild them as this
-package's containers, so both packages render the identical scene through
-the identical camera. Nothing here imports JAX.
+The JAX package's scenes, CSG tapes and cameras are pytrees of arrays;
+handed over as numpy arrays (``np.asarray(field)``) and plain tuples,
+these functions rebuild them as this package's containers, so both
+packages render the identical scene through the identical camera. Nothing
+here imports JAX.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from .camera.pinhole import Camera
 from .render.integrator import SphereScene
+from .scene.tape import CompiledTape
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -47,3 +49,25 @@ def camera_from_numpy(origin, lower_left, horizontal, vertical, u, v, lens_radiu
         v=_f32(v, device),
         lens_radius=_f32(lens_radius, device).reshape(()),
     )
+
+
+def tape_from_numpy(ops, leaf_types, leaf_chains, k, stack_depth, leaf_params, edge_quat,
+                    edge_off, leaf_rot, leaf_pos, mat_kind, albedo, mat_param,
+                    device=None) -> CompiledTape:
+    """CompiledTape from a JAX tape's static tuples and its eight arrays,
+    taken as they are (the baked transforms are not recomputed)."""
+    n, e = len(leaf_types), len(edge_quat)
+    tape = CompiledTape(
+        ops=ops, leaf_types=leaf_types, leaf_chains=leaf_chains, k=k, stack_depth=stack_depth,
+        leaf_params=_f32(leaf_params, device).reshape(n, 4),
+        edge_quat=_f32(edge_quat, device).reshape(e, 4),
+        edge_off=_f32(edge_off, device).reshape(e, 3),
+        leaf_rot=_f32(leaf_rot, device).reshape(n, 4),
+        leaf_pos=_f32(leaf_pos, device).reshape(n, 3),
+        mat_kind=torch.from_numpy(np.array(mat_kind, dtype=np.int32, copy=True)).to(device),
+        albedo=_f32(albedo, device).reshape(n, 3),
+        mat_param=_f32(mat_param, device),
+    )
+    if tuple(tape.mat_kind.shape) != (n,) or tuple(tape.mat_param.shape) != (n,):
+        raise ValueError("inconsistent tape arrays")
+    return tape

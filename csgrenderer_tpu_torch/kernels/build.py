@@ -2,10 +2,13 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` into ``_build/lib<name>-<hash>.so``, where the hash
-covers the source and the flags: a changed source builds anew, an
-unchanged one loads the library already there. Nothing includes PyTorch's
+covers the source, every header in ``csrc/`` (``*.cuh``, which the
+sources include) and the flags: a changed source or header builds anew,
+an unchanged one loads the library already there. Nothing includes PyTorch's
 headers, so a build takes seconds. This module imports nothing from CUDA
 at import time; ``nvcc`` is looked up only when a build is needed.
+``bind`` declares a launch function's C signature, and ``check_tensor``
+is what every wrapper checks before it passes a pointer.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+from concurrent.futures import ThreadPoolExecutor
 import os
 import shutil
 import subprocess
@@ -52,7 +56,11 @@ def find_nvcc() -> str:
 def build(name: str) -> Build:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return Build(out, 0.0, "")
@@ -79,3 +87,38 @@ def load(name: str) -> tuple[ctypes.CDLL, Build]:
     """Build (if needed) and load ``csrc/<name>.cu``; one library per process."""
     b = build(name)
     return ctypes.CDLL(str(b.path)), b
+
+
+def load_all(names) -> dict[str, Build]:
+    """Build every named source at once (one nvcc each, started together),
+    then load each; returns name -> Build."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        loaded = list(pool.map(load, names))  # the compiles overlap; errors raise here
+    return {name: b for name, (_, b) in zip(names, loaded)}
+
+
+@functools.cache
+def bind(name: str, symbol: str, argtypes: tuple):
+    """(the C function ``symbol`` of ``csrc/<name>.cu`` with its argument
+    types declared and an int error code as its result, the library's
+    ``csgr_error_string``)."""
+    lib, _ = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    lib.csgr_error_string.argtypes = [ctypes.c_int]
+    lib.csgr_error_string.restype = ctypes.c_char_p
+    return fn, lib.csgr_error_string
+
+
+def check_tensor(t, name: str, dtype, shape: tuple, device) -> None:
+    """Raise unless ``t`` has this device, dtype and shape and is contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")

@@ -23,18 +23,20 @@
 // without --use_fast_math, so no multiply-add is contracted and sqrt and
 // division are IEEE-rounded: kernel and plain version take the same
 // silhouette decisions. A non-positive discriminant is tested explicitly,
-// so a miss or an empty slot can never become a hit.
+// so a miss or an empty slot can never become a hit. The camera sample,
+// RNG, sky and material scatter live in path_common.cuh, shared with the
+// CSG kernel (tape_kernel.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "path_common.cuh"
 
 namespace {
 
 constexpr float kBig = 1e30f;
 constexpr float kBigCut = 5e29f;
 constexpr float kEpsFlat = 1e-12f;
-constexpr float kTwoPi = 6.28318530717958647692f;
-constexpr float kInv2p24 = 1.0f / 16777216.0f;
 constexpr float kTMin = 1e-3f;  // hit epsilon along t
 constexpr float kTFar = 1e9f;   // farthest valid hit
 
@@ -51,20 +53,6 @@ struct Params {
   float* out_rgb;        // [H, W, 3]
   int* out_rays;         // [H, W]
 };
-
-__device__ __forceinline__ void pcg4d(uint32_t& a, uint32_t& b, uint32_t& c, uint32_t& d) {
-  a = a * 1664525u + 1013904223u;
-  b = b * 1664525u + 1013904223u;
-  c = c * 1664525u + 1013904223u;
-  d = d * 1664525u + 1013904223u;
-  a += b * d; b += c * a; c += a * b; d += b * c;
-  a ^= a >> 16; b ^= b >> 16; c ^= c >> 16; d ^= d >> 16;
-  a += b * d; b += c * a; c += a * b; d += b * c;
-}
-
-__device__ __forceinline__ float unit_float(uint32_t x) {
-  return static_cast<float>(x >> 8) * kInv2p24;
-}
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
@@ -165,39 +153,21 @@ __global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
   if (x >= p.width || y >= p.height) return;
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
 
-  float cam[19];
+  float cam[csgr::kCamFloats];
 #pragma unroll
-  for (int i = 0; i < 19; ++i) cam[i] = __ldg(p.cam + i);
-  const float lens_radius = cam[18];
+  for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
 
+  csgr::Path path;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   int rays = 0;
   for (int k = 0; k < p.spp; ++k) {
     const uint32_t s = static_cast<uint32_t>(k) + p.sample_offset;
-    // camera sample: jitter + thin lens (common.camera_ray_planes)
-    uint32_t r0 = pix, r1 = s, r2 = 0xA5A5A5A5u, r3 = p.seed;
-    pcg4d(r0, r1, r2, r3);
-    const float st_x = (static_cast<float>(x) + unit_float(r0)) / static_cast<float>(p.width);
-    const float st_y = 1.0f - (static_cast<float>(y) + unit_float(r1)) / static_cast<float>(p.height);
-    float offx = 0.0f, offy = 0.0f, offz = 0.0f;
-    if (p.lens) {
-      const float lr = sqrtf(unit_float(r2));
-      const float phi = kTwoPi * unit_float(r3);
-      const float rd0 = lens_radius * (lr * cosf(phi));
-      const float rd1 = lens_radius * (lr * sinf(phi));
-      offx = rd0 * cam[12] + rd1 * cam[15];
-      offy = rd0 * cam[13] + rd1 * cam[16];
-      offz = rd0 * cam[14] + rd1 * cam[17];
-    }
-    float ox = cam[0] + offx, oy = cam[1] + offy, oz = cam[2] + offz;
-    float dx = cam[3] + st_x * cam[6] + st_y * cam[9] - cam[0] - offx;
-    float dy = cam[4] + st_x * cam[7] + st_y * cam[10] - cam[1] - offy;
-    float dz = cam[5] + st_x * cam[8] + st_y * cam[11] - cam[2] - offz;
-
-    float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-    float sr = 0.0f, sg = 0.0f, sb = 0.0f;
+    csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
+    path.sr = 0.0f; path.sg = 0.0f; path.sb = 0.0f;
     for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
       ++rays;
+      const float ox = path.ox, oy = path.oy, oz = path.oz;
+      const float dx = path.dx, dy = path.dy, dz = path.dz;
       Ray ray;
       ray.ox = ox; ray.oy = oy; ray.oz = oz; ray.dx = dx; ray.dy = dy; ray.dz = dz;
       ray.od = ox * dx + oy * dy + oz * dz;
@@ -217,15 +187,10 @@ __global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
       }
       if (kGrid) grid_walk(p, ray, t_best, id_best);
 
-      const float inv_len = 1.0f / sqrtf(fmaxf(ray.a, 1e-20f));
+      const float inv_len = csgr::inv_length(path);
       const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
       if (!(t_best < kBigCut)) {  // miss: sky, path ends
-        if (p.sky != 2) {
-          const float t = p.sky == 0 ? 0.5f * (udy + 1.0f) : udy;
-          sr += tr * ((1.0f - t) + t * 0.5f);
-          sg += tg * ((1.0f - t) + t * 0.7f);
-          sb += tb * ((1.0f - t) + t * 1.0f);
-        }
+        csgr::add_sky(path, p.sky, udy);
         break;
       }
 
@@ -233,77 +198,20 @@ __global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
       const float4 g1 = __ldg(p.sph + 3 * id_best + 1);
       const float4 g2 = __ldg(p.sph + 3 * id_best + 2);
       const float rad = g1.y;  // signed: a negative radius flips the normal
-      const int kind = static_cast<int>(g1.z);
-      const float param = g1.w;
-      const float ar = g2.x, ag = g2.y, ab = g2.z;
 
       const float hx = ox + t_best * dx, hy = oy + t_best * dy, hz = oz + t_best * dz;
       const float onx = (hx - g0.x) / rad, ony = (hy - g0.y) / rad, onz = (hz - g0.z) / rad;
       const bool front = dx * onx + dy * ony + dz * onz < 0.0f;
       const float sgn = front ? 1.0f : -1.0f;
-      const float nx = onx * sgn, ny = ony * sgn, nz = onz * sgn;
-
-      // material scatter (common.scatter_planes / materials.scatter)
-      uint32_t q0 = pix, q1 = s, q2 = static_cast<uint32_t>(bounce), q3 = p.seed;
-      pcg4d(q0, q1, q2, q3);
-      const float u0 = unit_float(q0), u1 = unit_float(q1), u2 = unit_float(q2);
-
-      if (kind == 0 || kind == 4) {  // normal-map debug shading / emissive
-        if (kind == 0) {
-          sr += tr * (0.5f * (nx + 1.0f));
-          sg += tg * (0.5f * (ny + 1.0f));
-          sb += tb * (0.5f * (nz + 1.0f));
-        } else {
-          sr += tr * ar;
-          sg += tg * ag;
-          sb += tb * ab;
-        }
+      if (!csgr::shade(path, hx, hy, hz, onx * sgn, ony * sgn, onz * sgn, front,
+                       static_cast<int>(g1.z), g1.w, g2.x, g2.y, g2.z, udx, udy, udz,
+                       pix, s, static_cast<uint32_t>(bounce), p.seed)) {
         break;
       }
-
-      const float z = 1.0f - 2.0f * u0;
-      const float rr = sqrtf(fmaxf(0.0f, 1.0f - z * z));
-      const float phi = kTwoPi * u1;
-      const float rux = rr * cosf(phi), ruy = rr * sinf(phi), ruz = z;
-      const float ud_n = udx * nx + udy * ny + udz * nz;
-      const float rfx = udx - 2.0f * ud_n * nx;
-      const float rfy = udy - 2.0f * ud_n * ny;
-      const float rfz = udz - 2.0f * ud_n * nz;
-
-      float ndx, ndy, ndz;
-      if (kind == 1) {  // Lambertian: n + random unit vector
-        ndx = nx + rux; ndy = ny + ruy; ndz = nz + ruz;
-        if (ndx * ndx + ndy * ndy + ndz * ndz < 1e-12f) { ndx = nx; ndy = ny; ndz = nz; }
-      } else if (kind == 2) {  // metal: mirror + fuzz, absorbed below the surface
-        ndx = rfx + param * rux; ndy = rfy + param * ruy; ndz = rfz + param * ruz;
-        if (ndx * nx + ndy * ny + ndz * nz <= 0.0f) break;
-      } else {  // dielectric: Snell + Schlick
-        const float ior = fmaxf(param, 1e-6f);
-        const float eta = front ? 1.0f / ior : ior;
-        const float cos_t = fminf(-ud_n, 1.0f);
-        const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
-        const float q = (1.0f - eta) / (1.0f + eta);
-        const float r0s = q * q;
-        const float c1 = 1.0f - cos_t;
-        const float c2 = c1 * c1;
-        const float rp = r0s + (1.0f - r0s) * (c2 * c2 * c1);  // Schlick
-        if (eta * sin_t > 1.0f || u2 < rp) {
-          ndx = rfx; ndy = rfy; ndz = rfz;
-        } else {
-          const float ppx = eta * (udx + cos_t * nx);
-          const float ppy = eta * (udy + cos_t * ny);
-          const float ppz = eta * (udz + cos_t * nz);
-          const float par = -sqrtf(fabsf(1.0f - (ppx * ppx + ppy * ppy + ppz * ppz)));
-          ndx = ppx + par * nx; ndy = ppy + par * ny; ndz = ppz + par * nz;
-        }
-      }
-      if (kind != 3) { tr *= ar; tg *= ag; tb *= ab; }
-      ox = hx; oy = hy; oz = hz;
-      dx = ndx; dy = ndy; dz = ndz;
     }
-    acc_r += sr;
-    acc_g += sg;
-    acc_b += sb;
+    acc_r += path.sr;
+    acc_g += path.sg;
+    acc_b += path.sb;
   }
   const float spp = static_cast<float>(p.spp);
   float* out = p.out_rgb + 3 * static_cast<size_t>(pix);

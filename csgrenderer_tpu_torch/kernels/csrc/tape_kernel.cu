@@ -1,0 +1,400 @@
+// CSG tape path-tracing kernel for Hopper (sm_90a), event-flip mode.
+//
+// Replaces csgrenderer_tpu/kernels/tape_kernel.py::_make_kernel +
+// _render_tape_packed (the Pallas TPU kernel) in its production mode,
+// tape_hit_events, global and clustered (scene/partition.py). It computes
+// what that kernel computes, not its block structure:
+//   - per traced segment, every leaf's (enter, exit) interval in its local
+//     frame (sphere, half-space, box, cylinder; _leaf_interval);
+//   - the nearest CSG surface: the smallest leaf boundary t where the
+//     root's membership flips, evaluated per cluster (one cluster = the
+//     whole tape in global mode), and the `entering` flag (the root's
+//     membership just above that t);
+//   - attribution: the leaf whose surface lies nearest the hit point, over
+//     all leaves in index order (strict <), gives normal and material;
+//   - RTIOW shading with `entering` as the dielectric's front face, PCG4D
+//     counters keyed by (pixel, sample, bounce, seed), per-pixel radiance
+//     over spp and the traced-segment count (path_common.cuh).
+// One thread per pixel loops over samples and bounces. The tape is data,
+// not code: the leaf table, leaf types, op table and cluster table are
+// staged in shared memory per block and interpreted at run time, so a new
+// tape or a new clustering costs no build. Membership below and above a
+// candidate boundary is walked through the cluster's postfix ops with two
+// bit stacks (one uint64 each: stack depth <= 64).
+//
+// What bounds it on an H100: FP32 ALU work, O(sum L_c^2) for the flip
+// walks (two candidates per leaf, each a walk over the cluster's ops) and
+// O(L) for the attribution at every hit, plus warp divergence (threads of
+// a warp differ in bounce count, material and which candidates they can
+// skip). This first version keeps each ray's leaf intervals in a
+// per-thread array (local memory, cap kMaxLeaves), attributes over all
+// leaves even when clustered, and does no ray regeneration or compaction.
+// Tape next-event estimation and the interval-list audit mode
+// (with_overflow) are not here.
+//
+// Numerics: the kernel repeats, operation for operation, the float
+// arithmetic of its plain torch version (kernels/tape_kernel.py:
+// render_image_tape_plain), and is built with -fmad=false and without fast
+// math. A candidate boundary is a stored enter/exit value, compared with
+// the stored values of every leaf, so the owning leaf's own membership at
+// its boundary rests on exact < versus <= between equal floats. The
+// half-space's -on/dn (inf or NaN when parallel) and the zero-direction
+// slabs are replaced by selects, never used in arithmetic.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "path_common.cuh"
+
+namespace {
+
+constexpr int kMaxLeaves = 256;  // per-thread interval arrays
+constexpr int kMaxStack = 64;    // bits of one membership stack
+constexpr int kLeafRow = 16;     // rot(4) pos(3) params(4) kind param albedo(3)
+constexpr float kTFar = 1e9f;    // "no boundary"
+constexpr float kCut = 5e8f;     // boundaries at or past this are not surfaces
+constexpr float kEps = 1e-3f;    // hit epsilon along t
+
+enum LeafType { kSphere = 0, kPlane = 1, kBox = 2, kCylinder = 3 };
+enum OpCode { kPush = 0, kUnion = 1, kIntersect = 2, kDiff = 3 };
+
+struct Params {
+  const float* cam;        // [24]
+  const float* leaves;     // [L, 16] f32, the JAX leaf-table layout
+  const int* leaf_types;   // [L]
+  int n_leaves;
+  const int* ops;          // [n_ops]: opcode | (cluster-local leaf slot << 2)
+  int n_ops;
+  const int* clusters;     // [C, 4]: op offset, op count, leaf offset, leaf count
+  int n_clusters;
+  const int* leaf_ids;     // [n_ids]: each cluster's leaves, in slot order
+  int n_ids;
+  int width, height, spp, max_bounces;
+  uint32_t seed, sample_offset;
+  int lens, sky;           // sky: 0 rtiow, 1 wololo, 2 black
+  float* out_rgb;          // [H, W, 3]
+  int* out_rays;           // [H, W]
+};
+
+// v rotated by unit quaternion q: v + w t + u x t, t = 2 u x v
+// (tape_kernel._rotate_scal, math/quaternion.rotate).
+__device__ __forceinline__ void rotate(float qw, float qx, float qy, float qz, float vx,
+                                       float vy, float vz, float& rx, float& ry, float& rz) {
+  const float tx = 2.0f * (qy * vz - qz * vy);
+  const float ty = 2.0f * (qz * vx - qx * vz);
+  const float tz = 2.0f * (qx * vy - qy * vx);
+  rx = vx + qw * tx + (qy * tz - qz * ty);
+  ry = vy + qw * ty + (qz * tx - qx * tz);
+  rz = vz + qw * tz + (qx * ty - qy * tx);
+}
+
+// One slab of the box or the cylinder's y extent, with the zero-direction
+// case selected (never computed from inf).
+__device__ __forceinline__ void slab(float lo, float ld, float he, bool divide, float& t_lo,
+                                     float& t_hi) {
+  const bool flat = ld == 0.0f;
+  const float safe = flat ? 1.0f : ld;
+  float ta, tb;
+  if (divide) {  // the cylinder's cap slab divides
+    ta = (-he - lo) / safe;
+    tb = (he - lo) / safe;
+  } else {  // the box's slabs multiply by the reciprocal
+    const float inv = 1.0f / safe;
+    ta = (-he - lo) * inv;
+    tb = (he - lo) * inv;
+  }
+  t_lo = fminf(ta, tb);
+  t_hi = fmaxf(ta, tb);
+  if (flat) {
+    const bool inside = fabsf(lo) <= he;
+    t_lo = inside ? -kTFar : kTFar;
+    t_hi = inside ? kTFar : -kTFar;
+  }
+}
+
+// (enter, exit) of one leaf along the world ray; empty when enter > exit
+// (tape_kernel._leaf_interval, render/intersect.py interval functions).
+__device__ __forceinline__ void leaf_interval(const float* c, int type, float ox, float oy,
+                                              float oz, float dx, float dy, float dz,
+                                              float& enter, float& exit_) {
+  const float qw = c[0], qx = c[1], qy = c[2], qz = c[3];
+  float lox, loy, loz, ldx, ldy, ldz;
+  rotate(qw, qx, qy, qz, ox - c[4], oy - c[5], oz - c[6], lox, loy, loz);
+  rotate(qw, qx, qy, qz, dx, dy, dz, ldx, ldy, ldz);
+  const float p0 = c[7], p1 = c[8], p2 = c[9];
+  if (type == kSphere) {
+    const float a = ldx * ldx + ldy * ldy + ldz * ldz;
+    const float hb = lox * ldx + loy * ldy + loz * ldz;
+    const float cc = (lox * lox + loy * loy + loz * loz) - p0 * p0;
+    const float disc = hb * hb - a * cc;
+    const bool ok = disc >= 0.0f;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float inv_a = 1.0f / a;
+    enter = ok ? (-hb - sq) * inv_a : kTFar;
+    exit_ = ok ? (-hb + sq) * inv_a : -kTFar;
+  } else if (type == kPlane) {
+    const float dn = ldx * p0 + ldy * p1 + ldz * p2;
+    const float on = lox * p0 + loy * p1 + loz * p2;
+    const float t0 = -on / dn;  // inf or NaN when parallel: selected away below
+    const bool entering = dn < 0.0f;
+    enter = entering ? t0 : -kTFar;
+    exit_ = entering ? kTFar : t0;
+    if (dn == 0.0f) {
+      const bool inside = on <= 0.0f;
+      enter = inside ? -kTFar : kTFar;
+      exit_ = inside ? kTFar : -kTFar;
+    }
+  } else if (type == kBox) {
+    float lo, hi;
+    slab(lox, ldx, p0, false, enter, exit_);
+    slab(loy, ldy, p1, false, lo, hi);
+    enter = fmaxf(enter, lo);
+    exit_ = fminf(exit_, hi);
+    slab(loz, ldz, p2, false, lo, hi);
+    enter = fmaxf(enter, lo);
+    exit_ = fminf(exit_, hi);
+  } else {  // kCylinder around local +y: radius p0, half height p1
+    const float a = ldx * ldx + ldz * ldz;
+    const float hb = lox * ldx + loz * ldz;
+    const float cc = lox * lox + loz * loz - p0 * p0;
+    const float disc = hb * hb - a * cc;
+    const bool ok = disc >= 0.0f;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const bool degen = a == 0.0f;  // parallel to the axis
+    const float inv_a = 1.0f / (degen ? 1.0f : a);
+    float s_enter = ok ? (-hb - sq) * inv_a : kTFar;
+    float s_exit = ok ? (-hb + sq) * inv_a : -kTFar;
+    if (degen) {
+      const bool in_tube = cc <= 0.0f;
+      s_enter = in_tube ? -kTFar : kTFar;
+      s_exit = in_tube ? kTFar : -kTFar;
+    }
+    float c_lo, c_hi;
+    slab(loy, ldy, p1, true, c_lo, c_hi);
+    enter = fmaxf(s_enter, c_lo);
+    exit_ = fminf(s_exit, c_hi);
+  }
+}
+
+// Distance score and local outward normal of one leaf at local point l
+// (the attribution of tape_kernel.tape_hit).
+__device__ __forceinline__ float leaf_score(const float* c, int type, float lx, float ly,
+                                            float lz, float& nx, float& ny, float& nz) {
+  const float p0 = c[7], p1 = c[8], p2 = c[9];
+  if (type == kSphere) {
+    const float rad = sqrtf(lx * lx + ly * ly + lz * lz);
+    const float inv = 1.0f / fmaxf(rad, 1e-12f);
+    nx = lx * inv; ny = ly * inv; nz = lz * inv;
+    return fabsf(rad - p0);
+  }
+  if (type == kPlane) {
+    nx = p0; ny = p1; nz = p2;
+    return fabsf(lx * p0 + ly * p1 + lz * p2);
+  }
+  if (type == kBox) {
+    const float gx = p0 - fabsf(lx), gy = p1 - fabsf(ly), gz = p2 - fabsf(lz);
+    const float mx = fmaxf(-gx, 0.0f), my = fmaxf(-gy, 0.0f), mz = fmaxf(-gz, 0.0f);
+    const float outside = sqrtf(mx * mx + my * my + mz * mz);
+    const float inside = fminf(fmaxf(-gx, fmaxf(-gy, -gz)), 0.0f);
+    // outward normal: the axis with the smallest gap
+    const bool is_x = fabsf(gx) <= fabsf(gy) && fabsf(gx) <= fabsf(gz);
+    const bool is_y = !is_x && fabsf(gy) <= fabsf(gz);
+    nx = is_x ? (lx >= 0.0f ? 1.0f : -1.0f) : 0.0f;
+    ny = is_y ? (ly >= 0.0f ? 1.0f : -1.0f) : 0.0f;
+    nz = (is_x || is_y) ? 0.0f : (lz >= 0.0f ? 1.0f : -1.0f);
+    return outside - inside;
+  }
+  // cylinder
+  const float srad = sqrtf(lx * lx + lz * lz);
+  const float side = fabsf(srad - p0);
+  const float cap = fabsf(fabsf(ly) - p1);
+  const float sqr = srad - p0;
+  const float sqy = fabsf(ly) - p1;
+  const float mr = fmaxf(sqr, 0.0f), mh = fmaxf(sqy, 0.0f);
+  const float outside = sqrtf(mr * mr + mh * mh);
+  const float inside = fminf(fmaxf(sqr, sqy), 0.0f);
+  const float inv = 1.0f / fmaxf(srad, 1e-12f);
+  const bool use_side = side < cap;
+  nx = use_side ? lx * inv : 0.0f;
+  ny = use_side ? 0.0f : (ly >= 0.0f ? 1.0f : -1.0f);
+  nz = use_side ? lz * inv : 0.0f;
+  return outside - inside;
+}
+
+__global__ void __launch_bounds__(128) tape_kernel(const Params p) {
+  extern __shared__ float smem[];
+  float* s_leaf = smem;
+  int* s_type = reinterpret_cast<int*>(s_leaf + p.n_leaves * kLeafRow);
+  int* s_ops = s_type + p.n_leaves;
+  int* s_ids = s_ops + p.n_ops;
+  int* s_cl = s_ids + p.n_ids;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
+  for (int i = tid; i < p.n_leaves * kLeafRow; i += n_threads) s_leaf[i] = p.leaves[i];
+  for (int i = tid; i < p.n_leaves; i += n_threads) s_type[i] = p.leaf_types[i];
+  for (int i = tid; i < p.n_ops; i += n_threads) s_ops[i] = p.ops[i];
+  for (int i = tid; i < p.n_ids; i += n_threads) s_ids[i] = p.leaf_ids[i];
+  for (int i = tid; i < 4 * p.n_clusters; i += n_threads) s_cl[i] = p.clusters[i];
+  __syncthreads();
+
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= p.width || y >= p.height) return;
+  const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
+
+  float cam[csgr::kCamFloats];
+#pragma unroll
+  for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
+
+  float enter[kMaxLeaves], exit_[kMaxLeaves];  // one cluster's leaves, by slot
+  csgr::Path path;
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  int rays = 0;
+  for (int k = 0; k < p.spp; ++k) {
+    const uint32_t s = static_cast<uint32_t>(k) + p.sample_offset;
+    csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
+    path.sr = 0.0f; path.sg = 0.0f; path.sb = 0.0f;
+    for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
+      ++rays;
+      const float ox = path.ox, oy = path.oy, oz = path.oz;
+      const float dx = path.dx, dy = path.dy, dz = path.dz;
+
+      // nearest flip of the root's membership, cluster by cluster
+      float t = kTFar;
+      bool entering = false;
+      for (int c = 0; c < p.n_clusters; ++c) {
+        const int op_off = s_cl[4 * c], op_n = s_cl[4 * c + 1];
+        const int id_off = s_cl[4 * c + 2], id_n = s_cl[4 * c + 3];
+        for (int j = 0; j < id_n; ++j) {
+          const int leaf = s_ids[id_off + j];
+          leaf_interval(s_leaf + kLeafRow * leaf, s_type[leaf], ox, oy, oz, dx, dy, dz,
+                        enter[j], exit_[j]);
+        }
+        for (int cand = 0; cand < 2 * id_n; ++cand) {
+          const float tj = (cand & 1) ? exit_[cand >> 1] : enter[cand >> 1];
+          // only a flip nearer than the best so far can be taken (strict <)
+          if (!(tj > kEps && tj < kCut && tj < t)) continue;
+          uint64_t below = 0, above = 0;  // membership stacks, top at bit 0
+          for (int i = 0; i < op_n; ++i) {
+            const int code = s_ops[op_off + i];
+            const int opc = code & 3;
+            if (opc == kPush) {
+              const float e = enter[code >> 2], xt = exit_[code >> 2];
+              below = (below << 1) | static_cast<uint64_t>(e < tj && xt >= tj);
+              above = (above << 1) | static_cast<uint64_t>(e <= tj && xt > tj);
+            } else {
+              const uint64_t rb = below & 1ull, ra = above & 1ull;
+              below >>= 1;
+              above >>= 1;
+              const uint64_t lb = below & 1ull, la = above & 1ull;
+              uint64_t vb, va;
+              if (opc == kUnion) {
+                vb = lb | rb; va = la | ra;
+              } else if (opc == kIntersect) {
+                vb = lb & rb; va = la & ra;
+              } else {  // kDiff
+                vb = lb & (rb ^ 1ull); va = la & (ra ^ 1ull);
+              }
+              below = (below & ~1ull) | vb;
+              above = (above & ~1ull) | va;
+            }
+          }
+          if ((below ^ above) & 1ull) {
+            t = tj;
+            entering = (above & 1ull) != 0;
+          }
+        }
+      }
+
+      const float inv_len = csgr::inv_length(path);
+      const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
+      if (!(t < kCut)) {  // miss: sky, path ends
+        csgr::add_sky(path, p.sky, udy);
+        break;
+      }
+
+      // attribution: the leaf whose surface is nearest the hit point
+      const float hx = ox + t * dx, hy = oy + t * dy, hz = oz + t * dz;
+      float best = 0.0f, nwx = 0.0f, nwy = 0.0f, nwz = 0.0f;
+      int owner = 0;
+      for (int l = 0; l < p.n_leaves; ++l) {
+        const float* c = s_leaf + kLeafRow * l;
+        const float qw = c[0], qx = c[1], qy = c[2], qz = c[3];
+        float lx, ly, lz, nlx, nly, nlz;
+        rotate(qw, qx, qy, qz, hx - c[4], hy - c[5], hz - c[6], lx, ly, lz);
+        const float score = leaf_score(c, s_type[l], lx, ly, lz, nlx, nly, nlz);
+        if (l == 0 || score < best) {
+          best = score;
+          owner = l;
+          rotate(qw, -qx, -qy, -qz, nlx, nly, nlz, nwx, nwy, nwz);  // local -> world
+        }
+      }
+      const float* w = s_leaf + kLeafRow * owner;
+      // face-forward the leaf normal against the ray
+      const float sgn = dx * nwx + dy * nwy + dz * nwz > 0.0f ? -1.0f : 1.0f;
+      if (!csgr::shade(path, hx, hy, hz, nwx * sgn, nwy * sgn, nwz * sgn, entering,
+                       static_cast<int>(w[11]), w[12], w[13], w[14], w[15], udx, udy, udz,
+                       pix, s, static_cast<uint32_t>(bounce), p.seed)) {
+        break;
+      }
+    }
+    acc_r += path.sr;
+    acc_g += path.sg;
+    acc_b += path.sb;
+  }
+  const float spp = static_cast<float>(p.spp);
+  float* out = p.out_rgb + 3 * static_cast<size_t>(pix);
+  out[0] = acc_r / spp;
+  out[1] = acc_g / spp;
+  out[2] = acc_b / spp;
+  p.out_rays[pix] = rays;
+}
+
+}  // namespace
+
+extern "C" int csgr_tape_max_leaves() { return kMaxLeaves; }
+
+extern "C" int csgr_tape_max_stack() { return kMaxStack; }
+
+extern "C" int csgr_tape_render(
+    const void* cam, const void* leaves, const void* leaf_types, int n_leaves, const void* ops,
+    int n_ops, const void* clusters, int n_clusters, const void* leaf_ids, int n_ids,
+    int width, int height, int spp, int max_bounces, unsigned int seed,
+    unsigned int sample_offset, int lens, int sky, void* out_rgb, void* out_rays,
+    void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || n_clusters < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
+  p.cam = static_cast<const float*>(cam);
+  p.leaves = static_cast<const float*>(leaves);
+  p.leaf_types = static_cast<const int*>(leaf_types);
+  p.n_leaves = n_leaves;
+  p.ops = static_cast<const int*>(ops);
+  p.n_ops = n_ops;
+  p.clusters = static_cast<const int*>(clusters);
+  p.n_clusters = n_clusters;
+  p.leaf_ids = static_cast<const int*>(leaf_ids);
+  p.n_ids = n_ids;
+  p.width = width; p.height = height; p.spp = spp; p.max_bounces = max_bounces;
+  p.seed = seed; p.sample_offset = sample_offset;
+  p.lens = lens; p.sky = sky;
+  p.out_rgb = static_cast<float*>(out_rgb);
+  p.out_rays = static_cast<int*>(out_rays);
+
+  const size_t smem = sizeof(float) * (static_cast<size_t>(n_leaves) * kLeafRow + n_leaves +
+                                       n_ops + n_ids + 4 * static_cast<size_t>(n_clusters));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tape_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 block(16, 8);
+  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+  tape_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* csgr_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

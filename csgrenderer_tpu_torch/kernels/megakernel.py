@@ -22,7 +22,6 @@ the launch site adds to them.
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 
 import torch
@@ -146,27 +145,8 @@ def render_image_plain(
     )
 
 
-@functools.cache
-def _kernel_fn():
-    lib, _ = build.load(KERNEL_SOURCE)
-    fn = lib.csgr_sphere_render
-    vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    fn.argtypes = [vp, vp, i, vp, i, i, i, i] + [f] * 8 + [i] * 4 + [u, u, i, i, vp, vp, vp]
-    fn.restype = ctypes.c_int
-    lib.csgr_error_string.argtypes = [ctypes.c_int]
-    lib.csgr_error_string.restype = ctypes.c_char_p
-    return fn, lib.csgr_error_string
-
-
-def _check(t: Tensor, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
+_VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+_ARGTYPES = (_VP, _VP, _I, _VP, _I, _I, _I, _I) + (_F,) * 8 + (_I,) * 4 + (_U, _U, _I, _I, _VP, _VP, _VP)
 
 
 def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky):
@@ -177,18 +157,18 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     if not torch.cuda.is_available():
         raise RuntimeError("the sphere kernel needs CUDA, and CUDA is not available")
     s = packed.scene.num_spheres
-    _check(packed.spheres, "spheres", torch.float32, (s, SPHERE_WORDS), dev)
-    _check(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
+    build.check_tensor(packed.spheres, "spheres", torch.float32, (s, SPHERE_WORDS), dev)
+    build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
     grid_args = [None, 0, 0, 0, 0] + [0.0] * 8
     if packed.grid is not None:
         gs = packed.grid.static
-        _check(packed.grid.cell_ids, "cell_ids", torch.int32, (gs.cx * gs.cz, gs.m), dev)
+        build.check_tensor(packed.grid.cell_ids, "cell_ids", torch.int32, (gs.cx * gs.cz, gs.m), dev)
         f = gs.f32_params()
         grid_args = [packed.grid.cell_ids.data_ptr(), gs.cx, gs.cz, gs.m, gs.max_steps] + [
             float(f[k]) for k in ("x0", "z0", "x1", "z1", "y_lo", "y_hi", "cell", "inv_cell")
         ]
 
-    fn, err_str = _kernel_fn()
+    fn, err_str = build.bind(KERNEL_SOURCE, "csgr_sphere_render", _ARGTYPES)
     out_rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     out_rays = torch.empty((height, width), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):

@@ -1,0 +1,454 @@
+"""The CSG tape kernel: packing, the CUDA launch, and its plain version.
+
+Twin of ``csgrenderer_tpu/kernels/tape_kernel.py`` in its production
+(event-flip) mode. ``render_image_tape_kernel`` renders a ``CompiledTape``:
+the nearest CSG surface along a ray is the smallest leaf boundary t where
+the root's membership flips; membership just below and just above a
+boundary is exact comparison algebra on the leaves' raw intervals, folded
+through the postfix tape. With ``partition`` the root's union of disjoint
+solids splits into clusters (``scene/partition.py``), each evaluated on
+its own ops and leaves: O(sum L_c^2) flip work instead of O(L^2).
+Attribution (normal and material) always runs over all leaves.
+
+Where the tensors lie decides what runs:
+
+- on a CUDA device, the hand-written kernel ``csrc/tape_kernel.cu``
+  (built for sm_90a at first use) is launched, or an error is raised;
+- on the CPU, the plain torch version ``render_image_tape_plain`` runs:
+  ``render/integrator.render_image`` with the event-flip hit function.
+
+``LAUNCHES`` counts kernel launches (``LAUNCHES_BY_MODE`` per mode:
+"global" is one cluster covering the tape, "clustered" two or more); only
+the launch site adds to them. The interval-list audit mode
+(``with_overflow``) and tape next-event estimation (``nee``) are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+
+import torch
+from torch import Tensor
+
+from ..math import quaternion as quat
+from ..math import vec
+from ..render import integrator, intersect
+from ..render.integrator import SKY_MODES, SurfaceHit
+from ..render.intersect import T_FAR
+from ..render.interval import SURFACE_CUTOFF as CUT
+from ..scene.graph import NodeType
+from ..scene.partition import partition_tape
+from ..scene.tape import OP_INTERSECT, OP_PUSH, OP_UNION, CompiledTape, stack_depth
+from . import build
+from .megakernel import CAM_SIZE, pack_camera
+
+KERNEL_SOURCE = "tape_kernel"
+LEAF_ROW = 16  # rot(4) pos(3) params(4) kind param albedo(3): the JAX layout
+MAX_LEAVES = 256  # the kernel's per-thread interval arrays (csrc kMaxLeaves)
+MAX_STACK = 64  # the kernel's membership bit stacks (csrc kMaxStack)
+EPS = 1e-3  # hit epsilon along t
+# candidate-by-leaf membership elements per chunk of the plain version
+_PLAIN_CHUNK = 1 << 26
+
+LAUNCHES = 0
+LAUNCHES_BY_MODE = {"global": 0, "clustered": 0}
+
+_OVERFLOW_NOT_PORTED = "the interval-list audit mode (with_overflow) is not ported yet (ROADMAP B4b)"
+_NEE_NOT_PORTED = "tape next-event estimation is not ported yet (ROADMAP B3, with A6)"
+
+
+@dataclass(frozen=True)
+class PackedTape:
+    """A tape prepared for the kernel (host-side, once per tape).
+
+    ``clusters`` is the host tuple ``((ops, leaf_ids), ...)`` in evaluation
+    order; global evaluation is one cluster of the whole tape. The tables
+    hold the same on the tape's device:
+
+    - ``leaf_table`` [L, 16] f32 and ``leaf_types`` [L] int32;
+    - ``ops`` [n_ops] int32, each ``opcode | slot << 2`` where a PUSH's slot
+      is the leaf's position in its cluster's leaf list;
+    - ``cluster_table`` [C, 4] int32: op offset, op count, leaf offset and
+      leaf count of each cluster in ``ops`` / ``leaf_ids``;
+    - ``leaf_ids`` [sum L_c] int32.
+    """
+
+    tape: CompiledTape
+    clusters: tuple
+    leaf_table: Tensor
+    leaf_types: Tensor
+    ops: Tensor
+    cluster_table: Tensor
+    leaf_ids: Tensor
+
+    @property
+    def mode(self) -> str:
+        return "global" if len(self.clusters) == 1 else "clustered"
+
+    @property
+    def device(self) -> torch.device:
+        return self.leaf_table.device
+
+    def to(self, device) -> "PackedTape":
+        return PackedTape(self.tape.to(device), self.clusters, *(
+            getattr(self, f).to(device)
+            for f in ("leaf_table", "leaf_types", "ops", "cluster_table", "leaf_ids")
+        ))
+
+
+def _leaf_table(tape: CompiledTape) -> Tensor:
+    tab = torch.zeros((tape.n_leaves, LEAF_ROW), dtype=torch.float32, device=tape.device)
+    tab[:, 0:4] = tape.leaf_rot
+    tab[:, 4:7] = tape.leaf_pos
+    tab[:, 7:11] = tape.leaf_params
+    tab[:, 11] = tape.mat_kind.to(torch.float32)
+    tab[:, 12] = tape.mat_param
+    tab[:, 13:16] = tape.albedo
+    return tab
+
+
+def pack_program(tape: CompiledTape, partition: bool | str | tuple = "auto") -> PackedTape:
+    """Cluster the tape (on the host, once) and build the kernel's tables.
+
+    ``partition``: "auto" clusters a root that unions spatially disjoint
+    solids and evaluates globally otherwise; True requires clusters (raises
+    when nothing splits); False forces the global evaluation; a tuple is a
+    precomputed ``partition_tape`` result taken as it is (the empty tuple
+    means global). Raises ValueError past the kernel's limits: more than
+    ``MAX_LEAVES`` leaves or a stack deeper than ``MAX_STACK``.
+    """
+    if tape.k < 1:
+        raise ValueError(f"interval capacity k must be >= 1, got {tape.k}")
+    if tape.n_leaves > MAX_LEAVES:
+        raise ValueError(f"tape has {tape.n_leaves} leaves; the kernel takes at most {MAX_LEAVES}")
+    if tape.stack_depth > MAX_STACK:
+        raise ValueError(f"tape stack depth {tape.stack_depth} exceeds the kernel's {MAX_STACK}")
+    if isinstance(partition, tuple):
+        clusters = partition or None
+    elif partition in ("auto", True):
+        clusters = partition_tape(tape)
+        if partition is True and clusters is None:
+            raise ValueError("partition=True but the tape has no disjoint union operands to cluster")
+    elif partition is False:
+        clusters = None
+    else:
+        raise ValueError(f"partition must be 'auto', True, False or a tuple, got {partition!r}")
+    if clusters is None:
+        clusters = ((tape.ops, tuple(range(tape.n_leaves))),)
+
+    ops, table, ids = [], [], []
+    for c_ops, c_leaves in clusters:
+        if stack_depth(c_ops) > MAX_STACK:
+            raise ValueError(f"tape stack depth {stack_depth(c_ops)} exceeds the kernel's {MAX_STACK}")
+        slot = {leaf: j for j, leaf in enumerate(c_leaves)}
+        table.append((len(ops), len(c_ops), len(ids), len(c_leaves)))
+        ops += [opc | (slot[arg] << 2) if opc == OP_PUSH else opc for opc, arg in c_ops]
+        ids += list(c_leaves)
+
+    dev = tape.device
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    return PackedTape(
+        tape=tape,
+        clusters=tuple((tuple(o), tuple(ls)) for o, ls in clusters),
+        leaf_table=_leaf_table(tape),
+        leaf_types=i32(list(tape.leaf_types)),
+        ops=i32(ops),
+        cluster_table=i32(table).reshape(len(table), 4),
+        leaf_ids=i32(ids),
+    )
+
+
+# ---------------------------------------------------------------------------
+# The plain torch version: the same float operations as the kernel
+# ---------------------------------------------------------------------------
+
+
+def _by_type(packed: PackedTape):
+    """(leaf type, leaf ids, their leaf-table rows [Lt, 16]) per type present."""
+    types = packed.tape.leaf_types
+    for kind in sorted(set(types)):
+        idx = [i for i, t in enumerate(types) if t == kind]
+        yield kind, idx, packed.leaf_table[idx]
+
+
+def _leaf_intervals(packed: PackedTape, o: Tensor, d: Tensor) -> tuple[Tensor, Tensor]:
+    """(enter, exit) [N, L] of every leaf along rays [N, 3]
+    (``_leaf_interval``, by leaf type)."""
+    enter = torch.empty((o.shape[0], packed.tape.n_leaves), dtype=torch.float32, device=o.device)
+    exit_ = torch.empty_like(enter)
+    for kind, idx, rows in _by_type(packed):
+        q = rows[:, 0:4]
+        lo = quat.rotate(q, o[:, None, :] - rows[:, 4:7])  # [N, Lt, 3]
+        ld = quat.rotate(q, d[:, None, :])
+        if kind == NodeType.SPHERE:
+            e, x = intersect.sphere_interval(lo, ld, rows[:, 7])
+        elif kind == NodeType.INFINITE_PLANAR_PARTITION:
+            e, x = intersect.halfspace_interval(lo, ld, rows[:, 7:10])
+        elif kind == NodeType.BOX:
+            e, x = intersect.box_interval(lo, ld, rows[:, 7:10])
+        else:
+            e, x = intersect.cylinder_interval(lo, ld, rows[:, 7], rows[:, 8])
+        enter[:, idx] = e
+        exit_[:, idx] = x
+    return enter, exit_
+
+
+def _fold(c_ops, mem: Tensor) -> Tensor:
+    """Root membership from leaf memberships mem [..., Lc] (bool), walking
+    the cluster's postfix ops (PUSH operands are slots)."""
+    stack = []
+    for opcode, slot in c_ops:
+        if opcode == OP_PUSH:
+            stack.append(mem[..., slot])
+            continue
+        right = stack.pop()
+        left = stack.pop()
+        if opcode == OP_UNION:
+            stack.append(left | right)
+        elif opcode == OP_INTERSECT:
+            stack.append(left & right)
+        else:  # OP_DIFF
+            stack.append(left & ~right)
+    return stack[0]
+
+
+def tape_hit_events(packed: PackedTape, o: Tensor, d: Tensor) -> tuple[Tensor, Tensor]:
+    """Event-flip nearest surface of rays [N, 3]: (t [N], entering [N]).
+
+    t is T_FAR where nothing flips. Candidates go cluster by cluster, and
+    in each the leaves in order, enter before exit; the first strictly
+    nearest candidate wins (two candidates at one t give the same tree
+    values, so within a cluster a first-minimum argmin is the same rule).
+    """
+    enter, exit_ = _leaf_intervals(packed, o, d)
+    n = o.shape[0]
+    t = torch.full((n,), T_FAR, dtype=torch.float32, device=o.device)
+    entering = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    for c_ops, c_leaves in packed.clusters:
+        slot = {leaf: j for j, leaf in enumerate(c_leaves)}
+        local_ops = [(opc, slot[arg] if opc == OP_PUSH else 0) for opc, arg in c_ops]
+        e, x = enter[:, list(c_leaves)], exit_[:, list(c_leaves)]  # [N, Lc]
+        cands = torch.stack([e, x], dim=-1).reshape(n, -1)  # leaf by leaf, enter first
+        lc = len(c_leaves)
+        group = max(1, _PLAIN_CHUNK // max(1, n * lc))
+        for g0 in range(0, 2 * lc, group):
+            tj = cands[:, g0:g0 + group, None]  # [N, G, 1]
+            below = _fold(local_ops, (e[:, None, :] < tj) & (x[:, None, :] >= tj))
+            above = _fold(local_ops, (e[:, None, :] <= tj) & (x[:, None, :] > tj))
+            tj = tj[..., 0]
+            flip = (below != above) & (tj > EPS) & (tj < CUT)
+            cand = torch.where(flip, tj, T_FAR)
+            first = torch.argmin(cand, dim=-1, keepdim=True)  # first minimum
+            best = torch.gather(cand, -1, first)[:, 0]
+            better = best < t
+            t = torch.where(better, best, t)
+            entering = torch.where(better, torch.gather(above, -1, first)[:, 0], entering)
+    return t, entering
+
+
+def _leaf_scores(packed: PackedTape, p: Tensor) -> tuple[Tensor, Tensor]:
+    """Attribution inputs at hit points p [N, 3]: score [N, L] (distance to
+    each leaf's surface) and local outward normal [N, L, 3]."""
+    n, n_leaves = p.shape[0], packed.tape.n_leaves
+    score = torch.empty((n, n_leaves), dtype=torch.float32, device=p.device)
+    normal = torch.empty((n, n_leaves, 3), dtype=torch.float32, device=p.device)
+    for kind, idx, rows in _by_type(packed):
+        loc = quat.rotate(rows[:, 0:4], p[:, None, :] - rows[:, 4:7])  # [N, Lt, 3]
+        lx, ly, lz = loc[..., 0], loc[..., 1], loc[..., 2]
+        p0, p1, p2 = rows[:, 7], rows[:, 8], rows[:, 9]
+        if kind == NodeType.SPHERE:
+            rad = vec.sqrt(vec.dot(loc, loc))
+            s = torch.abs(rad - p0)
+            nl = loc * (1.0 / torch.clamp(rad, min=1e-12))[..., None]
+        elif kind == NodeType.INFINITE_PLANAR_PARTITION:
+            s = torch.abs(lx * p0 + ly * p1 + lz * p2)
+            nl = rows[:, 7:10].expand(n, -1, -1)
+        elif kind == NodeType.BOX:
+            gx, gy, gz = p0 - torch.abs(lx), p1 - torch.abs(ly), p2 - torch.abs(lz)
+            mx, my, mz = (torch.clamp(-g, min=0.0) for g in (gx, gy, gz))
+            outside = vec.sqrt(mx * mx + my * my + mz * mz)
+            inside = torch.clamp(torch.maximum(-gx, torch.maximum(-gy, -gz)), max=0.0)
+            s = outside - inside
+            ax, ay, az = torch.abs(gx), torch.abs(gy), torch.abs(gz)
+            is_x = (ax <= ay) & (ax <= az)  # the axis with the smallest gap
+            is_y = ~is_x & (ay <= az)
+            sx, sy, sz = (torch.where(v >= 0.0, 1.0, -1.0) for v in (lx, ly, lz))
+            nl = torch.stack([torch.where(is_x, sx, 0.0), torch.where(is_y, sy, 0.0),
+                              torch.where(is_x | is_y, 0.0, sz)], dim=-1)
+        else:  # cylinder
+            srad = vec.sqrt(lx * lx + lz * lz)
+            side = torch.abs(srad - p0)
+            cap = torch.abs(torch.abs(ly) - p1)
+            sqr, sqy = srad - p0, torch.abs(ly) - p1
+            mr, mh = torch.clamp(sqr, min=0.0), torch.clamp(sqy, min=0.0)
+            outside = vec.sqrt(mr * mr + mh * mh)
+            inside = torch.clamp(torch.maximum(sqr, sqy), max=0.0)
+            s = outside - inside
+            inv = 1.0 / torch.clamp(srad, min=1e-12)
+            use_side = side < cap
+            nl = torch.stack([torch.where(use_side, lx * inv, 0.0),
+                              torch.where(use_side, 0.0, torch.where(ly >= 0.0, 1.0, -1.0)),
+                              torch.where(use_side, lz * inv, 0.0)], dim=-1)
+        score[:, idx] = s
+        normal[:, idx] = nl
+    return score, normal
+
+
+def tape_hit(packed: PackedTape, o: Tensor, d: Tensor) -> SurfaceHit:
+    """The kernel's hit, as a ``SurfaceHit`` of rays [..., 3].
+
+    The normal is the owning leaf's, face-forwarded by ``dot(d, n) > 0``;
+    ``front_face`` is the solid-level ``entering`` flag.
+    """
+    batch = o.shape[:-1]
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    t, entering = tape_hit_events(packed, o, d)
+    hit = t < CUT
+    t_safe = torch.where(hit, t, 1.0)
+    score, normal = _leaf_scores(packed, o + t_safe[:, None] * d)
+    owner = torch.argmin(score, dim=-1)  # first minimum: strict < in leaf order
+    nl = torch.gather(normal, 1, owner[:, None, None].expand(-1, 1, 3))[:, 0]
+    rows = packed.leaf_table[owner]
+    nw = quat.rotate(quat.conjugate(rows[:, 0:4]), nl)  # local -> world
+    sgn = torch.where(vec.dot(d, nw) > 0.0, -1.0, 1.0)
+    h = SurfaceHit(
+        t=t,
+        hit=hit,
+        normal=nw * sgn[:, None],
+        front_face=entering,
+        mat_kind=packed.tape.mat_kind[owner],
+        albedo=rows[:, 13:16],
+        mat_param=rows[:, 12],
+    )
+    return SurfaceHit(*(v.reshape(batch + v.shape[1:]) for v in h))
+
+
+def render_image_tape_plain(
+    packed: PackedTape,
+    camera,
+    width: int,
+    height: int,
+    spp: int = 1,
+    max_bounces: int = 8,
+    seed: int = 0,
+    sky: str = "rtiow",
+    lens: bool = False,
+    sample_offset: int = 0,
+) -> tuple[Tensor, Tensor]:
+    """The plain torch version of the kernel, on any device."""
+    return integrator.render_image(
+        functools.partial(tape_hit, packed), camera, width, height, spp=spp,
+        max_bounces=max_bounces, seed=seed, sky=sky, lens=lens, sample_offset=sample_offset,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The CUDA launch
+# ---------------------------------------------------------------------------
+
+
+_VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_ARGTYPES = (_VP, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I) + (_I,) * 4 + (_U, _U, _I, _I, _VP, _VP, _VP)
+
+
+@functools.cache
+def _kernel_fn():
+    lib, _ = build.load(KERNEL_SOURCE)
+    if (lib.csgr_tape_max_leaves(), lib.csgr_tape_max_stack()) != (MAX_LEAVES, MAX_STACK):
+        raise RuntimeError("tape_kernel.cu and tape_kernel.py disagree on the kernel's limits")
+    return build.bind(KERNEL_SOURCE, "csgr_tape_render", _ARGTYPES)
+
+
+def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, sample_offset,
+            lens, sky):
+    global LAUNCHES
+    dev = packed.device
+    if dev.type != "cuda":
+        raise ValueError(f"the tape kernel needs CUDA tensors, got {dev}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("the tape kernel needs CUDA, and CUDA is not available")
+    n_leaves = packed.tape.n_leaves
+    n_ops, n_ids = packed.ops.numel(), packed.leaf_ids.numel()
+    n_clusters = len(packed.clusters)
+    build.check_tensor(packed.leaf_table, "leaf_table", torch.float32, (n_leaves, LEAF_ROW), dev)
+    build.check_tensor(packed.leaf_types, "leaf_types", torch.int32, (n_leaves,), dev)
+    build.check_tensor(packed.ops, "ops", torch.int32, (n_ops,), dev)
+    build.check_tensor(packed.cluster_table, "cluster_table", torch.int32, (n_clusters, 4), dev)
+    build.check_tensor(packed.leaf_ids, "leaf_ids", torch.int32, (n_ids,), dev)
+    build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
+
+    fn, err_str = _kernel_fn()
+    out_rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    out_rays = torch.empty((height, width), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            cam_row.data_ptr(), packed.leaf_table.data_ptr(), packed.leaf_types.data_ptr(),
+            n_leaves, packed.ops.data_ptr(), n_ops, packed.cluster_table.data_ptr(),
+            n_clusters, packed.leaf_ids.data_ptr(), n_ids, width, height, spp, max_bounces,
+            seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky),
+            out_rgb.data_ptr(), out_rays.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"tape kernel launch failed: {err_str(rc).decode()} ({rc})")
+    LAUNCHES += 1
+    LAUNCHES_BY_MODE[packed.mode] += 1
+    return out_rgb, out_rays.sum(dtype=torch.int64)
+
+
+def render_image_tape_kernel(
+    tape: CompiledTape | PackedTape,
+    camera,
+    width: int,
+    height: int,
+    spp: int = 1,
+    max_bounces: int = 8,
+    seed: int = 0,
+    sky: str = "rtiow",
+    jitter: bool = True,
+    lens: bool = False,
+    sample_offset: int = 0,
+    with_overflow: bool = False,
+    nee: bool = False,
+    partition: bool | str | tuple = "auto",
+) -> tuple[Tensor, Tensor]:
+    """Drop-in for ``integrator.render_image`` on a CSG tape.
+
+    Returns (image [H, W, 3] f32, rays traced as an int64 scalar tensor).
+    ``tape`` may be a ``PackedTape`` from ``pack_program`` (packed once,
+    e.g. by a benchmark; its clusters were fixed then), and ``partition``
+    must then be "auto". Tape and camera tensors on a CUDA device launch
+    the kernel; on the CPU they run the plain version; there is no fallback
+    between the two.
+    """
+    if not jitter:
+        raise NotImplementedError("the tape kernel always jitters")
+    if with_overflow:
+        raise NotImplementedError(_OVERFLOW_NOT_PORTED)
+    if nee:
+        raise NotImplementedError(_NEE_NOT_PORTED)
+    if sky not in SKY_MODES:
+        raise ValueError(f"unknown sky mode {sky!r}")
+    if spp < 1 or max_bounces < 0 or width < 1 or height < 1:
+        raise ValueError(f"bad frame {width}x{height} spp={spp} bounces={max_bounces}")
+    if isinstance(tape, PackedTape):
+        if partition != "auto":
+            raise ValueError("partition is fixed when the tape is already packed")
+        packed = tape
+    else:
+        packed = pack_program(tape, partition)
+    if packed.device.type == "cpu":
+        return render_image_tape_plain(
+            packed, camera, width, height, spp=spp, max_bounces=max_bounces,
+            seed=seed, sky=sky, lens=lens, sample_offset=sample_offset,
+        )
+    return _launch(
+        packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces,
+        int(seed), int(sample_offset), lens, sky,
+    )

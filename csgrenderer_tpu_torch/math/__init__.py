@@ -1,4 +1,4 @@
-from . import vec
+from . import quaternion, vec
 from .vec import (
     cross,
     dot,
@@ -12,6 +12,7 @@ from .vec import (
 )
 
 __all__ = [
+    "quaternion",
     "vec",
     "dot",
     "cross",

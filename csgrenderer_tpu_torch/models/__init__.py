@@ -1,3 +1,17 @@
-from .scenes import rtiow_final_scene, two_spheres_scene
+from .scenes import (
+    animated_csg_scene,
+    config3_csg_scene,
+    many_objects_scene,
+    milestone01_scene_graph,
+    rtiow_final_scene,
+    two_spheres_scene,
+)
 
-__all__ = ["rtiow_final_scene", "two_spheres_scene"]
+__all__ = [
+    "animated_csg_scene",
+    "config3_csg_scene",
+    "many_objects_scene",
+    "milestone01_scene_graph",
+    "rtiow_final_scene",
+    "two_spheres_scene",
+]

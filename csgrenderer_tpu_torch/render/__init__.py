@@ -1,16 +1,27 @@
-from . import integrator, intersect, materials, sampling, tonemap
-from .integrator import SphereScene, SurfaceHit, render_image, render_tile, sky_color, trace_paths
+from . import integrator, intersect, interval, materials, sampling, tape_eval, tonemap
+from .integrator import (
+    SphereScene,
+    SurfaceHit,
+    render_image,
+    render_tile,
+    sky_color,
+    tape_hit_adapter,
+    trace_paths,
+)
 
 __all__ = [
     "integrator",
     "intersect",
+    "interval",
     "materials",
     "sampling",
+    "tape_eval",
     "tonemap",
     "SphereScene",
     "SurfaceHit",
     "render_image",
     "render_tile",
     "sky_color",
+    "tape_hit_adapter",
     "trace_paths",
 ]

@@ -1,14 +1,16 @@
 """Path-tracing integrator: the plain torch reference path.
 
-Twin of ``csgrenderer_tpu/render/integrator.py`` (sphere scenes). The
+Twin of ``csgrenderer_tpu/render/integrator.py`` (sphere scenes, and CSG
+tapes through ``tape_hit_adapter``). The
 whole pixel grid is one batched tensor program: ray generation broadcasts
 over [H, W] rays, the bounce loop carries (origin, direction, throughput,
 radiance, active) per ray, and samples accumulate in an outer loop. RNG
 counters are functions of global pixel coordinates, so any tiling of the
 image composes to the same result.
 
-This is what the CUDA kernel (``kernels/megakernel.py``) is held against,
-and what runs for tensors that lie on the CPU. Next-event estimation
+This is what the CUDA kernels (``kernels/megakernel.py``,
+``kernels/tape_kernel.py``) are held against, through their hit
+functions, and what runs for tensors that lie on the CPU. Next-event estimation
 (``lights=``) is not ported yet (ROADMAP B3).
 """
 
@@ -21,7 +23,7 @@ import torch
 from torch import Tensor
 
 from ..math import vec
-from . import intersect, materials
+from . import intersect, materials, tape_eval
 from .sampling import sample_in_unit_disk, uniform4
 
 WHITE = (1.0, 1.0, 1.0)
@@ -114,6 +116,27 @@ class SphereScene:
         )
         h = self.surface_hit(flat_o, flat_d, t, idx, hit)
         return SurfaceHit(*(x.reshape(batch + x.shape[1:]) for x in h))
+
+
+def tape_hit_adapter(tape, o: Tensor, d: Tensor, eps: float = 1e-3) -> SurfaceHit:
+    """The reference CSG hit (interval lists) as a ``SurfaceHit``.
+
+    The leaf normal is face-forwarded against the ray by ``dot(d, n) > 0``;
+    ``front_face`` is the solid-level ``entering`` flag, right even on
+    subtracted surfaces where a dot-product test is not.
+    """
+    h = tape_eval.tape_nearest_hit(tape, o, d, eps=eps)
+    flip = vec.dot(d, h.normal) > 0.0
+    n = torch.where(flip[..., None], -h.normal, h.normal)
+    return SurfaceHit(
+        t=h.t,
+        hit=h.hit,
+        normal=n,
+        front_face=h.entering,
+        mat_kind=h.mat_kind,
+        albedo=h.albedo,
+        mat_param=h.mat_param,
+    )
 
 
 HitFn = Callable[[Tensor, Tensor], SurfaceHit]

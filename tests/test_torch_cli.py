@@ -17,6 +17,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 def _run(*args, timeout=300):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "2"  # the suite runs in several workers at once
     return subprocess.run([sys.executable, "-m", *args], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
@@ -32,7 +33,7 @@ def test_render_writes_png(tmp_path):
 
 
 def test_render_unported_scene_says_so(tmp_path):
-    proc = _run("csgrenderer_tpu_torch", "render", "--scene", "csg", "--out",
+    proc = _run("csgrenderer_tpu_torch", "render", "--scene", "milestone01", "--out",
                 str(tmp_path / "x.png"))
     assert proc.returncode != 0
     assert "not yet ported" in proc.stderr

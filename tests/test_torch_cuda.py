@@ -1,4 +1,5 @@
-"""The CUDA sphere kernel against its plain torch version, on the card.
+"""The CUDA sphere and tape kernels against their plain torch versions, on
+the card.
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -18,7 +19,14 @@ import torch
 
 from csgrenderer_tpu_torch.camera import Camera
 from csgrenderer_tpu_torch.kernels import megakernel as mk
-from csgrenderer_tpu_torch.models import rtiow_final_scene, two_spheres_scene
+from csgrenderer_tpu_torch.kernels import tape_kernel as tk
+from csgrenderer_tpu_torch.models import (
+    animated_csg_scene,
+    config3_csg_scene,
+    many_objects_scene,
+    rtiow_final_scene,
+    two_spheres_scene,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +104,38 @@ def test_sample_offset_and_sky_modes(cuda):
         img, rays = mk.render_image_kernel(packed, cam, 32, 16, spp=1, max_bounces=3, sky=sky)
         ref, ref_rays = mk.render_image_plain(packed, cam, 32, 16, spp=1, max_bounces=3, sky=sky)
         _assert_close(ref, ref_rays, img, rays)
+
+
+def _deepcsg(dev):
+    graph, animate = animated_csg_scene(8)
+    return animate(graph.compile(k=4, device=dev), 1.0)
+
+
+TAPE_CASES = {
+    "config3-global": (lambda dev: config3_csg_scene().compile(device=dev), "auto", "global",
+                       ((3, 2.5, 4), (0.1, 0, 0), 35.0), dict(width=64, height=64, spp=4, max_bounces=6,
+                                                             seed=3)),
+    "deepcsg-clustered": (_deepcsg, "auto", "clustered", ((0, 2.0, 7.0), (0.5, 0, 0), 40.0),
+                          dict(width=96, height=54, spp=2, max_bounces=5, seed=5)),
+    "deepcsg-global": (_deepcsg, False, "global", ((0, 2.0, 7.0), (0.5, 0, 0), 40.0),
+                       dict(width=96, height=54, spp=2, max_bounces=5, seed=5)),
+    "many-objects-clustered": (lambda dev: many_objects_scene(9).compile(k=4, device=dev), True,
+                               "clustered", ((0, 7.0, 9.0), (0, 0.4, 0), 45.0),
+                               dict(width=64, height=32, spp=2, max_bounces=8, seed=1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TAPE_CASES))
+def test_tape_kernel_matches_plain(cuda, case):
+    make_tape, partition, mode, (eye, at, vfov), kw = TAPE_CASES[case]
+    packed = tk.pack_program(make_tape(cuda), partition)
+    assert packed.mode == mode
+    cam = Camera.look_at(eye, at, vfov_degrees=vfov, aspect_ratio=kw["width"] / kw["height"],
+                         device=cuda)
+    before = dict(tk.LAUNCHES_BY_MODE)
+    img, rays = tk.render_image_tape_kernel(packed, cam, **kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES_BY_MODE[mode] == before[mode] + 1
+    assert rays.dtype == torch.int64
+    ref, ref_rays = tk.render_image_tape_plain(packed, cam, **kw)
+    _assert_close(ref, ref_rays, img, rays)

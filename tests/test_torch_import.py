@@ -18,11 +18,19 @@ PKG = REPO / "csgrenderer_tpu_torch"
 MODULES = [
     "csgrenderer_tpu_torch",
     "csgrenderer_tpu_torch.math",
+    "csgrenderer_tpu_torch.math.quaternion",
     "csgrenderer_tpu_torch.camera",
+    "csgrenderer_tpu_torch.scene",
+    "csgrenderer_tpu_torch.scene.graph",
+    "csgrenderer_tpu_torch.scene.tape",
+    "csgrenderer_tpu_torch.scene.partition",
     "csgrenderer_tpu_torch.render",
+    "csgrenderer_tpu_torch.render.interval",
+    "csgrenderer_tpu_torch.render.tape_eval",
     "csgrenderer_tpu_torch.models",
     "csgrenderer_tpu_torch.kernels",
     "csgrenderer_tpu_torch.kernels.build",
+    "csgrenderer_tpu_torch.kernels.tape_kernel",
     "csgrenderer_tpu_torch.io",
     "csgrenderer_tpu_torch.convert",
     "csgrenderer_tpu_torch.bench",
