@@ -20,18 +20,28 @@ Phases (the first that fails ends the run with a non-zero exit):
    global kernel is timed beside it and its image compared), on the render
    CLI's manyobjects tape and camera at its 1920x1080 with 2 spp, 8
    bounces, and on a rotated-box / glass-cylinder / half-space scene and a
-   normal-map scene at 256x256. Kernel and plain version are timed with
-   CUDA events at the frames the kernel line reports. Bounds
+   normal-map scene at 256x256. The NEE variants (black sky, next-event
+   estimation toward the emissive spheres) at the night benchmarks' frame
+   960x540 with 2 spp, 6 bounces: night_scene() in brute-nee mode,
+   night_scene(grid=11) in grid-nee mode (each also timed in the other
+   sphere mode and its kernel image compared), csg_night_scene() in
+   clustered-nee mode (and one global-nee launch against it); and the
+   blocker scene of tests/test_nee.py in grid-nee mode, whose umbra must
+   be darker than a quarter of the open case. Kernel and plain version are
+   timed with CUDA events at the frames the kernel line reports. Bounds
    (tests/test_kernels.py::compare):
    RMSE <= 2e-2, at most 1% of pixels off by more than 0.05 in any
    channel, rays within max(2e-3 * ref, 8).
 3. The main path, counts from zero: the sphere benchmark (python -m
    csgrenderer_tpu_torch.bench) at 1920x1080, 64 spp, 8 bounces plus the
    16-spp p50; the config5 benchmark (--scene deepcsg) at 1920x1080, 64
-   spp, 5 bounces plus the 16-spp p50; the render CLI on the two-sphere
-   scene, on csg and on manyobjects, each at 1920x1080, 16 spp. The sphere
-   kernel's grid and brute modes and the tape kernel's clustered mode must
-   have launched in this phase; the tape kernel's global mode must have
+   spp, 5 bounces plus the 16-spp p50; the night benchmarks (--scene
+   night, night488, csgnight) at 960x540, 64 spp, 6 bounces plus the
+   16-spp p50; the render CLI on the two-sphere scene, on csg and on
+   manyobjects, each at 1920x1080, 16 spp, and on csgnight at 960x540, 16
+   spp. The sphere kernel's grid, brute, grid-nee and brute-nee modes and
+   the tape kernel's clustered and clustered-nee modes must have launched
+   in this phase; the tape kernel's global and global-nee modes must have
    launched in phase 2.
 
 The last line of output is the device JSON; the line before it lists the
@@ -50,7 +60,18 @@ hit is counted as a miss, the grid walk's sphere tests are left out, a
 tape candidate costs its first test only (the others are short-circuited
 when it fails), and a tape segment walks the ops of one cluster, the
 smallest, only if it surely hits (a candidate past the best t, or outside
-(eps, cut), is skipped without a walk; a miss may walk none). The FP32
+(eps, cut), is skipped without a walk; a miss may walk none). A miss
+under the black sky adds no sky. The NEE modes add, from the plain
+version's run of the same frame (same RNG counters, so the same
+decisions; ``integrator.trace_paths(counts=)``): a lamp sample (with the
+cheaper cosine-lobe pdf) per Lambertian or glossy hit, a carried scatter
+pdf per such vertex whose path goes on, a partner weight per MIS-weighted
+lamp hit (the tape kernel's also matches the hit against every lamp), and
+per shadow ray its setup and, when it reaches the lamp, every sphere test
+of the brute pass (the grid walk's left out) or every leaf interval and
+candidate test; an occluded shadow ray stops at its first occluder and
+counts one sphere test or the first cluster's intervals. Shadow rays are
+not segments (``rays``); their count is printed beside the bound. The FP32
 rate is 132 SMs x 128 lanes x the SM clock read under load, one operation
 per lane per cycle: the kernels are built with -fmad=false, so no
 multiply-add fuses two.
@@ -71,7 +92,7 @@ CSRC = "csgrenderer_tpu_torch/kernels/csrc"
 KERNELS = {
     "sphere_megakernel": (f"{CSRC}/sphere_megakernel.cu", "csgrenderer_tpu/kernels/megakernel.py:775"),
     "tape_kernel": (f"{CSRC}/tape_kernel.cu", "csgrenderer_tpu/kernels/tape_kernel.py:744"),
-}
+}  # the NEE modes are the same pallas_call with lamps (n_lights > 0; nee_lamps)
 SMS, LANES = 132, 128
 HBM_BYTES_PER_S = 3.35e12
 
@@ -88,6 +109,11 @@ OPS = {
     "walk_push": 4,  # below and above membership of one leaf at tj
     "tape_hit": 85,  # hit point, winner's normal to world, face-forward, scatter
     "attribution": {0: 47, 1: 40, 2: 69, 3: 61},  # per leaf: transform, score, best test
+    "nee_sample": 107,  # lamp pick, cone sample, cosine-lobe pdf, lamp t, one test, MIS weight
+    "carried_pdf": 18,  # cosine-lobe pdf of the scatter direction
+    "partner": 24,  # the lamp's cone from the previous vertex, q / (q + 1)
+    "lamp_match": 12,  # tape kernel, per lamp: |dist - r| and its test
+    "shadow_lit": 6,  # throughput times the weight, added
 }
 
 
@@ -155,21 +181,41 @@ def hits_floor(rays, width, height, spp):
     return max(int(rays) - width * height * spp, 0)
 
 
-def sphere_ops(n_brute, rays, width, height, spp):
+def miss_ops(sky):
+    return 0 if sky == "black" else OPS["miss"]
+
+
+def sphere_ops(n_brute, rays, width, height, spp, sky="rtiow"):
     hits = hits_floor(rays, width, height, spp)
     per_segment = OPS["ray"] + n_brute * OPS["sphere_test"] + OPS["segment"]
-    return int(rays) * per_segment + hits * OPS["sphere_hit"] + (int(rays) - hits) * OPS["miss"]
+    return int(rays) * per_segment + hits * OPS["sphere_hit"] + (int(rays) - hits) * miss_ops(sky)
 
 
-def tape_ops(packed, rays, width, height, spp):
+def leaf_interval_ops(packed, leaves):
+    types = packed.tape.leaf_types
+    return sum(OPS["leaf_transform"] + OPS["interval"][types[leaf]] for leaf in leaves)
+
+
+def tape_ops(packed, rays, width, height, spp, sky="rtiow"):
     types = packed.tape.leaf_types
     min_lc = min(len(c_leaves) for _, c_leaves in packed.clusters)
-    per_segment = (sum(OPS["leaf_transform"] + OPS["interval"][t] for t in types)
+    per_segment = (leaf_interval_ops(packed, range(len(types)))
                    + 2 * len(types) * OPS["candidate_test"] + OPS["segment"])
     # at least one walk (the taken candidate's) per hit, none per miss
     per_hit = OPS["tape_hit"] + sum(OPS["attribution"][t] for t in types) + min_lc * OPS["walk_push"]
     hits = hits_floor(rays, width, height, spp)
-    return int(rays) * per_segment + hits * per_hit + (int(rays) - hits) * OPS["miss"]
+    return int(rays) * per_segment + hits * per_hit + (int(rays) - hits) * miss_ops(sky)
+
+
+def nee_ops(counts, per_shadow, clear_ops, occluded_ops, partner_ops):
+    """The NEE work of a frame from the plain version's counts (ints):
+    ``per_shadow`` ops set up every shadow ray, ``clear_ops`` test one that
+    reaches its lamp, ``occluded_ops`` one that stops at an occluder."""
+    occluded = counts["shadow_rays"] - counts["shadow_clear"]
+    return (counts["nee_vertices"] * OPS["nee_sample"] + counts["carried_pdfs"] * OPS["carried_pdf"]
+            + counts["mis_emission"] * partner_ops + counts["shadow_rays"] * per_shadow
+            + counts["shadow_clear"] * (clear_ops + OPS["shadow_lit"])
+            + occluded * occluded_ops)
 
 
 def bound(ops, table_bytes, width, height, mhz):
@@ -187,6 +233,7 @@ def nbytes(*tensors):
 
 
 def main() -> None:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -198,10 +245,13 @@ def main() -> None:
     from csgrenderer_tpu_torch.kernels import megakernel as mk
     from csgrenderer_tpu_torch.kernels import tape_kernel as tk
     from csgrenderer_tpu_torch.math import quaternion as quat
+    from csgrenderer_tpu_torch.convert import sphere_scene_from_numpy
     from csgrenderer_tpu_torch.models import (
         animated_csg_scene,
         config3_csg_scene,
+        csg_night_scene,
         many_objects_scene,
+        night_scene,
         rtiow_final_scene,
         two_spheres_scene,
     )
@@ -226,14 +276,14 @@ def main() -> None:
     for name, b in builds.items():
         print(f"[chip_smoke] {b.path.name}: nvcc {b.seconds:.1f} s", flush=True)
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[chip_smoke] ptxas {name}: {line.strip()}", flush=True)
 
     # --- phase 2: each kernel against its plain version on the card
     print("[chip_smoke] bounds: rmse <= 2e-2, divergent (max channel err > 0.05) <= 1%, "
           "|rays - ref| <= max(2e-3 * ref, 8)", flush=True)
     mk_launches0, tk_launches0 = mk.LAUNCHES, tk.LAUNCHES
-    tk_global0 = tk.LAUNCHES_BY_MODE["global"]
+    tk_phase2 = dict(tk.LAUNCHES_BY_MODE)
 
     def cam_at(eye, at, vfov, aspect, **kw):
         return Camera.look_at(eye, at, vfov_degrees=vfov, aspect_ratio=aspect, device=dev, **kw)
@@ -297,6 +347,7 @@ def main() -> None:
         frames[f"sphere_megakernel[{mode}]"] = (
             sphere_ops(packed.n_brute, rays, w, h, extra["spp"]),
             nbytes(packed.spheres) + (0 if packed.grid is None else nbytes(packed.grid.cell_ids)),
+            w, h, "",
         )
 
     # the tape kernel
@@ -322,6 +373,7 @@ def main() -> None:
             tape_ops(packed, rays, w5, h5, kw5["spp"]),
             nbytes(packed.leaf_table, packed.leaf_types, packed.ops, packed.cluster_table,
                    packed.leaf_ids),
+            w5, h5, "",
         )
         if mode == "clustered":
             mhz = sm_clock_under_load(functools.partial(tk.render_image_tape_kernel, packed, cam5,
@@ -371,13 +423,110 @@ def main() -> None:
                cam_at((3, 2.5, 4), (0.1, 0, 0), 35.0, 1.0), "global",
                dict(width=256, height=256, spp=1, max_bounces=1, seed=3))
 
+    # --- the NEE variants: night scenes at the night benchmarks' frame, 2 spp
+    wn, hn, _, bn = bench.FRAMES["night"][0]
+    kwn = dict(width=wn, height=hn, spp=2, max_bounces=bn, seed=0, sky="black", nee=True)
+
+    def plain_counts(plain, packed, cam):
+        """The NEE work of the plain version's run of the frame, as ints."""
+        counts = {}
+        plain(packed, cam, counts=counts, **kwn)
+        return {k: int(v) for k, v in counts.items()}
+
+    night_cam = cam_at((6.5, 2.2, 6.5), (0.0, 0.6, 0.0), 32.0, wn / hn)
+    night_runs = {}
+    for mode, label, scene in (("brute", "night", night_scene(device=dev)),
+                               ("grid", "night488", night_scene(grid=11, device=dev))):
+        packed = mk.pack_scene(scene)
+        max_abs, ms, plain_ms, img, rays = check(
+            f"{mode}-nee {label} {wn}x{hn} spp2 b{bn}", packed, night_cam, mode, kwn, plain_reps=1)
+        night_runs[label] = (scene, mode, ms, img, rays)
+        name = f"sphere_megakernel[{mode}-nee]"
+        stats[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        c = plain_counts(mk.render_image_plain, packed, night_cam)
+        n_brute = packed.n_brute
+        frames[name] = (
+            sphere_ops(n_brute, rays, wn, hn, 2, "black") + nee_ops(
+                c, OPS["ray"] + 1, n_brute * OPS["sphere_test"], OPS["sphere_test"],
+                OPS["partner"]),
+            nbytes(packed.spheres, packed.lamps)
+            + (0 if packed.grid is None else nbytes(packed.grid.cell_ids)),
+            wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)",
+        )
+    # each night scene in the other sphere mode: brute-nee vs grid-nee on one scene
+    for label, (scene, mode, ms, img_auto, rays_auto) in night_runs.items():
+        other = "grid" if mode == "brute" else "brute"
+        forced = mk.pack_scene(scene, other == "grid")
+        (img, rays), ms_other = timed(functools.partial(
+            mk.render_image_kernel, forced, night_cam, **kwn), reps=3)
+        compare(f"{label} {wn}x{hn} kernel {other}-nee vs kernel {mode}-nee", img_auto, rays_auto,
+                img, rays)
+        brute_ms, grid_ms = (ms, ms_other) if mode == "brute" else (ms_other, ms)
+        print(f"[chip_smoke] {label} {wn}x{hn} spp2 b{bn}: kernel brute-nee {brute_ms:.3f} ms, "
+              f"grid-nee {grid_ms:.3f} ms ({brute_ms / grid_ms:.2f}x; {card})", flush=True)
+
+    csg_cam = cam_at((4.5, 2.6, 4.8), (0.0, 0.8, 0.3), 38.0, wn / hn)
+    night_tape = csg_night_scene().compile(k=4, device=dev)
+    packed = tk.pack_program(night_tape)
+    max_abs, ms, plain_ms, img_c, rays_c = tape_check(
+        f"tape csgnight clustered-nee {wn}x{hn} spp2 b{bn}", packed, csg_cam, "clustered", kwn,
+        plain_reps=1)
+    stats["tape_kernel[clustered-nee]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    c = plain_counts(tk.render_image_tape_plain, packed, csg_cam)
+    n_lamps = packed.lamp_ids.numel()
+    frames["tape_kernel[clustered-nee]"] = (
+        tape_ops(packed, rays_c, wn, hn, 2, "black") + nee_ops(
+            c, 1, leaf_interval_ops(packed, range(packed.tape.n_leaves))
+            + 2 * packed.tape.n_leaves * OPS["candidate_test"],
+            leaf_interval_ops(packed, packed.clusters[0][1]),
+            OPS["partner"] + n_lamps * OPS["lamp_match"]),
+        nbytes(packed.leaf_table, packed.leaf_types, packed.ops, packed.cluster_table,
+               packed.leaf_ids, packed.lamp_ids),
+        wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)",
+    )
+    (img_g, rays_g), ms_g = timed(functools.partial(
+        tk.render_image_tape_kernel, tk.pack_program(night_tape, False), csg_cam, **kwn), reps=3)
+    compare(f"tape csgnight {wn}x{hn} kernel global-nee vs kernel clustered-nee", img_c, rays_c,
+            img_g, rays_g)
+    print(f"[chip_smoke] tape csgnight {wn}x{hn} spp2 b{bn}: kernel clustered-nee {ms:.3f} ms, "
+          f"global-nee {ms_g:.3f} ms ({card})", flush=True)
+
+    # the blocker scene of tests/test_nee.py: a sphere between the lamp and
+    # the floor must cast its umbra through the grid-nee shadow rays
+    rng = np.random.default_rng(11)
+
+    def blocker_scene(radius):
+        centers = [[0.0, -1000.0, 0.0], [0.0, 4.0, 0.0], [0.0, 2.0, 0.0]]
+        radii, kinds = [1000.0, 0.5, radius], [1, 4, 1]
+        albs, prms = [[0.7, 0.7, 0.7], [20.0, 20.0, 20.0], [0.1, 0.1, 0.1]], [0.0, 0.0, 0.0]
+        for k in range(60):  # a filler ring far from the shadow axis, so the scene grids
+            ang = 2 * np.pi * k / 60
+            centers.append([6.0 * np.cos(ang), 0.2, 6.0 * np.sin(ang)])
+            radii.append(0.2)
+            kinds.append(1)
+            albs.append(rng.random(3).tolist())
+            prms.append(0.0)
+        return sphere_scene_from_numpy(centers, radii, kinds, albs, prms, dev)
+
+    blocker_cam = cam_at((0.0, 3.0, 6.0), (0.0, 0.0, 0.0), 40.0, 1.0)
+    umbra = {}
+    for name, radius in (("blocked", 0.8), ("open", 1e-4)):
+        img = check(f"grid-nee blocker {name} 32x32 spp8 b3", mk.pack_scene(blocker_scene(radius), True),
+                    blocker_cam, "grid", dict(width=32, height=32, spp=8, max_bounces=3, seed=4,
+                                              sky="black", nee=True))[3]
+        umbra[name] = float(img[12:20, 12:20].mean())
+    print(f"[chip_smoke] blocker umbra {umbra['blocked']:.4f} vs open {umbra['open']:.4f} "
+          f"(must be < 25%: {umbra['blocked'] / umbra['open']:.1%})", flush=True)
+    if not umbra["blocked"] < 0.25 * umbra["open"]:
+        fail("the blocker casts no umbra through the grid-nee shadow rays")
+
     if mk.LAUNCHES <= mk_launches0 or tk.LAUNCHES <= tk_launches0:
         fail("LAUNCHES did not increase in phase 2")
-    global_launches = tk.LAUNCHES_BY_MODE["global"] - tk_global0
-    if global_launches == 0:
-        fail("tape_kernel[global] never launched in phase 2")
+    phase2 = {m: tk.LAUNCHES_BY_MODE[m] - tk_phase2[m] for m in ("global", "global-nee")}
+    if not all(phase2.values()):
+        fail(f"tape_kernel modes never launched in phase 2: {phase2}")
     print(f"[chip_smoke] phase 2 ok: {mk.LAUNCHES - mk_launches0} sphere and "
-          f"{tk.LAUNCHES - tk_launches0} tape kernel launches ({global_launches} global)", flush=True)
+          f"{tk.LAUNCHES - tk_launches0} tape kernel launches ({phase2})", flush=True)
 
     # --- phase 3: the main paths (benchmarks + render CLI), counts from zero
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -388,44 +537,49 @@ def main() -> None:
     t0 = time.perf_counter()
     result, img = bench.run_bench(quick=False, frames=3, device="cuda")
     result5, img5 = bench.run_bench(scene="deepcsg", quick=False, frames=3, device="cuda")
+    nee_benches = {scene: bench.run_bench(scene=scene, quick=False, frames=3, device="cuda")
+                   for scene in ("night", "night488", "csgnight")}
     pngs = {}
-    for scene in ("diffuse", "csg", "manyobjects"):
-        pngs[scene] = os.path.join(OUT_DIR, f"{scene}_1080p.png")
-        cli_main(["render", "--scene", scene, "--width", "1920", "--height", "1080",
+    for scene, (fw, fh) in (("diffuse", (1920, 1080)), ("csg", (1920, 1080)),
+                            ("manyobjects", (1920, 1080)), ("csgnight", (wn, hn))):
+        pngs[scene] = os.path.join(OUT_DIR, f"{scene}_{fh}p.png")
+        cli_main(["render", "--scene", scene, "--width", str(fw), "--height", str(fh),
                   "--spp", "16", "--device", "cuda", "--out", pngs[scene]])
     torch.cuda.synchronize()
     counts = {f"sphere_megakernel[{m}]": n for m, n in mk.LAUNCHES_BY_MODE.items()}
     counts.update({f"tape_kernel[{m}]": n for m, n in tk.LAUNCHES_BY_MODE.items()})
     print(f"[chip_smoke] main path took {time.perf_counter() - t0:.1f} s; launches {counts}",
           flush=True)
-    print(json.dumps(result), flush=True)
-    print(json.dumps(result5), flush=True)
-    for name, res, image, full in (("rtiow", result, img, bench.FRAMES["rtiow"][0]),
-                                   ("deepcsg", result5, img5, bench.FRAMES["deepcsg"][0])):
-        fw, fh, fspp, _ = full
+    benches = {"rtiow": (result, img), "deepcsg": (result5, img5), **nee_benches}
+    for name, (res, image) in benches.items():
+        print(json.dumps(res), flush=True)
+        fw, fh, fspp, _ = bench.FRAMES[name][0]
         if tuple(image.shape) != (fh, fw, 3) or not bool(torch.isfinite(image).all()):
             fail(f"{name} bench image has shape {tuple(image.shape)} or non-finite pixels")
         if res["rays"] // res["frames"] < fw * fh * fspp:
             fail(f"{name} bench traced fewer rays per frame than one per sample")
+        if not float(image.max()) > 0.0:
+            fail(f"{name} bench image is black")
     missing = [p for p in pngs.values() if not os.path.isfile(p)]
     if missing:
         fail(f"render CLI wrote no PNG: {missing}")
     idle = [k for k in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",
-                        "tape_kernel[clustered]") if counts[k] == 0]
+                        "sphere_megakernel[grid-nee]", "sphere_megakernel[brute-nee]",
+                        "tape_kernel[clustered]", "tape_kernel[clustered-nee]") if counts[k] == 0]
     if idle:
         fail(f"kernel modes never launched on the main path: {idle}")
 
     kernels = []
-    for name in ("sphere_megakernel[grid]", "sphere_megakernel[brute]", "tape_kernel[clustered]",
-                 "tape_kernel[global]"):
+    for name in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",
+                 "sphere_megakernel[grid-nee]", "sphere_megakernel[brute-nee]",
+                 "tape_kernel[clustered]", "tape_kernel[global]", "tape_kernel[clustered-nee]"):
         base = name.split("[")[0]
         source, replaces = KERNELS[base]
-        ops, table_bytes = frames[name]
-        fw, fh = (w5, h5) if base == "tape_kernel" else (w, h)
+        ops, table_bytes, fw, fh, note = frames[name]
         bound_ms, bound_by, _, total_bytes = bound(ops, table_bytes, fw, fh, mhz)
-        print(f"[chip_smoke] {name} frame: {ops} FP32 ops, {total_bytes} bytes -> bound "
+        print(f"[chip_smoke] {name} frame {fw}x{fh}: {ops} FP32 ops, {total_bytes} bytes -> bound "
               f"{bound_ms:.3f} ms ({bound_by}; {SMS}x{LANES} lanes at {mhz:.0f} MHz, "
-              f"{HBM_BYTES_PER_S / 1e12} TB/s)", flush=True)
+              f"{HBM_BYTES_PER_S / 1e12} TB/s){note}", flush=True)
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=counts[name], **stats[name], bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=None))

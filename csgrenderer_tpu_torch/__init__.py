@@ -14,13 +14,15 @@ Layer map (bottom-up), mirroring ``csgrenderer_tpu``:
                disjoint-cluster decomposition
 - ``render``   counter-based RNG, materials, sphere and CSG-leaf
                intersection, interval lists and the tape evaluator, the
-               plain torch integrator (the reference path) and tonemapping
+               plain torch integrator (the reference path), next-event
+               estimation toward lamps (``lights``) and tonemapping
 - ``kernels``  the grid packer with its plain DDA, the CUDA sphere
                megakernel (grid and brute modes), the CUDA CSG tape kernel
-               (event flip, global and clustered), and their build
+               (event flip, global and clustered), each with an NEE
+               variant, and their build
 - ``io``       PNG/PPM
-- ``models``   built-in scenes (two spheres, RTIOW final, the CSG configs
-               3 and 5, many objects)
+- ``models``   built-in scenes (two spheres, RTIOW final, the night
+               scenes, the CSG configs 3 and 5, many objects, CSG night)
 - ``convert``  numpy state of the JAX package -> this package's containers
 
 Importing the package initialises no CUDA context and imports no

@@ -3,10 +3,13 @@
 Commands:
   render     render a built-in scene to PNG: the sphere scenes rtiow and
              diffuse, the CSG tapes csg (config 3), deepcsg (config 5 at
-             t = 1.0) and manyobjects
+             t = 1.0), manyobjects and csgnight (black sky, emissive sphere
+             leaves, next-event estimation)
   bench      run the benchmark (same as ``python -m csgrenderer_tpu_torch.bench``)
 
-The other scenes of the JAX package's CLI are not ported yet.
+``render`` runs on the GPU (``--device cuda``, the default) and exits
+non-zero on a host without CUDA; ``--device cpu`` runs the plain torch
+version. The other scenes of the JAX package's CLI are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,9 +19,9 @@ import sys
 
 import torch
 
-PORTED = ("rtiow", "diffuse", "csg", "deepcsg", "manyobjects")
-NOT_PORTED = ("milestone01", "csgnight", "meshnight")
-TAPE_SCENES = ("csg", "deepcsg", "manyobjects")
+PORTED = ("rtiow", "diffuse", "csg", "deepcsg", "manyobjects", "csgnight")
+NOT_PORTED = ("milestone01", "meshnight")
+TAPE_SCENES = ("csg", "deepcsg", "manyobjects", "csgnight")
 
 
 def _build(scene_name: str, aspect: float, device):
@@ -27,6 +30,7 @@ def _build(scene_name: str, aspect: float, device):
     from .models import (
         animated_csg_scene,
         config3_csg_scene,
+        csg_night_scene,
         many_objects_scene,
         rtiow_final_scene,
         two_spheres_scene,
@@ -45,6 +49,10 @@ def _build(scene_name: str, aspect: float, device):
         cam = Camera.look_at((9.0, 7.5, 12.0), (0.0, 0.3, 0.0), vfov_degrees=42.0,
                              aspect_ratio=aspect, device=device)
         return many_objects_scene().compile(device=device), cam, dict()
+    if scene_name == "csgnight":
+        cam = Camera.look_at((4.5, 2.6, 4.8), (0.0, 0.8, 0.3), vfov_degrees=38.0,
+                             aspect_ratio=aspect, device=device)
+        return csg_night_scene().compile(k=4, device=device), cam, dict(sky="black", nee=True)
     if scene_name == "diffuse":
         cam = Camera.look_at((0, 0, 0), (0, 0, -1), vfov_degrees=90.0,
                              aspect_ratio=aspect, device=device)
@@ -63,7 +71,10 @@ def cmd_render(args) -> None:
     from .kernels.tape_kernel import render_image_tape_kernel
     from .render.tonemap import tonemap, to_uint8
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = args.device
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: render runs the GPU kernels by default; "
+                         "--device cpu runs the plain version")
     scene, camera, extra = _build(args.scene, args.width / args.height, device)
     render = render_image_tape_kernel if args.scene in TAPE_SCENES else render_image_kernel
     img, rays = render(
@@ -86,7 +97,8 @@ def main(argv=None) -> None:
     r.add_argument("--spp", type=int, default=8)
     r.add_argument("--bounces", type=int, default=8)
     r.add_argument("--seed", type=int, default=0)
-    r.add_argument("--device", default=None, help="cuda or cpu (default: cuda if present)")
+    r.add_argument("--device", default="cuda",
+                   help="cuda (the kernels, the default) or cpu (the plain torch version)")
     r.add_argument("--out", default="out.png")
     r.set_defaults(fn=cmd_render)
 

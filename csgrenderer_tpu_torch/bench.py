@@ -12,13 +12,22 @@ the JAX package) and ``tools/bench_tape.py``. ``--scene`` picks the frame:
   1920x1080, 64 spp, 5 bounces, rendered by the CUDA tape kernel;
 - ``manyobjects``: ``many_objects_scene(99).compile(k=4)`` (199 leaves,
   100 clusters), camera (0, 7, 9) -> (0, 0.4, 0), vfov 45, at 1280x720,
-  16 spp, 8 bounces, through the tape kernel.
+  16 spp, 8 bounces, through the tape kernel;
+- the night scenes, black sky and next-event estimation (MIS) toward
+  their emissive sphere lamps, at the NEE frame of doc/PERF_NOTES.md
+  (960x540, 64 spp, 6 bounces): ``night`` (``night_scene()``, 148
+  spheres, the sphere kernel's brute mode) and ``night488``
+  (``night_scene(grid=11)``, 488 spheres, grid mode), both through demo
+  8's camera (6.5, 2.2, 6.5) -> (0, 0.6, 0), vfov 32; ``csgnight``
+  (``csg_night_scene().compile(k=4)``, clustered) through demo 9's
+  camera (4.5, 2.6, 4.8) -> (0, 0.8, 0.3), vfov 38, on the tape kernel.
+  Shadow rays are not counted as segments.
 
 Prints ONE JSON line:
 
   {"metric": "Mrays/sec/chip", "value": N, "p50_frame_ms_16spp": N, ...}
 
-(the CSG scenes add ``"scene"``).
+(every scene but rtiow adds ``"scene"``).
 
 ``value`` is the median-frame throughput over ``--frames`` identical
 frames (fresh sample offsets each), ``value_mean`` the mean; rays are
@@ -30,11 +39,12 @@ Usage:
   python -m csgrenderer_tpu_torch.bench                   # full frame, on the GPU
   python -m csgrenderer_tpu_torch.bench --quick           # 320x180, 4 spp
   python -m csgrenderer_tpu_torch.bench --scene deepcsg   # config 5, 1080p/64 spp
+  python -m csgrenderer_tpu_torch.bench --scene night     # NEE, 960x540/64 spp
 
-Without a CUDA device (or with ``--device cpu``) the plain torch version
-runs on the CPU and the line says ``"platform": "cpu"``, ``"backend":
-"torch-plain"``: a smoke run, not a measurement. ``--device cuda`` on a
-host without CUDA fails.
+The benchmark runs on the GPU (``--device cuda``, the default) and exits
+non-zero on a host without CUDA. ``--device cpu`` runs the plain torch
+version on the CPU instead, and the line says ``"platform": "cpu"``,
+``"backend": "torch-plain"``: a smoke run, not a measurement.
 """
 
 from __future__ import annotations
@@ -50,16 +60,30 @@ import torch
 
 from .camera import Camera
 from .kernels import megakernel, tape_kernel
-from .models import animated_csg_scene, many_objects_scene, rtiow_final_scene
+from .models import (
+    animated_csg_scene,
+    csg_night_scene,
+    many_objects_scene,
+    night_scene,
+    rtiow_final_scene,
+)
 
 # scene -> (full, quick) frames as (width, height, spp, bounces)
 FRAMES = {
     "rtiow": ((1920, 1080, 64, 8), (320, 180, 4, 8)),
     "deepcsg": ((1920, 1080, 64, 5), (320, 180, 4, 5)),
     "manyobjects": ((1280, 720, 16, 8), (320, 180, 4, 8)),
+    "night": ((960, 540, 64, 6), (320, 180, 4, 6)),
+    "night488": ((960, 540, 64, 6), (320, 180, 4, 6)),
+    "csgnight": ((960, 540, 64, 6), (320, 180, 4, 6)),
 }
 FULL, QUICK = FRAMES["rtiow"]
-KERNEL_NAME = {"rtiow": "sphere_megakernel", "deepcsg": "tape_kernel", "manyobjects": "tape_kernel"}
+KERNEL_NAME = {"rtiow": "sphere_megakernel", "deepcsg": "tape_kernel", "manyobjects": "tape_kernel",
+               "night": "sphere_megakernel", "night488": "sphere_megakernel",
+               "csgnight": "tape_kernel"}
+LABEL = {"rtiow": "RTIOW-final", "deepcsg": "config5-deepcsg-t1", "manyobjects": "many-objects-99",
+         "night": "night-148-nee", "night488": "night-488-nee", "csgnight": "csg-night-nee"}
+NO_CUDA = "no CUDA device: the benchmark measures the GPU kernel (--device cpu runs the plain version)"
 
 
 def card_info() -> str | None:
@@ -98,6 +122,17 @@ def build_renderer(width: int, height: int, spp: int, bounces: int, device, scen
         camera = Camera.look_at((0.0, 7.0, 9.0), (0.0, 0.4, 0.0), vfov_degrees=45.0,
                                 aspect_ratio=aspect, device=device)
         render, extra = tape_kernel.render_image_tape_kernel, dict()
+    elif scene in ("night", "night488"):
+        packed = megakernel.pack_scene(night_scene(grid=6 if scene == "night" else 11,
+                                                   device=device))
+        camera = Camera.look_at((6.5, 2.2, 6.5), (0.0, 0.6, 0.0), vfov_degrees=32.0,
+                                aspect_ratio=aspect, device=device)
+        render, extra = megakernel.render_image_kernel, dict(sky="black", nee=True)
+    elif scene == "csgnight":
+        packed = tape_kernel.pack_program(csg_night_scene().compile(k=4, device=device))
+        camera = Camera.look_at((4.5, 2.6, 4.8), (0.0, 0.8, 0.3), vfov_degrees=38.0,
+                                aspect_ratio=aspect, device=device)
+        render, extra = tape_kernel.render_image_tape_kernel, dict(sky="black", nee=True)
     else:
         raise ValueError(f"unknown scene {scene!r}; choose from {sorted(FRAMES)}")
 
@@ -107,7 +142,7 @@ def build_renderer(width: int, height: int, spp: int, bounces: int, device, scen
             seed=0, sample_offset=sample_offset, **extra,
         )
 
-    return run, packed.mode
+    return run, packed.mode + ("-nee" if extra.get("nee") else "")
 
 
 def _sync(device) -> None:
@@ -157,7 +192,7 @@ def run_bench(quick: bool = False, frames: int = 5, device="cuda", trace: bool =
     """Measure; returns (the JSON-able result, the last full-config image)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the benchmark measures the GPU kernel")
+        raise RuntimeError(NO_CUDA)
     if scene not in FRAMES:
         raise ValueError(f"unknown scene {scene!r}; choose from {sorted(FRAMES)}")
     width, height, spp, bounces = FRAMES[scene][1 if quick else 0]
@@ -180,13 +215,11 @@ def run_bench(quick: bool = False, frames: int = 5, device="cuda", trace: bool =
         device_name = torch.cuda.get_device_name(device)
     else:
         card, power, device_name = None, None, "cpu"
-    label = {"rtiow": "RTIOW-final", "deepcsg": "config5-deepcsg-t1",
-             "manyobjects": "many-objects-99"}[scene]
     result = {
         "metric": "Mrays/sec/chip",
         "value": mrays,
         "unit": "Mrays/s",
-        "config": f"{label} {width}x{height} spp={spp} bounces={bounces} mode={mode}",
+        "config": f"{LABEL[scene]} {width}x{height} spp={spp} bounces={bounces} mode={mode}",
         "p50_frame_ms_16spp": p50_ms,
         "backend": "cuda-kernel" if device.type == "cuda" else "torch-plain",
         "platform": "gpu" if device.type == "cuda" else "cpu",
@@ -209,17 +242,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m csgrenderer_tpu_torch.bench", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--scene", default="rtiow", choices=sorted(FRAMES),
-                    help="rtiow (spheres, the default), deepcsg (config 5) or manyobjects")
+                    help="rtiow (spheres, the default), deepcsg (config 5), manyobjects, "
+                         "or the NEE night scenes night, night488 and csgnight")
     ap.add_argument("--quick", action="store_true", help="320x180, 4 spp")
     ap.add_argument("--frames", type=int, default=5)
-    ap.add_argument("--device", default=None,
-                    help="cuda (the kernel) or cpu (the plain torch version); "
-                         "default: cuda if present")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernel, the default) or cpu (the plain torch version)")
     ap.add_argument("--trace", action="store_true",
                     help="add one profiled frame: kernel and device busy time, idle share")
     args = ap.parse_args(argv)
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
-    result, _ = run_bench(args.quick, args.frames, device, args.trace, args.scene)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        print(f"error: {NO_CUDA}", file=sys.stderr)
+        return 2
+    result, _ = run_bench(args.quick, args.frames, args.device, args.trace, args.scene)
     print(json.dumps(result))
     return 0
 

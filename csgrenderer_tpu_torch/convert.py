@@ -1,6 +1,7 @@
 """Carry state from the JAX package into this one.
 
-The JAX package's scenes, CSG tapes and cameras are pytrees of arrays;
+The JAX package's scenes, CSG tapes, cameras and lamp tables are pytrees
+of arrays;
 handed over as numpy arrays (``np.asarray(field)``) and plain tuples,
 these functions rebuild them as this package's containers, so both
 packages render the identical scene through the identical camera. Nothing
@@ -14,6 +15,7 @@ import torch
 
 from .camera.pinhole import Camera
 from .render.integrator import SphereScene
+from .render.lights import SphereLights, TriLights
 from .scene.tape import CompiledTape
 
 
@@ -71,3 +73,19 @@ def tape_from_numpy(ops, leaf_types, leaf_chains, k, stack_depth, leaf_params, e
     if tuple(tape.mat_kind.shape) != (n,) or tuple(tape.mat_param.shape) != (n,):
         raise ValueError("inconsistent tape arrays")
     return tape
+
+
+def lights_from_numpy(*fields, device=None) -> SphereLights | TriLights:
+    """SphereLights from (centers [L,3], radii [L], emit [L,3]), or
+    TriLights from (v0, e1, e2, emit, normal [L,3] each, area [L]): a JAX
+    lamp table's fields in its own order."""
+    kind = {3: SphereLights, 6: TriLights}.get(len(fields))
+    if kind is None:
+        raise ValueError(f"expected 3 (sphere) or 6 (triangle) lamp arrays, got {len(fields)}")
+    lights = kind(*(_f32(f, device) for f in fields))
+    n = lights.num_lights
+    shapes = [tuple(t.shape) for t in lights]
+    want = [(n,) if name in ("radii", "area") else (n, 3) for name in kind._fields]
+    if shapes != want:
+        raise ValueError(f"inconsistent lamp arrays: {shapes}")
+    return lights

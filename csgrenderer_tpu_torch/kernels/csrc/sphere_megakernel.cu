@@ -1,21 +1,42 @@
-// Sphere path-tracing megakernel for Hopper (sm_90a), grid and brute modes.
+// Sphere path-tracing megakernel for Hopper (sm_90a), grid and brute modes,
+// each with and without next-event estimation (NEE).
 //
 // Replaces csgrenderer_tpu/kernels/megakernel.py::_make_kernel (the Pallas
-// TPU kernel launched by _render_packed) in both of its sphere modes:
+// TPU kernel launched by _render_packed) in its sphere modes:
 //   - grid mode: the globals (ground, heroes, spilled spheres) are brute
 //     forced, then a per-ray 2D xz-grid DDA walks m-slot cell lists
 //     (worklist.grid_setup / grid_step);
-//   - brute mode: every sphere is tested against every ray (intersect_tile).
+//   - brute mode: every sphere is tested against every ray (intersect_tile);
+//   - the NEE variant (n_lights > 0: the brute pass's occlusion_t and the
+//     grid path's nee_sample / nee_mis_scale hooks): at every Lambertian or
+//     glossy hit one lamp of the [n_lights, 8] table is cone-sampled and a
+//     shadow ray decides its MIS-weighted contribution; lamp emission found
+//     by such a vertex's scatter carries the partner weight.
 // It computes what the TPU kernel computes (RTIOW materials, PCG4D counters
 // keyed by (pixel, sample, bounce, seed), per-pixel radiance over spp,
-// traced-segment counts), not its block structure: one thread per pixel,
-// looping over samples and bounces. Next-event estimation is not here.
+// traced-segment counts; shadow rays are not counted), not its block
+// structure: one thread per pixel, looping over samples and bounces, and a
+// shadow ray is a function call inside the bounce loop (the Pallas grid
+// path's shadow segments woven into the wavefront were a TPU occupancy
+// device).
+//
+// Shadow rays: built as a Ray and tested with the same sphere_t as the path
+// rays (not the Pallas unit-direction occlusion shortcut), against every
+// sphere in brute mode, against the globals and then the grid walk, whose
+// t_best starts at the lamp distance so its exit clamps there, in grid
+// mode. The visibility rule is the plain version's identity-free one: the
+// lamp is occluded iff some hit lies below tl * (1 - 1e-4); the search
+// stops at the first such hit, which gives the same answer. The Pallas grid
+// path also excluded the lamp's own hit by sphere id, to absorb the drift
+// of its bf16 tables; these tables are exact f32, so the id is not read
+// (the lamp table keeps it, column 7, for the packer's layout).
 //
 // What bounds it on an H100: divergent FP32 ALU work (threads of a warp
-// take different materials, bounce counts and DDA walk lengths) and the
-// dependent global loads of each DDA step (cell list, then each listed
-// sphere). This first version does nothing yet about either: no ray
-// regeneration or compaction, no shared-memory staging of the tables.
+// take different materials, bounce counts and DDA walk lengths; with NEE,
+// some take a shadow ray and others not) and the dependent global loads of
+// each DDA step (cell list, then each listed sphere). This first version
+// does nothing yet about either: no ray regeneration or compaction, no
+// shared-memory staging of the tables.
 //
 // Numerics: the kernel repeats, operation for operation and in the same
 // order, the float arithmetic of its plain torch version (the reference's
@@ -47,6 +68,8 @@ struct Params {
   const int* cell_ids;   // [cx*cz, m] reordered sphere ids, -1 = empty (grid mode)
   int cx, cz, m, max_steps;
   float x0, z0, x1, z1, y_lo, y_hi, cell, inv_cell;
+  const float4* lamps;   // [n_lamps, 2] float4: (cx,cy,cz,|r|) (er,eg,eb,sphere id) (NEE)
+  int n_lamps;
   int width, height, spp, max_bounces;
   uint32_t seed, sample_offset;
   int lens, sky;         // sky: 0 rtiow, 1 wololo, 2 black
@@ -58,6 +81,18 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
   float od, oo, a, inv_a;  // o.d, o.o, d.d, 1/d.d
 };
+
+// The per-ray terms as intersect.ray_terms forms them.
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx, float dy,
+                                        float dz) {
+  Ray ray;
+  ray.ox = ox; ray.oy = oy; ray.oz = oz; ray.dx = dx; ray.dy = dy; ray.dz = dz;
+  ray.od = ox * dx + oy * dy + oz * dz;
+  ray.oo = ox * ox + oy * oy + oz * oz;
+  ray.a = dx * dx + dy * dy + dz * dz;
+  ray.inv_a = 1.0f / ray.a;
+  return ray;
+}
 
 // Nearest root past kTMin of the expanded quadratic (intersect.quadratic_t),
 // or kBig. g0 = (cx, cy, cz, r2), cc = c.c.
@@ -146,7 +181,23 @@ __device__ void grid_walk(const Params& p, const Ray& r, float& t_best, int& id_
   }
 }
 
+// A shadow ray from (ox, oy, oz) along (dx, dy, dz): true iff a sphere is
+// hit below t_max (the plain version's nearest hit, compared with t_max).
 template <bool kGrid>
+__device__ __forceinline__ bool occluded(const Params& p, float ox, float oy, float oz, float dx,
+                                         float dy, float dz, float t_max) {
+  const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
+  for (int i = 0; i < p.n_brute; ++i) {
+    if (sphere_t(p, ray, i) < t_max) return true;
+  }
+  if (!kGrid) return false;
+  float t_best = t_max;
+  int id_best = 0;
+  grid_walk(p, ray, t_best, id_best);
+  return t_best < t_max;
+}
+
+template <bool kGrid, bool kNee>
 __global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -164,16 +215,12 @@ __global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
     const uint32_t s = static_cast<uint32_t>(k) + p.sample_offset;
     csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
     path.sr = 0.0f; path.sg = 0.0f; path.sb = 0.0f;
+    float prev_pdf = 0.0f;  // NEE: pdf of the scatter that made this ray, 0 on camera rays
     for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
       ++rays;
       const float ox = path.ox, oy = path.oy, oz = path.oz;
       const float dx = path.dx, dy = path.dy, dz = path.dz;
-      Ray ray;
-      ray.ox = ox; ray.oy = oy; ray.oz = oz; ray.dx = dx; ray.dy = dy; ray.dz = dz;
-      ray.od = ox * dx + oy * dy + oz * dz;
-      ray.oo = ox * ox + oy * oy + oz * oz;
-      ray.a = dx * dx + dy * dy + dz * dz;
-      ray.inv_a = 1.0f / ray.a;
+      const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
 
       // nearest hit: brute pass (all spheres, or the globals), then the walk
       float t_best = kBig;
@@ -203,11 +250,45 @@ __global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
       const float onx = (hx - g0.x) / rad, ony = (hy - g0.y) / rad, onz = (hz - g0.z) / rad;
       const bool front = dx * onx + dy * ony + dz * onz < 0.0f;
       const float sgn = front ? 1.0f : -1.0f;
-      if (!csgr::shade(path, hx, hy, hz, onx * sgn, ony * sgn, onz * sgn, front,
-                       static_cast<int>(g1.z), g1.w, g2.x, g2.y, g2.z, udx, udy, udz,
-                       pix, s, static_cast<uint32_t>(bounce), p.seed)) {
+      const int kind = static_cast<int>(g1.z);
+      if (!kNee) {
+        if (!csgr::shade(path, hx, hy, hz, onx * sgn, ony * sgn, onz * sgn, front, kind, g1.w,
+                         g2.x, g2.y, g2.z, udx, udy, udz, pix, s,
+                         static_cast<uint32_t>(bounce), p.seed)) {
+          break;
+        }
+        continue;
+      }
+
+      const float nx = onx * sgn, ny = ony * sgn, nz = onz * sgn;
+      // a lamp reached by a pairable scatter: its own centre and |r| give the
+      // partner weight (common.bsdf_mis_scale_planes)
+      const float emit_scale = kind == 4 && prev_pdf > 0.0f
+          ? csgr::partner_weight(g0.x, g0.y, g0.z, fabsf(rad), ox, oy, oz, prev_pdf, p.n_lamps)
+          : 1.0f;
+      const bool lambertian = kind == 1;
+      const bool glossy = kind == 2 && g1.w > csgr::kGlossyFuzz;
+      if (lambertian || glossy) {
+        float u1, u2;
+        const int li = csgr::nee_pick(pix, s, static_cast<uint32_t>(bounce), p.seed, p.n_lamps,
+                                      u1, u2);
+        const float4 l0 = __ldg(p.lamps + 2 * li), l1 = __ldg(p.lamps + 2 * li + 1);
+        csgr::LampSample ls;
+        if (csgr::nee_sample(hx, hy, hz, nx, ny, nz, lambertian, g1.w, udx, udy, udz, g2.x, g2.y,
+                             g2.z, l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, p.n_lamps, u1, u2,
+                             ls) &&
+            !occluded<kGrid>(p, hx, hy, hz, ls.dx, ls.dy, ls.dz, ls.tl * csgr::kShadowScale)) {
+          path.sr += path.tr * ls.wr;
+          path.sg += path.tg * ls.wg;
+          path.sb += path.tb * ls.wb;
+        }
+      }
+      if (!csgr::shade<true>(path, hx, hy, hz, nx, ny, nz, front, kind, g1.w, g2.x, g2.y, g2.z,
+                             udx, udy, udz, pix, s, static_cast<uint32_t>(bounce), p.seed,
+                             emit_scale)) {
         break;
       }
+      prev_pdf = csgr::carried_pdf(path, lambertian, glossy, nx, ny, nz, g1.w, udx, udy, udz);
     }
     acc_r += path.sr;
     acc_g += path.sg;
@@ -226,7 +307,8 @@ __global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
 extern "C" int csgr_sphere_render(
     const void* cam, const void* spheres, int n_brute, const void* cell_ids,
     int cx, int cz, int m, int max_steps, float x0, float z0, float x1, float z1,
-    float y_lo, float y_hi, float cell, float inv_cell, int width, int height,
+    float y_lo, float y_hi, float cell, float inv_cell, const void* lamps, int n_lamps,
+    int width, int height,
     int spp, int max_bounces, unsigned int seed, unsigned int sample_offset,
     int lens, int sky, void* out_rgb, void* out_rays, void* stream) {
   Params p;
@@ -237,6 +319,8 @@ extern "C" int csgr_sphere_render(
   p.cx = cx; p.cz = cz; p.m = m; p.max_steps = max_steps;
   p.x0 = x0; p.z0 = z0; p.x1 = x1; p.z1 = z1;
   p.y_lo = y_lo; p.y_hi = y_hi; p.cell = cell; p.inv_cell = inv_cell;
+  p.lamps = static_cast<const float4*>(lamps);
+  p.n_lamps = n_lamps;
   p.width = width; p.height = height; p.spp = spp; p.max_bounces = max_bounces;
   p.seed = seed; p.sample_offset = sample_offset;
   p.lens = lens; p.sky = sky;
@@ -246,10 +330,17 @@ extern "C" int csgr_sphere_render(
   const dim3 block(16, 8);
   const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool nee = n_lamps > 0;
   if (p.cell_ids != nullptr) {
-    sphere_megakernel<true><<<grid, block, 0, st>>>(p);
+    if (nee) {
+      sphere_megakernel<true, true><<<grid, block, 0, st>>>(p);
+    } else {
+      sphere_megakernel<true, false><<<grid, block, 0, st>>>(p);
+    }
+  } else if (nee) {
+    sphere_megakernel<false, true><<<grid, block, 0, st>>>(p);
   } else {
-    sphere_megakernel<false><<<grid, block, 0, st>>>(p);
+    sphere_megakernel<false, false><<<grid, block, 0, st>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }

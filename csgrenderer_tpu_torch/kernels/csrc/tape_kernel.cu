@@ -1,9 +1,11 @@
-// CSG tape path-tracing kernel for Hopper (sm_90a), event-flip mode.
+// CSG tape path-tracing kernel for Hopper (sm_90a), event-flip mode, with
+// and without next-event estimation (NEE).
 //
 // Replaces csgrenderer_tpu/kernels/tape_kernel.py::_make_kernel +
 // _render_tape_packed (the Pallas TPU kernel) in its production mode,
-// tape_hit_events, global and clustered (scene/partition.py). It computes
-// what that kernel computes, not its block structure:
+// tape_hit_events, global and clustered (scene/partition.py), and its NEE
+// variant (nee_lamps). It computes what that kernel computes, not its block
+// structure:
 //   - per traced segment, every leaf's (enter, exit) interval in its local
 //     frame (sphere, half-space, box, cylinder; _leaf_interval);
 //   - the nearest CSG surface: the smallest leaf boundary t where the
@@ -14,7 +16,16 @@
 //     all leaves in index order (strict <), gives normal and material;
 //   - RTIOW shading with `entering` as the dielectric's front face, PCG4D
 //     counters keyed by (pixel, sample, bounce, seed), per-pixel radiance
-//     over spp and the traced-segment count (path_common.cuh).
+//     over spp and the traced-segment count (path_common.cuh);
+//   - NEE: the lamps are the tape's emissive sphere leaves, given as leaf
+//     ids and read (position, |radius|, albedo) from the leaf table in
+//     shared memory, so a re-baked tape moves them. At every Lambertian or
+//     glossy hit one lamp is cone-sampled; its shadow ray is the same flip
+//     search without attribution (JAX's occlusion_t), stopped at the first
+//     flip below tl * (1 - 1e-4). Lamp emission found by a pairable scatter
+//     carries the partner weight of the lamp nearest the hit point by
+//     |dist - r| over the lamp table (bsdf_mis_scale_table_planes). Shadow
+//     rays are not counted as segments.
 // One thread per pixel loops over samples and bounces. The tape is data,
 // not code: the leaf table, leaf types, op table and cluster table are
 // staged in shared memory per block and interpreted at run time, so a new
@@ -29,8 +40,7 @@
 // skip). This first version keeps each ray's leaf intervals in a
 // per-thread array (local memory, cap kMaxLeaves), attributes over all
 // leaves even when clustered, and does no ray regeneration or compaction.
-// Tape next-event estimation and the interval-list audit mode
-// (with_overflow) are not here.
+// The interval-list audit mode (with_overflow) is not here.
 //
 // Numerics: the kernel repeats, operation for operation, the float
 // arithmetic of its plain torch version (kernels/tape_kernel.py:
@@ -69,6 +79,8 @@ struct Params {
   int n_clusters;
   const int* leaf_ids;     // [n_ids]: each cluster's leaves, in slot order
   int n_ids;
+  const int* lamp_ids;     // [n_lamps]: the emissive sphere leaves (NEE)
+  int n_lamps;
   int width, height, spp, max_bounces;
   uint32_t seed, sample_offset;
   int lens, sky;           // sky: 0 rtiow, 1 wololo, 2 black
@@ -221,6 +233,74 @@ __device__ __forceinline__ float leaf_score(const float* c, int type, float lx, 
   return outside - inside;
 }
 
+// The tables staged in shared memory.
+struct Tables {
+  const float* leaf;
+  const int* type;
+  const int* ops;
+  const int* ids;
+  const int* cl;
+};
+
+// The nearest flip of the root's membership along (o, d), cluster by
+// cluster: the smallest candidate boundary tj with kEps < tj < kCut and
+// tj < t (t comes in as the bound: kTFar for a path ray), and `entering`,
+// the root's membership just above it. kAnyHit returns at the first flip
+// below the bound (a shadow ray needs no nearest one, nor attribution).
+// enter / exit_ are the caller's per-thread interval arrays.
+template <bool kAnyHit>
+__device__ __forceinline__ float nearest_flip(const Params& p, const Tables& tb, float ox,
+                                              float oy, float oz, float dx, float dy, float dz,
+                                              float t, bool& entering, float* enter,
+                                              float* exit_) {
+  for (int c = 0; c < p.n_clusters; ++c) {
+    const int op_off = tb.cl[4 * c], op_n = tb.cl[4 * c + 1];
+    const int id_off = tb.cl[4 * c + 2], id_n = tb.cl[4 * c + 3];
+    for (int j = 0; j < id_n; ++j) {
+      const int leaf = tb.ids[id_off + j];
+      leaf_interval(tb.leaf + kLeafRow * leaf, tb.type[leaf], ox, oy, oz, dx, dy, dz, enter[j],
+                    exit_[j]);
+    }
+    for (int cand = 0; cand < 2 * id_n; ++cand) {
+      const float tj = (cand & 1) ? exit_[cand >> 1] : enter[cand >> 1];
+      // only a flip nearer than the best so far can be taken (strict <)
+      if (!(tj > kEps && tj < kCut && tj < t)) continue;
+      uint64_t below = 0, above = 0;  // membership stacks, top at bit 0
+      for (int i = 0; i < op_n; ++i) {
+        const int code = tb.ops[op_off + i];
+        const int opc = code & 3;
+        if (opc == kPush) {
+          const float e = enter[code >> 2], xt = exit_[code >> 2];
+          below = (below << 1) | static_cast<uint64_t>(e < tj && xt >= tj);
+          above = (above << 1) | static_cast<uint64_t>(e <= tj && xt > tj);
+        } else {
+          const uint64_t rb = below & 1ull, ra = above & 1ull;
+          below >>= 1;
+          above >>= 1;
+          const uint64_t lb = below & 1ull, la = above & 1ull;
+          uint64_t vb, va;
+          if (opc == kUnion) {
+            vb = lb | rb; va = la | ra;
+          } else if (opc == kIntersect) {
+            vb = lb & rb; va = la & ra;
+          } else {  // kDiff
+            vb = lb & (rb ^ 1ull); va = la & (ra ^ 1ull);
+          }
+          below = (below & ~1ull) | vb;
+          above = (above & ~1ull) | va;
+        }
+      }
+      if ((below ^ above) & 1ull) {
+        t = tj;
+        entering = (above & 1ull) != 0;
+        if (kAnyHit) return t;
+      }
+    }
+  }
+  return t;
+}
+
+template <bool kNee>
 __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
   extern __shared__ float smem[];
   float* s_leaf = smem;
@@ -228,6 +308,7 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
   int* s_ops = s_type + p.n_leaves;
   int* s_ids = s_ops + p.n_ops;
   int* s_cl = s_ids + p.n_ids;
+  int* s_lamp = s_cl + 4 * p.n_clusters;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
   for (int i = tid; i < p.n_leaves * kLeafRow; i += n_threads) s_leaf[i] = p.leaves[i];
@@ -235,7 +316,11 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
   for (int i = tid; i < p.n_ops; i += n_threads) s_ops[i] = p.ops[i];
   for (int i = tid; i < p.n_ids; i += n_threads) s_ids[i] = p.leaf_ids[i];
   for (int i = tid; i < 4 * p.n_clusters; i += n_threads) s_cl[i] = p.clusters[i];
+  if (kNee) {
+    for (int i = tid; i < p.n_lamps; i += n_threads) s_lamp[i] = p.lamp_ids[i];
+  }
   __syncthreads();
+  const Tables tb{s_leaf, s_type, s_ops, s_ids, s_cl};
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -254,57 +339,15 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
     const uint32_t s = static_cast<uint32_t>(k) + p.sample_offset;
     csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
     path.sr = 0.0f; path.sg = 0.0f; path.sb = 0.0f;
+    float prev_pdf = 0.0f;  // NEE: pdf of the scatter that made this ray, 0 on camera rays
     for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
       ++rays;
       const float ox = path.ox, oy = path.oy, oz = path.oz;
       const float dx = path.dx, dy = path.dy, dz = path.dz;
 
-      // nearest flip of the root's membership, cluster by cluster
-      float t = kTFar;
       bool entering = false;
-      for (int c = 0; c < p.n_clusters; ++c) {
-        const int op_off = s_cl[4 * c], op_n = s_cl[4 * c + 1];
-        const int id_off = s_cl[4 * c + 2], id_n = s_cl[4 * c + 3];
-        for (int j = 0; j < id_n; ++j) {
-          const int leaf = s_ids[id_off + j];
-          leaf_interval(s_leaf + kLeafRow * leaf, s_type[leaf], ox, oy, oz, dx, dy, dz,
-                        enter[j], exit_[j]);
-        }
-        for (int cand = 0; cand < 2 * id_n; ++cand) {
-          const float tj = (cand & 1) ? exit_[cand >> 1] : enter[cand >> 1];
-          // only a flip nearer than the best so far can be taken (strict <)
-          if (!(tj > kEps && tj < kCut && tj < t)) continue;
-          uint64_t below = 0, above = 0;  // membership stacks, top at bit 0
-          for (int i = 0; i < op_n; ++i) {
-            const int code = s_ops[op_off + i];
-            const int opc = code & 3;
-            if (opc == kPush) {
-              const float e = enter[code >> 2], xt = exit_[code >> 2];
-              below = (below << 1) | static_cast<uint64_t>(e < tj && xt >= tj);
-              above = (above << 1) | static_cast<uint64_t>(e <= tj && xt > tj);
-            } else {
-              const uint64_t rb = below & 1ull, ra = above & 1ull;
-              below >>= 1;
-              above >>= 1;
-              const uint64_t lb = below & 1ull, la = above & 1ull;
-              uint64_t vb, va;
-              if (opc == kUnion) {
-                vb = lb | rb; va = la | ra;
-              } else if (opc == kIntersect) {
-                vb = lb & rb; va = la & ra;
-              } else {  // kDiff
-                vb = lb & (rb ^ 1ull); va = la & (ra ^ 1ull);
-              }
-              below = (below & ~1ull) | vb;
-              above = (above & ~1ull) | va;
-            }
-          }
-          if ((below ^ above) & 1ull) {
-            t = tj;
-            entering = (above & 1ull) != 0;
-          }
-        }
-      }
+      const float t = nearest_flip<false>(p, tb, ox, oy, oz, dx, dy, dz, kTFar, entering, enter,
+                                          exit_);
 
       const float inv_len = csgr::inv_length(path);
       const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
@@ -332,11 +375,62 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
       const float* w = s_leaf + kLeafRow * owner;
       // face-forward the leaf normal against the ray
       const float sgn = dx * nwx + dy * nwy + dz * nwz > 0.0f ? -1.0f : 1.0f;
-      if (!csgr::shade(path, hx, hy, hz, nwx * sgn, nwy * sgn, nwz * sgn, entering,
-                       static_cast<int>(w[11]), w[12], w[13], w[14], w[15], udx, udy, udz,
-                       pix, s, static_cast<uint32_t>(bounce), p.seed)) {
+      if (!kNee) {
+        if (!csgr::shade(path, hx, hy, hz, nwx * sgn, nwy * sgn, nwz * sgn, entering,
+                         static_cast<int>(w[11]), w[12], w[13], w[14], w[15], udx, udy, udz,
+                         pix, s, static_cast<uint32_t>(bounce), p.seed)) {
+          break;
+        }
+        continue;
+      }
+
+      const float nx = nwx * sgn, ny = nwy * sgn, nz = nwz * sgn;
+      const int kind = static_cast<int>(w[11]);
+      const float param = w[12];
+      float emit_scale = 1.0f;
+      if (kind == 4 && prev_pdf > 0.0f) {
+        // the lamp holding the hit point: argmin |dist - r| (first minimum)
+        const float* lamp = nullptr;
+        float best_l = 0.0f;
+        for (int l = 0; l < p.n_lamps; ++l) {
+          const float* c = s_leaf + kLeafRow * s_lamp[l];
+          const float ex = hx - c[4], ey = hy - c[5], ez = hz - c[6];
+          const float score = fabsf(sqrtf(ex * ex + ey * ey + ez * ez) - fabsf(c[7]));
+          if (l == 0 || score < best_l) {
+            best_l = score;
+            lamp = c;
+          }
+        }
+        emit_scale = csgr::partner_weight(lamp[4], lamp[5], lamp[6], fabsf(lamp[7]), ox, oy, oz,
+                                          prev_pdf, p.n_lamps);
+      }
+      const bool lambertian = kind == 1;
+      const bool glossy = kind == 2 && param > csgr::kGlossyFuzz;
+      if (lambertian || glossy) {
+        float u1, u2;
+        const int li = csgr::nee_pick(pix, s, static_cast<uint32_t>(bounce), p.seed, p.n_lamps,
+                                      u1, u2);
+        const float* c = s_leaf + kLeafRow * s_lamp[li];
+        csgr::LampSample ls;
+        if (csgr::nee_sample(hx, hy, hz, nx, ny, nz, lambertian, param, udx, udy, udz, w[13],
+                             w[14], w[15], c[4], c[5], c[6], fabsf(c[7]), c[13], c[14], c[15],
+                             p.n_lamps, u1, u2, ls)) {
+          const float t_max = ls.tl * csgr::kShadowScale;
+          bool unused;
+          if (!(nearest_flip<true>(p, tb, hx, hy, hz, ls.dx, ls.dy, ls.dz, t_max, unused, enter,
+                                   exit_) < t_max)) {
+            path.sr += path.tr * ls.wr;
+            path.sg += path.tg * ls.wg;
+            path.sb += path.tb * ls.wb;
+          }
+        }
+      }
+      if (!csgr::shade<true>(path, hx, hy, hz, nx, ny, nz, entering, kind, param, w[13], w[14],
+                             w[15], udx, udy, udz, pix, s, static_cast<uint32_t>(bounce), p.seed,
+                             emit_scale)) {
         break;
       }
+      prev_pdf = csgr::carried_pdf(path, lambertian, glossy, nx, ny, nz, param, udx, udy, udz);
     }
     acc_r += path.sr;
     acc_g += path.sg;
@@ -350,6 +444,19 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
   p.out_rays[pix] = rays;
 }
 
+template <bool kNee>
+cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tape_kernel<kNee>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 block(16, 8);
+  const dim3 grid((p.width + block.x - 1) / block.x, (p.height + block.y - 1) / block.y);
+  tape_kernel<kNee><<<grid, block, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int csgr_tape_max_leaves() { return kMaxLeaves; }
@@ -359,7 +466,7 @@ extern "C" int csgr_tape_max_stack() { return kMaxStack; }
 extern "C" int csgr_tape_render(
     const void* cam, const void* leaves, const void* leaf_types, int n_leaves, const void* ops,
     int n_ops, const void* clusters, int n_clusters, const void* leaf_ids, int n_ids,
-    int width, int height, int spp, int max_bounces, unsigned int seed,
+    const void* lamp_ids, int n_lamps, int width, int height, int spp, int max_bounces, unsigned int seed,
     unsigned int sample_offset, int lens, int sky, void* out_rgb, void* out_rays,
     void* stream) {
   if (n_leaves < 1 || n_leaves > kMaxLeaves || n_clusters < 1) {
@@ -376,6 +483,8 @@ extern "C" int csgr_tape_render(
   p.n_clusters = n_clusters;
   p.leaf_ids = static_cast<const int*>(leaf_ids);
   p.n_ids = n_ids;
+  p.lamp_ids = static_cast<const int*>(lamp_ids);
+  p.n_lamps = n_lamps;
   p.width = width; p.height = height; p.spp = spp; p.max_bounces = max_bounces;
   p.seed = seed; p.sample_offset = sample_offset;
   p.lens = lens; p.sky = sky;
@@ -383,16 +492,10 @@ extern "C" int csgr_tape_render(
   p.out_rays = static_cast<int*>(out_rays);
 
   const size_t smem = sizeof(float) * (static_cast<size_t>(n_leaves) * kLeafRow + n_leaves +
-                                       n_ops + n_ids + 4 * static_cast<size_t>(n_clusters));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tape_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 block(16, 8);
-  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  tape_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+                                       n_ops + n_ids + 4 * static_cast<size_t>(n_clusters) +
+                                       n_lamps);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(n_lamps > 0 ? launch<true>(p, smem, st) : launch<false>(p, smem, st));
 }
 
 extern "C" const char* csgr_error_string(int code) {

@@ -15,8 +15,11 @@ Where the tensors lie decides what runs:
   ``render/integrator.render_image`` with the brute hit function, or with
   ``worklist.grid_nearest_hit`` in grid mode.
 
-``LAUNCHES`` counts kernel launches (``LAUNCHES_BY_MODE`` per mode); only
-the launch site adds to them.
+``nee=True`` adds next-event estimation toward the scene's emissive
+spheres (``render/lights.py``): the kernel's NEE variant, or the plain
+version with ``lights=``. ``LAUNCHES`` counts kernel launches
+(``LAUNCHES_BY_MODE`` per mode: grid, brute, grid-nee, brute-nee); only the
+launch site adds to them.
 """
 
 from __future__ import annotations
@@ -30,16 +33,19 @@ from torch import Tensor
 from ..math import vec
 from ..render import integrator
 from ..render.integrator import SKY_MODES, SphereScene, SurfaceHit
+from ..render.lights import SphereLights, extract_lights
 from . import build
 from .worklist import GridPack, grid_nearest_hit, pack_grid
 
 GRID_MIN_SPHERES = 256  # the JAX package's measured brute/grid crossover (TPU)
 SPHERE_WORDS = 12  # floats per sphere record in the kernel's table
+LAMP_WORDS = 8  # floats per lamp record: centre, |r|, emitted rgb, sphere id
 CAM_SIZE = 24
 KERNEL_SOURCE = "sphere_megakernel"
 
 LAUNCHES = 0
-LAUNCHES_BY_MODE = {"grid": 0, "brute": 0}
+LAUNCHES_BY_MODE = {"grid": 0, "brute": 0, "grid-nee": 0, "brute-nee": 0}
+_NO_LAMPS = "nee=True but the scene has no emissive spheres"
 
 
 @dataclass(frozen=True)
@@ -48,12 +54,16 @@ class PackedScene:
 
     ``scene`` is reordered globals-first in grid mode. ``spheres`` holds,
     per sphere, three float4: (cx, cy, cz, r^2), (c.c, r signed, kind,
-    param), (albedo r, g, b, 0). All values are exact f32.
+    param), (albedo r, g, b, 0). All values are exact f32. ``lamps`` is
+    the NEE lamp table, one row (cx, cy, cz, |r|, emitted r, g, b, sphere
+    id) per emissive sphere of the reordered scene, so every id is in the
+    kernel's id space; None when the scene has no emissive sphere.
     """
 
     scene: SphereScene
     spheres: Tensor  # [S, 12] f32
     grid: GridPack | None
+    lamps: Tensor | None  # [n_lights, 8] f32
 
     @property
     def mode(self) -> str:
@@ -67,9 +77,17 @@ class PackedScene:
     def device(self) -> torch.device:
         return self.spheres.device
 
+    @property
+    def lights(self) -> SphereLights | None:
+        """The lamp table as the plain version's ``SphereLights``."""
+        if self.lamps is None:
+            return None
+        return SphereLights(self.lamps[:, 0:3], self.lamps[:, 3], self.lamps[:, 4:7])
+
     def to(self, device) -> "PackedScene":
         grid = None if self.grid is None else self.grid.to(device)
-        return PackedScene(self.scene.to(device), self.spheres.to(device), grid)
+        lamps = None if self.lamps is None else self.lamps.to(device)
+        return PackedScene(self.scene.to(device), self.spheres.to(device), grid, lamps)
 
 
 def _sphere_table(scene: SphereScene) -> Tensor:
@@ -84,12 +102,26 @@ def _sphere_table(scene: SphereScene) -> Tensor:
     return tab
 
 
+def _lamp_table(scene: SphereScene) -> Tensor | None:
+    """The JAX packer's [n_lights, 8] lamp rows (``megakernel.py:899-906``)."""
+    lights, ids = extract_lights(scene, return_ids=True)
+    if lights is None:
+        return None
+    tab = torch.zeros((lights.num_lights, LAMP_WORDS), dtype=torch.float32, device=scene.device)
+    tab[:, 0:3] = lights.centers
+    tab[:, 3] = lights.radii
+    tab[:, 4:7] = lights.emit
+    tab[:, 7] = torch.from_numpy(ids.astype("float32")).to(scene.device)
+    return tab
+
+
 def pack_scene(scene: SphereScene, worklist: bool | str = "auto") -> PackedScene:
     """Choose the mode and build the kernel's tables on the scene's device.
 
     ``worklist``: "auto" takes grid mode for scenes of at least 256 spheres
     that ``pack_grid`` can bin; True forces grid mode (and raises if the
-    scene is not griddable); False forces brute mode.
+    scene is not griddable); False forces brute mode. The lamp table is
+    taken after the grid's globals-first reorder.
     """
     if worklist not in ("auto", True, False):
         raise ValueError(f"worklist must be 'auto', True or False, got {worklist!r}")
@@ -102,7 +134,7 @@ def pack_scene(scene: SphereScene, worklist: bool | str = "auto") -> PackedScene
             grid, scene = packed
         elif worklist is True:
             raise ValueError("worklist=True but the scene is not griddable")
-    return PackedScene(scene, _sphere_table(scene), grid)
+    return PackedScene(scene, _sphere_table(scene), grid, _lamp_table(scene))
 
 
 def pack_camera(camera) -> Tensor:
@@ -136,20 +168,29 @@ def render_image_plain(
     sky: str = "rtiow",
     lens: bool = False,
     sample_offset: int = 0,
+    nee: bool = False,
+    counts: dict | None = None,
 ) -> tuple[Tensor, Tensor]:
-    """The plain torch version of the kernel, on any device."""
+    """The plain torch version of the kernel, on any device. With ``nee``
+    it renders with the packed lamp table as ``lights=``; ``counts`` as in
+    ``integrator.trace_paths``."""
+    if nee and packed.lamps is None:
+        raise ValueError(_NO_LAMPS)
     hit_fn = packed.scene.nearest_hit if packed.grid is None else _grid_hit_fn(packed)
     return integrator.render_image(
         hit_fn, camera, width, height, spp=spp, max_bounces=max_bounces,
         seed=seed, sky=sky, lens=lens, sample_offset=sample_offset,
+        lights=packed.lights if nee else None, counts=counts,
     )
 
 
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-_ARGTYPES = (_VP, _VP, _I, _VP, _I, _I, _I, _I) + (_F,) * 8 + (_I,) * 4 + (_U, _U, _I, _I, _VP, _VP, _VP)
+_ARGTYPES = ((_VP, _VP, _I, _VP, _I, _I, _I, _I) + (_F,) * 8 + (_VP, _I) + (_I,) * 4
+             + (_U, _U, _I, _I, _VP, _VP, _VP))
 
 
-def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky):
+def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
+            nee):
     global LAUNCHES
     dev = packed.device
     if dev.type != "cuda":
@@ -167,6 +208,11 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
         grid_args = [packed.grid.cell_ids.data_ptr(), gs.cx, gs.cz, gs.m, gs.max_steps] + [
             float(f[k]) for k in ("x0", "z0", "x1", "z1", "y_lo", "y_hi", "cell", "inv_cell")
         ]
+    lamp_args = [None, 0]
+    if nee:
+        n_lights = packed.lamps.shape[0]
+        build.check_tensor(packed.lamps, "lamps", torch.float32, (n_lights, LAMP_WORDS), dev)
+        lamp_args = [packed.lamps.data_ptr(), n_lights]
 
     fn, err_str = build.bind(KERNEL_SOURCE, "csgr_sphere_render", _ARGTYPES)
     out_rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
@@ -174,14 +220,14 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
-            cam_row.data_ptr(), packed.spheres.data_ptr(), packed.n_brute, *grid_args,
+            cam_row.data_ptr(), packed.spheres.data_ptr(), packed.n_brute, *grid_args, *lamp_args,
             width, height, spp, max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF,
             int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(), out_rays.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"sphere kernel launch failed: {err_str(rc).decode()} ({rc})")
     LAUNCHES += 1
-    LAUNCHES_BY_MODE[packed.mode] += 1
+    LAUNCHES_BY_MODE[packed.mode + ("-nee" if nee else "")] += 1
     # int64 sum: one call can pass 2**31 segments (a 1080p/64-spp frame
     # traces ~3.4e8; 4K at a few hundred spp overflows int32)
     return out_rgb, out_rays.sum(dtype=torch.int64)
@@ -207,10 +253,10 @@ def render_image_kernel(
     ``scene`` may be a ``PackedScene`` from ``pack_scene`` (packed once,
     e.g. by a benchmark); ``worklist`` then must be "auto". Scene and
     camera tensors on a CUDA device launch the kernel; on the CPU they run
-    the plain version; there is no fallback between the two.
+    the plain version; there is no fallback between the two. ``nee``
+    samples the scene's emissive spheres at every Lambertian and glossy
+    hit (ValueError if it has none).
     """
-    if nee:
-        raise NotImplementedError("next-event estimation is not ported yet (ROADMAP B3)")
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")
     if spp < 1 or max_bounces < 0 or width < 1 or height < 1:
@@ -221,13 +267,15 @@ def render_image_kernel(
         packed = scene
     else:
         packed = pack_scene(scene, worklist)
+    if nee and packed.lamps is None:
+        raise ValueError(_NO_LAMPS)
     if packed.device.type == "cpu":
         return render_image_plain(
             packed, camera, width, height, spp=spp, max_bounces=max_bounces,
-            seed=seed, sky=sky, lens=lens, sample_offset=sample_offset,
+            seed=seed, sky=sky, lens=lens, sample_offset=sample_offset, nee=nee,
         )
     return _launch(
         packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces,
-        int(seed), int(sample_offset), lens, sky,
+        int(seed), int(sample_offset), lens, sky, nee,
     )
 

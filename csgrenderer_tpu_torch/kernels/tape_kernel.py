@@ -17,11 +17,13 @@ Where the tensors lie decides what runs:
 - on the CPU, the plain torch version ``render_image_tape_plain`` runs:
   ``render/integrator.render_image`` with the event-flip hit function.
 
+``nee=True`` adds next-event estimation toward the tape's emissive sphere
+leaves (``render/lights.py``): the kernel reads each lamp's centre, radius
+and emission from its leaf table row, so a re-baked tape moves its lamps.
 ``LAUNCHES`` counts kernel launches (``LAUNCHES_BY_MODE`` per mode:
-"global" is one cluster covering the tape, "clustered" two or more); only
-the launch site adds to them. The interval-list audit mode
-(``with_overflow``) and tape next-event estimation (``nee``) are not
-ported yet.
+"global" is one cluster covering the tape, "clustered" two or more, each
+also with "-nee"); only the launch site adds to them. The interval-list
+audit mode (``with_overflow``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ..render import integrator, intersect
 from ..render.integrator import SKY_MODES, SurfaceHit
 from ..render.intersect import T_FAR
 from ..render.interval import SURFACE_CUTOFF as CUT
+from ..render.lights import SphereLights, extract_tape_lights
 from ..scene.graph import NodeType
 from ..scene.partition import partition_tape
 from ..scene.tape import OP_INTERSECT, OP_PUSH, OP_UNION, CompiledTape, stack_depth
@@ -54,10 +57,10 @@ EPS = 1e-3  # hit epsilon along t
 _PLAIN_CHUNK = 1 << 26
 
 LAUNCHES = 0
-LAUNCHES_BY_MODE = {"global": 0, "clustered": 0}
+LAUNCHES_BY_MODE = {"global": 0, "clustered": 0, "global-nee": 0, "clustered-nee": 0}
 
 _OVERFLOW_NOT_PORTED = "the interval-list audit mode (with_overflow) is not ported yet (ROADMAP B4b)"
-_NEE_NOT_PORTED = "tape next-event estimation is not ported yet (ROADMAP B3, with A6)"
+_NO_LAMPS = "nee=True but the tape has no emissive sphere leaves"
 
 
 @dataclass(frozen=True)
@@ -73,7 +76,9 @@ class PackedTape:
       is the leaf's position in its cluster's leaf list;
     - ``cluster_table`` [C, 4] int32: op offset, op count, leaf offset and
       leaf count of each cluster in ``ops`` / ``leaf_ids``;
-    - ``leaf_ids`` [sum L_c] int32.
+    - ``leaf_ids`` [sum L_c] int32;
+    - ``lamp_ids`` [n_lamps] int32, the emissive sphere leaves
+      (``extract_tape_lights``), or None when the tape has none.
     """
 
     tape: CompiledTape
@@ -83,6 +88,7 @@ class PackedTape:
     ops: Tensor
     cluster_table: Tensor
     leaf_ids: Tensor
+    lamp_ids: Tensor | None
 
     @property
     def mode(self) -> str:
@@ -92,11 +98,21 @@ class PackedTape:
     def device(self) -> torch.device:
         return self.leaf_table.device
 
+    @property
+    def lights(self) -> SphereLights | None:
+        """The lamps as the plain version's ``SphereLights``, read from the
+        leaf table as the kernel reads them: position, |radius|, albedo."""
+        if self.lamp_ids is None:
+            return None
+        rows = self.leaf_table[self.lamp_ids.long()]
+        return SphereLights(rows[:, 4:7], torch.abs(rows[:, 7]), rows[:, 13:16])
+
     def to(self, device) -> "PackedTape":
+        lamp_ids = None if self.lamp_ids is None else self.lamp_ids.to(device)
         return PackedTape(self.tape.to(device), self.clusters, *(
             getattr(self, f).to(device)
             for f in ("leaf_table", "leaf_types", "ops", "cluster_table", "leaf_ids")
-        ))
+        ), lamp_ids)
 
 
 def _leaf_table(tape: CompiledTape) -> Tensor:
@@ -153,6 +169,7 @@ def pack_program(tape: CompiledTape, partition: bool | str | tuple = "auto") -> 
     def i32(x):
         return torch.tensor(x, dtype=torch.int32, device=dev)
 
+    _, lamp_ids = extract_tape_lights(tape, return_ids=True)
     return PackedTape(
         tape=tape,
         clusters=tuple((tuple(o), tuple(ls)) for o, ls in clusters),
@@ -161,6 +178,7 @@ def pack_program(tape: CompiledTape, partition: bool | str | tuple = "auto") -> 
         ops=i32(ops),
         cluster_table=i32(table).reshape(len(table), 4),
         leaf_ids=i32(ids),
+        lamp_ids=i32(lamp_ids.tolist()) if lamp_ids.size else None,
     )
 
 
@@ -340,11 +358,19 @@ def render_image_tape_plain(
     sky: str = "rtiow",
     lens: bool = False,
     sample_offset: int = 0,
+    nee: bool = False,
+    counts: dict | None = None,
 ) -> tuple[Tensor, Tensor]:
-    """The plain torch version of the kernel, on any device."""
+    """The plain torch version of the kernel, on any device. With ``nee``
+    it renders with the packed lamps as ``lights=`` (a shadow ray is a
+    ``tape_hit`` like any other); ``counts`` as in
+    ``integrator.trace_paths``."""
+    if nee and packed.lamp_ids is None:
+        raise ValueError(_NO_LAMPS)
     return integrator.render_image(
         functools.partial(tape_hit, packed), camera, width, height, spp=spp,
         max_bounces=max_bounces, seed=seed, sky=sky, lens=lens, sample_offset=sample_offset,
+        lights=packed.lights if nee else None, counts=counts,
     )
 
 
@@ -354,7 +380,8 @@ def render_image_tape_plain(
 
 
 _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-_ARGTYPES = (_VP, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I) + (_I,) * 4 + (_U, _U, _I, _I, _VP, _VP, _VP)
+_ARGTYPES = ((_VP, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I) + (_I,) * 4
+             + (_U, _U, _I, _I, _VP, _VP, _VP))
 
 
 @functools.cache
@@ -366,7 +393,7 @@ def _kernel_fn():
 
 
 def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, sample_offset,
-            lens, sky):
+            lens, sky, nee):
     global LAUNCHES
     dev = packed.device
     if dev.type != "cuda":
@@ -382,6 +409,11 @@ def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, 
     build.check_tensor(packed.cluster_table, "cluster_table", torch.int32, (n_clusters, 4), dev)
     build.check_tensor(packed.leaf_ids, "leaf_ids", torch.int32, (n_ids,), dev)
     build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
+    lamp_args = [None, 0]
+    if nee:
+        n_lamps = packed.lamp_ids.numel()
+        build.check_tensor(packed.lamp_ids, "lamp_ids", torch.int32, (n_lamps,), dev)
+        lamp_args = [packed.lamp_ids.data_ptr(), n_lamps]
 
     fn, err_str = _kernel_fn()
     out_rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
@@ -391,14 +423,15 @@ def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, 
         rc = fn(
             cam_row.data_ptr(), packed.leaf_table.data_ptr(), packed.leaf_types.data_ptr(),
             n_leaves, packed.ops.data_ptr(), n_ops, packed.cluster_table.data_ptr(),
-            n_clusters, packed.leaf_ids.data_ptr(), n_ids, width, height, spp, max_bounces,
+            n_clusters, packed.leaf_ids.data_ptr(), n_ids, *lamp_args, width, height, spp,
+            max_bounces,
             seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky),
             out_rgb.data_ptr(), out_rays.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"tape kernel launch failed: {err_str(rc).decode()} ({rc})")
     LAUNCHES += 1
-    LAUNCHES_BY_MODE[packed.mode] += 1
+    LAUNCHES_BY_MODE[packed.mode + ("-nee" if nee else "")] += 1
     return out_rgb, out_rays.sum(dtype=torch.int64)
 
 
@@ -425,14 +458,13 @@ def render_image_tape_kernel(
     e.g. by a benchmark; its clusters were fixed then), and ``partition``
     must then be "auto". Tape and camera tensors on a CUDA device launch
     the kernel; on the CPU they run the plain version; there is no fallback
-    between the two.
+    between the two. ``nee`` samples the emissive sphere leaves at every
+    Lambertian and glossy hit (ValueError if the tape has none).
     """
     if not jitter:
         raise NotImplementedError("the tape kernel always jitters")
     if with_overflow:
         raise NotImplementedError(_OVERFLOW_NOT_PORTED)
-    if nee:
-        raise NotImplementedError(_NEE_NOT_PORTED)
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")
     if spp < 1 or max_bounces < 0 or width < 1 or height < 1:
@@ -443,12 +475,14 @@ def render_image_tape_kernel(
         packed = tape
     else:
         packed = pack_program(tape, partition)
+    if nee and packed.lamp_ids is None:
+        raise ValueError(_NO_LAMPS)
     if packed.device.type == "cpu":
         return render_image_tape_plain(
             packed, camera, width, height, spp=spp, max_bounces=max_bounces,
-            seed=seed, sky=sky, lens=lens, sample_offset=sample_offset,
+            seed=seed, sky=sky, lens=lens, sample_offset=sample_offset, nee=nee,
         )
     return _launch(
         packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces,
-        int(seed), int(sample_offset), lens, sky,
+        int(seed), int(sample_offset), lens, sky, nee,
     )

@@ -7,7 +7,8 @@ the arrays are byte-identical; sphere scenes then become tensors on
 ``device``. The CSG builders return a ``SceneGraph``, whose
 ``compile(k=..., device=...)`` makes the tape.
 
-The night and mesh families wait for their ports (ROADMAP A6, A7).
+The night scenes (black sky, emissive sphere lamps) are the showcases
+of next-event estimation; the mesh family waits for its port (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -90,6 +91,51 @@ def rtiow_final_scene(seed: int = 42, grid: int = 11, device=None) -> SphereScen
     )
 
 
+def night_scene(seed: int = 7, grid: int = 6, device=None) -> SphereScene:
+    """Emissive-lit variant of the RTIOW lattice: black sky, two sphere
+    lamps over a field of diffuse, metal and glass spheres (148 spheres at
+    ``grid=6``, 488 at ``grid=11``). Without NEE a path finds the lamps
+    only by chance."""
+    rng = np.random.default_rng(seed)
+    centers, radii, kinds, albedos, params = [], [], [], [], []
+
+    def add(c, r, kind, alb, prm=0.0):
+        centers.append(c)
+        radii.append(r)
+        kinds.append(kind)
+        albedos.append(alb)
+        params.append(prm)
+
+    add([0.0, -1000.0, 0.0], 1000.0, 1, [0.5, 0.5, 0.5])  # ground
+
+    for a in range(-grid, grid):
+        for b in range(-grid, grid):
+            choose = rng.random()
+            center = [a + 0.9 * rng.random(), 0.2, b + 0.9 * rng.random()]
+            if choose < 0.7:  # diffuse
+                alb = (rng.random(3) * rng.random(3)).tolist()
+                add(center, 0.2, 1, alb)
+            elif choose < 0.9:  # metal
+                alb = (0.5 + 0.5 * rng.random(3)).tolist()
+                add(center, 0.2, 2, alb, 0.4 * rng.random())
+            else:  # glass
+                add(center, 0.2, 3, [1.0, 1.0, 1.0], 1.5)
+
+    # lamps: a warm key light and a cool fill
+    add([2.0, 2.6, 1.0], 0.6, 4, [14.0, 11.0, 7.0])
+    add([-3.0, 1.6, -2.0], 0.35, 4, [3.0, 5.0, 9.0])
+    add([0.0, 0.9, 0.0], 0.9, 2, [0.8, 0.8, 0.9], 0.05)  # metal hero
+
+    return sphere_scene_from_numpy(
+        np.array(centers, np.float32),
+        np.array(radii, np.float32),
+        np.array(kinds, np.int32),
+        np.array(albedos, np.float32),
+        np.array(params, np.float32),
+        device,
+    )
+
+
 def config3_csg_scene() -> SceneGraph:
     """Config 3: (sphere ∪ box) ∖ cylinder with distinct diffuse materials."""
     g = SceneGraph(max_node_count=16, name="csg-boolean")
@@ -101,6 +147,52 @@ def config3_csg_scene() -> SceneGraph:
         NodeArgument(b, offset=(0.5, 0.0, 0.0)),
     )
     g.add_difference_of_node(NodeArgument(u), NodeArgument(c))
+    return g
+
+
+def csg_night_scene() -> SceneGraph:
+    """Night scene of CSG solids (compile with k >= 4): black sky, two
+    emissive sphere LEAVES as lamps, and a bitten sphere (sphere minus a
+    rotated box), a glass lens (sphere intersection) and a metal ring
+    (cylinder minus cylinder), all unioned with an infinite ground plane."""
+    g = SceneGraph(max_node_count=32, name="csg-night")
+
+    ground = g.add_infinite_planar_partition_node((0, 1, 0), Material.lambertian((0.45, 0.45, 0.48)))
+
+    # bitten sphere: diffuse sphere minus a rotated box
+    s = g.add_sphere_node(1.0, Material.lambertian((0.75, 0.3, 0.25)))
+    bite = g.add_box_node((0.65, 0.65, 0.65), Material.lambertian((0.9, 0.75, 0.3)))
+    rot = tuple(float(x) for x in quat.from_axis_angle([0.0, 1.0, 0.0], 0.6))
+    bitten = g.add_difference_of_node(
+        NodeArgument(s, offset=(-1.6, 1.0, -0.2)),
+        NodeArgument(bite, orientation=rot, offset=(-0.9, 1.7, 0.2)),
+    )
+
+    # glass lens: intersection of two offset spheres
+    l1 = g.add_sphere_node(0.9, Material.dielectric(1.5))
+    l2 = g.add_sphere_node(0.9, Material.dielectric(1.5))
+    lens = g.add_intersection_of_node(
+        NodeArgument(l1, offset=(1.4, 0.75, 0.75)),
+        NodeArgument(l2, offset=(1.4, 0.75, -0.35)),
+    )
+
+    # metal ring: cylinder minus a thinner cylinder
+    c_out = g.add_cylinder_node(0.8, 0.22, Material.metal((0.85, 0.8, 0.6), 0.08))
+    c_in = g.add_cylinder_node(0.55, 0.3, Material.metal((0.85, 0.8, 0.6), 0.08))
+    ring = g.add_difference_of_node(
+        NodeArgument(c_out, offset=(0.1, 0.22, 1.9)),
+        NodeArgument(c_in, offset=(0.1, 0.22, 1.9)),
+    )
+
+    # lamps: emissive sphere leaves riding the tape (lights.extract_tape_lights)
+    key = g.add_sphere_node(0.5, Material.emissive((13.0, 10.5, 7.0)))
+    fill = g.add_sphere_node(0.3, Material.emissive((2.5, 4.5, 8.5)))
+
+    node = g.add_union_of_node(NodeArgument(bitten), NodeArgument(lens))
+    node = g.add_union_of_node(NodeArgument(node), NodeArgument(ring))
+    node = g.add_union_of_node(NodeArgument(node), NodeArgument(key, offset=(1.2, 2.9, 0.6)))
+    node = g.add_union_of_node(NodeArgument(node), NodeArgument(fill, offset=(-2.8, 1.5, 1.8)))
+    g.add_union_of_node(NodeArgument(node), NodeArgument(ground))
     return g
 
 

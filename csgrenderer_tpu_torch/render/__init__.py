@@ -1,4 +1,4 @@
-from . import integrator, intersect, interval, materials, sampling, tape_eval, tonemap
+from . import integrator, intersect, interval, lights, materials, sampling, tape_eval, tonemap
 from .integrator import (
     SphereScene,
     SurfaceHit,
@@ -13,6 +13,7 @@ __all__ = [
     "integrator",
     "intersect",
     "interval",
+    "lights",
     "materials",
     "sampling",
     "tape_eval",

@@ -10,12 +10,13 @@ image composes to the same result.
 
 This is what the CUDA kernels (``kernels/megakernel.py``,
 ``kernels/tape_kernel.py``) are held against, through their hit
-functions, and what runs for tensors that lie on the CPU. Next-event estimation
-(``lights=``) is not ported yet (ROADMAP B3).
+functions, and what runs for tensors that lie on the CPU. ``lights=``
+(``render/lights.py``) adds next-event estimation with MIS.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, fields
 from typing import Callable, NamedTuple
 
@@ -23,13 +24,13 @@ import torch
 from torch import Tensor
 
 from ..math import vec
-from . import intersect, materials, tape_eval
+from . import intersect, lights as lamps, materials, tape_eval
 from .sampling import sample_in_unit_disk, uniform4
 
 WHITE = (1.0, 1.0, 1.0)
 SKY_BLUE = (0.5, 0.7, 1.0)
 SKY_MODES = ("rtiow", "wololo", "black")
-_NEE_NOT_PORTED = "next-event estimation is not ported yet (ROADMAP B3)"
+NEE_BIT = 0x80000000  # bounce-counter bit of the NEE uniforms: decoupled from the scatter's
 
 
 def sky_color(d: Tensor, mode: str = "rtiow") -> Tensor:
@@ -152,17 +153,35 @@ def trace_paths(
     max_bounces: int,
     sky: str = "rtiow",
     lights=None,
+    counts: dict | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Iterative bounce loop. Returns (radiance [..., 3], rays traced int64 []).
 
-    ``rays`` counts traced segments: the active rays of every bounce.
+    ``rays`` counts traced segments: the active rays of every bounce (NEE
+    shadow rays are not counted).
+
+    ``lights`` (``SphereLights`` or ``TriLights``) enables MIS next-event
+    estimation: every Lambertian or glossy-metal hit also samples one lamp
+    through a shadow ray (uniforms keyed by ``bounce | NEE_BIT``), and lamp
+    emission reached by such a vertex's scatter carries the partner weight,
+    from the pdf of that scatter carried along the path (0 on camera rays
+    and after other vertices: emission then counts in full).
+
+    ``counts``: a dict to which the NEE work is added as int64 tensors:
+    lamp samples (``nee_vertices``), shadow rays traced (``shadow_rays``)
+    and those that found the lamp unoccluded (``shadow_clear``),
+    MIS-weighted lamp hits (``mis_emission``) and scatter pdfs carried
+    (``carried_pdfs``): the work a kernel taking the same decisions does.
     """
-    if lights is not None:
-        raise NotImplementedError(_NEE_NOT_PORTED)
     throughput = torch.ones_like(o)
     radiance = torch.zeros_like(o)
     active = torch.ones(o.shape[:-1], dtype=torch.bool, device=o.device)
     rays = torch.zeros((), dtype=torch.int64, device=o.device)
+    prev_pdf_b = torch.zeros(o.shape[:-1], dtype=torch.float32, device=o.device)
+
+    def count(key, mask):
+        if counts is not None:
+            counts[key] = counts.get(key, 0) + mask.sum(dtype=torch.int64)
 
     for b in range(max_bounces):
         h = hit_fn(o, d)
@@ -172,13 +191,51 @@ def trace_paths(
         hit_active = active & h.hit
 
         radiance = radiance + torch.where(missed[..., None], throughput * sky_color(d, sky), 0.0)
-        radiance = radiance + torch.where(hit_active[..., None], throughput * sc.emitted, 0.0)
-        throughput = torch.where(hit_active[..., None], throughput * sc.attenuation, throughput)
         t_safe = torch.where(h.hit, h.t, torch.ones_like(h.t))
-        o = torch.where(hit_active[..., None], o + t_safe[..., None] * d, o)
-        d = torch.where(hit_active[..., None], sc.direction, d)
+        p_hit = o + t_safe[..., None] * d
+        emitted = throughput * sc.emitted
+        if lights is not None:
+            # the partner weight on lamp emission (kind 4) found by a pairable scatter
+            w_b = lamps.bsdf_mis_scale_any(lights, o, p_hit, prev_pdf_b)
+            paired = (h.mat_kind == 4) & (prev_pdf_b > 0.0)
+            emitted = emitted * torch.where(paired, w_b, 1.0)[..., None]
+            count("mis_emission", hit_active & paired)
+        radiance = radiance + torch.where(hit_active[..., None], emitted, 0.0)
+
+        is_lam = h.mat_kind == 1
+        # glossy = fuzzy metal: its lobe has a pdf to pair with; mirror metal
+        # is a delta, which NEE cannot sample
+        is_glossy = (h.mat_kind == 2) & (h.mat_param > 1e-4)
+        if lights is not None:
+            ul = uniform4(pixel_id, sample_id, b | NEE_BIT, seed & 0xFFFFFFFF)
+
+            def pdf_b_fn(d_l, cos, d_in=d, h=h, is_lam=is_lam, is_glossy=is_glossy):
+                pdf_lam = torch.clamp(cos, min=0.0) * (1.0 / math.pi)
+                # light below the horizon carries no BRDF (the metal absorbs it)
+                pdf_met = lamps.scatter_pdf_metal(d_in, h.normal, h.mat_param, d_l)
+                pdf_met = torch.where(cos > 0.0, pdf_met, 0.0)
+                return torch.where(is_lam, pdf_lam, torch.where(is_glossy, pdf_met, 0.0))
+
+            direct, traced, lit = lamps.nee_contribution_any(
+                hit_fn, p_hit, h.normal, h.albedo, lights, ul, pdf_b_fn=pdf_b_fn,
+                return_masks=True)
+            nee_mask = hit_active & (is_lam | is_glossy)
+            radiance = radiance + torch.where(nee_mask[..., None], throughput * direct, 0.0)
+            count("nee_vertices", nee_mask)
+            count("shadow_rays", nee_mask & traced)
+            count("shadow_clear", nee_mask & lit)
+
+        throughput = torch.where(hit_active[..., None], throughput * sc.attenuation, throughput)
         rays = rays + active.sum(dtype=torch.int64)
         active = hit_active & ~sc.terminate
+        if lights is not None:
+            pdf_l = lamps.scatter_pdf_lambertian(h.normal, sc.direction)
+            pdf_m = lamps.scatter_pdf_metal(d, h.normal, h.mat_param, sc.direction)
+            prev_pdf_b = torch.where(active & is_lam, pdf_l,
+                                     torch.where(active & is_glossy, pdf_m, 0.0))
+            count("carried_pdfs", active & (is_lam | is_glossy))
+        o = torch.where(hit_active[..., None], p_hit, o)
+        d = torch.where(hit_active[..., None], sc.direction, d)
     # paths still active after the bounce cap gather no more light (RTIOW)
     return radiance, rays
 
@@ -199,15 +256,15 @@ def render_tile(
     lens: bool = False,
     sample_offset: int = 0,
     lights=None,
+    counts: dict | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Render a sub-rectangle of a ``full_width x full_height`` image.
 
     Pixel ids, camera st coords and RNG counters are all functions of
     GLOBAL pixel coordinates. Returns (radiance_sum [th, tw, 3], NOT
-    divided by spp, and rays traced as an int64 scalar).
+    divided by spp, and rays traced as an int64 scalar). ``lights`` and
+    ``counts`` as in ``trace_paths``.
     """
-    if lights is not None:
-        raise NotImplementedError(_NEE_NOT_PORTED)
     dev = camera.device
     ys = tile_y0 + torch.arange(tile_height, dtype=torch.int64, device=dev)[:, None]
     xs = tile_x0 + torch.arange(tile_width, dtype=torch.int64, device=dev)[None, :]
@@ -221,7 +278,8 @@ def render_tile(
         st_y = 1.0 - (ys.to(torch.float32) + u[..., 1]) / full_height
         lens_uv = sample_in_unit_disk(u[..., 2], u[..., 3]) if lens else None
         o, d = camera.rays(st_x, st_y, lens_uv=lens_uv)
-        radiance, r = trace_paths(hit_fn, o, d, pixel_id, s, seed, max_bounces, sky=sky)
+        radiance, r = trace_paths(hit_fn, o, d, pixel_id, s, seed, max_bounces, sky=sky,
+                                  lights=lights, counts=counts)
         acc = acc + radiance
         rays = rays + r
     return acc, rays
@@ -239,15 +297,17 @@ def render_image(
     lens: bool = False,
     sample_offset: int = 0,
     lights=None,
+    counts: dict | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Render a linear-radiance image [H, W, 3]; also returns rays traced.
 
     ``sample_offset`` advances the per-sample RNG counters for progressive
-    rendering across frames.
+    rendering across frames; ``lights`` and ``counts`` as in
+    ``trace_paths``.
     """
     image_sum, rays = render_tile(
         hit_fn, camera, width, height, 0, 0, width, height,
         spp=spp, max_bounces=max_bounces, seed=seed, sky=sky,
-        lens=lens, sample_offset=sample_offset, lights=lights,
+        lens=lens, sample_offset=sample_offset, lights=lights, counts=counts,
     )
     return image_sum / spp, rays

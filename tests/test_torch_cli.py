@@ -40,9 +40,7 @@ def test_render_unported_scene_says_so(tmp_path):
 
 
 def test_bench_quick_prints_one_json_line():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the benchmark would measure it")
-    proc = _run("csgrenderer_tpu_torch.bench", "--quick", "--frames", "1")
+    proc = _run("csgrenderer_tpu_torch.bench", "--quick", "--frames", "1", "--device", "cpu")
     assert proc.returncode == 0, proc.stderr[-2000:]
     lines = proc.stdout.strip().splitlines()
     assert len(lines) == 1
@@ -61,3 +59,18 @@ def test_bench_refuses_to_measure_without_a_gpu():
     proc = _run("csgrenderer_tpu_torch.bench", "--quick", "--frames", "1", "--device", "cuda")
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
+
+
+@pytest.mark.parametrize("command", [("csgrenderer_tpu_torch.bench", "--quick", "--frames", "1"),
+                                     ("csgrenderer_tpu_torch", "render", "--scene", "diffuse",
+                                      "--width", "8", "--height", "4", "--spp", "1")])
+def test_no_device_means_the_gpu(tmp_path, command):
+    """Without --device the entry points run on the GPU: where there is none
+    they exit non-zero and name --device cpu, instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the command would run on it")
+    args = command + (("--out", str(tmp_path / "x.png")) if "render" in command else ())
+    proc = _run(*args)
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr
+    assert not (tmp_path / "x.png").exists()

@@ -8,7 +8,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from csgrenderer_tpu_torch.io import read_png
 
@@ -35,9 +34,8 @@ def test_render_csg_writes_png(tmp_path, scene):
 
 
 def test_bench_quick_deepcsg_prints_one_json_line():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the benchmark would measure it")
-    proc = _run("csgrenderer_tpu_torch.bench", "--quick", "--frames", "1", "--scene", "deepcsg")
+    proc = _run("csgrenderer_tpu_torch.bench", "--quick", "--frames", "1", "--scene", "deepcsg",
+                "--device", "cpu")
     assert proc.returncode == 0, proc.stderr[-2000:]
     lines = proc.stdout.strip().splitlines()
     assert len(lines) == 1

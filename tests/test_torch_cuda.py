@@ -1,5 +1,5 @@
 """The CUDA sphere and tape kernels against their plain torch versions, on
-the card.
+the card, without and with next-event estimation (NEE).
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -13,6 +13,8 @@ far inside the bounds used against the JAX reference
 by more than 0.05, rays within max(2e-3 * ref, 8).
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,9 @@ from csgrenderer_tpu_torch.kernels import tape_kernel as tk
 from csgrenderer_tpu_torch.models import (
     animated_csg_scene,
     config3_csg_scene,
+    csg_night_scene,
     many_objects_scene,
+    night_scene,
     rtiow_final_scene,
     two_spheres_scene,
 )
@@ -139,3 +143,78 @@ def test_tape_kernel_matches_plain(cuda, case):
     assert rays.dtype == torch.int64
     ref, ref_rays = tk.render_image_tape_plain(packed, cam, **kw)
     _assert_close(ref, ref_rays, img, rays)
+
+
+def _night_cam(dev):
+    return Camera.look_at((6.5, 2.2, 6.5), (0.0, 0.6, 0.0), vfov_degrees=32.0, aspect_ratio=2.0,
+                          device=dev)
+
+
+def _csg_night_cam(dev):
+    return Camera.look_at((4.5, 2.6, 4.8), (0.0, 0.8, 0.3), vfov_degrees=38.0, aspect_ratio=2.0,
+                          device=dev)
+
+
+NEE_KW = dict(width=64, height=32, spp=2, max_bounces=6, seed=2, sky="black", nee=True)
+NEE_CASES = {
+    "brute-nee": (lambda dev: mk.pack_scene(night_scene(device=dev)), _night_cam, mk),
+    "grid-nee": (lambda dev: mk.pack_scene(night_scene(grid=11, device=dev)), _night_cam, mk),
+    "clustered-nee": (lambda dev: tk.pack_program(csg_night_scene().compile(k=4, device=dev)),
+                      _csg_night_cam, tk),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(NEE_CASES))
+def test_nee_kernel_matches_plain(cuda, mode):
+    make_packed, make_cam, mod = NEE_CASES[mode]
+    packed, cam = make_packed(cuda), make_cam(cuda)
+    assert packed.mode + "-nee" == mode
+    kernel, plain = ((mk.render_image_kernel, mk.render_image_plain) if mod is mk else
+                     (tk.render_image_tape_kernel, tk.render_image_tape_plain))
+    before = mod.LAUNCHES_BY_MODE[mode]
+    img, rays = kernel(packed, cam, **NEE_KW)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_BY_MODE[mode] == before + 1
+    ref, ref_rays = plain(packed, cam, **NEE_KW)
+    _assert_close(ref, ref_rays, img, rays)
+    assert float(img.max()) > 0.0  # the lamps light the scene
+
+
+# sha256 of the float32 image bytes and the ray count of fixed frames, as
+# the kernels before their NEE variants (without kNee) rendered them on an
+# H100: the non-NEE instantiations must keep giving these images
+PINNED_FRAMES = {
+    "grid": ("e31d4b06dfd1e0ff47c6acf1f2b8ba29a1f7ed308107b319651353a3516fb705", 10341),
+    "brute": ("be7366d32229b6443cfbb6cb2febaee8762da60b776c5502e212be2fea93959f", 14131),
+    "clustered": ("7b5bb309e62deeee268a93f35a1bd86f4c4a9721de080b49f90dd7a312d1a3fb", 11433),
+    "global": ("fc227142930be0ab419bee738440ac985caec83f69f9e166fb618d7b8205b7eb", 24599),
+}
+
+
+def _pinned_case(mode, dev):
+    if mode == "grid":
+        return (mk.render_image_kernel, rtiow_final_scene(device=dev), _rtiow_camera(2.0, dev),
+                dict(width=64, height=32, spp=2, max_bounces=8, seed=11, lens=True))
+    if mode == "brute":
+        return (mk.render_image_kernel, two_spheres_scene(device=dev),
+                Camera.look_at((0, 0, 0), (0, 0, -1), vfov_degrees=90.0, aspect_ratio=2.0,
+                               device=dev),
+                dict(width=64, height=32, spp=4, max_bounces=4, seed=5))
+    if mode == "clustered":
+        return (tk.render_image_tape_kernel, _deepcsg(dev),
+                Camera.look_at((0, 2.0, 7.0), (0.5, 0, 0), vfov_degrees=40.0,
+                               aspect_ratio=96 / 54, device=dev),
+                dict(width=96, height=54, spp=2, max_bounces=5, seed=5))
+    return (tk.render_image_tape_kernel, config3_csg_scene().compile(device=dev),
+            Camera.look_at((3, 2.5, 4), (0.1, 0, 0), vfov_degrees=35.0, aspect_ratio=1.0,
+                           device=dev),
+            dict(width=64, height=64, spp=4, max_bounces=6, seed=3))
+
+
+@pytest.mark.parametrize("mode", sorted(PINNED_FRAMES))
+def test_non_nee_frames_unchanged(cuda, mode):
+    render, scene, cam, kw = _pinned_case(mode, cuda)
+    img, rays = render(scene, cam, **kw)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+    assert (digest, int(rays)) == PINNED_FRAMES[mode]

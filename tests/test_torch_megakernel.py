@@ -19,7 +19,6 @@ from csgrenderer_tpu.models import two_spheres_scene as j_two
 from csgrenderer_tpu.render import render_image as j_render
 from csgrenderer_tpu_torch.convert import camera_from_numpy, sphere_scene_from_numpy
 from csgrenderer_tpu_torch.kernels import megakernel as mk
-from csgrenderer_tpu_torch.render.integrator import render_image
 
 CAM_FIELDS = ("origin", "lower_left", "horizontal", "vertical", "u", "v", "lens_radius")
 SCENE_FIELDS = ("centers", "radii", "mat_kind", "albedo", "mat_param")
@@ -140,10 +139,9 @@ def test_non_cpu_non_cuda_tensors_raise():
 
 def test_unported_options_raise():
     scene, cam = port_of(j_two(), two_spheres_cam())
-    with pytest.raises(NotImplementedError, match="B3"):
+    # NEE is ported; a scene without an emissive sphere has nothing to sample
+    with pytest.raises(ValueError, match="emissive"):
         mk.render_image_kernel(scene, cam, 16, 8, nee=True)
-    with pytest.raises(NotImplementedError, match="B3"):
-        render_image(scene.nearest_hit, cam, 16, 8, lights=object())
     with pytest.raises(ValueError, match="griddable"):
         mk.render_image_kernel(scene, cam, 16, 8, worklist=True)
     with pytest.raises(ValueError, match="sky"):

@@ -230,7 +230,7 @@ def test_refusals():
     assert tk.pack_program(_deep_chain(tk.MAX_STACK)).mode == "global"  # at the cap: fine
     with pytest.raises(NotImplementedError, match="B4b"):
         tk.render_image_tape_kernel(tape, cam, 8, 8, with_overflow=True)
-    with pytest.raises(NotImplementedError, match="B3"):
+    with pytest.raises(ValueError, match="emissive"):  # config3 has no lamp to sample
         tk.render_image_tape_kernel(tape, cam, 8, 8, nee=True)
     with pytest.raises(NotImplementedError, match="jitters"):
         tk.render_image_tape_kernel(tape, cam, 8, 8, jitter=False)
