@@ -5,8 +5,9 @@
 Phases (the first that fails ends the run with a non-zero exit):
 
 1. Environment: torch/CUDA/nvcc versions, the card and its power limit;
-   build both CUDA kernels from csgrenderer_tpu_torch/kernels/csrc (one
-   nvcc each, started together) and print ptxas' registers and spills.
+   build the three CUDA kernels from csgrenderer_tpu_torch/kernels/csrc
+   (one nvcc each, started together) and print ptxas' registers and
+   spills.
 2. Each kernel against its plain torch version on the card. The sphere
    kernel in brute mode (two spheres; the small RTIOW scene) and grid mode
    (the RTIOW final scene at 320x180, 4 spp, 8 bounces), grid against
@@ -25,24 +26,36 @@ Phases (the first that fails ends the run with a non-zero exit):
    960x540 with 2 spp, 6 bounces: night_scene() in brute-nee mode,
    night_scene(grid=11) in grid-nee mode (each also timed in the other
    sphere mode and its kernel image compared), csg_night_scene() in
-   clustered-nee mode (and one global-nee launch against it); and the
-   blocker scene of tests/test_nee.py in grid-nee mode, whose umbra must
-   be darker than a quarter of the open case. Kernel and plain version are
-   timed with CUDA events at the frames the kernel line reports. Bounds
-   (tests/test_kernels.py::compare):
-   RMSE <= 2e-2, at most 1% of pixels off by more than 0.05 in any
-   channel, rays within max(2e-3 * ref, 8).
+   clustered-nee mode and in global-nee mode (the two kernel images
+   compared); and the blocker scene of tests/test_nee.py in grid-nee mode,
+   whose umbra must be darker than a quarter of the open case. The mesh
+   kernel: brute mode on an 82-face mesh (a subdiv-1 icosphere and
+   mesh_demo_scene's floor) at 256x144, 4 spp, and on mesh_demo_scene(2)
+   forced brute at 1280x720, 2 spp, 6 bounces (its image also against the
+   grid kernel's); grid mode on mesh_demo_scene(4) at the same frame;
+   brute-nee on tests/test_nee.py's 82-face lamp scene and grid-nee on
+   mesh_night_scene() at 960x540, 2 spp, 6 bounces; grid-nee on the
+   80-lamp scene of tests/test_nee.py; degenerate faces in both modes
+   (never hit); and the face-count ladder of tools/bench_mesh.py (962 to
+   245,762 faces), each rung packed (times printed) and kernel-timed at
+   1280x720, 16 spp, 6 bounces, the last also against the plain walk at
+   160x90, 1 spp. Kernel and plain version are timed with CUDA events at
+   the frames the kernel line reports. Bounds
+   (tests/test_kernels.py::compare): RMSE <= 2e-2, at most 1% of pixels
+   off by more than 0.05 in any channel, rays within max(2e-3 * ref, 8).
 3. The main path, counts from zero: the sphere benchmark (python -m
    csgrenderer_tpu_torch.bench) at 1920x1080, 64 spp, 8 bounces plus the
    16-spp p50; the config5 benchmark (--scene deepcsg) at 1920x1080, 64
    spp, 5 bounces plus the 16-spp p50; the night benchmarks (--scene
-   night, night488, csgnight) at 960x540, 64 spp, 6 bounces plus the
-   16-spp p50; the render CLI on the two-sphere scene, on csg and on
-   manyobjects, each at 1920x1080, 16 spp, and on csgnight at 960x540, 16
-   spp. The sphere kernel's grid, brute, grid-nee and brute-nee modes and
-   the tape kernel's clustered and clustered-nee modes must have launched
-   in this phase; the tape kernel's global and global-nee modes must have
-   launched in phase 2.
+   night, night488, csgnight, meshnight) at 960x540, 64 spp, 6 bounces
+   plus the 16-spp p50; the mesh benchmark (--scene mesh) at 1280x720, 16
+   spp, 6 bounces; the render CLI on the two-sphere scene, on csg and on
+   manyobjects, each at 1920x1080, 16 spp, and on csgnight and meshnight
+   at 960x540, 16 spp. The sphere kernel's grid, brute, grid-nee and
+   brute-nee modes, the tape kernel's clustered and clustered-nee modes
+   and the mesh kernel's grid and grid-nee modes must have launched in
+   this phase; the tape kernel's global and global-nee modes and the mesh
+   kernel's brute and brute-nee modes must have launched in phase 2.
 
 The last line of output is the device JSON; the line before it lists the
 kernels with their launch counts, errors, times and bounds. There is no
@@ -71,7 +84,12 @@ per shadow ray its setup and, when it reaches the lamp, every sphere test
 of the brute pass (the grid walk's left out) or every leaf interval and
 candidate test; an occluded shadow ray stops at its first occluder and
 counts one sphere test or the first cluster's intervals. Shadow rays are
-not segments (``rays``); their count is printed beside the bound. The FP32
+not segments (``rays``); their count is printed beside the bound. A mesh
+segment tests every face (brute) or the globals, the walk's set-up and,
+from the plain walk's counts of the same segments, the walks, voxel
+visits and face tests it executes (grid); a mesh shadow ray that reaches
+its lamp tests every face (brute) or the globals and the walk's set-up
+(grid; its voxels are left out), an occluded one at least one face. The FP32
 rate is 132 SMs x 128 lanes x the SM clock read under load, one operation
 per lane per cycle: the kernels are built with -fmad=false, so no
 multiply-add fuses two.
@@ -92,6 +110,8 @@ CSRC = "csgrenderer_tpu_torch/kernels/csrc"
 KERNELS = {
     "sphere_megakernel": (f"{CSRC}/sphere_megakernel.cu", "csgrenderer_tpu/kernels/megakernel.py:775"),
     "tape_kernel": (f"{CSRC}/tape_kernel.cu", "csgrenderer_tpu/kernels/tape_kernel.py:744"),
+    "trimesh_kernel": (f"{CSRC}/trimesh_kernel.cu",
+                       "csgrenderer_tpu/kernels/trimesh_kernel.py:662"),
 }  # the NEE modes are the same pallas_call with lamps (n_lights > 0; nee_lamps)
 SMS, LANES = 132, 128
 HBM_BYTES_PER_S = 3.35e12
@@ -114,6 +134,15 @@ OPS = {
     "partner": 24,  # the lamp's cone from the previous vertex, q / (q + 1)
     "lamp_match": 12,  # tape kernel, per lamp: |dist - r| and its test
     "shadow_lit": 6,  # throughput times the weight, added
+    "mt_test": 52,  # mesh kernel: one Möller-Trumbore test, its t < t_best test
+    "mesh_hit": 52,  # hit point, front test, face-forward, a Lambertian scatter
+    "walk_setup": 35,  # the 3D walk's three slab ranges and its march test
+    "walk_start": 51,  # the first voxel and each axis' step, tmax and td (a ray that enters)
+    "walk_step": 8,  # one advance: the next crossing, its axis, the exit tests
+    "tri_sample": 48,  # lamp pick, area sample, direction, cosine-lobe pdf, |cos_l|, tests
+    "tri_weight": 13,  # q and the MIS-weighted contribution of a traced sample
+    "tri_partner": 26,  # the lamp's q from the previous vertex, q / (q + 1)
+    "tri_lamp_match": 10,  # per lamp: |plane distance| and its test
 }
 
 
@@ -207,12 +236,32 @@ def tape_ops(packed, rays, width, height, spp, sky="rtiow"):
     return int(rays) * per_segment + hits * per_hit + (int(rays) - hits) * miss_ops(sky)
 
 
-def nee_ops(counts, per_shadow, clear_ops, occluded_ops, partner_ops):
+def mesh_ops(packed, rays, width, height, spp, sky="rtiow", walk=None):
+    """A mesh frame's path-segment work: in brute mode every face tested
+    per segment; in grid mode the globals, the walk's set-up, and from
+    ``walk`` (the plain walk's counts of the same segments) the walks,
+    voxel visits and face tests it executes."""
+    hits = hits_floor(rays, width, height, spp)
+    per_segment = OPS["segment"]
+    ops = 0
+    if packed.grid is None:
+        per_segment += packed.mesh.num_faces * OPS["mt_test"]
+    else:
+        per_segment += packed.grid.n_globals * OPS["mt_test"] + OPS["walk_setup"]
+        ops = (walk["walks"] * OPS["walk_start"] + walk["voxel_visits"] * OPS["walk_step"]
+               + walk["face_tests"] * OPS["mt_test"])
+    return (ops + int(rays) * per_segment + hits * OPS["mesh_hit"]
+            + (int(rays) - hits) * miss_ops(sky))
+
+
+def nee_ops(counts, per_shadow, clear_ops, occluded_ops, partner_ops,
+            sample_ops=OPS["nee_sample"]):
     """The NEE work of a frame from the plain version's counts (ints):
-    ``per_shadow`` ops set up every shadow ray, ``clear_ops`` test one that
-    reaches its lamp, ``occluded_ops`` one that stops at an occluder."""
+    ``sample_ops`` per lamp sample, ``per_shadow`` ops set up every shadow
+    ray, ``clear_ops`` test one that reaches its lamp, ``occluded_ops`` one
+    that stops at an occluder."""
     occluded = counts["shadow_rays"] - counts["shadow_clear"]
-    return (counts["nee_vertices"] * OPS["nee_sample"] + counts["carried_pdfs"] * OPS["carried_pdf"]
+    return (counts["nee_vertices"] * sample_ops + counts["carried_pdfs"] * OPS["carried_pdf"]
             + counts["mis_emission"] * partner_ops + counts["shadow_rays"] * per_shadow
             + counts["shadow_clear"] * (clear_ops + OPS["shadow_lit"])
             + occluded * occluded_ops)
@@ -244,17 +293,21 @@ def main() -> None:
     from csgrenderer_tpu_torch.kernels import build
     from csgrenderer_tpu_torch.kernels import megakernel as mk
     from csgrenderer_tpu_torch.kernels import tape_kernel as tk
+    from csgrenderer_tpu_torch.kernels import trimesh_kernel as tm
     from csgrenderer_tpu_torch.math import quaternion as quat
-    from csgrenderer_tpu_torch.convert import sphere_scene_from_numpy
+    from csgrenderer_tpu_torch.convert import mesh_from_numpy, sphere_scene_from_numpy
     from csgrenderer_tpu_torch.models import (
         animated_csg_scene,
         config3_csg_scene,
         csg_night_scene,
         many_objects_scene,
+        mesh_demo_scene,
+        mesh_night_scene,
         night_scene,
         rtiow_final_scene,
         two_spheres_scene,
     )
+    from csgrenderer_tpu_torch.render.trimesh import concat_meshes, icosphere, quad
     from csgrenderer_tpu_torch.scene import Material, NodeArgument, SceneGraph
 
     dev = torch.device("cuda")
@@ -270,7 +323,7 @@ def main() -> None:
         fail("nvidia-smi gave no card name and power limit")
     print(card, flush=True)
     t0 = time.perf_counter()
-    builds = build.load_all([mk.KERNEL_SOURCE, tk.KERNEL_SOURCE])
+    builds = build.load_all()
     print(f"[chip_smoke] built {len(builds)} kernels in {time.perf_counter() - t0:.1f} s "
           f"(in parallel)", flush=True)
     for name, b in builds.items():
@@ -282,8 +335,8 @@ def main() -> None:
     # --- phase 2: each kernel against its plain version on the card
     print("[chip_smoke] bounds: rmse <= 2e-2, divergent (max channel err > 0.05) <= 1%, "
           "|rays - ref| <= max(2e-3 * ref, 8)", flush=True)
-    mk_launches0, tk_launches0 = mk.LAUNCHES, tk.LAUNCHES
-    tk_phase2 = dict(tk.LAUNCHES_BY_MODE)
+    mk_launches0, tk_launches0, tm_launches0 = mk.LAUNCHES, tk.LAUNCHES, tm.LAUNCHES
+    tk_phase2, tm_phase2 = dict(tk.LAUNCHES_BY_MODE), dict(tm.LAUNCHES_BY_MODE)
 
     def cam_at(eye, at, vfov, aspect, **kw):
         return Camera.look_at(eye, at, vfov_degrees=vfov, aspect_ratio=aspect, device=dev, **kw)
@@ -484,8 +537,23 @@ def main() -> None:
                packed.leaf_ids, packed.lamp_ids),
         wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)",
     )
-    (img_g, rays_g), ms_g = timed(functools.partial(
-        tk.render_image_tape_kernel, tk.pack_program(night_tape, False), csg_cam, **kwn), reps=3)
+    packed_g = tk.pack_program(night_tape, False)
+    max_abs, ms_g, plain_ms, img_g, rays_g = tape_check(
+        f"tape csgnight global-nee {wn}x{hn} spp2 b{bn}", packed_g, csg_cam, "global", kwn,
+        plain_reps=1)
+    stats["tape_kernel[global-nee]"] = dict(max_abs_err=max_abs, ms=ms_g, plain_ms=plain_ms)
+    c = plain_counts(tk.render_image_tape_plain, packed_g, csg_cam)
+    all_leaves = range(packed_g.tape.n_leaves)
+    frames["tape_kernel[global-nee]"] = (
+        tape_ops(packed_g, rays_g, wn, hn, 2, "black") + nee_ops(
+            c, 1, leaf_interval_ops(packed_g, all_leaves)
+            + 2 * packed_g.tape.n_leaves * OPS["candidate_test"],
+            leaf_interval_ops(packed_g, packed_g.clusters[0][1]),
+            OPS["partner"] + n_lamps * OPS["lamp_match"]),
+        nbytes(packed_g.leaf_table, packed_g.leaf_types, packed_g.ops, packed_g.cluster_table,
+               packed_g.leaf_ids, packed_g.lamp_ids),
+        wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)",
+    )
     compare(f"tape csgnight {wn}x{hn} kernel global-nee vs kernel clustered-nee", img_c, rays_c,
             img_g, rays_g)
     print(f"[chip_smoke] tape csgnight {wn}x{hn} spp2 b{bn}: kernel clustered-nee {ms:.3f} ms, "
@@ -520,17 +588,160 @@ def main() -> None:
     if not umbra["blocked"] < 0.25 * umbra["open"]:
         fail("the blocker casts no umbra through the grid-nee shadow rays")
 
-    if mk.LAUNCHES <= mk_launches0 or tk.LAUNCHES <= tk_launches0:
+    # --- the triangle-mesh kernel: the four modes at the frames the kernel line reports
+    mesh_check = functools.partial(check, kernel=tm.render_image_mesh_kernel,
+                                   plain=tm.render_image_mesh_plain)
+
+    def mesh_cam(eye, fw, fh, at=(0.0, 0.7, -2.6), vfov=45.0):
+        return cam_at(eye, at, vfov, fw / fh)
+
+    def walk_counts(packed, cam, kw):
+        """The plain walk's work over the frame's path segments (NEE adds
+        shadow rays, never segments, so a run without it has the same)."""
+        counts = {}
+        tm.render_image_mesh_plain(packed, cam, counts=counts,
+                                   **{k: v for k, v in kw.items() if k != "nee"})
+        return {k: int(v) for k, v in counts.items()}
+
+    demo_eye = (0.0, 1.6, 2.2)  # tools/bench_mesh.py's camera
+    floor = quad((-6, 0, -9), (6, 0, -9), (6, 0, 2), (-6, 0, 2),
+                 Material.lambertian((0.55, 0.55, 0.5)), dev)
+    ball = icosphere((0.0, 0.45, -1.9), 0.45, Material.lambertian((0.2, 0.35, 0.7)), 1, dev)
+    mesh82 = concat_meshes(ball, floor)  # under pack_tri_grid's 192 faces: brute
+    mesh_check("mesh brute 82 faces 256x144 spp4 b6", tm.pack_mesh(mesh82),
+               mesh_cam(demo_eye, 256, 144), "brute",
+               dict(width=256, height=144, spp=4, max_bounces=6, seed=1))
+    wm, hm = 1280, 720
+    kwm = dict(width=wm, height=hm, spp=2, max_bounces=6, seed=0)
+    cam_m = mesh_cam(demo_eye, wm, hm)
+    demo2 = mesh_demo_scene(2, device=dev)
+    for mode, label, packed in (
+        ("brute", "mesh_demo_scene(2) forced brute", tm.pack_mesh(demo2, False)),
+        ("grid", "mesh_demo_scene(4)", tm.pack_mesh(mesh_demo_scene(4, device=dev))),
+    ):
+        max_abs, ms, plain_ms, img, rays = mesh_check(
+            f"mesh {mode} {label} {wm}x{hm} spp2 b6", packed, cam_m, mode, kwm, plain_reps=1)
+        name = f"trimesh_kernel[{mode}]"
+        stats[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        walk = walk_counts(packed, cam_m, kwm) if mode == "grid" else None
+        frames[name] = (
+            mesh_ops(packed, rays, wm, hm, 2, walk=walk),
+            nbytes(packed.faces) + (0 if packed.grid is None else nbytes(
+                packed.grid.offsets, packed.grid.face_ids, packed.grid.globals_idx)),
+            wm, hm, "" if walk is None else f"; walk {walk}",
+        )
+        if mode == "brute":
+            img_b, rays_b = img, rays
+    (img, rays), ms_g2 = timed(functools.partial(tm.render_image_mesh_kernel, tm.pack_mesh(demo2),
+                                                 cam_m, **kwm), reps=3)
+    compare(f"mesh_demo_scene(2) {wm}x{hm} kernel grid vs kernel forced brute", img_b, rays_b,
+            img, rays)
+    print(f"[chip_smoke] mesh_demo_scene(2) {wm}x{hm} spp2 b6: kernel brute "
+          f"{stats['trimesh_kernel[brute]']['ms']:.3f} ms, grid {ms_g2:.3f} ms ({card})",
+          flush=True)
+
+    kwmn = dict(width=wn, height=hn, spp=2, max_bounces=bn, seed=0, sky="black", nee=True)
+    lamp82 = concat_meshes(  # tests/test_nee.py's brute-path mesh NEE scene, two lamp faces
+        icosphere((0, 0.7, -3), 0.7, Material.lambertian((0.6, 0.3, 0.3)), 1, dev),
+        quad((-0.6, 2.2, -3.4), (0.6, 2.2, -3.4), (0.6, 2.2, -2.4), (-0.6, 2.2, -2.4),
+             Material.emissive((12.0, 10.0, 8.0)), dev))
+    for mode, label, packed, cam in (
+        ("brute", "test_nee lamp scene", tm.pack_mesh(lamp82),
+         mesh_cam((0, 1.4, 1.6), wn, hn, at=(0, 0.6, -3), vfov=50.0)),
+        ("grid", "mesh_night_scene()", tm.pack_mesh(mesh_night_scene(device=dev)),
+         mesh_cam((0, 1.8, 2.4), wn, hn)),
+    ):
+        max_abs, ms, plain_ms, img, rays = mesh_check(
+            f"mesh {mode}-nee {label} {wn}x{hn} spp2 b{bn}", packed, cam, mode, kwmn, plain_reps=1)
+        name = f"trimesh_kernel[{mode}-nee]"
+        stats[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        counts = {}
+        tm.render_image_mesh_plain(packed, cam, counts=counts, **kwmn)
+        c = {k: int(counts[k]) for k in ("nee_vertices", "shadow_rays", "shadow_clear",
+                                         "mis_emission", "carried_pdfs")}
+        walk = walk_counts(packed, cam, kwmn) if mode == "grid" else None
+        n_lamps = packed.lamps.shape[0]
+        if mode == "brute":  # a clear shadow ray tests every face, an occluded one at least one
+            clear = packed.mesh.num_faces * OPS["mt_test"]
+        else:  # the globals and the walk's set-up (its voxels are left out: a floor)
+            clear = packed.grid.n_globals * OPS["mt_test"] + OPS["walk_setup"]
+        frames[name] = (
+            mesh_ops(packed, rays, wn, hn, 2, "black", walk) + nee_ops(
+                c, 1 + OPS["tri_weight"], clear, OPS["mt_test"],
+                OPS["tri_partner"] + n_lamps * OPS["tri_lamp_match"], OPS["tri_sample"]),
+            nbytes(packed.faces, packed.lamps) + (0 if packed.grid is None else nbytes(
+                packed.grid.offsets, packed.grid.face_ids, packed.grid.globals_idx)),
+            wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach a lamp)"
+            + ("" if walk is None else f"; walk {walk}"),
+        )
+    # the 80-lamp scene of tests/test_nee.py (an emissive icosphere) in grid-nee
+    lamps80 = concat_meshes(
+        icosphere((-0.9, 0.7, -3.0), 0.7, Material.lambertian((0.6, 0.3, 0.3)), 2, dev),
+        icosphere((0.2, 2.2, -2.6), 0.35, Material.emissive((14.0, 12.0, 9.0)), 1, dev),
+        quad((-6, 0, -9), (6, 0, -9), (6, 0, 2), (-6, 0, 2), Material.lambertian((0.5, 0.5, 0.5)),
+             dev))
+    packed80 = tm.pack_mesh(lamps80)
+    if packed80.lamps.shape[0] != 80:
+        fail(f"the 80-lamp scene has {packed80.lamps.shape[0]} lamps")
+    mesh_check("mesh grid-nee 80 lamps 320x180 spp2 b3", packed80,
+               mesh_cam((0, 1.6, 2.2), 320, 180), "grid",
+               dict(width=320, height=180, spp=2, max_bounces=3, seed=7, sky="black", nee=True))
+
+    # degenerate faces (two points and a segment) in view and inside the
+    # grid's bounds, in both modes: never hit, so the image is the mesh's own
+    v0 = np.array([[0.0, 0.6, -2.0], [-0.2, 0.5, -2.2], [0.1, 0.3, -2.5]], np.float32)
+    e1 = np.array([[0.0, 0.0, 0.0], [0.3, 0.1, 0.0], [0.0, 0.0, 0.0]], np.float32)
+    degenerate = mesh_from_numpy(v0, e1, 2 * e1, np.ones(3, np.int32),
+                                 np.full((3, 3), 0.5, np.float32), np.zeros(3, np.float32), dev)
+    for mode, base in (("brute", mesh82), ("grid", demo2)):
+        kwd = dict(width=256, height=144, spp=2, max_bounces=4, seed=2)
+        cam_d = mesh_cam(demo_eye, 256, 144)
+        packed = tm.pack_mesh(concat_meshes(base, degenerate), mode == "grid")
+        img = mesh_check(f"mesh {mode} with degenerate faces 256x144 spp2 b4", packed, cam_d, mode,
+                         kwd)[3]
+        clean, _ = tm.render_image_mesh_kernel(tm.pack_mesh(base, mode == "grid"), cam_d, **kwd)
+        if not torch.equal(img, clean):
+            fail(f"degenerate faces changed the {mode} kernel's image")
+    print("[chip_smoke] degenerate faces: never hit in brute or grid mode", flush=True)
+
+    # the face-count ladder of tools/bench_mesh.py: mesh_demo_scene at subdiv 2-6
+    ladder = []
+    for sub, spheres in ((2, 3), (3, 3), (4, 3), (5, 3), (5, 5), (6, 3)):
+        mesh = mesh_demo_scene(sub, spheres, device=dev)
+        t0 = time.perf_counter()
+        packed = tm.pack_mesh(mesh)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        if packed.mode != "grid":
+            fail(f"ladder {mesh.num_faces} faces: expected grid mode, got {packed.mode}")
+        mean_occ, max_occ, nonempty = packed.grid.occupancy()
+        (_, rays), ms = timed(functools.partial(
+            tm.render_image_mesh_kernel, packed, cam_m, width=wm, height=hm, spp=16,
+            max_bounces=6, seed=0), reps=3)
+        row = dict(faces=mesh.num_faces, dims=packed.grid.static.dims,
+                   globals=packed.grid.n_globals, nonempty=nonempty, mean_list=mean_occ, max_list=max_occ, pack_s=pack_s,
+                   grid_pack_s=packed.grid.pack_seconds, ms=ms, mrays_s=int(rays) / ms / 1e3)
+        ladder.append(row)
+        print(f"[chip_smoke] ladder {json.dumps(row)} ({wm}x{hm} spp16 b6; {card})", flush=True)
+    mesh_check(f"mesh grid {ladder[-1]['faces']} faces 160x90 spp1 b6", packed,
+               mesh_cam(demo_eye, 160, 90), "grid", dict(width=160, height=90, spp=1, max_bounces=6,
+                                                         seed=0))
+
+    if mk.LAUNCHES <= mk_launches0 or tk.LAUNCHES <= tk_launches0 or tm.LAUNCHES <= tm_launches0:
         fail("LAUNCHES did not increase in phase 2")
-    phase2 = {m: tk.LAUNCHES_BY_MODE[m] - tk_phase2[m] for m in ("global", "global-nee")}
+    phase2 = {f"tape_kernel[{m}]": tk.LAUNCHES_BY_MODE[m] - tk_phase2[m]
+              for m in ("global", "global-nee")}
+    phase2.update({f"trimesh_kernel[{m}]": tm.LAUNCHES_BY_MODE[m] - tm_phase2[m]
+                   for m in ("brute", "brute-nee")})
     if not all(phase2.values()):
-        fail(f"tape_kernel modes never launched in phase 2: {phase2}")
-    print(f"[chip_smoke] phase 2 ok: {mk.LAUNCHES - mk_launches0} sphere and "
-          f"{tk.LAUNCHES - tk_launches0} tape kernel launches ({phase2})", flush=True)
+        fail(f"kernel modes never launched in phase 2: {phase2}")
+    print(f"[chip_smoke] phase 2 ok: {mk.LAUNCHES - mk_launches0} sphere, "
+          f"{tk.LAUNCHES - tk_launches0} tape and {tm.LAUNCHES - tm_launches0} mesh kernel "
+          f"launches ({phase2})", flush=True)
 
     # --- phase 3: the main paths (benchmarks + render CLI), counts from zero
     os.makedirs(OUT_DIR, exist_ok=True)
-    for mod in (mk, tk):
+    for mod in (mk, tk, tm):
         mod.LAUNCHES = 0
         for k in mod.LAUNCHES_BY_MODE:
             mod.LAUNCHES_BY_MODE[k] = 0
@@ -538,16 +749,18 @@ def main() -> None:
     result, img = bench.run_bench(quick=False, frames=3, device="cuda")
     result5, img5 = bench.run_bench(scene="deepcsg", quick=False, frames=3, device="cuda")
     nee_benches = {scene: bench.run_bench(scene=scene, quick=False, frames=3, device="cuda")
-                   for scene in ("night", "night488", "csgnight")}
+                   for scene in ("night", "night488", "csgnight", "mesh", "meshnight")}
     pngs = {}
     for scene, (fw, fh) in (("diffuse", (1920, 1080)), ("csg", (1920, 1080)),
-                            ("manyobjects", (1920, 1080)), ("csgnight", (wn, hn))):
+                            ("manyobjects", (1920, 1080)), ("csgnight", (wn, hn)),
+                            ("meshnight", (wn, hn))):
         pngs[scene] = os.path.join(OUT_DIR, f"{scene}_{fh}p.png")
         cli_main(["render", "--scene", scene, "--width", str(fw), "--height", str(fh),
                   "--spp", "16", "--device", "cuda", "--out", pngs[scene]])
     torch.cuda.synchronize()
     counts = {f"sphere_megakernel[{m}]": n for m, n in mk.LAUNCHES_BY_MODE.items()}
     counts.update({f"tape_kernel[{m}]": n for m, n in tk.LAUNCHES_BY_MODE.items()})
+    counts.update({f"trimesh_kernel[{m}]": n for m, n in tm.LAUNCHES_BY_MODE.items()})
     print(f"[chip_smoke] main path took {time.perf_counter() - t0:.1f} s; launches {counts}",
           flush=True)
     benches = {"rtiow": (result, img), "deepcsg": (result5, img5), **nee_benches}
@@ -565,14 +778,17 @@ def main() -> None:
         fail(f"render CLI wrote no PNG: {missing}")
     idle = [k for k in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",
                         "sphere_megakernel[grid-nee]", "sphere_megakernel[brute-nee]",
-                        "tape_kernel[clustered]", "tape_kernel[clustered-nee]") if counts[k] == 0]
+                        "tape_kernel[clustered]", "tape_kernel[clustered-nee]",
+                        "trimesh_kernel[grid]", "trimesh_kernel[grid-nee]") if counts[k] == 0]
     if idle:
         fail(f"kernel modes never launched on the main path: {idle}")
 
     kernels = []
     for name in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",
                  "sphere_megakernel[grid-nee]", "sphere_megakernel[brute-nee]",
-                 "tape_kernel[clustered]", "tape_kernel[global]", "tape_kernel[clustered-nee]"):
+                 "tape_kernel[clustered]", "tape_kernel[global]", "tape_kernel[clustered-nee]",
+                 "tape_kernel[global-nee]", "trimesh_kernel[brute]", "trimesh_kernel[grid]",
+                 "trimesh_kernel[brute-nee]", "trimesh_kernel[grid-nee]"):
         base = name.split("[")[0]
         source, replaces = KERNELS[base]
         ops, table_bytes, fw, fh, note = frames[name]

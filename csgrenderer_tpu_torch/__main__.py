@@ -4,7 +4,9 @@ Commands:
   render     render a built-in scene to PNG: the sphere scenes rtiow and
              diffuse, the CSG tapes csg (config 3), deepcsg (config 5 at
              t = 1.0), manyobjects and csgnight (black sky, emissive sphere
-             leaves, next-event estimation)
+             leaves, next-event estimation), and the triangle mesh
+             meshnight (black sky, emissive quad lamps, next-event
+             estimation)
   bench      run the benchmark (same as ``python -m csgrenderer_tpu_torch.bench``)
 
 ``render`` runs on the GPU (``--device cuda``, the default) and exits
@@ -19,9 +21,10 @@ import sys
 
 import torch
 
-PORTED = ("rtiow", "diffuse", "csg", "deepcsg", "manyobjects", "csgnight")
-NOT_PORTED = ("milestone01", "meshnight")
+PORTED = ("rtiow", "diffuse", "csg", "deepcsg", "manyobjects", "csgnight", "meshnight")
+NOT_PORTED = ("milestone01",)
 TAPE_SCENES = ("csg", "deepcsg", "manyobjects", "csgnight")
+MESH_SCENES = ("meshnight",)
 
 
 def _build(scene_name: str, aspect: float, device):
@@ -32,6 +35,7 @@ def _build(scene_name: str, aspect: float, device):
         config3_csg_scene,
         csg_night_scene,
         many_objects_scene,
+        mesh_night_scene,
         rtiow_final_scene,
         two_spheres_scene,
     )
@@ -53,6 +57,10 @@ def _build(scene_name: str, aspect: float, device):
         cam = Camera.look_at((4.5, 2.6, 4.8), (0.0, 0.8, 0.3), vfov_degrees=38.0,
                              aspect_ratio=aspect, device=device)
         return csg_night_scene().compile(k=4, device=device), cam, dict(sky="black", nee=True)
+    if scene_name == "meshnight":
+        cam = Camera.look_at((0, 1.8, 2.4), (0, 0.7, -2.6), vfov_degrees=45.0,
+                             aspect_ratio=aspect, device=device)
+        return mesh_night_scene(device=device), cam, dict(sky="black", nee=True)
     if scene_name == "diffuse":
         cam = Camera.look_at((0, 0, 0), (0, 0, -1), vfov_degrees=90.0,
                              aspect_ratio=aspect, device=device)
@@ -64,11 +72,12 @@ def _build(scene_name: str, aspect: float, device):
 
 def cmd_render(args) -> None:
     if args.scene not in PORTED:
-        raise SystemExit(f"scene {args.scene!r} is not yet ported (ROADMAP A4-A7); "
+        raise SystemExit(f"scene {args.scene!r} is not yet ported (ROADMAP A4); "
                          f"ported: {', '.join(PORTED)}")
     from .io import image
     from .kernels.megakernel import render_image_kernel
     from .kernels.tape_kernel import render_image_tape_kernel
+    from .kernels.trimesh_kernel import render_image_mesh_kernel
     from .render.tonemap import tonemap, to_uint8
 
     device = args.device
@@ -76,7 +85,12 @@ def cmd_render(args) -> None:
         raise SystemExit("no CUDA device: render runs the GPU kernels by default; "
                          "--device cpu runs the plain version")
     scene, camera, extra = _build(args.scene, args.width / args.height, device)
-    render = render_image_tape_kernel if args.scene in TAPE_SCENES else render_image_kernel
+    if args.scene in TAPE_SCENES:
+        render = render_image_tape_kernel
+    elif args.scene in MESH_SCENES:
+        render = render_image_mesh_kernel
+    else:
+        render = render_image_kernel
     img, rays = render(
         scene, camera, args.width, args.height, spp=args.spp,
         max_bounces=args.bounces, seed=args.seed, **extra,

@@ -21,7 +21,14 @@ the JAX package) and ``tools/bench_tape.py``. ``--scene`` picks the frame:
   8's camera (6.5, 2.2, 6.5) -> (0, 0.6, 0), vfov 32; ``csgnight``
   (``csg_night_scene().compile(k=4)``, clustered) through demo 9's
   camera (4.5, 2.6, 4.8) -> (0, 0.8, 0.3), vfov 38, on the tape kernel.
-  Shadow rays are not counted as segments.
+  Shadow rays are not counted as segments;
+- the triangle-mesh scenes, through the CUDA mesh kernel: ``mesh``
+  (``mesh_demo_scene(4, 3)``, 15,362 faces, grid mode, the scene and
+  camera (0, 1.6, 2.2) -> (0, 0.7, -2.6), vfov 45, of
+  ``tools/bench_mesh.py``) at 1280x720, 16 spp, 6 bounces, rtiow sky;
+  ``meshnight`` (``mesh_night_scene()``, 966 faces, four of them lamps,
+  grid-nee) through the render CLI's camera (0, 1.8, 2.4) ->
+  (0, 0.7, -2.6), vfov 45, at the NEE frame 960x540, 64 spp, 6 bounces.
 
 Prints ONE JSON line:
 
@@ -40,6 +47,7 @@ Usage:
   python -m csgrenderer_tpu_torch.bench --quick           # 320x180, 4 spp
   python -m csgrenderer_tpu_torch.bench --scene deepcsg   # config 5, 1080p/64 spp
   python -m csgrenderer_tpu_torch.bench --scene night     # NEE, 960x540/64 spp
+  python -m csgrenderer_tpu_torch.bench --scene mesh      # 15,362 faces, 1280x720/16 spp
 
 The benchmark runs on the GPU (``--device cuda``, the default) and exits
 non-zero on a host without CUDA. ``--device cpu`` runs the plain torch
@@ -59,11 +67,13 @@ import time
 import torch
 
 from .camera import Camera
-from .kernels import megakernel, tape_kernel
+from .kernels import megakernel, tape_kernel, trimesh_kernel
 from .models import (
     animated_csg_scene,
     csg_night_scene,
     many_objects_scene,
+    mesh_demo_scene,
+    mesh_night_scene,
     night_scene,
     rtiow_final_scene,
 )
@@ -76,13 +86,16 @@ FRAMES = {
     "night": ((960, 540, 64, 6), (320, 180, 4, 6)),
     "night488": ((960, 540, 64, 6), (320, 180, 4, 6)),
     "csgnight": ((960, 540, 64, 6), (320, 180, 4, 6)),
+    "mesh": ((1280, 720, 16, 6), (320, 180, 4, 6)),
+    "meshnight": ((960, 540, 64, 6), (320, 180, 4, 6)),
 }
 FULL, QUICK = FRAMES["rtiow"]
 KERNEL_NAME = {"rtiow": "sphere_megakernel", "deepcsg": "tape_kernel", "manyobjects": "tape_kernel",
                "night": "sphere_megakernel", "night488": "sphere_megakernel",
-               "csgnight": "tape_kernel"}
+               "csgnight": "tape_kernel", "mesh": "trimesh_kernel", "meshnight": "trimesh_kernel"}
 LABEL = {"rtiow": "RTIOW-final", "deepcsg": "config5-deepcsg-t1", "manyobjects": "many-objects-99",
-         "night": "night-148-nee", "night488": "night-488-nee", "csgnight": "csg-night-nee"}
+         "night": "night-148-nee", "night488": "night-488-nee", "csgnight": "csg-night-nee",
+         "mesh": "mesh-demo-15362", "meshnight": "mesh-night-966-nee"}
 NO_CUDA = "no CUDA device: the benchmark measures the GPU kernel (--device cpu runs the plain version)"
 
 
@@ -133,6 +146,16 @@ def build_renderer(width: int, height: int, spp: int, bounces: int, device, scen
         camera = Camera.look_at((4.5, 2.6, 4.8), (0.0, 0.8, 0.3), vfov_degrees=38.0,
                                 aspect_ratio=aspect, device=device)
         render, extra = tape_kernel.render_image_tape_kernel, dict(sky="black", nee=True)
+    elif scene == "mesh":
+        packed = trimesh_kernel.pack_mesh(mesh_demo_scene(4, 3, device=device))
+        camera = Camera.look_at((0.0, 1.6, 2.2), (0.0, 0.7, -2.6), vfov_degrees=45.0,
+                                aspect_ratio=aspect, device=device)
+        render, extra = trimesh_kernel.render_image_mesh_kernel, dict()
+    elif scene == "meshnight":
+        packed = trimesh_kernel.pack_mesh(mesh_night_scene(device=device))
+        camera = Camera.look_at((0.0, 1.8, 2.4), (0.0, 0.7, -2.6), vfov_degrees=45.0,
+                                aspect_ratio=aspect, device=device)
+        render, extra = trimesh_kernel.render_image_mesh_kernel, dict(sky="black", nee=True)
     else:
         raise ValueError(f"unknown scene {scene!r}; choose from {sorted(FRAMES)}")
 
@@ -243,7 +266,8 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--scene", default="rtiow", choices=sorted(FRAMES),
                     help="rtiow (spheres, the default), deepcsg (config 5), manyobjects, "
-                         "or the NEE night scenes night, night488 and csgnight")
+                         "the NEE night scenes night, night488 and csgnight, or the "
+                         "triangle meshes mesh and meshnight")
     ap.add_argument("--quick", action="store_true", help="320x180, 4 spp")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--device", default="cuda",

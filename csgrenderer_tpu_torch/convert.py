@@ -1,7 +1,7 @@
 """Carry state from the JAX package into this one.
 
-The JAX package's scenes, CSG tapes, cameras and lamp tables are pytrees
-of arrays;
+The JAX package's scenes, meshes, CSG tapes, cameras and lamp tables are
+pytrees of arrays;
 handed over as numpy arrays (``np.asarray(field)``) and plain tuples,
 these functions rebuild them as this package's containers, so both
 packages render the identical scene through the identical camera. Nothing
@@ -16,6 +16,9 @@ import torch
 from .camera.pinhole import Camera
 from .render.integrator import SphereScene
 from .render.lights import SphereLights, TriLights
+# MeshScene from the six per-face arrays (v0, e1, e2 [F,3], mat_kind [F], albedo [F,3],
+# mat_param [F]), device last
+from .render.trimesh import mesh_from_arrays as mesh_from_numpy  # noqa: F401
 from .scene.tape import CompiledTape
 
 

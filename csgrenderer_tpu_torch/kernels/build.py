@@ -89,10 +89,10 @@ def load(name: str) -> tuple[ctypes.CDLL, Build]:
     return ctypes.CDLL(str(b.path)), b
 
 
-def load_all(names) -> dict[str, Build]:
-    """Build every named source at once (one nvcc each, started together),
-    then load each; returns name -> Build."""
-    names = list(names)
+def load_all() -> dict[str, Build]:
+    """Build every kernel source ``csrc/<name>.cu`` at once (one nvcc
+    each, started together), then load each; returns name -> Build."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         loaded = list(pool.map(load, names))  # the compiles overlap; errors raise here
     return {name: b for name, (_, b) in zip(names, loaded)}

@@ -1,9 +1,10 @@
 // Device code shared by the path-tracing kernels (sphere_megakernel.cu,
-// tape_kernel.cu): the PCG4D counter RNG, the camera sample, the sky, the
-// RTIOW material scatter and next-event estimation (NEE) with MIS. It is
-// the CUDA twin of the JAX package's kernels/common.py (pcg4d_planes,
-// camera_ray_planes, scatter_planes, sky_planes, shade_and_advance,
-// nee_sample_planes, scatter_pdf_*_planes, bsdf_mis_scale_*planes) and
+// tape_kernel.cu, trimesh_kernel.cu): the PCG4D counter RNG, the camera
+// sample, the sky, the RTIOW material scatter and next-event estimation
+// (NEE) with MIS toward sphere and triangle lamps. It is the CUDA twin of
+// the JAX package's kernels/common.py (pcg4d_planes, camera_ray_planes,
+// scatter_planes, sky_planes, shade_and_advance, nee_sample_planes,
+// nee_sample_tri_planes, scatter_pdf_*_planes, bsdf_mis_scale_*planes) and
 // repeats, operation for operation, the plain torch path
 // (render/sampling.py, render/integrator.py, render/materials.py,
 // render/lights.py). Built with -fmad=false and without fast math, so every
@@ -306,6 +307,80 @@ __device__ __forceinline__ bool nee_sample(float px, float py, float pz, float n
   ls.wg = ag * eg * scale;
   ls.wb = ab * eb * scale;
   return true;
+}
+
+// One area sample of triangle lamp li from hit point P (lights.
+// nee_contribution_tri up to its shadow ray): a point uniform on the lamp
+// face (r = sqrt(u1), barycentrics (1 - r, u2 r)), the unit direction d
+// toward it and its distance tl, and the folded MIS-weighted contribution
+// w = albedo * e * q / (1 + q), q = pdf_b * L * A * |cos_l| / dist^2, with
+// the vertex lobe's pdf_b as in nee_sample. Lamp rows are four float4:
+// (v0, e1x) (e1y, e1z, e2x, e2y) (e2z, emitted rgb) (unit normal, area).
+// Returns false when there is nothing to trace (an empty lobe, a lamp
+// seen edge-on, P on the lamp): the plain version's contribution is then
+// exactly zero. Otherwise the caller traces a shadow ray (P, d) and adds
+// the throughput times w when no hit lies below tl * kShadowScale.
+__device__ __forceinline__ bool nee_sample_tri(float px, float py, float pz, float nx, float ny,
+                                               float nz, bool lambertian, float fuzz, float udx,
+                                               float udy, float udz, float ar, float ag, float ab,
+                                               const float4* lamp, int n_lamps, float u1, float u2,
+                                               LampSample& ls) {
+  const float4 l0 = __ldg(lamp), l1 = __ldg(lamp + 1), l2 = __ldg(lamp + 2), l3 = __ldg(lamp + 3);
+  // sample_triangle
+  const float r = sqrtf(u1);
+  const float bu = 1.0f - r, bv = u2 * r;
+  const float qx = l0.x + bu * l0.w + bv * l1.z;
+  const float qy = l0.y + bu * l1.x + bv * l1.w;
+  const float qz = l0.z + bu * l1.y + bv * l2.x;
+  const float tox = qx - px, toy = qy - py, toz = qz - pz;
+  const float dist2 = tox * tox + toy * toy + toz * toz;
+  ls.tl = sqrtf(fmaxf(dist2, 1e-20f));
+  ls.dx = tox / ls.tl;
+  ls.dy = toy / ls.tl;
+  ls.dz = toz / ls.tl;
+  const float cos_v = nx * ls.dx + ny * ls.dy + nz * ls.dz;
+  float pdf_b;
+  if (lambertian) {
+    pdf_b = fmaxf(cos_v, 0.0f) * kInvPi;
+  } else {  // light below the horizon carries no BRDF (the metal absorbs it)
+    pdf_b = cos_v > 0.0f ? scatter_pdf_metal(udx, udy, udz, nx, ny, nz, fuzz, ls.dx, ls.dy, ls.dz)
+                         : 0.0f;
+  }
+  const float cos_l = fabsf(l3.x * ls.dx + l3.y * ls.dy + l3.z * ls.dz);
+  if (!(pdf_b > 0.0f && cos_l > 1e-6f && dist2 > 1e-12f)) return false;
+  const float q = pdf_b * static_cast<float>(n_lamps) * l3.w * cos_l / fmaxf(dist2, 1e-20f);
+  const float scale = q / (1.0f + q);
+  ls.wr = ar * l2.y * scale;
+  ls.wg = ag * l2.z * scale;
+  ls.wb = ab * l2.w * scale;
+  return true;
+}
+
+// The balance-heuristic partner weight of triangle-lamp emission at
+// (hx, hy, hz) reached by a scatter of pdf prev_pdf from (ox, oy, oz)
+// (lights.bsdf_mis_scale_tri): the lamp is the first of least
+// |plane distance| |(p - v0) . n|; q = prev_pdf * L * A * |cos_l| / dist^2
+// with the direction and dist^2 taken from p - o; w = q / (q + 1).
+__device__ __forceinline__ float partner_weight_tri(const float4* lamps, int n_lamps, float hx,
+                                                    float hy, float hz, float ox, float oy,
+                                                    float oz, float prev_pdf) {
+  int li = 0;
+  float best = 0.0f;
+  for (int l = 0; l < n_lamps; ++l) {
+    const float4 l0 = __ldg(lamps + 4 * l), l3 = __ldg(lamps + 4 * l + 3);
+    const float pd = fabsf((hx - l0.x) * l3.x + (hy - l0.y) * l3.y + (hz - l0.z) * l3.z);
+    if (l == 0 || pd < best) {  // strict: the first minimum wins (argmin)
+      best = pd;
+      li = l;
+    }
+  }
+  const float4 l3 = __ldg(lamps + 4 * li + 3);
+  const float tox = hx - ox, toy = hy - oy, toz = hz - oz;
+  const float dist2 = tox * tox + toy * toy + toz * toz;
+  const float tl = sqrtf(fmaxf(dist2, 1e-20f));
+  const float cos_l = fabsf(l3.x * (tox / tl) + l3.y * (toy / tl) + l3.z * (toz / tl));
+  const float q = prev_pdf * static_cast<float>(n_lamps) * l3.w * cos_l / fmaxf(dist2, 1e-20f);
+  return q / (q + 1.0f);
 }
 
 // The scatter pdf a NEE path carries to its next vertex: the cosine lobe

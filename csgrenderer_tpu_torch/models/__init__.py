@@ -3,6 +3,8 @@ from .scenes import (
     config3_csg_scene,
     csg_night_scene,
     many_objects_scene,
+    mesh_demo_scene,
+    mesh_night_scene,
     milestone01_scene_graph,
     night_scene,
     rtiow_final_scene,
@@ -14,6 +16,8 @@ __all__ = [
     "config3_csg_scene",
     "csg_night_scene",
     "many_objects_scene",
+    "mesh_demo_scene",
+    "mesh_night_scene",
     "milestone01_scene_graph",
     "night_scene",
     "rtiow_final_scene",

@@ -7,8 +7,9 @@ the arrays are byte-identical; sphere scenes then become tensors on
 ``device``. The CSG builders return a ``SceneGraph``, whose
 ``compile(k=..., device=...)`` makes the tape.
 
-The night scenes (black sky, emissive sphere lamps) are the showcases
-of next-event estimation; the mesh family waits for its port (ROADMAP A7).
+The night scenes (black sky, emissive sphere or face lamps) are the
+showcases of next-event estimation. The mesh scenes return a
+``MeshScene`` on ``device``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from ..convert import sphere_scene_from_numpy
 from ..math import quaternion as quat
 from ..render.integrator import SphereScene
+from ..render.trimesh import MeshScene, concat_meshes, icosphere, quad
 from ..scene.graph import Material, NodeArgument, SceneGraph
 
 
@@ -293,3 +295,43 @@ def animated_csg_scene(n_levels: int = 8):
         return tape.with_edges(quat.from_axis_angle(axis, angles), tape.edge_off)
 
     return g, animate
+
+
+def mesh_night_scene(subdiv: int = 2, device=None) -> MeshScene:
+    """Emissive-quad-lit triangle-mesh night scene: two quad panel lamps
+    over Lambertian and glossy-metal icospheres and a floor, black sky
+    (966 faces at ``subdiv=2``, four of them lamps); the mesh twin of
+    ``night_scene`` / ``csg_night_scene``."""
+    return concat_meshes(
+        icosphere((-1.2, 0.75, -3.1), 0.75, Material.lambertian((0.65, 0.3, 0.25)), subdiv, device),
+        icosphere((1.1, 0.7, -2.8), 0.7, Material.metal((0.85, 0.75, 0.55), 0.15), subdiv, device),
+        icosphere((-0.1, 0.42, -1.8), 0.42, Material.lambertian((0.25, 0.4, 0.7)), subdiv, device),
+        quad((-1.4, 2.6, -3.6), (-0.2, 2.6, -3.6), (-0.2, 2.6, -2.4), (-1.4, 2.6, -2.4),
+             Material.emissive((16.0, 14.0, 10.0)), device),
+        quad((1.0, 2.2, -2.2), (2.0, 2.2, -2.2), (2.0, 2.2, -1.2), (1.0, 2.2, -1.2),
+             Material.emissive((4.0, 7.0, 12.0)), device),
+        quad((-7, 0, -10), (7, 0, -10), (7, 0, 2.5), (-7, 0, 2.5),
+             Material.lambertian((0.5, 0.5, 0.48)), device),
+    )
+
+
+def mesh_demo_scene(subdiv: int = 2, spheres: int = 3, device=None) -> MeshScene:
+    """The mesh demo scene (``demos/demo7_mesh.py::build_scene``, which
+    ``tools/bench_mesh.py`` measures): a metal, a glass and a Lambertian
+    icosphere on a floor quad; ``spheres`` > 3 appends Lambertian spheres
+    behind them. Faces: 3 x 20 x 4**subdiv + 2 (15,362 at subdiv 4;
+    102,402 with 5 spheres at subdiv 5)."""
+    parts = [
+        icosphere((-1.1, 0.8, -3.2), 0.8, Material.metal((0.9, 0.8, 0.6), 0.05), subdiv, device),
+        icosphere((1.1, 0.8, -3.0), 0.8, Material.dielectric(1.5), subdiv, device),
+        icosphere((0.0, 0.45, -1.9), 0.45, Material.lambertian((0.2, 0.35, 0.7)), subdiv, device),
+    ]
+    extra = [((-2.4, 0.7, -5.2), 0.7, (0.7, 0.3, 0.25)),
+             ((2.4, 0.7, -5.4), 0.7, (0.3, 0.6, 0.3)),
+             ((0.0, 0.9, -6.3), 0.9, (0.8, 0.7, 0.2)),
+             ((-3.4, 0.5, -2.6), 0.5, (0.5, 0.4, 0.7))]
+    for c, r, alb in extra[: max(0, spheres - 3)]:
+        parts.append(icosphere(c, r, Material.lambertian(alb), subdiv, device))
+    parts.append(quad((-6, 0, -9), (6, 0, -9), (6, 0, 2), (-6, 0, 2),
+                      Material.lambertian((0.55, 0.55, 0.5)), device))
+    return concat_meshes(*parts)

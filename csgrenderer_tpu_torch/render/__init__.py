@@ -1,4 +1,14 @@
-from . import integrator, intersect, interval, lights, materials, sampling, tape_eval, tonemap
+from . import (
+    integrator,
+    intersect,
+    interval,
+    lights,
+    materials,
+    sampling,
+    tape_eval,
+    tonemap,
+    trimesh,
+)
 from .integrator import (
     SphereScene,
     SurfaceHit,
@@ -18,6 +28,7 @@ __all__ = [
     "sampling",
     "tape_eval",
     "tonemap",
+    "trimesh",
     "SphereScene",
     "SurfaceHit",
     "render_image",

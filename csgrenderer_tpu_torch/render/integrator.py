@@ -143,6 +143,23 @@ def tape_hit_adapter(tape, o: Tensor, d: Tensor, eps: float = 1e-3) -> SurfaceHi
 HitFn = Callable[[Tensor, Tensor], SurfaceHit]
 
 
+def _trace_active(hit_fn: HitFn, o: Tensor, d: Tensor, active: Tensor) -> SurfaceHit:
+    """``hit_fn`` on the active rays only, the segments a kernel traces (so
+    a hit function's work counters count that work); the ended paths get
+    a miss with zero attributes, which the bounce loop masks out."""
+    if bool(active.all()):
+        return hit_fn(o, d)
+    idx = torch.nonzero(active.reshape(-1))[:, 0]
+    h = hit_fn(o.reshape(-1, 3)[idx], d.reshape(-1, 3)[idx])
+
+    def full(x: Tensor) -> Tensor:
+        out = torch.zeros((active.numel(),) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        out[idx] = x
+        return out.reshape(active.shape + tuple(x.shape[1:]))
+
+    return SurfaceHit(*(full(x) for x in h))
+
+
 def trace_paths(
     hit_fn: HitFn,
     o: Tensor,  # [..., 3]
@@ -158,7 +175,8 @@ def trace_paths(
     """Iterative bounce loop. Returns (radiance [..., 3], rays traced int64 []).
 
     ``rays`` counts traced segments: the active rays of every bounce (NEE
-    shadow rays are not counted).
+    shadow rays are not counted). Only those segments go to ``hit_fn``;
+    the loop ends early once every path has ended.
 
     ``lights`` (``SphereLights`` or ``TriLights``) enables MIS next-event
     estimation: every Lambertian or glossy-metal hit also samples one lamp
@@ -184,7 +202,9 @@ def trace_paths(
             counts[key] = counts.get(key, 0) + mask.sum(dtype=torch.int64)
 
     for b in range(max_bounces):
-        h = hit_fn(o, d)
+        if b and not bool(active.any()):
+            break  # every path has ended: later bounces add nothing
+        h = _trace_active(hit_fn, o, d, active)
         u = uniform4(pixel_id, sample_id, b, seed & 0xFFFFFFFF)
         sc = materials.scatter(h.mat_kind, h.albedo, h.mat_param, d, h.normal, h.front_face, u)
         missed = active & ~h.hit

@@ -1,5 +1,5 @@
-"""The CUDA sphere and tape kernels against their plain torch versions, on
-the card, without and with next-event estimation (NEE).
+"""The CUDA sphere, tape and triangle-mesh kernels against their plain
+torch versions, on the card, without and with next-event estimation (NEE).
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -22,15 +22,20 @@ import torch
 from csgrenderer_tpu_torch.camera import Camera
 from csgrenderer_tpu_torch.kernels import megakernel as mk
 from csgrenderer_tpu_torch.kernels import tape_kernel as tk
+from csgrenderer_tpu_torch.kernels import trimesh_kernel as tm
 from csgrenderer_tpu_torch.models import (
     animated_csg_scene,
     config3_csg_scene,
     csg_night_scene,
     many_objects_scene,
+    mesh_demo_scene,
+    mesh_night_scene,
     night_scene,
     rtiow_final_scene,
     two_spheres_scene,
 )
+from csgrenderer_tpu_torch.render.trimesh import concat_meshes, icosphere, quad
+from csgrenderer_tpu_torch.scene import Material
 
 pytestmark = pytest.mark.cuda
 
@@ -218,3 +223,43 @@ def test_non_nee_frames_unchanged(cuda, mode):
     torch.cuda.synchronize()
     digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
     assert (digest, int(rays)) == PINNED_FRAMES[mode]
+
+
+def _mesh_cam(eye, dev):
+    return Camera.look_at(eye, (0.0, 0.7, -2.6), vfov_degrees=45.0, aspect_ratio=2.0, device=dev)
+
+
+def _lamp_over_sphere(dev):
+    """tests/test_nee.py's brute-path mesh NEE scene: 82 faces, two lamps."""
+    return concat_meshes(
+        icosphere((0, 0.7, -3), 0.7, Material.lambertian((0.6, 0.3, 0.3)), 1, dev),
+        quad((-0.6, 2.2, -3.4), (0.6, 2.2, -3.4), (0.6, 2.2, -2.4), (-0.6, 2.2, -2.4),
+             Material.emissive((12.0, 10.0, 8.0)), dev),
+    )
+
+
+MESH_KW = dict(width=64, height=32, spp=2, max_bounces=6, seed=2)
+MESH_CASES = {
+    "brute": (lambda dev: tm.pack_mesh(mesh_demo_scene(1, device=dev), False), (0.0, 1.6, 2.2),
+              {}),
+    "grid": (lambda dev: tm.pack_mesh(mesh_demo_scene(3, device=dev)), (0.0, 1.6, 2.2), {}),
+    "brute-nee": (lambda dev: tm.pack_mesh(_lamp_over_sphere(dev)), (0, 1.4, 1.6),
+                  dict(sky="black", nee=True)),
+    "grid-nee": (lambda dev: tm.pack_mesh(mesh_night_scene(device=dev)), (0, 1.8, 2.4),
+                 dict(sky="black", nee=True)),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(MESH_CASES))
+def test_mesh_kernel_matches_plain(cuda, mode):
+    make_packed, eye, extra = MESH_CASES[mode]
+    packed, cam = make_packed(cuda), _mesh_cam(eye, cuda)
+    assert packed.mode + ("-nee" if extra else "") == mode
+    before = tm.LAUNCHES_BY_MODE[mode]
+    img, rays = tm.render_image_mesh_kernel(packed, cam, **MESH_KW, **extra)
+    torch.cuda.synchronize()
+    assert tm.LAUNCHES_BY_MODE[mode] == before + 1
+    assert rays.dtype == torch.int64
+    ref, ref_rays = tm.render_image_mesh_plain(packed, cam, **MESH_KW, **extra)
+    _assert_close(ref, ref_rays, img, rays)
+    assert float(img.max()) > 0.0

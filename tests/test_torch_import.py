@@ -27,11 +27,15 @@ MODULES = [
     "csgrenderer_tpu_torch.render",
     "csgrenderer_tpu_torch.render.interval",
     "csgrenderer_tpu_torch.render.tape_eval",
+    "csgrenderer_tpu_torch.render.trimesh",
     "csgrenderer_tpu_torch.models",
     "csgrenderer_tpu_torch.kernels",
     "csgrenderer_tpu_torch.kernels.build",
     "csgrenderer_tpu_torch.kernels.tape_kernel",
+    "csgrenderer_tpu_torch.kernels.tri_worklist",
+    "csgrenderer_tpu_torch.kernels.trimesh_kernel",
     "csgrenderer_tpu_torch.io",
+    "csgrenderer_tpu_torch.io.obj",
     "csgrenderer_tpu_torch.convert",
     "csgrenderer_tpu_torch.bench",
     "csgrenderer_tpu_torch.__main__",
