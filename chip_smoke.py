@@ -39,8 +39,16 @@ Phases (the first that fails ends the run with a non-zero exit):
    (never hit); and the face-count ladder of tools/bench_mesh.py (962 to
    245,762 faces), each rung packed (times printed) and kernel-timed at
    1280x720, 16 spp, 6 bounces, the last also against the plain walk at
-   160x90, 1 spp. Kernel and plain version are timed with CUDA events at
-   the frames the kernel line reports. Bounds
+   160x90, 1 spp. The tape kernel's interval-list audit mode
+   (``with_overflow=True``): the three pearls of
+   tests/test_interval_overflow.py at k = 2, 256x256, at 1 spp and 1
+   bounce (the dropped-span count ``over`` exactly equal to the plain
+   version's) and at 2 spp and 3 bounces (``over`` within the rays' bound:
+   a silhouette flip changes which segments exist); config5 at 1920x1080,
+   2 spp, 5 bounces, k = 4 against its plain version; audit-nee on
+   csgnight at 320x180 and at 960x540, 2 spp, 6 bounces. Kernel and plain
+   version are timed with CUDA events at the frames the kernel line
+   reports. Bounds
    (tests/test_kernels.py::compare): RMSE <= 2e-2, at most 1% of pixels
    off by more than 0.05 in any channel, rays within max(2e-3 * ref, 8).
 3. The main path, counts from zero: the sphere benchmark (python -m
@@ -51,11 +59,25 @@ Phases (the first that fails ends the run with a non-zero exit):
    plus the 16-spp p50; the mesh benchmark (--scene mesh) at 1280x720, 16
    spp, 6 bounces; the render CLI on the two-sphere scene, on csg and on
    manyobjects, each at 1920x1080, 16 spp, and on csgnight and meshnight
-   at 960x540, 16 spp. The sphere kernel's grid, brute, grid-nee and
-   brute-nee modes, the tape kernel's clustered and clustered-nee modes
-   and the mesh kernel's grid and grid-nee modes must have launched in
-   this phase; the tape kernel's global and global-nee modes and the mesh
-   kernel's brute and brute-nee modes must have launched in phase 2.
+   at 960x540, 16 spp (the render CLI goes through the app layer's
+   renderers); the audit of config5 at 1920x1080, 2 spp, 5 bounces, k = 4
+   (``over`` must be 0 and the image equal to the event-flip kernel's,
+   else within the compare bounds with the differing share printed) and
+   of csgnight at 960x540 with NEE; tools/make_goldens.py's configs 1-5
+   and 7 through ``PathTraceRenderer(device="cuda")`` /
+   ``WololoRenderer``, each held against the same renderer on the CPU (the
+   plain versions) and printed with its RMSE to the golden; ``gif --scene
+   deepcsg --frames 4`` (one tape launch per frame, the tape reclustered
+   on a CPU copy each frame); and the realtime loop, ``App.run`` with two
+   frames in flight over ``PathTraceRenderer(rtiow_final_scene(),
+   advance_samples=True)`` at 1280x720, 2 spp, with its frames per
+   second over three runs of each setting, the host's time to enqueue
+   a frame and one traced frame's device operations and busy time. The
+   sphere kernel's grid, brute, grid-nee and brute-nee modes, the tape
+   kernel's clustered, clustered-nee, audit and audit-nee
+   modes and the mesh kernel's grid and grid-nee modes must have launched
+   in this phase; the tape kernel's global and global-nee modes and the
+   mesh kernel's brute and brute-nee modes must have launched in phase 2.
 
 The last line of output is the device JSON; the line before it lists the
 kernels with their launch counts, errors, times and bounds. There is no
@@ -69,12 +91,19 @@ FP32 add, subtract, multiply, divide, square root, min, max, absolute
 value or comparison, and one per cosf/sinf call; integer work, selects and
 loads are not counted. Where the count depends on the data, only what must
 run is counted, so each bound is a floor: a segment that is not known to
-hit is counted as a miss, the grid walk's sphere tests are left out, a
-tape candidate costs its first test only (the others are short-circuited
-when it fails), and a tape segment walks the ops of one cluster, the
-smallest, only if it surely hits (a candidate past the best t, or outside
-(eps, cut), is skipped without a walk; a miss may walk none). A miss
-under the black sky adds no sky. The NEE modes add, from the plain
+hit is counted as a miss, a tape candidate costs its first test only (the
+others are short-circuited when it fails), and a tape segment walks the
+ops of one cluster, the smallest, only if it surely hits (a candidate past
+the best t, or outside (eps, cut), is skipped without a walk; a miss may
+walk none). A sphere grid segment adds the walk's set-up and, from the
+plain walk's counts of the same segments (``counts=``), the walks, cell
+visits and sphere tests it executes. An audit segment runs the whole
+tape's lists, whose widths are static (min(ka + kb, k) per combine): per
+leaf its interval and clip, per combine the merge's comparisons until one
+operand runs out, every midpoint and one slot test per slot and midpoint
+(the second is short-circuited), per root slot two tests and a min; the
+dropped-span count's tests are left out. A miss under the black sky adds
+no sky. The NEE modes add, from the plain
 version's run of the same frame (same RNG counters, so the same
 decisions; ``integrator.trace_paths(counts=)``): a lamp sample (with the
 cheaper cosine-lobe pdf) per Lambertian or glossy hit, a carried scatter
@@ -114,6 +143,8 @@ KERNELS = {
                        "csgrenderer_tpu/kernels/trimesh_kernel.py:662"),
 }  # the NEE modes are the same pallas_call with lamps (n_lights > 0; nee_lamps)
 SMS, LANES = 132, 128
+REALTIME_FRAMES = 200
+REALTIME_REPEATS = 3  # runs of each frames-in-flight / readback setting
 HBM_BYTES_PER_S = 3.35e12
 
 # FP32 operations counted from the kernel sources (see the docstring's rule)
@@ -143,6 +174,15 @@ OPS = {
     "tri_weight": 13,  # q and the MIS-weighted contribution of a traced sample
     "tri_partner": 26,  # the lamp's q from the previous vertex, q / (q + 1)
     "tri_lamp_match": 10,  # per lamp: |plane distance| and its test
+    "grid_setup": 34,  # sphere grid walk: 1/d, three slab ranges, t_in, t_out, the march test
+    "grid_start": 34,  # the first cell, steps, flat tests, tmax and td (a ray that enters)
+    "grid_step": 5,  # one advance: the next crossing, its axis, the exit tests
+    "list_push": 5,  # audit: the leaf interval's two clips and its validity test
+    "merge_compare": 1,  # audit: one comparison of the two-pointer merge
+    "midpoint": 2,  # audit: 0.5 (e_j + e_j+1); the last midpoint is one add
+    "slot_inside": 1,  # audit: in <= m per slot and midpoint (m < out short-circuited)
+    "root_slot": 4,  # audit: per root slot, t > eps and min, for the enter and the exit
+    "list_hit": 2,  # audit: min of the first enter and exit, entering's test
 }
 
 
@@ -214,10 +254,20 @@ def miss_ops(sky):
     return 0 if sky == "black" else OPS["miss"]
 
 
-def sphere_ops(n_brute, rays, width, height, spp, sky="rtiow"):
+def sphere_ops(n_brute, rays, width, height, spp, sky="rtiow", walk=None):
+    """A sphere frame's path-segment work: the brute pass over ``n_brute``
+    spheres per segment and, in grid mode, the walk's set-up per segment
+    and from ``walk`` (the plain walk's counts of the same segments) the
+    walks, cell visits and sphere tests it executes."""
     hits = hits_floor(rays, width, height, spp)
     per_segment = OPS["ray"] + n_brute * OPS["sphere_test"] + OPS["segment"]
-    return int(rays) * per_segment + hits * OPS["sphere_hit"] + (int(rays) - hits) * miss_ops(sky)
+    ops = 0
+    if walk is not None:
+        per_segment += OPS["grid_setup"]
+        ops = (walk["walks"] * OPS["grid_start"] + walk["cell_visits"] * OPS["grid_step"]
+               + walk["sphere_tests"] * OPS["sphere_test"])
+    return (ops + int(rays) * per_segment + hits * OPS["sphere_hit"]
+            + (int(rays) - hits) * miss_ops(sky))
 
 
 def leaf_interval_ops(packed, leaves):
@@ -234,6 +284,31 @@ def tape_ops(packed, rays, width, height, spp, sky="rtiow"):
     per_hit = OPS["tape_hit"] + sum(OPS["attribution"][t] for t in types) + min_lc * OPS["walk_push"]
     hits = hits_floor(rays, width, height, spp)
     return int(rays) * per_segment + hits * per_hit + (int(rays) - hits) * miss_ops(sky)
+
+
+def list_eval_ops(packed):
+    """FP32 operations of one audit-mode evaluation of the whole tape."""
+    types, k = packed.tape.leaf_types, packed.tape.k
+    ops, widths = 0, []
+    for opcode, arg in packed.tape.ops:
+        if opcode == 0:  # PUSH
+            ops += OPS["leaf_transform"] + OPS["interval"][types[arg]] + OPS["list_push"]
+            widths.append(1)
+            continue
+        kb, ka = widths.pop(), widths.pop()
+        n = 2 * (ka + kb) + 1
+        ops += (min(2 * ka, 2 * kb) * OPS["merge_compare"] + (n - 1) * OPS["midpoint"] + 1
+                + n * (ka + kb) * OPS["slot_inside"])
+        widths.append(min(ka + kb, k))
+    return ops + widths[0] * OPS["root_slot"] + OPS["list_hit"]
+
+
+def audit_ops(packed, rays, width, height, spp, sky="rtiow"):
+    types = packed.tape.leaf_types
+    per_hit = OPS["tape_hit"] + sum(OPS["attribution"][t] for t in types)
+    hits = hits_floor(rays, width, height, spp)
+    return (int(rays) * (list_eval_ops(packed) + OPS["segment"]) + hits * per_hit
+            + (int(rays) - hits) * miss_ops(sky))
 
 
 def mesh_ops(packed, rays, width, height, spp, sky="rtiow", walk=None):
@@ -289,6 +364,10 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
     from csgrenderer_tpu_torch import bench
     from csgrenderer_tpu_torch.__main__ import main as cli_main
+    from csgrenderer_tpu_torch.app import App, PathTraceRenderer, StatsClock, WololoRenderer
+    from csgrenderer_tpu_torch.app.goldens import golden_renderers
+    from csgrenderer_tpu_torch.io import read_png, rmse
+    from csgrenderer_tpu_torch.utils.config import RenderConfig
     from csgrenderer_tpu_torch.camera import Camera
     from csgrenderer_tpu_torch.kernels import build
     from csgrenderer_tpu_torch.kernels import megakernel as mk
@@ -347,6 +426,14 @@ def main() -> None:
     def rtiow_cam(aspect):
         return cam_at((13, 2, 3), (0, 0, 0), 20.0, aspect, aperture=0.1, focus_dist=10.0)
 
+    def sphere_walk_counts(packed, cam, kw):
+        """The plain grid walk's work over the frame's path segments (NEE
+        adds shadow rays, never segments, so a run without it has the same)."""
+        counts = {}
+        mk.render_image_plain(packed, cam, counts=counts,
+                              **{k: v for k, v in kw.items() if k != "nee"})
+        return {k: int(v) for k, v in counts.items()}
+
     def check(label, packed, cam, mode, kw, plain_reps=0, kernel=mk.render_image_kernel,
               plain=mk.render_image_plain):
         """Kernel vs plain on the same inputs; with plain_reps, also times
@@ -393,14 +480,14 @@ def main() -> None:
          diffuse_cam(w / h), dict(spp=4)),
     ):
         packed = mk.pack_scene(scene)
-        max_abs, ms, plain_ms, _, rays = check(
-            label, packed, cam, mode, dict(width=w, height=h, max_bounces=8, seed=0, **extra),
-            plain_reps=1)
+        kw = dict(width=w, height=h, max_bounces=8, seed=0, **extra)
+        max_abs, ms, plain_ms, _, rays = check(label, packed, cam, mode, kw, plain_reps=1)
         stats[f"sphere_megakernel[{mode}]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        walk = sphere_walk_counts(packed, cam, kw) if mode == "grid" else None
         frames[f"sphere_megakernel[{mode}]"] = (
-            sphere_ops(packed.n_brute, rays, w, h, extra["spp"]),
+            sphere_ops(packed.n_brute, rays, w, h, extra["spp"], walk=walk),
             nbytes(packed.spheres) + (0 if packed.grid is None else nbytes(packed.grid.cell_ids)),
-            w, h, "",
+            w, h, "" if walk is None else f"; walk {walk}",
         )
 
     # the tape kernel
@@ -498,13 +585,15 @@ def main() -> None:
         stats[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
         c = plain_counts(mk.render_image_plain, packed, night_cam)
         n_brute = packed.n_brute
+        walk = sphere_walk_counts(packed, night_cam, kwn) if mode == "grid" else None
         frames[name] = (
-            sphere_ops(n_brute, rays, wn, hn, 2, "black") + nee_ops(
+            sphere_ops(n_brute, rays, wn, hn, 2, "black", walk) + nee_ops(
                 c, OPS["ray"] + 1, n_brute * OPS["sphere_test"], OPS["sphere_test"],
                 OPS["partner"]),
             nbytes(packed.spheres, packed.lamps)
             + (0 if packed.grid is None else nbytes(packed.grid.cell_ids)),
-            wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)",
+            wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)"
+            + ("" if walk is None else f"; walk {walk}"),
         )
     # each night scene in the other sphere mode: brute-nee vs grid-nee on one scene
     for label, (scene, mode, ms, img_auto, rays_auto) in night_runs.items():
@@ -558,6 +647,88 @@ def main() -> None:
             img_g, rays_g)
     print(f"[chip_smoke] tape csgnight {wn}x{hn} spp2 b{bn}: kernel clustered-nee {ms:.3f} ms, "
           f"global-nee {ms_g:.3f} ms ({card})", flush=True)
+
+    # --- the tape kernel's interval-list audit mode (with_overflow=True)
+    def pearls(k):
+        """tests/test_interval_overflow.py's three disjoint spheres along +z:
+        three spans on the axis, more than k = 2 slots hold."""
+        g = SceneGraph()
+        s1, s2, s3 = (g.add_sphere_node(0.4, Material.lambertian(c))
+                      for c in ((0.8, 0.2, 0.2), (0.2, 0.8, 0.2), (0.2, 0.2, 0.8)))
+        u = g.add_union_of_node(NodeArgument(s1, offset=(0, 0, 2.0)),
+                                NodeArgument(s2, offset=(0, 0, 4.0)))
+        g.add_union_of_node(NodeArgument(u), NodeArgument(s3, offset=(0, 0, 6.0)))
+        return g.compile(k=k, device=dev)
+
+    def audit_check(label, packed, cam, kw, exact, plain_reps=0):
+        """The audit kernel against its plain version: image and rays by
+        compare(), the dropped-span count exactly (``exact``) or within
+        the rays' bound. Returns (max_abs, ms, plain_ms, image, rays, over)."""
+        run = functools.partial(tk.render_image_tape_kernel, packed, cam, with_overflow=True, **kw)
+        run_plain = functools.partial(tk.render_image_tape_plain, packed, cam, with_overflow=True,
+                                      **kw)
+        if plain_reps:
+            (img, rays, over), ms = timed(run, reps=5)
+            (ref, ref_rays, ref_over), plain_ms = timed(run_plain, reps=plain_reps)
+            print(f"[chip_smoke] {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})",
+                  flush=True)
+        else:
+            (img, rays, over), ms, plain_ms = run(), None, None
+            torch.cuda.synchronize()
+            ref, ref_rays, ref_over = run_plain()
+            torch.cuda.synchronize()
+        _, _, max_abs = compare(f"{label} kernel vs plain", ref, ref_rays, img, rays)
+        over, ref_over = int(over), int(ref_over)
+        allowed = 0 if exact else max(2e-3 * ref_over, 8)
+        print(f"[chip_smoke] {label}: dropped spans {over} vs plain {ref_over} "
+              f"(allowed difference {allowed})", flush=True)
+        if abs(over - ref_over) > allowed:
+            fail(f"{label}: the dropped-span counts differ")
+        return max_abs, ms, plain_ms, img, rays, over
+
+    pearl_cam = cam_at((0, 0, -6), (0, 0, 1), 30.0, 1.0)
+    for k, kw, exact in ((2, dict(spp=1, max_bounces=1), True), (2, dict(spp=2, max_bounces=3), False),
+                         (4, dict(spp=1, max_bounces=1), True)):
+        over = audit_check(f"audit pearls k={k} 256x256 spp{kw['spp']} b{kw['max_bounces']}",
+                           tk.pack_program(pearls(k)), pearl_cam,
+                           dict(width=256, height=256, seed=0, **kw), exact)[5]
+        if (over > 0) != (k == 2):
+            fail(f"audit pearls k={k}: {over} dropped spans (k = 2 must drop, k = 4 must not)")
+    packed = tk.pack_program(tape5)
+    max_abs, ms, plain_ms, _, rays, _ = audit_check(
+        f"audit config5 k=4 {w5}x{h5} spp2 b{b5}", packed, cam5, kw5, True, plain_reps=1)
+    stats["tape_kernel[audit]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    frames["tape_kernel[audit]"] = (
+        audit_ops(packed, rays, w5, h5, kw5["spp"]),
+        nbytes(packed.leaf_table, packed.leaf_types, packed.ops, packed.cluster_table,
+               packed.leaf_ids, packed.list_ops) + w5 * h5 * 4,  # + the int32 over plane
+        w5, h5, "",
+    )
+    print(f"[chip_smoke] config5 {w5}x{h5} spp2 b{b5}: kernel audit {ms:.3f} ms vs event flip "
+          f"clustered {stats['tape_kernel[clustered]']['ms']:.3f} ms, global "
+          f"{stats['tape_kernel[global]']['ms']:.3f} ms ({card})", flush=True)
+    audit_check("audit-nee csgnight 320x180 spp2 b6", tk.pack_program(night_tape),
+                cam_at((4.5, 2.6, 4.8), (0.0, 0.8, 0.3), 38.0, 320 / 180),
+                dict(width=320, height=180, spp=2, max_bounces=bn, seed=0, sky="black", nee=True),
+                False)
+    packed_n = tk.pack_program(night_tape)  # clustered: the shadow rays' event flip
+    max_abs, ms_a, plain_ms, _, rays_a, _ = audit_check(
+        f"audit-nee csgnight {wn}x{hn} spp2 b{bn}", packed_n, csg_cam, kwn, False, plain_reps=1)
+    stats["tape_kernel[audit-nee]"] = dict(max_abs_err=max_abs, ms=ms_a, plain_ms=plain_ms)
+    c = plain_counts(tk.render_image_tape_plain, packed_n, csg_cam)
+    frames["tape_kernel[audit-nee]"] = (
+        audit_ops(packed_n, rays_a, wn, hn, 2, "black") + nee_ops(
+            c, 1, leaf_interval_ops(packed_n, all_leaves)
+            + 2 * packed_n.tape.n_leaves * OPS["candidate_test"],
+            leaf_interval_ops(packed_n, packed_n.clusters[0][1]),
+            OPS["partner"] + n_lamps * OPS["lamp_match"]),
+        nbytes(packed_n.leaf_table, packed_n.leaf_types, packed_n.ops, packed_n.cluster_table,
+               packed_n.leaf_ids, packed_n.lamp_ids, packed_n.list_ops) + wn * hn * 4,
+        wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)",
+    )
+    print(f"[chip_smoke] csgnight {wn}x{hn} spp2 b{bn}: kernel audit-nee {ms_a:.3f} ms vs "
+          f"clustered-nee {stats['tape_kernel[clustered-nee]']['ms']:.3f} ms, global-nee "
+          f"{ms_g:.3f} ms ({card})", flush=True)
 
     # the blocker scene of tests/test_nee.py: a sphere between the lamp and
     # the floor must cast its umbra through the grid-nee shadow rays
@@ -757,6 +928,95 @@ def main() -> None:
         pngs[scene] = os.path.join(OUT_DIR, f"{scene}_{fh}p.png")
         cli_main(["render", "--scene", scene, "--width", str(fw), "--height", str(fh),
                   "--spp", "16", "--device", "cuda", "--out", pngs[scene]])
+
+    # the audit at the deepcsg bench frame, k = 4: exact, and the event flip's image
+    packed5 = tk.pack_program(tape5)
+    ev_img, ev_rays = tk.render_image_tape_kernel(packed5, cam5, **kw5)
+    au_img, au_rays, au_over = tk.render_image_tape_kernel(packed5, cam5, with_overflow=True, **kw5)
+    differ = float((au_img != ev_img).any(dim=-1).float().mean())
+    print(f"[chip_smoke] audit config5 k=4 {w5}x{h5} spp2 b{b5}: {int(au_over)} dropped spans; "
+          f"image {'equal to' if differ == 0.0 else f'{differ:.4%} of pixels off'} the event-flip "
+          f"kernel's; rays {int(au_rays)} vs {int(ev_rays)}", flush=True)
+    if int(au_over) != 0:
+        fail("the audit finds config5 at k = 4 inexact")
+    if differ:
+        compare("audit config5 vs event-flip kernel", ev_img, ev_rays, au_img, au_rays)
+    _, _, n_over = tk.render_image_tape_kernel(tk.pack_program(night_tape), csg_cam,
+                                               with_overflow=True, **kwn)
+    print(f"[chip_smoke] audit-nee csgnight k=4 {wn}x{hn} spp2 b{bn}: {int(n_over)} dropped spans",
+          flush=True)
+
+    # tools/make_goldens.py's configs through the renderers, against the CPU's plain versions
+    for name, make in golden_renderers("cuda").items():
+        r, t_sec = make()
+        frame = r.draw_frame(t_sec)
+        r_cpu, _ = golden_renderers("cpu")[name]()
+        ref = r_cpu.draw_frame(t_sec)
+        err = rmse(frame.cpu().numpy(),
+                   read_png(os.path.join(REPO, "tests", "goldens", f"{name}.png")))
+        print(f"[chip_smoke] golden {name}: RMSE {err:.3e} to the golden (the JAX reference under "
+              f"XLA's jit)", flush=True)
+        compare(f"golden {name} renderer cuda vs cpu (uint8 / 255)", ref.to(dev).float() / 255.0,
+                r_cpu.last_frame_rays, frame.float() / 255.0, r.last_frame_rays)
+
+    # gif --scene deepcsg: the animated tape reclustered on the host, one launch per frame
+    launches0, modes0 = tk.LAUNCHES, dict(tk.LAUNCHES_BY_MODE)
+    gif = os.path.join(OUT_DIR, "deepcsg.gif")
+    cli_main(["gif", "--scene", "deepcsg", "--frames", "4", "--width", "640", "--height", "360",
+              "--spp", "4", "--bounces", "5", "--device", "cuda", "--out", gif])
+    gif_modes = {m: n - modes0[m] for m, n in tk.LAUNCHES_BY_MODE.items() if n != modes0[m]}
+    print(f"[chip_smoke] gif deepcsg 4 frames: tape launches {tk.LAUNCHES - launches0} "
+          f"{gif_modes}", flush=True)
+    if tk.LAUNCHES - launches0 != 4 or not os.path.isfile(gif):
+        fail("gif --scene deepcsg did not launch the tape kernel once per frame")
+
+    # the realtime cell: App.run with frames in flight, 1280x720, 2 spp; every
+    # frame reaches the host (the serial loop's sink copies it there itself),
+    # but for "fence", which reads one ray count per frame
+    def to_host(i, frame):
+        return frame.cpu().numpy() if isinstance(frame, torch.Tensor) else frame
+
+    for label, r in (
+        ("rtiow", PathTraceRenderer(rtiow, rtiow_cam(1280 / 720),
+                                    RenderConfig(width=1280, height=720, spp=2, lens=True),
+                                    advance_samples=True)),
+        ("wololo", WololoRenderer(RenderConfig(width=1280, height=720, spp=1, sky="wololo"))),
+    ):
+        r.draw_frame(0.0)  # warm-up
+        for in_flight, readback in ((2, "full"), (1, "full"), (2, "fence")):
+            fps = []
+            for _ in range(REALTIME_REPEATS):
+                app = App(width=1280, height=720, stats=StatsClock(emit=None),
+                          frame_sink=to_host if readback == "full" else None)
+                app.swap_scene(r)
+                torch.cuda.synchronize()
+                t_run = time.perf_counter()
+                if not app.run(max_frames=REALTIME_FRAMES, frames_in_flight=in_flight,
+                               readback=readback):
+                    fail(f"realtime {label}: the App loop failed")
+                torch.cuda.synchronize()
+                fps.append(REALTIME_FRAMES / (time.perf_counter() - t_run))
+            mid = sorted(fps)[len(fps) // 2]
+            print(f"[chip_smoke] realtime {label} 1280x720 spp{r.config.spp}: {REALTIME_REPEATS} "
+                  f"runs of {REALTIME_FRAMES} frames, {in_flight} in flight, readback {readback}: "
+                  f"{', '.join(f'{x:.1f}' for x in fps)} fps (median {mid:.1f}, spread "
+                  f"{(max(fps) - min(fps)) / mid:.1%}) ({card})", flush=True)
+        # where a frame's time goes: the host's time to enqueue a frame (no
+        # sync), the time per frame with the device drained, and one traced
+        # frame's device operations and busy time
+        torch.cuda.synchronize()
+        t_enqueue = time.perf_counter()
+        for i in range(REALTIME_FRAMES):
+            r.draw_frame_async(i / 60.0)
+        enqueue_ms = (time.perf_counter() - t_enqueue) * 1e3 / REALTIME_FRAMES
+        torch.cuda.synchronize()
+        drained_ms = (time.perf_counter() - t_enqueue) * 1e3 / REALTIME_FRAMES
+        tr = bench.trace_frame(lambda i: r.draw_frame_async(0.5), dev)
+        busy = "not measured" if tr["device_busy_ms"] is None else f"{tr['device_busy_ms']:.3f} ms"
+        print(f"[chip_smoke] realtime {label} frame: host enqueue {enqueue_ms:.3f} ms, drained "
+              f"{drained_ms:.3f} ms per frame ({REALTIME_FRAMES} frames); traced frame "
+              f"{tr['frame_ms']:.3f} ms, {tr['device_ops']} device operations, device busy {busy} "
+              f"({card})", flush=True)
     torch.cuda.synchronize()
     counts = {f"sphere_megakernel[{m}]": n for m, n in mk.LAUNCHES_BY_MODE.items()}
     counts.update({f"tape_kernel[{m}]": n for m, n in tk.LAUNCHES_BY_MODE.items()})
@@ -779,6 +1039,7 @@ def main() -> None:
     idle = [k for k in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",
                         "sphere_megakernel[grid-nee]", "sphere_megakernel[brute-nee]",
                         "tape_kernel[clustered]", "tape_kernel[clustered-nee]",
+                        "tape_kernel[audit]", "tape_kernel[audit-nee]",
                         "trimesh_kernel[grid]", "trimesh_kernel[grid-nee]") if counts[k] == 0]
     if idle:
         fail(f"kernel modes never launched on the main path: {idle}")
@@ -787,7 +1048,8 @@ def main() -> None:
     for name in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",
                  "sphere_megakernel[grid-nee]", "sphere_megakernel[brute-nee]",
                  "tape_kernel[clustered]", "tape_kernel[global]", "tape_kernel[clustered-nee]",
-                 "tape_kernel[global-nee]", "trimesh_kernel[brute]", "trimesh_kernel[grid]",
+                 "tape_kernel[global-nee]", "tape_kernel[audit]", "tape_kernel[audit-nee]",
+                 "trimesh_kernel[brute]", "trimesh_kernel[grid]",
                  "trimesh_kernel[brute-nee]", "trimesh_kernel[grid-nee]"):
         base = name.split("[")[0]
         source, replaces = KERNELS[base]

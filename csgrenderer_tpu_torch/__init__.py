@@ -9,20 +9,25 @@ from ``kernels/csrc`` at first use.
 Layer map (bottom-up), mirroring ``csgrenderer_tpu``:
 
 - ``math``     vec3 ops over ``[..., 3]`` tensors, quaternions
-- ``camera``   the RTIOW thin-lens camera
+- ``camera``   the RTIOW thin-lens camera and the reference shader's camera
 - ``scene``    the CSG scene graph, its postfix tape compiler and the
                disjoint-cluster decomposition
 - ``render``   counter-based RNG, materials, sphere and CSG-leaf
                intersection, interval lists and the tape evaluator, the
                plain torch integrator (the reference path), next-event
                estimation toward lamps (``lights``) and tonemapping
-- ``kernels``  the grid packer with its plain DDA, the CUDA sphere
-               megakernel (grid and brute modes), the CUDA CSG tape kernel
-               (event flip, global and clustered), each with an NEE
-               variant, and their build
-- ``io``       PNG/PPM
+- ``kernels``  the sphere and voxel grid packers with their plain walks,
+               the CUDA sphere megakernel (grid and brute modes), the CUDA
+               CSG tape kernel (event flip, global and clustered, and the
+               interval-list audit), the CUDA triangle-mesh kernel (brute
+               and grid), each with an NEE variant, and their build
+- ``io``       PNG/PPM, OBJ, GIF, progressive-accumulator checkpoints
 - ``models``   built-in scenes (two spheres, RTIOW final, the night
-               scenes, the CSG configs 3 and 5, many objects, CSG night)
+               scenes, the CSG configs 3 and 5, many objects, CSG night,
+               the mesh scenes)
+- ``utils``    ``RenderConfig``, logging, timing and traces
+- ``app``      the renderers over the kernels, the App loop with frames in
+               flight, frame statistics, the golden configs
 - ``convert``  numpy state of the JAX package -> this package's containers
 
 Importing the package initialises no CUDA context and imports no

@@ -1,0 +1,299 @@
+"""Renderer objects: the ``Wo_Renderer`` equivalents driven by the App loop.
+
+Twin of ``csgrenderer_tpu/app/renderers.py``. A renderer owns a scene, a
+camera and a ``RenderConfig`` and exposes ``draw_frame(time_sec) -> image``
+(uint8 [H, W, 3] tensor on its device), the analog of
+``wo_renderer_draw_frame`` (renderer.h:20), plus ``last_frame_rays`` for
+the stats clock.
+
+- ``WololoRenderer``: the milestone-01 animated frame (config 1), plain
+  torch ops on the renderer's device.
+- ``PathTraceRenderer``: a ``SphereScene``, ``CompiledTape`` or
+  ``MeshScene`` through the port's kernels, with an optional per-frame
+  animation, progressive accumulation and render-to-noise (configs 2-5,
+  7 and the mesh milestone).
+
+``device`` (default "cuda") decides what runs, as the kernel wrappers do:
+on "cuda" every frame launches the CUDA kernel of its scene type, and a
+host without CUDA raises; on "cpu" the kernels' plain torch versions run.
+Nothing falls back from one to the other. The JAX package's
+``backend=``/``interpret=`` become this one argument.
+
+Static scenes are packed once, when the renderer is made; per frame only
+the camera row is built and the kernel launched, so ``draw_frame_async``
+never waits for the device. Animated CSG tapes are reclustered every frame
+on a CPU copy of the tape (``scene/partition.py``) and packed with that
+cluster tuple.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..io.checkpoint import Accumulator
+from ..kernels import megakernel, tape_kernel, trimesh_kernel
+from ..render import integrator
+from ..render.integrator import SphereScene
+from ..render.lights import extract_tape_lights
+from ..render.tonemap import to_uint8, tonemap
+from ..render.trimesh import MeshScene
+from ..scene.partition import partition_tape
+from ..scene.tape import CompiledTape
+from ..utils.config import RenderConfig, check_finite
+
+
+def resolve_device(device) -> torch.device:
+    """The renderer's device: "cuda" (the kernels) or "cpu" (their plain
+    versions); raises where CUDA is asked for and absent."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {device!r}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but CUDA is not available "
+                           "(device='cpu' runs the kernels' plain versions)")
+    return dev
+
+
+class WololoRenderer:
+    """Draws the reference's hard-coded animated-sphere frame (config 1).
+
+    ``entry_point``: "rt1_1" (the ray tracer, frag:147-152, default) or
+    "debug_view_1" (the st-coordinate visualizer, frag:132-137); the
+    reference switches these by editing main() and recompiling the shader.
+    """
+
+    def __init__(self, config: RenderConfig, entry_point: str = "rt1_1", device="cuda"):
+        if entry_point not in ("rt1_1", "debug_view_1"):
+            raise ValueError(f"unknown entry point {entry_point!r}")
+        self.config = config
+        self.device = resolve_device(device)
+        self.entry_point = entry_point
+        self.last_frame_rays = config.width * config.height  # 1 primary/px
+
+    def _radiance(self, time_sec: float) -> torch.Tensor:
+        cfg = self.config
+        if self.entry_point == "rt1_1":
+            lin = integrator.render_wololo_frame(time_sec, cfg.width, cfg.height, self.device)
+        else:
+            lin = integrator.render_debug_view_1(cfg.width, cfg.height, self.device)
+        if cfg.debug:
+            check_finite(lin, "the frame's radiance")
+        # the reference writes linear color (gamma 1)
+        return to_uint8(tonemap(lin, gamma=1.0))
+
+    def draw_frame(self, time_sec: float) -> torch.Tensor:
+        return self._radiance(time_sec)
+
+    def draw_frame_async(self, time_sec: float):
+        """(image, rays); the image is still being computed on the device."""
+        return self._radiance(time_sec), self.last_frame_rays
+
+
+class PathTraceRenderer:
+    """Path-traces a scene each frame; optionally accumulates progressively.
+
+    ``animate``: optional ``(scene, time_sec) -> scene`` applied per frame
+    (e.g. ``CompiledTape.with_edges`` for config 5). ``progressive``:
+    accumulate samples across frames instead of restarting (each frame adds
+    ``config.spp`` samples); ``reset_accumulation()`` clears.
+    ``advance_samples``: advance the RNG sample offset by ``spp`` each frame
+    without accumulating, so every frame is an independent fresh-noise
+    render (the realtime mode, safe with frames in flight, unlike
+    ``progressive``). ``device``: see the module docstring.
+    """
+
+    def __init__(
+        self,
+        scene,
+        camera,
+        config: RenderConfig,
+        animate: Optional[Callable] = None,
+        progressive: bool = False,
+        sample_offset: int = 0,
+        device="cuda",
+        advance_samples: bool = False,
+    ):
+        if not isinstance(scene, (SphereScene, CompiledTape, MeshScene)):
+            raise TypeError(f"unsupported scene type {type(scene).__name__}")
+        if progressive and advance_samples:
+            raise ValueError("progressive already advances sample offsets")
+        if not config.jitter:
+            raise NotImplementedError("the kernels always jitter (RenderConfig.jitter=False "
+                                      "is not ported)")
+        self.device = resolve_device(device)
+        self.scene = scene.to(self.device)
+        self.camera = camera.to(self.device)
+        self.config = config
+        self.progressive = progressive
+        self.advance_samples = advance_samples
+        self.accumulator = Accumulator.zeros(config.height, config.width, self.device)
+        self.last_frame_rays = 0
+        self._sample_offset = sample_offset
+        self._animate = animate
+
+        if config.nee and animate is not None and self.device.type == "cpu":
+            # as the JAX package's jnp backend: the plain path samples the
+            # lamps it was given, which animation could move
+            raise NotImplementedError(
+                "nee + animate on the CPU would sample the constructor-time lamp "
+                "positions; use device='cuda' (the kernel reads each frame's leaf table)")
+        # static scenes are packed once (lamp tables included); animated
+        # ones every frame
+        self._packed = None if animate is not None else _pack(self.scene)
+        if config.nee and not _has_lamps(self.scene, self._packed):
+            raise ValueError("RenderConfig.nee but the scene has no emissive lamps")
+        # animated tapes recluster per frame on a CPU copy, so no readback
+        # from the card is needed to choose the clusters
+        self._cpu_twin = (self.scene.to("cpu")
+                          if isinstance(scene, CompiledTape) and animate is not None else None)
+
+    def _render(self, time_sec: float, partition=None):
+        """One frame's (radiance [H, W, 3], rays int64 tensor) at the
+        current sample offset."""
+        if self._animate is None:
+            scene = self._packed
+        else:
+            scene = self._animate(self.scene, time_sec)
+            if self._cpu_twin is not None and partition is None:
+                partition = self._recluster(time_sec)
+        radiance, rays = _render_kernel(scene, self.camera, self.config, self._sample_offset,
+                                        animated=self._animate is not None,
+                                        partition=partition)
+        if self.config.debug:
+            check_finite(radiance, "the frame's radiance")
+        return radiance, rays
+
+    def _tonemap(self, linear: torch.Tensor) -> torch.Tensor:
+        return to_uint8(tonemap(linear, gamma=self.config.gamma))
+
+    def reset_accumulation(self) -> None:
+        self.accumulator = Accumulator.zeros(self.config.height, self.config.width, self.device)
+        self._sample_offset = 0
+
+    def set_camera(self, camera) -> None:
+        """Swap the view for subsequent frames. Progressive accumulations of
+        the old view are the caller's to reset."""
+        self.camera = camera.to(self.device)
+
+    def _recluster(self, time_sec: float) -> tuple:
+        """Clusters of the animated tape at ``time_sec``, computed on the
+        CPU copy. Returns ``partition_tape``'s tuple, or () when nothing
+        splits (the global evaluation)."""
+        clusters = partition_tape(self._animate(self._cpu_twin, time_sec))
+        return clusters if clusters is not None else ()
+
+    def draw_frame(self, time_sec: float) -> torch.Tensor:
+        radiance, rays = self._render(time_sec)
+        self.last_frame_rays = int(rays)
+        if self.progressive:
+            self.accumulator = self.accumulator.add(radiance * self.config.spp, self.config.spp,
+                                                    rays)
+            self._sample_offset += self.config.spp
+            return self._tonemap(self.denoise_image(self.accumulator.image(), time_sec))
+        if self.advance_samples:
+            self._sample_offset += self.config.spp
+        return self._tonemap(self.denoise_image(radiance, time_sec))
+
+    def draw_frame_async(self, time_sec: float):
+        """Launch a frame without waiting for the device.
+
+        Returns (uint8 image, ray-count int64 tensor), both still being
+        computed: the caller consumes them later (the App's frames in
+        flight). Progressive accumulation keeps host state per frame, so
+        it stays on the synchronous path.
+        """
+        if self.progressive:
+            raise ValueError("progressive accumulation is synchronous")
+        radiance, rays = self._render(time_sec)
+        if self.advance_samples:
+            self._sample_offset += self.config.spp
+        return self._tonemap(self.denoise_image(radiance, time_sec)), rays
+
+    def denoise_image(self, linear: torch.Tensor, time_sec: float = 0.0) -> torch.Tensor:
+        """The configured denoise of a linear radiance image: a no-op, since
+        ``RenderConfig(denoise=True)`` is refused (ROADMAP A8)."""
+        return linear
+
+    def render_to_noise(self, target: float = 1e-3, max_spp: int = 1 << 16,
+                        time_sec: float = 0.0):
+        """Render until the measured Monte-Carlo noise reaches ``target``.
+
+        Accumulates ``cfg.spp``-sized frames into two independent
+        half-streams (disjoint sample offsets, exact under the
+        counter-based RNG) and estimates the noise of the combined image as
+        rmse(tonemap(A), tonemap(B)) / 2 on gamma-2 floats, at power-of-two
+        counts of frame pairs. Returns ``(accumulator, noise, spp_used)``;
+        the renderer's sample offset advances past the consumed range, so
+        later ``draw_frame`` calls compose exactly.
+        """
+        cfg = self.config
+        acc = [Accumulator.zeros(cfg.height, cfg.width, self.device) for _ in range(2)]
+        partition = self._recluster(time_sec) if self._cpu_twin is not None else None
+        noise = float("inf")
+        pairs = 0
+        next_check = 1
+        while 2 * pairs * cfg.spp < max_spp:
+            for which in range(2):
+                radiance, rays = self._render(time_sec, partition)
+                acc[which] = acc[which].add(radiance * cfg.spp, cfg.spp, rays)
+                self._sample_offset += cfg.spp
+            pairs += 1
+            if pairs >= next_check:
+                next_check *= 2
+                a, b = (tonemap(x.image(), gamma=2.0).cpu().numpy().astype(np.float64)
+                        for x in acc)
+                noise = float(np.sqrt(np.mean((a - b) ** 2))) / 2.0
+                if noise <= target:
+                    break
+        merged = Accumulator(
+            radiance_sum=acc[0].radiance_sum + acc[1].radiance_sum,
+            sample_count=acc[0].sample_count + acc[1].sample_count,
+            rays_traced=acc[0].rays_traced + acc[1].rays_traced,
+        )
+        if self.progressive:
+            self.accumulator = Accumulator(
+                radiance_sum=self.accumulator.radiance_sum + merged.radiance_sum,
+                sample_count=self.accumulator.sample_count + merged.sample_count,
+                rays_traced=self.accumulator.rays_traced + merged.rays_traced,
+            )
+        return merged, noise, 2 * pairs * cfg.spp
+
+
+def _pack(scene):
+    if isinstance(scene, SphereScene):
+        return megakernel.pack_scene(scene)
+    if isinstance(scene, CompiledTape):
+        return tape_kernel.pack_program(scene)
+    return trimesh_kernel.pack_mesh(scene)
+
+
+def _has_lamps(scene, packed) -> bool:
+    if isinstance(scene, CompiledTape):
+        return extract_tape_lights(scene) is not None
+    return (packed if packed is not None else _pack(scene)).lamps is not None
+
+
+def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated: bool = False,
+                   partition=None):
+    """One frame through the kernel wrapper of the scene's type (the twin of
+    the JAX package's ``_render_pallas``): (radiance, rays int64 tensor).
+
+    ``scene`` may be packed. ``partition`` is an animated tape's cluster
+    tuple; an animated tape without one takes the global evaluation rather
+    than clustering on device tensors.
+    """
+    kw = dict(spp=cfg.spp, max_bounces=cfg.max_bounces, seed=cfg.seed, sky=cfg.sky, lens=cfg.lens,
+              sample_offset=sample_base, nee=cfg.nee)
+    if isinstance(scene, (SphereScene, megakernel.PackedScene)):
+        return megakernel.render_image_kernel(scene, camera, cfg.width, cfg.height, **kw)
+    if isinstance(scene, (CompiledTape, tape_kernel.PackedTape)):
+        if isinstance(scene, CompiledTape):
+            kw["partition"] = partition if partition is not None else (
+                False if animated else "auto")
+        return tape_kernel.render_image_tape_kernel(scene, camera, cfg.width, cfg.height, **kw)
+    if isinstance(scene, (MeshScene, trimesh_kernel.PackedMesh)):
+        return trimesh_kernel.render_image_mesh_kernel(scene, camera, cfg.width, cfg.height, **kw)
+    raise TypeError(f"unsupported scene type {type(scene).__name__}")

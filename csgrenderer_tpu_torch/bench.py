@@ -204,6 +204,7 @@ def trace_frame(fn, device, kernel_name: str = "sphere_megakernel") -> dict:
     kernel_us = sum(e.self_device_time_total for e in events if kernel_name in e.key)
     return {
         "frame_ms": frame_s * 1e3,
+        "device_ops": sum(e.count for e in events),  # kernels and copies on the device
         "device_busy_ms": device_us / 1e3 if device_us else None,  # None: not measured
         "kernel_ms": kernel_us / 1e3 if kernel_us else None,
         "device_idle_share": 1.0 - device_us / 1e6 / frame_s if device_us else None,

@@ -1,3 +1,3 @@
-from .pinhole import Camera
+from .pinhole import Camera, WololoCamera, pixel_st_grid
 
-__all__ = ["Camera"]
+__all__ = ["Camera", "WololoCamera", "pixel_st_grid"]

@@ -1,9 +1,17 @@
-"""The RTIOW thin-lens camera.
+"""Cameras: the reference's fixed pinhole and the RTIOW thin lens.
 
-Twin of ``csgrenderer_tpu/camera/pinhole.py::Camera``: directions are left
-unnormalised (the RTIOW convention) and ``rays`` takes optional unit-disk
-samples for defocus blur. ``WololoCamera`` (the milestone-01 shader camera)
-is not ported yet (ROADMAP A4).
+Twin of ``csgrenderer_tpu/camera/pinhole.py``.
+
+``WololoCamera`` and ``pixel_st_grid`` reproduce the reference shader's
+ray generation (``ubershader1.frag:19-82``): st coordinates of pixel
+centres with the y-flip (row 0 is the top row, st.y near 1), a viewport of
+height 1 and width ``aspect``, focal length 1, the eye at the origin, and
+directions left unnormalised, as the shader's sphere test and normal
+consume them.
+
+``Camera`` is the RTIOW camera of the path-traced configs: directions are
+left unnormalised (the RTIOW convention) and ``rays`` takes optional
+unit-disk samples for defocus blur.
 """
 
 from __future__ import annotations
@@ -15,6 +23,42 @@ import torch
 from torch import Tensor
 
 from ..math import vec
+
+
+def pixel_st_grid(width: int, height: int, device=None) -> tuple[Tensor, Tensor]:
+    """The reference's st coordinates per pixel centre, [height, width]
+    each; row 0 is the top image row (st.y = 1 - (y + 0.5) / H)."""
+    xs = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) / width
+    ys = 1.0 - (torch.arange(height, dtype=torch.float32, device=device) + 0.5) / height
+    return xs[None, :].expand(height, width), ys[:, None].expand(height, width)
+
+
+@dataclass(frozen=True)
+class WololoCamera:
+    """The reference's hard-coded shader camera (frag:50-60)."""
+
+    focal_length: Tensor  # [] scalar
+    origin: Tensor  # [3]
+
+    @staticmethod
+    def create(focal_length: float = 1.0, device=None) -> "WololoCamera":
+        return WololoCamera(
+            focal_length=torch.full((), focal_length, dtype=torch.float32, device=device),
+            origin=torch.zeros((3,), dtype=torch.float32, device=device),
+        )
+
+    def rays(self, st_x: Tensor, st_y: Tensor, aspect_ratio) -> tuple[Tensor, Tensor]:
+        """(origins, directions) for st coords; directions unnormalised."""
+        f32 = dict(dtype=torch.float32, device=self.origin.device)
+        aspect = torch.full((), aspect_ratio, **f32)
+        zero, one = torch.zeros((), **f32), torch.ones((), **f32)
+        horizontal = torch.stack([aspect, zero, zero])
+        vertical = torch.stack([zero, one, zero])
+        lower_left = (self.origin - horizontal / 2.0 - vertical / 2.0
+                      - torch.stack([zero, zero, self.focal_length]))
+        d = (lower_left + st_x[..., None] * horizontal + st_y[..., None] * vertical
+             - self.origin)
+        return self.origin.expand(d.shape), d
 
 
 @dataclass(frozen=True)

@@ -1,17 +1,33 @@
-// CSG tape path-tracing kernel for Hopper (sm_90a), event-flip mode, with
-// and without next-event estimation (NEE).
+// CSG tape path-tracing kernel for Hopper (sm_90a): event-flip mode and the
+// interval-list audit mode, each with and without next-event estimation
+// (NEE).
 //
 // Replaces csgrenderer_tpu/kernels/tape_kernel.py::_make_kernel +
-// _render_tape_packed (the Pallas TPU kernel) in its production mode,
-// tape_hit_events, global and clustered (scene/partition.py), and its NEE
-// variant (nee_lamps). It computes what that kernel computes, not its block
-// structure:
+// _render_tape_packed (the Pallas TPU kernel): its production mode,
+// tape_hit_events, global and clustered (scene/partition.py), its audit mode
+// (count_dropped: tape_hit_lists, _combine, _merge_sorted_planes,
+// _single_to_list) and its NEE variant (nee_lamps). It computes what that
+// kernel computes, not its block structure:
 //   - per traced segment, every leaf's (enter, exit) interval in its local
 //     frame (sphere, half-space, box, cylinder; _leaf_interval);
-//   - the nearest CSG surface: the smallest leaf boundary t where the
-//     root's membership flips, evaluated per cluster (one cluster = the
-//     whole tape in global mode), and the `entering` flag (the root's
-//     membership just above that t);
+//   - event-flip mode: the nearest CSG surface is the smallest leaf
+//     boundary t where the root's membership flips, evaluated per cluster
+//     (one cluster = the whole tape in global mode), and `entering` is the
+//     root's membership just above that t;
+//   - audit mode (kLists): the whole tape's postfix ops (never the
+//     clusters, as in JAX) run as a stack machine over interval lists. A
+//     PUSH makes a one-slot list of the leaf interval clipped to
+//     [0, kTFar] (an empty one becomes (kTFar, kTFar)); a combine of lists
+//     of widths ka and kb gives exactly k_out = min(ka + kb, k) slots. Its
+//     events are 0 and the operands' interleaved endpoints, which are
+//     presorted, merged in order by two pointers (the values the Pallas
+//     Batcher network routes); insideness at each midpoint (the last one at
+//     e + 1) is (in <= m) & (m < out) OR-ed over the slots; starts and ends
+//     of the result are compacted by rank into k_out slots, kTFar past the
+//     end. A capped combine (ka + kb > k_out) adds max(#starts below kCut -
+//     k_out, 0) to the segment's dropped-span count, which is summed per
+//     pixel into out_over. The hit is min(first enter, first exit) among
+//     boundaries in (kEps, kCut), entering iff the enter is not later;
 //   - attribution: the leaf whose surface lies nearest the hit point, over
 //     all leaves in index order (strict <), gives normal and material;
 //   - RTIOW shading with `entering` as the dielectric's front face, PCG4D
@@ -21,13 +37,14 @@
 //     ids and read (position, |radius|, albedo) from the leaf table in
 //     shared memory, so a re-baked tape moves them. At every Lambertian or
 //     glossy hit one lamp is cone-sampled; its shadow ray is the same flip
-//     search without attribution (JAX's occlusion_t), stopped at the first
-//     flip below tl * (1 - 1e-4). Lamp emission found by a pairable scatter
-//     carries the partner weight of the lamp nearest the hit point by
-//     |dist - r| over the lamp table (bsdf_mis_scale_table_planes). Shadow
-//     rays are not counted as segments.
+//     search without attribution (JAX's occlusion_t, in both modes),
+//     stopped at the first flip below tl * (1 - 1e-4). Lamp emission found
+//     by a pairable scatter carries the partner weight of the lamp nearest
+//     the hit point by |dist - r| over the lamp table
+//     (bsdf_mis_scale_table_planes). Shadow rays are not counted as
+//     segments.
 // One thread per pixel loops over samples and bounces. The tape is data,
-// not code: the leaf table, leaf types, op table and cluster table are
+// not code: the leaf table, leaf types, op tables and cluster table are
 // staged in shared memory per block and interpreted at run time, so a new
 // tape or a new clustering costs no build. Membership below and above a
 // candidate boundary is walked through the cluster's postfix ops with two
@@ -37,10 +54,13 @@
 // walks (two candidates per leaf, each a walk over the cluster's ops) and
 // O(L) for the attribution at every hit, plus warp divergence (threads of
 // a warp differ in bounce count, material and which candidates they can
-// skip). This first version keeps each ray's leaf intervals in a
-// per-thread array (local memory, cap kMaxLeaves), attributes over all
-// leaves even when clustered, and does no ray regeneration or compaction.
-// The interval-list audit mode (with_overflow) is not here.
+// skip). The audit mode adds O(k^2) per combine (every midpoint tested
+// against every slot of both operands) and keeps its list stack
+// (kMaxStack x kMaxK pairs) and event buffer in per-thread local memory:
+// it is a correctness audit, slower than event-flip mode by design. This
+// first version keeps each ray's leaf intervals in a per-thread array
+// (local memory, cap kMaxLeaves), attributes over all leaves even when
+// clustered, and does no ray regeneration or compaction.
 //
 // Numerics: the kernel repeats, operation for operation, the float
 // arithmetic of its plain torch version (kernels/tape_kernel.py:
@@ -49,7 +69,9 @@
 // the stored values of every leaf, so the owning leaf's own membership at
 // its boundary rests on exact < versus <= between equal floats. The
 // half-space's -on/dn (inf or NaN when parallel) and the zero-direction
-// slabs are replaced by selects, never used in arithmetic.
+// slabs are replaced by selects, never used in arithmetic. The audit
+// mode's clip keeps a NaN (as torch.clamp and jnp.clip do), and the
+// NaN then fails the validity test.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,7 +81,8 @@
 namespace {
 
 constexpr int kMaxLeaves = 256;  // per-thread interval arrays
-constexpr int kMaxStack = 64;    // bits of one membership stack
+constexpr int kMaxStack = 64;    // bits of one membership stack; lists on the audit stack
+constexpr int kMaxK = 16;        // audit mode: slots of one interval list (the tape's k)
 constexpr int kLeafRow = 16;     // rot(4) pos(3) params(4) kind param albedo(3)
 constexpr float kTFar = 1e9f;    // "no boundary"
 constexpr float kCut = 5e8f;     // boundaries at or past this are not surfaces
@@ -81,11 +104,15 @@ struct Params {
   int n_ids;
   const int* lamp_ids;     // [n_lamps]: the emissive sphere leaves (NEE)
   int n_lamps;
+  const int* list_ops;     // audit mode: [n_list_ops] the whole tape, opcode | (leaf << 2)
+  int n_list_ops;
+  int k;                   // audit mode: the tape's interval-list capacity
   int width, height, spp, max_bounces;
   uint32_t seed, sample_offset;
   int lens, sky;           // sky: 0 rtiow, 1 wololo, 2 black
   float* out_rgb;          // [H, W, 3]
   int* out_rays;           // [H, W]
+  int* out_over;           // audit mode: [H, W] dropped spans over the pixel's segments
 };
 
 // v rotated by unit quaternion q: v + w t + u x t, t = 2 u x v
@@ -233,6 +260,60 @@ __device__ __forceinline__ float leaf_score(const float* c, int type, float lx, 
   return outside - inside;
 }
 
+// x clipped to [0, kTFar], a NaN kept (torch.clamp, jnp.clip).
+__device__ __forceinline__ float clip_t(float x) {
+  return x < 0.0f ? 0.0f : (x > kTFar ? kTFar : x);
+}
+
+// Inside the interval list (in, out)[0, k) at m: (in <= m) & (m < out) over the slots.
+__device__ __forceinline__ bool list_inside(const float* in, const float* out, int k, float m) {
+  bool inside = false;
+  for (int s = 0; s < k; ++s) inside |= in[s] <= m && m < out[s];
+  return inside;
+}
+
+// One combine of two interval lists a (width ka) and b (width kb) into
+// r (width k_out = min(ka + kb, k)); returns the spans it dropped
+// (tape_kernel._combine with count_dropped). ev holds 2 (ka + kb) + 1 floats.
+__device__ int combine_lists(const float* a_in, const float* a_out, int ka, const float* b_in,
+                             const float* b_out, int kb, int opc, int k_out, float* r_in,
+                             float* r_out, float* ev) {
+  // events: 0, then the interleaved endpoints of a and b (each sorted) merged
+  const int na = 2 * ka, nb = 2 * kb, n = na + nb + 1;
+  ev[0] = 0.0f;
+  for (int i = 0, j = 0, e = 1; e < n; ++e) {
+    const float va = i < na ? ((i & 1) ? a_out[i >> 1] : a_in[i >> 1]) : 0.0f;
+    const float vb = j < nb ? ((j & 1) ? b_out[j >> 1] : b_in[j >> 1]) : 0.0f;
+    if (j >= nb || (i < na && va <= vb)) {
+      ev[e] = va;
+      ++i;
+    } else {
+      ev[e] = vb;
+      ++j;
+    }
+  }
+  bool prev = false;
+  int n_start = 0, n_end = 0, n_real = 0;
+  for (int j = 0; j < n; ++j) {
+    const float m = j < n - 1 ? 0.5f * (ev[j] + ev[j + 1]) : ev[j] + 1.0f;
+    const bool ia = list_inside(a_in, a_out, ka, m);
+    const bool ib = list_inside(b_in, b_out, kb, m);
+    const bool res = opc == kUnion ? (ia || ib) : (opc == kIntersect ? (ia && ib) : (ia && !ib));
+    if (res && !prev) {  // a start: compacted by rank
+      n_real += ev[j] < kCut;
+      if (n_start < k_out) r_in[n_start] = ev[j];
+      ++n_start;
+    } else if (!res && prev) {  // an end
+      if (n_end < k_out) r_out[n_end] = ev[j];
+      ++n_end;
+    }
+    prev = res;
+  }
+  for (int s = n_start; s < k_out; ++s) r_in[s] = kTFar;
+  for (int s = n_end; s < k_out; ++s) r_out[s] = kTFar;
+  return ka + kb > k_out ? max(n_real - k_out, 0) : 0;
+}
+
 // The tables staged in shared memory.
 struct Tables {
   const float* leaf;
@@ -240,6 +321,7 @@ struct Tables {
   const int* ops;
   const int* ids;
   const int* cl;
+  const int* list_ops;  // audit mode
 };
 
 // The nearest flip of the root's membership along (o, d), cluster by
@@ -300,7 +382,57 @@ __device__ __forceinline__ float nearest_flip(const Params& p, const Tables& tb,
   return t;
 }
 
-template <bool kNee>
+// The audit mode's nearest surface along (o, d): the whole tape's postfix
+// ops over interval lists (tape_kernel.tape_hit_lists). Returns t (kTFar
+// where there is none) and sets `entering` and `dropped`, the spans the
+// k-slot capacity cut away.
+__device__ float list_hit(const Params& p, const Tables& tb, float ox, float oy, float oz,
+                          float dx, float dy, float dz, bool& entering, int& dropped) {
+  float l_in[kMaxStack * kMaxK], l_out[kMaxStack * kMaxK];  // the stack of lists
+  int width[kMaxStack];
+  float r_in[kMaxK], r_out[kMaxK], ev[4 * kMaxK + 1];
+  int sp = 0;
+  dropped = 0;
+  for (int i = 0; i < p.n_list_ops; ++i) {
+    const int code = tb.list_ops[i];
+    const int opc = code & 3;
+    if (opc == kPush) {
+      const int leaf = code >> 2;
+      float enter, exit_;
+      leaf_interval(tb.leaf + kLeafRow * leaf, tb.type[leaf], ox, oy, oz, dx, dy, dz, enter,
+                    exit_);
+      const float enter_c = clip_t(enter), exit_c = clip_t(exit_);
+      const bool valid = enter_c < exit_c;
+      l_in[sp * kMaxK] = valid ? enter_c : kTFar;
+      l_out[sp * kMaxK] = valid ? exit_c : kTFar;
+      width[sp] = 1;
+      ++sp;
+      continue;
+    }
+    float* a_in = l_in + (sp - 2) * kMaxK;
+    float* a_out = l_out + (sp - 2) * kMaxK;
+    const int ka = width[sp - 2], kb = width[sp - 1];
+    const int k_out = min(ka + kb, p.k);
+    dropped += combine_lists(a_in, a_out, ka, l_in + (sp - 1) * kMaxK, l_out + (sp - 1) * kMaxK,
+                             kb, opc, k_out, r_in, r_out, ev);
+    for (int s = 0; s < k_out; ++s) {
+      a_in[s] = r_in[s];
+      a_out[s] = r_out[s];
+    }
+    width[sp - 2] = k_out;
+    --sp;
+  }
+  float t_enter = kTFar, t_exit = kTFar;
+  for (int s = 0; s < width[0]; ++s) {
+    const float tin = l_in[s], tout = l_out[s];
+    t_enter = fminf(t_enter, (tin > kEps && tin < kCut) ? tin : kTFar);
+    t_exit = fminf(t_exit, (tout > kEps && tout < kCut) ? tout : kTFar);
+  }
+  entering = t_enter <= t_exit;
+  return fminf(t_enter, t_exit);
+}
+
+template <bool kNee, bool kLists>
 __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
   extern __shared__ float smem[];
   float* s_leaf = smem;
@@ -309,6 +441,7 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
   int* s_ids = s_ops + p.n_ops;
   int* s_cl = s_ids + p.n_ids;
   int* s_lamp = s_cl + 4 * p.n_clusters;
+  int* s_list = s_lamp + p.n_lamps;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
   for (int i = tid; i < p.n_leaves * kLeafRow; i += n_threads) s_leaf[i] = p.leaves[i];
@@ -319,8 +452,11 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
   if (kNee) {
     for (int i = tid; i < p.n_lamps; i += n_threads) s_lamp[i] = p.lamp_ids[i];
   }
+  if (kLists) {
+    for (int i = tid; i < p.n_list_ops; i += n_threads) s_list[i] = p.list_ops[i];
+  }
   __syncthreads();
-  const Tables tb{s_leaf, s_type, s_ops, s_ids, s_cl};
+  const Tables tb{s_leaf, s_type, s_ops, s_ids, s_cl, s_list};
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -334,7 +470,7 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
   float enter[kMaxLeaves], exit_[kMaxLeaves];  // one cluster's leaves, by slot
   csgr::Path path;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  int rays = 0;
+  int rays = 0, over = 0;
   for (int k = 0; k < p.spp; ++k) {
     const uint32_t s = static_cast<uint32_t>(k) + p.sample_offset;
     csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
@@ -346,8 +482,14 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
       const float dx = path.dx, dy = path.dy, dz = path.dz;
 
       bool entering = false;
-      const float t = nearest_flip<false>(p, tb, ox, oy, oz, dx, dy, dz, kTFar, entering, enter,
-                                          exit_);
+      float t;
+      if (kLists) {
+        int dropped;
+        t = list_hit(p, tb, ox, oy, oz, dx, dy, dz, entering, dropped);
+        over += dropped;
+      } else {
+        t = nearest_flip<false>(p, tb, ox, oy, oz, dx, dy, dz, kTFar, entering, enter, exit_);
+      }
 
       const float inv_len = csgr::inv_length(path);
       const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
@@ -442,18 +584,20 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
   out[1] = acc_g / spp;
   out[2] = acc_b / spp;
   p.out_rays[pix] = rays;
+  if (kLists) p.out_over[pix] = over;
 }
 
-template <bool kNee>
+template <bool kNee, bool kLists>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tape_kernel<kNee>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(tape_kernel<kNee, kLists>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 block(16, 8);
   const dim3 grid((p.width + block.x - 1) / block.x, (p.height + block.y - 1) / block.y);
-  tape_kernel<kNee><<<grid, block, smem, stream>>>(p);
+  tape_kernel<kNee, kLists><<<grid, block, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -463,13 +607,18 @@ extern "C" int csgr_tape_max_leaves() { return kMaxLeaves; }
 
 extern "C" int csgr_tape_max_stack() { return kMaxStack; }
 
+extern "C" int csgr_tape_max_k() { return kMaxK; }
+
 extern "C" int csgr_tape_render(
     const void* cam, const void* leaves, const void* leaf_types, int n_leaves, const void* ops,
     int n_ops, const void* clusters, int n_clusters, const void* leaf_ids, int n_ids,
-    const void* lamp_ids, int n_lamps, int width, int height, int spp, int max_bounces, unsigned int seed,
-    unsigned int sample_offset, int lens, int sky, void* out_rgb, void* out_rays,
-    void* stream) {
-  if (n_leaves < 1 || n_leaves > kMaxLeaves || n_clusters < 1) {
+    const void* lamp_ids, int n_lamps, const void* list_ops, int n_list_ops, int k, int width,
+    int height, int spp, int max_bounces, unsigned int seed, unsigned int sample_offset, int lens,
+    int sky, void* out_rgb, void* out_rays, void* out_over, void* stream) {
+  // list_ops given: the audit mode, which writes out_over
+  const bool lists = list_ops != nullptr;
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || n_clusters < 1 ||
+      (lists && (k < 1 || k > kMaxK || n_list_ops < 1 || out_over == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -485,17 +634,27 @@ extern "C" int csgr_tape_render(
   p.n_ids = n_ids;
   p.lamp_ids = static_cast<const int*>(lamp_ids);
   p.n_lamps = n_lamps;
+  p.list_ops = static_cast<const int*>(list_ops);
+  p.n_list_ops = lists ? n_list_ops : 0;
+  p.k = k;
   p.width = width; p.height = height; p.spp = spp; p.max_bounces = max_bounces;
   p.seed = seed; p.sample_offset = sample_offset;
   p.lens = lens; p.sky = sky;
   p.out_rgb = static_cast<float*>(out_rgb);
   p.out_rays = static_cast<int*>(out_rays);
+  p.out_over = static_cast<int*>(out_over);
 
   const size_t smem = sizeof(float) * (static_cast<size_t>(n_leaves) * kLeafRow + n_leaves +
                                        n_ops + n_ids + 4 * static_cast<size_t>(n_clusters) +
-                                       n_lamps);
+                                       n_lamps + p.n_list_ops);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(n_lamps > 0 ? launch<true>(p, smem, st) : launch<false>(p, smem, st));
+  cudaError_t err;
+  if (n_lamps > 0) {
+    err = lists ? launch<true, true>(p, smem, st) : launch<true, false>(p, smem, st);
+  } else {
+    err = lists ? launch<false, true>(p, smem, st) : launch<false, false>(p, smem, st);
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* csgr_error_string(int code) {

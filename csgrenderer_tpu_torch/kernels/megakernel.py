@@ -146,11 +146,11 @@ def pack_camera(camera) -> Tensor:
     return torch.cat([vals, vals.new_zeros(CAM_SIZE - vals.numel())])
 
 
-def _grid_hit_fn(packed: PackedScene):
+def _grid_hit_fn(packed: PackedScene, counts: dict | None = None):
     def hit_fn(o: Tensor, d: Tensor) -> SurfaceHit:
         batch = o.shape[:-1]
         flat_o, flat_d = o.reshape(-1, 3), d.reshape(-1, 3)
-        t, idx, hit = grid_nearest_hit(packed.grid, packed.scene, flat_o, flat_d)
+        t, idx, hit = grid_nearest_hit(packed.grid, packed.scene, flat_o, flat_d, counts=counts)
         h = packed.scene.surface_hit(flat_o, flat_d, t, idx, hit)
         return SurfaceHit(*(x.reshape(batch + x.shape[1:]) for x in h))
 
@@ -173,10 +173,11 @@ def render_image_plain(
 ) -> tuple[Tensor, Tensor]:
     """The plain torch version of the kernel, on any device. With ``nee``
     it renders with the packed lamp table as ``lights=``; ``counts`` as in
-    ``integrator.trace_paths``."""
+    ``integrator.trace_paths``, plus, in grid mode, the walk's work
+    (``worklist.grid_nearest_hit``, shadow rays included)."""
     if nee and packed.lamps is None:
         raise ValueError(_NO_LAMPS)
-    hit_fn = packed.scene.nearest_hit if packed.grid is None else _grid_hit_fn(packed)
+    hit_fn = packed.scene.nearest_hit if packed.grid is None else _grid_hit_fn(packed, counts)
     return integrator.render_image(
         hit_fn, camera, width, height, spp=spp, max_bounces=max_bounces,
         seed=seed, sky=sky, lens=lens, sample_offset=sample_offset,

@@ -1,13 +1,22 @@
 """The CSG tape kernel: packing, the CUDA launch, and its plain version.
 
-Twin of ``csgrenderer_tpu/kernels/tape_kernel.py`` in its production
-(event-flip) mode. ``render_image_tape_kernel`` renders a ``CompiledTape``:
-the nearest CSG surface along a ray is the smallest leaf boundary t where
-the root's membership flips; membership just below and just above a
-boundary is exact comparison algebra on the leaves' raw intervals, folded
-through the postfix tape. With ``partition`` the root's union of disjoint
-solids splits into clusters (``scene/partition.py``), each evaluated on
-its own ops and leaves: O(sum L_c^2) flip work instead of O(L^2).
+Twin of ``csgrenderer_tpu/kernels/tape_kernel.py``.
+``render_image_tape_kernel`` renders a ``CompiledTape`` in one of two
+evaluations:
+
+- event flip (production): the nearest CSG surface along a ray is the
+  smallest leaf boundary t where the root's membership flips; membership
+  just below and just above a boundary is exact comparison algebra on the
+  leaves' raw intervals, folded through the postfix tape. With
+  ``partition`` the root's union of disjoint solids splits into clusters
+  (``scene/partition.py``), each evaluated on its own ops and leaves:
+  O(sum L_c^2) flip work instead of O(L^2);
+- the interval-list audit (``with_overflow=True``): the whole tape runs as
+  a stack machine over interval lists of at most ``tape.k`` spans, and the
+  spans that capacity cuts away are counted and returned as ``over``
+  (0: every evaluation was exact). Away from overflow it gives the event
+  flip's image.
+
 Attribution (normal and material) always runs over all leaves.
 
 Where the tensors lie decides what runs:
@@ -21,9 +30,9 @@ Where the tensors lie decides what runs:
 leaves (``render/lights.py``): the kernel reads each lamp's centre, radius
 and emission from its leaf table row, so a re-baked tape moves its lamps.
 ``LAUNCHES`` counts kernel launches (``LAUNCHES_BY_MODE`` per mode:
-"global" is one cluster covering the tape, "clustered" two or more, each
-also with "-nee"); only the launch site adds to them. The interval-list
-audit mode (``with_overflow``) is not ported yet.
+"global" is one cluster covering the tape, "clustered" two or more,
+"audit" the interval-list mode, each also with "-nee"); only the launch
+site adds to them.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from torch import Tensor
 
 from ..math import quaternion as quat
 from ..math import vec
-from ..render import integrator, intersect
+from ..render import integrator, intersect, interval, tape_eval
 from ..render.integrator import SKY_MODES, SurfaceHit
 from ..render.intersect import T_FAR
 from ..render.interval import SURFACE_CUTOFF as CUT
@@ -51,15 +60,16 @@ from .megakernel import CAM_SIZE, pack_camera
 KERNEL_SOURCE = "tape_kernel"
 LEAF_ROW = 16  # rot(4) pos(3) params(4) kind param albedo(3): the JAX layout
 MAX_LEAVES = 256  # the kernel's per-thread interval arrays (csrc kMaxLeaves)
-MAX_STACK = 64  # the kernel's membership bit stacks (csrc kMaxStack)
+MAX_STACK = 64  # the kernel's membership bit stacks and audit list stack (csrc kMaxStack)
+MAX_K = 16  # the audit mode's slots per interval list (csrc kMaxK)
 EPS = 1e-3  # hit epsilon along t
 # candidate-by-leaf membership elements per chunk of the plain version
 _PLAIN_CHUNK = 1 << 26
 
 LAUNCHES = 0
-LAUNCHES_BY_MODE = {"global": 0, "clustered": 0, "global-nee": 0, "clustered-nee": 0}
+LAUNCHES_BY_MODE = {"global": 0, "clustered": 0, "global-nee": 0, "clustered-nee": 0,
+                    "audit": 0, "audit-nee": 0}
 
-_OVERFLOW_NOT_PORTED = "the interval-list audit mode (with_overflow) is not ported yet (ROADMAP B4b)"
 _NO_LAMPS = "nee=True but the tape has no emissive sphere leaves"
 
 
@@ -78,7 +88,9 @@ class PackedTape:
       leaf count of each cluster in ``ops`` / ``leaf_ids``;
     - ``leaf_ids`` [sum L_c] int32;
     - ``lamp_ids`` [n_lamps] int32, the emissive sphere leaves
-      (``extract_tape_lights``), or None when the tape has none.
+      (``extract_tape_lights``), or None when the tape has none;
+    - ``list_ops`` [len(tape.ops)] int32, the whole tape as the audit mode
+      runs it: ``opcode | leaf << 2``.
     """
 
     tape: CompiledTape
@@ -89,6 +101,7 @@ class PackedTape:
     cluster_table: Tensor
     leaf_ids: Tensor
     lamp_ids: Tensor | None
+    list_ops: Tensor
 
     @property
     def mode(self) -> str:
@@ -112,7 +125,7 @@ class PackedTape:
         return PackedTape(self.tape.to(device), self.clusters, *(
             getattr(self, f).to(device)
             for f in ("leaf_table", "leaf_types", "ops", "cluster_table", "leaf_ids")
-        ), lamp_ids)
+        ), lamp_ids, self.list_ops.to(device))
 
 
 def _leaf_table(tape: CompiledTape) -> Tensor:
@@ -179,6 +192,7 @@ def pack_program(tape: CompiledTape, partition: bool | str | tuple = "auto") -> 
         cluster_table=i32(table).reshape(len(table), 4),
         leaf_ids=i32(ids),
         lamp_ids=i32(lamp_ids.tolist()) if lamp_ids.size else None,
+        list_ops=i32([opc | (arg << 2) if opc == OP_PUSH else opc for opc, arg in tape.ops]),
     )
 
 
@@ -318,15 +332,32 @@ def _leaf_scores(packed: PackedTape, p: Tensor) -> tuple[Tensor, Tensor]:
     return score, normal
 
 
-def tape_hit(packed: PackedTape, o: Tensor, d: Tensor) -> SurfaceHit:
+def tape_hit_lists(packed: PackedTape, o: Tensor, d: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """The audit mode's nearest surface of rays [N, 3]: (t [N], entering
+    [N], dropped [N] int32), from the whole tape's interval lists
+    (``tape_eval.eval_tape_intervals``, k = ``tape.k``; t is T_FAR where
+    there is no surface) and the spans its capacity dropped."""
+    (t_in, t_out), dropped = tape_eval.eval_tape_intervals(packed.tape, o, d, with_dropped=True)
+    t, entering, _ = interval.first_surface(t_in, t_out, eps=EPS)
+    return t, entering, dropped
+
+
+def tape_hit(packed: PackedTape, o: Tensor, d: Tensor, dropped: list | None = None) -> SurfaceHit:
     """The kernel's hit, as a ``SurfaceHit`` of rays [..., 3].
 
     The normal is the owning leaf's, face-forwarded by ``dot(d, n) > 0``;
-    ``front_face`` is the solid-level ``entering`` flag.
+    ``front_face`` is the solid-level ``entering`` flag. ``dropped``: a
+    list given for the audit mode, which takes t and ``entering`` from the
+    interval lists (``tape_hit_lists``) and appends the rays' dropped-span
+    total (int64 tensor); without it, the event flip.
     """
     batch = o.shape[:-1]
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    t, entering = tape_hit_events(packed, o, d)
+    if dropped is None:
+        t, entering = tape_hit_events(packed, o, d)
+    else:
+        t, entering, drop = tape_hit_lists(packed, o, d)
+        dropped.append(drop.sum(dtype=torch.int64))
     hit = t < CUT
     t_safe = torch.where(hit, t, 1.0)
     score, normal = _leaf_scores(packed, o + t_safe[:, None] * d)
@@ -360,18 +391,27 @@ def render_image_tape_plain(
     sample_offset: int = 0,
     nee: bool = False,
     counts: dict | None = None,
-) -> tuple[Tensor, Tensor]:
+    with_overflow: bool = False,
+) -> tuple[Tensor, ...]:
     """The plain torch version of the kernel, on any device. With ``nee``
-    it renders with the packed lamps as ``lights=`` (a shadow ray is a
-    ``tape_hit`` like any other); ``counts`` as in
-    ``integrator.trace_paths``."""
+    it renders with the packed lamps as ``lights=`` (a shadow ray is an
+    event-flip ``tape_hit`` like any other); ``counts`` as in
+    ``integrator.trace_paths``. ``with_overflow``: path segments take the
+    audit mode's interval lists, and the dropped spans of the segments
+    traced are summed into a third result, ``over`` (int64 scalar)."""
     if nee and packed.lamp_ids is None:
         raise ValueError(_NO_LAMPS)
-    return integrator.render_image(
-        functools.partial(tape_hit, packed), camera, width, height, spp=spp,
-        max_bounces=max_bounces, seed=seed, sky=sky, lens=lens, sample_offset=sample_offset,
-        lights=packed.lights if nee else None, counts=counts,
+    events = functools.partial(tape_hit, packed)
+    dropped: list = []
+    img, rays = integrator.render_image(
+        functools.partial(tape_hit, packed, dropped=dropped) if with_overflow else events,
+        camera, width, height, spp=spp, max_bounces=max_bounces, seed=seed, sky=sky, lens=lens,
+        sample_offset=sample_offset, lights=packed.lights if nee else None, counts=counts,
+        shadow_hit_fn=events,
     )
+    if not with_overflow:
+        return img, rays
+    return img, rays, torch.stack(dropped).sum() if dropped else rays.new_zeros(())
 
 
 # ---------------------------------------------------------------------------
@@ -380,20 +420,21 @@ def render_image_tape_plain(
 
 
 _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-_ARGTYPES = ((_VP, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I) + (_I,) * 4
-             + (_U, _U, _I, _I, _VP, _VP, _VP))
+_ARGTYPES = ((_VP, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _I) + (_I,) * 4
+             + (_U, _U, _I, _I, _VP, _VP, _VP, _VP))
 
 
 @functools.cache
 def _kernel_fn():
     lib, _ = build.load(KERNEL_SOURCE)
-    if (lib.csgr_tape_max_leaves(), lib.csgr_tape_max_stack()) != (MAX_LEAVES, MAX_STACK):
+    caps = (lib.csgr_tape_max_leaves(), lib.csgr_tape_max_stack(), lib.csgr_tape_max_k())
+    if caps != (MAX_LEAVES, MAX_STACK, MAX_K):
         raise RuntimeError("tape_kernel.cu and tape_kernel.py disagree on the kernel's limits")
     return build.bind(KERNEL_SOURCE, "csgr_tape_render", _ARGTYPES)
 
 
 def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, sample_offset,
-            lens, sky, nee):
+            lens, sky, nee, with_overflow):
     global LAUNCHES
     dev = packed.device
     if dev.type != "cuda":
@@ -414,6 +455,12 @@ def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, 
         n_lamps = packed.lamp_ids.numel()
         build.check_tensor(packed.lamp_ids, "lamp_ids", torch.int32, (n_lamps,), dev)
         lamp_args = [packed.lamp_ids.data_ptr(), n_lamps]
+    list_args, out_over = [None, 0, 0], None
+    if with_overflow:
+        n_list = len(packed.tape.ops)
+        build.check_tensor(packed.list_ops, "list_ops", torch.int32, (n_list,), dev)
+        list_args = [packed.list_ops.data_ptr(), n_list, packed.tape.k]
+        out_over = torch.empty((height, width), dtype=torch.int32, device=dev)
 
     fn, err_str = _kernel_fn()
     out_rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
@@ -423,16 +470,21 @@ def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, 
         rc = fn(
             cam_row.data_ptr(), packed.leaf_table.data_ptr(), packed.leaf_types.data_ptr(),
             n_leaves, packed.ops.data_ptr(), n_ops, packed.cluster_table.data_ptr(),
-            n_clusters, packed.leaf_ids.data_ptr(), n_ids, *lamp_args, width, height, spp,
-            max_bounces,
+            n_clusters, packed.leaf_ids.data_ptr(), n_ids, *lamp_args, *list_args, width, height,
+            spp, max_bounces,
             seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky),
-            out_rgb.data_ptr(), out_rays.data_ptr(), stream,
+            out_rgb.data_ptr(), out_rays.data_ptr(),
+            None if out_over is None else out_over.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"tape kernel launch failed: {err_str(rc).decode()} ({rc})")
     LAUNCHES += 1
-    LAUNCHES_BY_MODE[packed.mode + ("-nee" if nee else "")] += 1
-    return out_rgb, out_rays.sum(dtype=torch.int64)
+    mode = "audit" if with_overflow else packed.mode
+    LAUNCHES_BY_MODE[mode + ("-nee" if nee else "")] += 1
+    rays = out_rays.sum(dtype=torch.int64)
+    if with_overflow:
+        return out_rgb, rays, out_over.sum(dtype=torch.int64)
+    return out_rgb, rays
 
 
 def render_image_tape_kernel(
@@ -450,10 +502,15 @@ def render_image_tape_kernel(
     with_overflow: bool = False,
     nee: bool = False,
     partition: bool | str | tuple = "auto",
-) -> tuple[Tensor, Tensor]:
+) -> tuple[Tensor, ...]:
     """Drop-in for ``integrator.render_image`` on a CSG tape.
 
-    Returns (image [H, W, 3] f32, rays traced as an int64 scalar tensor).
+    Returns (image [H, W, 3] f32, rays traced as an int64 scalar tensor),
+    and with ``with_overflow`` a third result: the spans the tape's k-slot
+    interval lists dropped over every traced segment, an int64 scalar
+    tensor (0: every evaluation was exact). That audit evaluates the whole
+    tape's lists (the clusters only serve NEE's shadow rays) and takes
+    ``tape.k`` up to ``MAX_K``.
     ``tape`` may be a ``PackedTape`` from ``pack_program`` (packed once,
     e.g. by a benchmark; its clusters were fixed then), and ``partition``
     must then be "auto". Tape and camera tensors on a CUDA device launch
@@ -463,8 +520,6 @@ def render_image_tape_kernel(
     """
     if not jitter:
         raise NotImplementedError("the tape kernel always jitters")
-    if with_overflow:
-        raise NotImplementedError(_OVERFLOW_NOT_PORTED)
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")
     if spp < 1 or max_bounces < 0 or width < 1 or height < 1:
@@ -477,12 +532,15 @@ def render_image_tape_kernel(
         packed = pack_program(tape, partition)
     if nee and packed.lamp_ids is None:
         raise ValueError(_NO_LAMPS)
+    if with_overflow and packed.tape.k > MAX_K:
+        raise ValueError(f"tape k = {packed.tape.k}: the audit mode takes at most {MAX_K} slots")
     if packed.device.type == "cpu":
         return render_image_tape_plain(
             packed, camera, width, height, spp=spp, max_bounces=max_bounces,
             seed=seed, sky=sky, lens=lens, sample_offset=sample_offset, nee=nee,
+            with_overflow=with_overflow,
         )
     return _launch(
         packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces,
-        int(seed), int(sample_offset), lens, sky, nee,
+        int(seed), int(sample_offset), lens, sky, nee, with_overflow,
     )

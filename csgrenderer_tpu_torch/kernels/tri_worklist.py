@@ -46,6 +46,7 @@ import torch
 from torch import Tensor
 
 from ..render.trimesh import HIT_CUT, MISS, MeshScene, brute_nearest, cross, mt_t
+from .worklist import add_count
 
 BIG = 1e30
 EPS_FLAT = 1e-12  # |d| along an axis below this counts as parallel to it
@@ -260,22 +261,18 @@ def pack_tri_grid(mesh: MeshScene) -> TriGridPack | None:
                        time.perf_counter() - t_start)
 
 
-def _count(counts, key, value) -> None:
-    if counts is not None:
-        counts[key] = counts.get(key, 0) + value
-
-
 def tri_grid_nearest_hit(pack: TriGridPack, mesh: MeshScene, o: Tensor, d: Tensor,
                          eps: float = 1e-3, counts: dict | None = None
                          ) -> tuple[Tensor, Tensor, Tensor]:
     """Nearest hit of flat rays [N, 3] through the globals and the voxel
     walk. Returns (t [N], MISS where none; face index [N] int64; hit [N]).
 
-    ``counts``: a dict to which the work is added as int64 tensors: the
-    globals' face tests (``global_tests``), the rays that enter the grid
-    (``walks``), voxels visited (``voxel_visits``, empty ones included)
-    and the walk's face tests (``face_tests``): what the kernel's grid
-    mode executes for these rays.
+    ``counts``: a dict to which the work is added (as in
+    ``worklist.grid_nearest_hit``): the globals' face tests
+    (``global_tests``), the rays that enter the grid (``walks``), voxels
+    visited (``voxel_visits``, empty ones included) and the walk's face
+    tests (``face_tests``): what the kernel's grid mode executes for these
+    rays.
     """
     n = o.shape[0]
     t_all = torch.empty((n,), dtype=torch.float32, device=o.device)
@@ -300,7 +297,8 @@ def _walk(pack, mesh, o, d, eps, counts):
     else:
         t_best = torch.full((n,), MISS, dtype=torch.float32, device=dev)
         id_best = torch.zeros((n,), dtype=torch.int64, device=dev)
-    _count(counts, "global_tests", torch.tensor(n * g_ids.numel(), dtype=torch.int64, device=dev))
+    if counts is not None:
+        add_count(counts, "global_tests", n * g_ids.numel())
 
     # DDA setup (JAX tri_grid_setup)
     big = torch.full((n,), BIG, dtype=torch.float32, device=dev)
@@ -345,7 +343,8 @@ def _walk(pack, mesh, o, d, eps, counts):
     fv0, fe1, fe2 = mesh.v0, mesh.e1, mesh.e2
     # the walk runs on the marching rays only; state below is indexed like ``lane``
     lane = torch.nonzero(march)[:, 0]
-    _count(counts, "walks", torch.tensor(lane.numel(), dtype=torch.int64, device=dev))
+    if counts is not None:
+        add_count(counts, "walks", lane.numel())
     ix, iy, iz = (x[lane] for x in idxs)
     sx, sy, sz = (x[lane] for x in steps)
     tmx, tmy, tmz = (x[lane] for x in tmaxs)
@@ -360,8 +359,9 @@ def _walk(pack, mesh, o, d, eps, counts):
         vox = (ix * gs.ny + iy) * gs.nz + iz
         start = offsets[vox]
         length = offsets[vox + 1] - start
-        _count(counts, "voxel_visits", torch.tensor(lane.numel(), dtype=torch.int64, device=dev))
-        _count(counts, "face_tests", length.sum())
+        if counts is not None:
+            add_count(counts, "voxel_visits", lane.numel())
+            add_count(counts, "face_tests", length.sum())
         max_len = int(length.max())
         for c0 in range(0, max_len, LIST_SLAB):
             sub = torch.nonzero(length > c0)[:, 0]

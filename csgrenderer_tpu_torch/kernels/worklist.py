@@ -232,13 +232,28 @@ def _axis_range(o_c, d_c, inv, lo, hi):
     return lo_t, hi_t
 
 
+def add_count(counts: dict, key: str, value) -> None:
+    """Adds ``value`` (an int or an int64 tensor) to ``counts[key]``. The
+    walks call it under ``if counts is not None``, so a walk that counts
+    nothing does no counting work."""
+    counts[key] = counts.get(key, 0) + value
+
+
 def grid_nearest_hit(
-    pack: GridPack, scene: SphereScene, o: Tensor, d: Tensor, eps: float = 1e-3
+    pack: GridPack, scene: SphereScene, o: Tensor, d: Tensor, eps: float = 1e-3,
+    counts: dict | None = None,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Nearest hit of flat rays [N,3] through globals + grid worklists.
 
     ``scene`` is the reordered scene ``pack_grid`` returned. Returns
     (t [N] (BIG on a miss), idx [N] int64 reordered sphere id, hit [N]).
+
+    ``counts``: a dict to which the work is added (ints, or int64 tensors
+    where it is a reduction on the device), as the kernel's grid mode
+    executes it for these rays: the globals' sphere tests
+    (``global_tests``), the rays that enter the grid (``walks``), the cells
+    visited (``cell_visits``) and the walk's sphere tests (``sphere_tests``,
+    the filled slots of each visited cell).
     """
     gs = pack.static
     f = {k: float(v) for k, v in gs.f32_params().items()}
@@ -264,6 +279,8 @@ def grid_nearest_hit(
     else:
         t_best = torch.full_like(a[:, 0], BIG)
         id_best = torch.zeros(a.shape[0], dtype=torch.int64, device=a.device)
+    if counts is not None:
+        add_count(counts, "global_tests", o.shape[0] * g)
 
     # DDA setup (JAX worklist.grid_setup)
     ox, oy, oz = o.unbind(-1)
@@ -299,6 +316,8 @@ def grid_nearest_hit(
     # walk alone); state arrays below are indexed like ``lane``
     cell_ids = pack.cell_ids.to(torch.int64)
     lane = torch.nonzero(march)[:, 0]
+    if counts is not None:
+        add_count(counts, "walks", lane.numel())
     ix, iz, tmaxx, tmaxz = ix[lane], iz[lane], tmaxx[lane], tmaxz[lane]
     tdx, tdz, step_x, step_z = tdx[lane], tdz[lane], step_x[lane], step_z[lane]
     t_out, t_b, id_b = t_out[lane], t_best[lane], id_best[lane]
@@ -307,6 +326,9 @@ def grid_nearest_hit(
             break
         # one DDA step (JAX worklist.grid_step)
         ids = cell_ids[ix * gs.cz + iz]  # [n, m]
+        if counts is not None:
+            add_count(counts, "cell_visits", lane.numel())
+            add_count(counts, "sphere_tests", (ids >= 0).sum(dtype=torch.int64))
         tc = sphere_t(torch.clamp(ids, min=0), lane)
         tc = torch.where(ids >= 0, tc, torch.full_like(tc, BIG))
         j = torch.argmin(tc, dim=1)  # first slot = lowest id on equal t

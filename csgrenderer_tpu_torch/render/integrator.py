@@ -12,6 +12,10 @@ This is what the CUDA kernels (``kernels/megakernel.py``,
 ``kernels/tape_kernel.py``) are held against, through their hit
 functions, and what runs for tensors that lie on the CPU. ``lights=``
 (``render/lights.py``) adds next-event estimation with MIS.
+
+``render_wololo_frame`` and ``render_debug_view_1`` are the milestone-01
+frame and the st-coordinate view of the reference shader, plain torch ops
+on any device (XLA programs in the JAX package, not Pallas kernels).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch import Tensor
 
+from ..camera.pinhole import WololoCamera, pixel_st_grid
 from ..math import vec
 from . import intersect, lights as lamps, materials, tape_eval
 from .sampling import sample_in_unit_disk, uniform4
@@ -171,6 +176,7 @@ def trace_paths(
     sky: str = "rtiow",
     lights=None,
     counts: dict | None = None,
+    shadow_hit_fn: HitFn | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Iterative bounce loop. Returns (radiance [..., 3], rays traced int64 []).
 
@@ -190,6 +196,10 @@ def trace_paths(
     and those that found the lamp unoccluded (``shadow_clear``),
     MIS-weighted lamp hits (``mis_emission``) and scatter pdfs carried
     (``carried_pdfs``): the work a kernel taking the same decisions does.
+
+    ``shadow_hit_fn``: the hit function of NEE's shadow rays, where it is
+    not ``hit_fn`` (the tape kernel's audit mode traces its path segments
+    through interval lists and its shadow rays by event flip).
     """
     throughput = torch.ones_like(o)
     radiance = torch.zeros_like(o)
@@ -237,7 +247,7 @@ def trace_paths(
                 return torch.where(is_lam, pdf_lam, torch.where(is_glossy, pdf_met, 0.0))
 
             direct, traced, lit = lamps.nee_contribution_any(
-                hit_fn, p_hit, h.normal, h.albedo, lights, ul, pdf_b_fn=pdf_b_fn,
+                hit_fn if shadow_hit_fn is None else shadow_hit_fn, p_hit, h.normal, h.albedo, lights, ul, pdf_b_fn=pdf_b_fn,
                 return_masks=True)
             nee_mask = hit_active & (is_lam | is_glossy)
             radiance = radiance + torch.where(nee_mask[..., None], throughput * direct, 0.0)
@@ -277,13 +287,14 @@ def render_tile(
     sample_offset: int = 0,
     lights=None,
     counts: dict | None = None,
+    shadow_hit_fn: HitFn | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Render a sub-rectangle of a ``full_width x full_height`` image.
 
     Pixel ids, camera st coords and RNG counters are all functions of
     GLOBAL pixel coordinates. Returns (radiance_sum [th, tw, 3], NOT
-    divided by spp, and rays traced as an int64 scalar). ``lights`` and
-    ``counts`` as in ``trace_paths``.
+    divided by spp, and rays traced as an int64 scalar). ``lights``,
+    ``counts`` and ``shadow_hit_fn`` as in ``trace_paths``.
     """
     dev = camera.device
     ys = tile_y0 + torch.arange(tile_height, dtype=torch.int64, device=dev)[:, None]
@@ -299,7 +310,7 @@ def render_tile(
         lens_uv = sample_in_unit_disk(u[..., 2], u[..., 3]) if lens else None
         o, d = camera.rays(st_x, st_y, lens_uv=lens_uv)
         radiance, r = trace_paths(hit_fn, o, d, pixel_id, s, seed, max_bounces, sky=sky,
-                                  lights=lights, counts=counts)
+                                  lights=lights, counts=counts, shadow_hit_fn=shadow_hit_fn)
         acc = acc + radiance
         rays = rays + r
     return acc, rays
@@ -318,16 +329,52 @@ def render_image(
     sample_offset: int = 0,
     lights=None,
     counts: dict | None = None,
+    shadow_hit_fn: HitFn | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Render a linear-radiance image [H, W, 3]; also returns rays traced.
 
     ``sample_offset`` advances the per-sample RNG counters for progressive
-    rendering across frames; ``lights`` and ``counts`` as in
-    ``trace_paths``.
+    rendering across frames; ``lights``, ``counts`` and ``shadow_hit_fn``
+    as in ``trace_paths``.
     """
     image_sum, rays = render_tile(
         hit_fn, camera, width, height, 0, 0, width, height,
         spp=spp, max_bounces=max_bounces, seed=seed, sky=sky,
         lens=lens, sample_offset=sample_offset, lights=lights, counts=counts,
+        shadow_hit_fn=shadow_hit_fn,
     )
     return image_sum / spp, rays
+
+
+# ---------------------------------------------------------------------------
+# Config 1: the milestone-01 frame, faithful to the reference shader
+# ---------------------------------------------------------------------------
+
+
+def render_wololo_frame(time_since_start_sec, width: int, height: int, device=None) -> Tensor:
+    """``ep_rt1_1`` of the reference (ubershader1.frag:97-163), quirks kept.
+
+    One animated sphere (y = 2 sin(2 * 3.1415 / 4 * t), z = -11; the
+    shader's 3.1415, not pi), normal-map shading 0.5 (n + 1) on a hit, and
+    otherwise the ``wololo`` sky (t = y of the normalised direction). The
+    directions stay unnormalised through the sphere test, and the normal is
+    normalize(d t - center), without the ray origin (right only because
+    the origin is 0).
+    """
+    def scalar(x):  # filled on the device: no host-to-device copy to wait for
+        return torch.full((), x, dtype=torch.float32, device=device)
+
+    st_x, st_y = pixel_st_grid(width, height, device=device)
+    o, d = WololoCamera.create(device=device).rays(st_x, st_y, aspect_ratio=width / height)
+    omega = scalar(2.0 * 3.1415 / 4.0)
+    center = torch.stack([scalar(0.0), 2.0 * torch.sin(omega * scalar(time_since_start_sec)),
+                          scalar(-1.0 - 10.0)])
+    t = intersect.hit_sphere_ref(center, 0.5, o, d)
+    n = vec.normalized(d * t[..., None] - center, eps=1e-20)
+    return torch.where((t > 0.0)[..., None], 0.5 * (n + 1.0), sky_color(d, "wololo"))
+
+
+def render_debug_view_1(width: int, height: int, device=None) -> Tensor:
+    """``ep_debug_view_1`` (ubershader1.frag:132-137): color = (st.x, st.y, 0)."""
+    st_x, st_y = pixel_st_grid(width, height, device=device)
+    return torch.stack([st_x, st_y, torch.zeros_like(st_x)], dim=-1)

@@ -7,9 +7,11 @@ is known, every leaf scores how close the hit point is to its own surface
 (in its local frame) and an argmin picks the owning leaf, whose normal and
 material shade the hit.
 
-The CUDA kernel does not run this evaluator: it runs the event-flip form
-(``kernels/tape_kernel.py``), which reaches the same surfaces without the
-K-slot capacity.
+The CUDA kernel's production mode does not run this evaluator: it runs
+the event-flip form (``kernels/tape_kernel.py``), which reaches the same
+surfaces without the K-slot capacity. Its audit mode (``with_overflow``)
+evaluates these interval lists, and this module is that mode's plain
+version.
 """
 
 from __future__ import annotations

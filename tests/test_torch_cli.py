@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from csgrenderer_tpu_torch.io import read_png
+from csgrenderer_tpu_torch.io import read_png, rmse
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -33,10 +33,59 @@ def test_render_writes_png(tmp_path):
 
 
 def test_render_unported_scene_says_so(tmp_path):
-    proc = _run("csgrenderer_tpu_torch", "render", "--scene", "milestone01", "--out",
-                str(tmp_path / "x.png"))
+    """Every scene of the JAX CLI is ported; what is not yet, the denoise
+    step, says so and names its ROADMAP item."""
+    proc = _run("csgrenderer_tpu_torch", "render", "--scene", "milestone01", "--denoise",
+                "--device", "cpu", "--out", str(tmp_path / "x.png"))
     assert proc.returncode != 0
-    assert "not yet ported" in proc.stderr
+    assert "not ported yet (ROADMAP A8)" in proc.stderr
+    assert not (tmp_path / "x.png").exists()
+
+
+def test_render_milestone01(tmp_path):
+    """The reference shader's frame through WololoRenderer, as the JAX CLI
+    renders it (tools/make_goldens.py config1 at its size and time)."""
+    out = tmp_path / "m.png"
+    proc = _run("csgrenderer_tpu_torch", "render", "--scene", "milestone01", "--width", "320",
+                "--height", "240", "--time", "0.25", "--device", "cpu", "--out", str(out))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    golden = read_png(REPO / "tests" / "goldens" / "config1_milestone01.png")
+    assert rmse(read_png(out), golden) <= 1e-3
+
+
+def test_render_target_noise(tmp_path):
+    out = tmp_path / "d.png"
+    proc = _run("csgrenderer_tpu_torch", "render", "--scene", "diffuse", "--width", "32",
+                "--height", "16", "--spp", "4", "--bounces", "3", "--target-noise", "5e-2",
+                "--max-spp", "64", "--device", "cpu", "--out", str(out))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = next(l for l in proc.stdout.splitlines() if "render-to-noise" in l)
+    used = int(line.split(":")[1].split("spp")[0])
+    noise = float(line.split("measured noise")[1].split()[0])
+    assert used % 8 == 0 and 0 < used <= 64 and noise <= 5e-2
+    assert read_png(out).shape == (16, 32, 3)
+
+
+def test_gif_deepcsg_frames(tmp_path):
+    """config 5 animated, its tape reclustered every frame: two GIF frames
+    that differ (the chain moves)."""
+    out = tmp_path / "d.gif"
+    proc = _run("csgrenderer_tpu_torch", "gif", "--scene", "deepcsg", "--frames", "2", "--fps",
+                "2", "--width", "32", "--height", "24", "--spp", "1", "--bounces", "2",
+                "--device", "cpu", "--out", str(out))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    data = out.read_bytes()
+    assert data[:6] == b"GIF89a" and data[-1:] == b"\x3b"
+    assert data.count(b"\x21\xf9\x04") == 2  # one graphic control block per frame
+    assert "2 frames" in proc.stdout
+
+
+def test_info_names_device_scenes_and_kernels():
+    proc = _run("csgrenderer_tpu_torch", "info")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    for word in ("device:", "milestone01", "meshnight", "tape_kernel", "trimesh_kernel",
+                 "native scene core: not ported"):
+        assert word in proc.stdout, word
 
 
 def test_bench_quick_prints_one_json_line():

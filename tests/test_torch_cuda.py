@@ -263,3 +263,62 @@ def test_mesh_kernel_matches_plain(cuda, mode):
     ref, ref_rays = tm.render_image_mesh_plain(packed, cam, **MESH_KW, **extra)
     _assert_close(ref, ref_rays, img, rays)
     assert float(img.max()) > 0.0
+
+
+def _pearls(k, dev):
+    """tests/test_interval_overflow.py's three disjoint spheres along +z."""
+    from csgrenderer_tpu_torch.scene import NodeArgument, SceneGraph
+
+    g = SceneGraph()
+    s1, s2, s3 = (g.add_sphere_node(0.4, Material.lambertian(c))
+                  for c in ((0.8, 0.2, 0.2), (0.2, 0.8, 0.2), (0.2, 0.2, 0.8)))
+    u = g.add_union_of_node(NodeArgument(s1, offset=(0, 0, 2.0)), NodeArgument(s2, offset=(0, 0, 4.0)))
+    g.add_union_of_node(NodeArgument(u), NodeArgument(s3, offset=(0, 0, 6.0)))
+    return g.compile(k=k, device=dev)
+
+
+AUDIT_CASES = {
+    # (packed tape, camera, frame, whether the dropped-span count must be exact)
+    "pearls-k2-primary": (lambda dev: tk.pack_program(_pearls(2, dev)),
+                          lambda dev: Camera.look_at((0, 0, -6), (0, 0, 1), vfov_degrees=30.0,
+                                                     aspect_ratio=1.0, device=dev),
+                          dict(width=48, height=48, spp=1, max_bounces=1, seed=0), True),
+    "pearls-k2-bounces": (lambda dev: tk.pack_program(_pearls(2, dev)),
+                          lambda dev: Camera.look_at((0, 0, -6), (0, 0, 1), vfov_degrees=30.0,
+                                                     aspect_ratio=1.0, device=dev),
+                          dict(width=48, height=48, spp=2, max_bounces=3, seed=3), False),
+    "csgnight-k2-nee": (lambda dev: tk.pack_program(csg_night_scene().compile(k=2, device=dev)),
+                        _csg_night_cam, NEE_KW, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(AUDIT_CASES))
+def test_audit_kernel_matches_plain(cuda, case):
+    """The interval-list audit mode against its plain version: image and
+    rays within the compare bounds, the dropped-span count equal on primary
+    rays and within the rays' bound over bounces (a silhouette flip changes
+    which segments exist)."""
+    make_packed, make_cam, kw, exact = AUDIT_CASES[case]
+    packed, cam = make_packed(cuda), make_cam(cuda)
+    mode = "audit-nee" if kw.get("nee") else "audit"
+    before = tk.LAUNCHES_BY_MODE[mode]
+    img, rays, over = tk.render_image_tape_kernel(packed, cam, with_overflow=True, **kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES_BY_MODE[mode] == before + 1
+    assert over.dtype == torch.int64 and int(over) > 0  # k = 2 drops spans here
+    ref, ref_rays, ref_over = tk.render_image_tape_plain(packed, cam, with_overflow=True, **kw)
+    _assert_close(ref, ref_rays, img, rays)
+    allowed = 0 if exact else max(2e-3 * int(ref_over), 8)
+    assert abs(int(over) - int(ref_over)) <= allowed
+
+
+@pytest.mark.parametrize("mode", ["clustered", "global"])
+def test_audit_frames_pinned(cuda, mode):
+    """Away from overflow the audit's lists give the event flip's surfaces:
+    the pinned event-flip frames, rendered by the audit mode, hash the same
+    and drop no span."""
+    render, scene, cam, kw = _pinned_case(mode, cuda)
+    img, rays, over = render(scene, cam, with_overflow=True, **kw)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+    assert (digest, int(rays), int(over)) == PINNED_FRAMES[mode] + (0,)

@@ -36,6 +36,19 @@ MODULES = [
     "csgrenderer_tpu_torch.kernels.trimesh_kernel",
     "csgrenderer_tpu_torch.io",
     "csgrenderer_tpu_torch.io.obj",
+    "csgrenderer_tpu_torch.io.checkpoint",
+    "csgrenderer_tpu_torch.io.video",
+    "csgrenderer_tpu_torch.camera.pinhole",
+    "csgrenderer_tpu_torch.render.integrator",
+    "csgrenderer_tpu_torch.utils",
+    "csgrenderer_tpu_torch.utils.config",
+    "csgrenderer_tpu_torch.utils.logging",
+    "csgrenderer_tpu_torch.utils.profiling",
+    "csgrenderer_tpu_torch.app",
+    "csgrenderer_tpu_torch.app.stats",
+    "csgrenderer_tpu_torch.app.loop",
+    "csgrenderer_tpu_torch.app.renderers",
+    "csgrenderer_tpu_torch.app.goldens",
     "csgrenderer_tpu_torch.convert",
     "csgrenderer_tpu_torch.bench",
     "csgrenderer_tpu_torch.__main__",

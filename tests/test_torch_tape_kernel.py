@@ -228,8 +228,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="stack depth"):
         tk.render_image_tape_kernel(deep, cam, 8, 8)
     assert tk.pack_program(_deep_chain(tk.MAX_STACK)).mode == "global"  # at the cap: fine
-    with pytest.raises(NotImplementedError, match="B4b"):
-        tk.render_image_tape_kernel(tape, cam, 8, 8, with_overflow=True)
+    with pytest.raises(ValueError, match="audit mode takes at most"):
+        tk.render_image_tape_kernel(config3_csg_scene().compile(k=tk.MAX_K + 1), cam, 8, 8,
+                                    with_overflow=True)
     with pytest.raises(ValueError, match="emissive"):  # config3 has no lamp to sample
         tk.render_image_tape_kernel(tape, cam, 8, 8, nee=True)
     with pytest.raises(NotImplementedError, match="jitters"):
@@ -238,6 +239,27 @@ def test_refusals():
         tk.render_image_tape_kernel(tape, cam, 8, 8, partition=True)
     with pytest.raises(ValueError, match="sky"):
         tk.render_image_tape_kernel(tape, cam, 8, 8, sky="sunset")
+
+
+def test_overflow_mode_returns_the_dropped_spans():
+    """``with_overflow=True`` returns (image, rays, over), over an int64
+    scalar, with any partition and with NEE; its image and rays are the
+    event flip's where no span is dropped, and the packed list ops are the
+    whole tape's, clusters or not."""
+    tape = many_objects_scene(6).compile(k=4)
+    cam = _many6_cam()
+    kw = dict(spp=1, max_bounces=3, seed=2)
+    for partition in ("auto", False):
+        packed = tk.pack_program(tape, partition)
+        assert packed.list_ops.tolist() == [
+            opc | (arg << 2) if opc == 0 else opc for opc, arg in tape.ops]
+        img, rays, over = tk.render_image_tape_kernel(packed, cam, 16, 8, with_overflow=True,
+                                                      **kw)
+        assert over.dtype == torch.int64 and int(over) == 0
+        ref, ref_rays = tk.render_image_tape_kernel(packed, cam, 16, 8, **kw)
+        assert torch.equal(img, ref) and int(rays) == int(ref_rays)
+    plain = tk.render_image_tape_plain(tk.pack_program(tape), cam, 16, 8, with_overflow=True, **kw)
+    assert len(plain) == 3 and torch.equal(plain[0], img)
 
 
 def test_cuda_request_without_cuda_raises():

@@ -117,3 +117,21 @@ def test_grid_walk_matches_brute_force(packs, family):
     # a different sphere only on an exact tie in t
     assert bool((tg[differ] == tb[differ]).all())
     assert bool((tg[~hg] >= BIG_CUT).all())
+
+
+@pytest.mark.parametrize("family", RAY_FAMILIES)
+def test_grid_walk_counts_its_work(packs, family):
+    """``counts=`` leaves the hits as they are and adds the walk's work:
+    every ray tests the globals, a ray that walks visits at least one cell,
+    and a visit tests at most the cell's ``m`` slots."""
+    _, _, pack, scene = packs
+    o, d = _rays(family, scene.centers[pack.n_globals :].numpy())
+    counts = {}
+    got = grid_nearest_hit(pack, scene, o, d, counts=counts)
+    for a, b in zip(got, grid_nearest_hit(pack, scene, o, d)):
+        assert torch.equal(a, b)
+    c = {k: int(v) for k, v in counts.items()}
+    assert c["global_tests"] == o.shape[0] * pack.n_globals
+    assert 0 < c["walks"] <= o.shape[0]
+    assert c["walks"] <= c["cell_visits"] <= c["walks"] * pack.static.max_steps
+    assert 0 < c["sphere_tests"] <= c["cell_visits"] * pack.static.m
