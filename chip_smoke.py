@@ -78,6 +78,22 @@ Phases (the first that fails ends the run with a non-zero exit):
    modes and the mesh kernel's grid and grid-nee modes must have launched
    in this phase; the tape kernel's global and global-nee modes and the
    mesh kernel's brute and brute-nee modes must have launched in phase 2.
+   Phase 2 also holds the row slabs (``rows=``, ``row_offset=``) of each
+   kernel at its main-path frame to the full frame's rows, bit for bit.
+4. The tools path, counts from zero: ``python -m
+   csgrenderer_tpu_torch.tools.exp_gather``, ``exp_slab`` and
+   ``exp_dot_k`` (kernel rows 6-8, ``csgrenderer_tpu_torch/tools/
+   exp_*.py``). Each tool's main() holds every run it makes (each mode;
+   each combo and mode of exp_dot_k, so every kernel shape) at n_iter =
+   2,000 to its plain version and the float64 formula (within 1e-6 x
+   sum|terms|) and the paired modes to the bit (onehot = shuffle, lane =
+   sublane, loopscalar = carryscalar), raising on a miss; it times each
+   run and its plain version there and the run's slope over n_iter =
+   2,000 and 42,000 (CUDA events). Then ``tools.validate_gpu --only config1,config2`` (the
+   milestone-01 frame against its golden; config2's noise certificate and
+   same-seed RMSE of the sphere kernel against the plain path), which must
+   pass. Every experiment mode and the sphere kernel's brute mode must
+   have launched in this phase.
 
 The last line of output is the device JSON; the line before it lists the
 kernels with their launch counts, errors, times and bounds. There is no
@@ -122,6 +138,20 @@ its lamp tests every face (brute) or the globals and the walk's set-up
 rate is 132 SMs x 128 lanes x the SM clock read under load, one operation
 per lane per cycle: the kernels are built with -fmad=false, so no
 multiply-add fuses two.
+
+A micro-experiment's bound (``exp_bound``) is that of one call at n_iter
+= 2,000 for the function it computes, the same for every mode of that
+function: its table, index and result bytes once, and FP32 adds: per
+result entry and iteration, exp_gather's sum of the 115 rows of the
+column it reads and the accumulation; per iteration, exp_slab's column
+sum (248 adds) and exp_dot_k's sum of the k columns' rr_pad entries, each
+with the accumulation (every result entry holds the same value); "vote"
+adds its term per lane and iteration and the k vote passes over the page
+row once (a compare, a select and two adds per entry). What a mode does
+beyond that (the one-hot products, the tensor-core MMA) is its own cost,
+shown by its time, not by the bound. A one-CTA dependent loop is bound by
+one SM's latency, not by the card's rates, so these bounds are far below
+the times by design.
 """
 
 from __future__ import annotations
@@ -141,7 +171,12 @@ KERNELS = {
     "tape_kernel": (f"{CSRC}/tape_kernel.cu", "csgrenderer_tpu/kernels/tape_kernel.py:744"),
     "trimesh_kernel": (f"{CSRC}/trimesh_kernel.cu",
                        "csgrenderer_tpu/kernels/trimesh_kernel.py:662"),
+    "exp_gather": (f"{CSRC}/exp_gather.cu", "tools/exp_gather.py:62"),
+    "exp_slab": (f"{CSRC}/exp_slab.cu", "tools/exp_slab.py:73"),
+    "exp_dot_k": (f"{CSRC}/exp_dot_k.cu", "tools/exp_dot_k.py:116"),
 }  # the NEE modes are the same pallas_call with lamps (n_lights > 0; nee_lamps)
+EXP_N_ITER = 2000  # the tools' default --n-iter: each run is checked, timed and bounded there
+EXP_REPS = {"exp_gather": 1, "exp_slab": 3, "exp_dot_k": 1}  # timed calls per loop length
 SMS, LANES = 132, 128
 REALTIME_FRAMES = 200
 REALTIME_REPEATS = 3  # runs of each frames-in-flight / readback setting
@@ -356,6 +391,22 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def exp_bound(name, mode, mhz, table_bytes, rr_pad=0, k=0, n_iter=EXP_N_ITER):
+    """(bound_ms, bound_by) of one micro-experiment call: the function's
+    own work, the same for every mode that computes it (see the
+    docstring's rule)."""
+    io_bytes = table_bytes + 2 * 8 * 128 * 4  # + idx [8, 128] i32 and out [8, 128] f32
+    if name == "exp_gather":
+        ops = n_iter * 8 * 128 * (115 + 1)
+    elif name == "exp_slab":
+        ops = n_iter * (248 + 1)
+    else:
+        ops = n_iter * (rr_pad * k + 1) + (n_iter * 128 + k * 128 * 4 if mode == "vote" else 0)
+    ops_ms = ops / (SMS * LANES * mhz * 1e6) * 1e3
+    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -388,6 +439,7 @@ def main() -> None:
     )
     from csgrenderer_tpu_torch.render.trimesh import concat_meshes, icosphere, quad
     from csgrenderer_tpu_torch.scene import Material, NodeArgument, SceneGraph
+    from csgrenderer_tpu_torch.tools import exp_dot_k, exp_gather, exp_slab, validate_gpu
 
     dev = torch.device("cuda")
 
@@ -898,6 +950,30 @@ def main() -> None:
                mesh_cam(demo_eye, 160, 90), "grid", dict(width=160, height=90, spp=1, max_bounces=6,
                                                          seed=0))
 
+    # row slabs: each kernel's slabs of its main-path frame are the frame's rows, bit for bit
+    for label, kernel, packed, cam, kw in (
+        ("sphere grid rtiow", mk.render_image_kernel, mk.pack_scene(rtiow), rtiow_cam(w / h),
+         dict(width=w, height=h, spp=2, max_bounces=8, seed=0, lens=True)),
+        ("tape clustered config5", tk.render_image_tape_kernel, tk.pack_program(tape5), cam5,
+         kw5),
+        ("mesh grid mesh_demo_scene(4)", tm.render_image_mesh_kernel,
+         tm.pack_mesh(mesh_demo_scene(4, device=dev)), cam_m, kwm),
+    ):
+        full, rays = kernel(packed, cam, **kw)
+        height = kw["height"]
+        cuts = (0, height // 3, height // 3 + height // 2, height)
+        parts, total = [], 0
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            img, r = kernel(packed, cam, rows=hi - lo, row_offset=lo, **kw)
+            parts.append(img)
+            total += int(r)
+        same = torch.equal(torch.cat(parts), full)
+        print(f"[chip_smoke] slabs {label} {kw['width']}x{height}: rows {cuts} "
+              f"{'equal' if same else 'DIFFER from'} the frame's bit for bit; rays {total} vs "
+              f"{int(rays)}", flush=True)
+        if not same or total != int(rays):
+            fail(f"slabs {label}: not the full frame's rows")
+
     if mk.LAUNCHES <= mk_launches0 or tk.LAUNCHES <= tk_launches0 or tm.LAUNCHES <= tm_launches0:
         fail("LAUNCHES did not increase in phase 2")
     phase2 = {f"tape_kernel[{m}]": tk.LAUNCHES_BY_MODE[m] - tk_phase2[m]
@@ -1044,6 +1120,30 @@ def main() -> None:
     if idle:
         fail(f"kernel modes never launched on the main path: {idle}")
 
+    # --- phase 4: the tools path, counts from zero
+    exp_tools = {"exp_gather": exp_gather, "exp_slab": exp_slab, "exp_dot_k": exp_dot_k}
+    for mod in (*exp_tools.values(), mk, tk, tm):
+        mod.LAUNCHES = 0
+        for k in mod.LAUNCHES_BY_MODE:
+            mod.LAUNCHES_BY_MODE[k] = 0
+    exp_dot_k.LAUNCHES_BY_RUN.clear()
+    t0 = time.perf_counter()
+    # each tool's main() holds every run to its plain version and the float64 formula (and
+    # the paired modes to the bit) at n_iter 2,000, raising on a miss, then times its slope
+    exp_rows = {name: tool.main(["--reps", str(EXP_REPS[name])])
+                for name, tool in exp_tools.items()}
+    rc = validate_gpu.main(["--only", "config1,config2"])
+    tool_counts = {f"{name}[{m}]": n for name, tool in exp_tools.items()
+                   for m, n in tool.LAUNCHES_BY_MODE.items()}
+    tool_counts["sphere_megakernel[brute]"] = mk.LAUNCHES_BY_MODE["brute"]
+    print(f"[chip_smoke] tools path took {time.perf_counter() - t0:.1f} s; launches {tool_counts}",
+          flush=True)
+    if rc != 0:
+        fail("validate_gpu --only config1,config2 failed")
+    idle = [k for k, n in tool_counts.items() if n == 0]
+    if idle:
+        fail(f"kernel modes never launched on the tools path: {idle}")
+
     kernels = []
     for name in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",
                  "sphere_megakernel[grid-nee]", "sphere_megakernel[brute-nee]",
@@ -1061,6 +1161,30 @@ def main() -> None:
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=counts[name], **stats[name], bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=None))
+    # the micro-experiments: one entry per mode (per combo and mode for exp_dot_k), each
+    # checked, timed and bounded at n_iter 2,000 by its tool's main() on the tools path
+    for tool, rows in exp_rows.items():
+        source, replaces = KERNELS[tool]
+        for row in rows:
+            if tool == "exp_dot_k":
+                run = (row["rr_pad"], row["pw"], row["k"], row["mode"])
+                name = f"{tool}[{row['mode']} rr{run[0]} pw{run[1]} k{run[2]}]"
+                launches = exp_dot_k.LAUNCHES_BY_RUN.get(run, 0)
+            else:
+                name = f"{tool}[{row['mode']}]"
+                launches = exp_tools[tool].LAUNCHES_BY_MODE[row["mode"]]
+            if launches == 0:
+                fail(f"{name} never launched on the tools path")
+            bound_ms, bound_by = exp_bound(tool, row["mode"], mhz, row["table_bytes"],
+                                           row.get("rr_pad", 0), row.get("k", 0))
+            print(f"[chip_smoke] {name} n_iter {EXP_N_ITER}: bound {bound_ms:.5f} ms "
+                  f"({bound_by}); kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+                  f"slope {row['ns_per_iter']:.1f} ns/iteration ({card})", flush=True)
+            kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                                launches=launches, max_abs_err=row["max_abs_err"],
+                                ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=None,
+                                slope_ns=row["ns_per_iter"]))
     # the benchmark frames' bounds, beside their median kernel-frame time
     for name, res, packed_ops in (
         ("rtiow", result, lambda r, fw, fh, fspp: sphere_ops(

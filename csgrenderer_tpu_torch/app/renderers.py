@@ -120,10 +120,12 @@ class PathTraceRenderer:
             raise TypeError(f"unsupported scene type {type(scene).__name__}")
         if progressive and advance_samples:
             raise ValueError("progressive already advances sample offsets")
-        if not config.jitter:
-            raise NotImplementedError("the kernels always jitter (RenderConfig.jitter=False "
-                                      "is not ported)")
         self.device = resolve_device(device)
+        if not config.jitter and self.device.type == "cuda":
+            raise NotImplementedError(
+                "RenderConfig(jitter=False) is refused on device='cuda': the CUDA kernels always "
+                "jitter, as the JAX package's kernels do; device='cpu' renders pixel centres "
+                "through the plain versions")
         self.scene = scene.to(self.device)
         self.camera = camera.to(self.device)
         self.config = config
@@ -286,7 +288,7 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
     than clustering on device tensors.
     """
     kw = dict(spp=cfg.spp, max_bounces=cfg.max_bounces, seed=cfg.seed, sky=cfg.sky, lens=cfg.lens,
-              sample_offset=sample_base, nee=cfg.nee)
+              sample_offset=sample_base, nee=cfg.nee, jitter=cfg.jitter)
     if isinstance(scene, (SphereScene, megakernel.PackedScene)):
         return megakernel.render_image_kernel(scene, camera, cfg.width, cfg.height, **kw)
     if isinstance(scene, (CompiledTape, tape_kernel.PackedTape)):

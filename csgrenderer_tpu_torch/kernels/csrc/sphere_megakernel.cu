@@ -71,10 +71,11 @@ struct Params {
   const float4* lamps;   // [n_lamps, 2] float4: (cx,cy,cz,|r|) (er,eg,eb,sphere id) (NEE)
   int n_lamps;
   int width, height, spp, max_bounces;
+  int rows, row_offset;  // the slab rendered: rows [row_offset, row_offset + rows)
   uint32_t seed, sample_offset;
   int lens, sky;         // sky: 0 rtiow, 1 wololo, 2 black
-  float* out_rgb;        // [H, W, 3]
-  int* out_rays;         // [H, W]
+  float* out_rgb;        // [rows, W, 3]
+  int* out_rays;         // [rows, W]
 };
 
 struct Ray {
@@ -200,9 +201,11 @@ __device__ __forceinline__ bool occluded(const Params& p, float ox, float oy, fl
 template <bool kGrid, bool kNee>
 __global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= p.width || y >= p.height) return;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the slab
+  if (x >= p.width || row >= p.rows) return;
+  const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
+  const size_t out_pix = static_cast<size_t>(row) * p.width + x;
 
   float cam[csgr::kCamFloats];
 #pragma unroll
@@ -295,11 +298,11 @@ __global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
     acc_b += path.sb;
   }
   const float spp = static_cast<float>(p.spp);
-  float* out = p.out_rgb + 3 * static_cast<size_t>(pix);
+  float* out = p.out_rgb + 3 * out_pix;
   out[0] = acc_r / spp;
   out[1] = acc_g / spp;
   out[2] = acc_b / spp;
-  p.out_rays[pix] = rays;
+  p.out_rays[out_pix] = rays;
 }
 
 }  // namespace
@@ -308,9 +311,12 @@ extern "C" int csgr_sphere_render(
     const void* cam, const void* spheres, int n_brute, const void* cell_ids,
     int cx, int cz, int m, int max_steps, float x0, float z0, float x1, float z1,
     float y_lo, float y_hi, float cell, float inv_cell, const void* lamps, int n_lamps,
-    int width, int height,
+    int width, int height, int rows, int row_offset,
     int spp, int max_bounces, unsigned int seed, unsigned int sample_offset,
     int lens, int sky, void* out_rgb, void* out_rays, void* stream) {
+  if (rows < 1 || row_offset < 0 || row_offset + rows > height) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p;
   p.cam = static_cast<const float*>(cam);
   p.sph = static_cast<const float4*>(spheres);
@@ -322,13 +328,14 @@ extern "C" int csgr_sphere_render(
   p.lamps = static_cast<const float4*>(lamps);
   p.n_lamps = n_lamps;
   p.width = width; p.height = height; p.spp = spp; p.max_bounces = max_bounces;
+  p.rows = rows; p.row_offset = row_offset;
   p.seed = seed; p.sample_offset = sample_offset;
   p.lens = lens; p.sky = sky;
   p.out_rgb = static_cast<float*>(out_rgb);
   p.out_rays = static_cast<int*>(out_rays);
 
   const dim3 block(16, 8);
-  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+  const dim3 grid((width + block.x - 1) / block.x, (rows + block.y - 1) / block.y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool nee = n_lamps > 0;
   if (p.cell_ids != nullptr) {

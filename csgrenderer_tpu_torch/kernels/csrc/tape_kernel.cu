@@ -108,11 +108,12 @@ struct Params {
   int n_list_ops;
   int k;                   // audit mode: the tape's interval-list capacity
   int width, height, spp, max_bounces;
+  int rows, row_offset;  // the slab rendered: rows [row_offset, row_offset + rows)
   uint32_t seed, sample_offset;
   int lens, sky;           // sky: 0 rtiow, 1 wololo, 2 black
-  float* out_rgb;          // [H, W, 3]
-  int* out_rays;           // [H, W]
-  int* out_over;           // audit mode: [H, W] dropped spans over the pixel's segments
+  float* out_rgb;          // [rows, W, 3]
+  int* out_rays;           // [rows, W]
+  int* out_over;           // audit mode: [rows, W] dropped spans over the pixel's segments
 };
 
 // v rotated by unit quaternion q: v + w t + u x t, t = 2 u x v
@@ -459,9 +460,11 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
   const Tables tb{s_leaf, s_type, s_ops, s_ids, s_cl, s_list};
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= p.width || y >= p.height) return;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the slab
+  if (x >= p.width || row >= p.rows) return;
+  const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
+  const size_t out_pix = static_cast<size_t>(row) * p.width + x;
 
   float cam[csgr::kCamFloats];
 #pragma unroll
@@ -579,12 +582,12 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
     acc_b += path.sb;
   }
   const float spp = static_cast<float>(p.spp);
-  float* out = p.out_rgb + 3 * static_cast<size_t>(pix);
+  float* out = p.out_rgb + 3 * out_pix;
   out[0] = acc_r / spp;
   out[1] = acc_g / spp;
   out[2] = acc_b / spp;
-  p.out_rays[pix] = rays;
-  if (kLists) p.out_over[pix] = over;
+  p.out_rays[out_pix] = rays;
+  if (kLists) p.out_over[out_pix] = over;
 }
 
 template <bool kNee, bool kLists>
@@ -596,7 +599,7 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   const dim3 block(16, 8);
-  const dim3 grid((p.width + block.x - 1) / block.x, (p.height + block.y - 1) / block.y);
+  const dim3 grid((p.width + block.x - 1) / block.x, (p.rows + block.y - 1) / block.y);
   tape_kernel<kNee, kLists><<<grid, block, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -613,12 +616,14 @@ extern "C" int csgr_tape_render(
     const void* cam, const void* leaves, const void* leaf_types, int n_leaves, const void* ops,
     int n_ops, const void* clusters, int n_clusters, const void* leaf_ids, int n_ids,
     const void* lamp_ids, int n_lamps, const void* list_ops, int n_list_ops, int k, int width,
-    int height, int spp, int max_bounces, unsigned int seed, unsigned int sample_offset, int lens,
-    int sky, void* out_rgb, void* out_rays, void* out_over, void* stream) {
+    int height, int rows, int row_offset, int spp, int max_bounces, unsigned int seed,
+    unsigned int sample_offset, int lens, int sky, void* out_rgb, void* out_rays, void* out_over,
+    void* stream) {
   // list_ops given: the audit mode, which writes out_over
   const bool lists = list_ops != nullptr;
   if (n_leaves < 1 || n_leaves > kMaxLeaves || n_clusters < 1 ||
-      (lists && (k < 1 || k > kMaxK || n_list_ops < 1 || out_over == nullptr))) {
+      (lists && (k < 1 || k > kMaxK || n_list_ops < 1 || out_over == nullptr)) ||
+      rows < 1 || row_offset < 0 || row_offset + rows > height) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -638,6 +643,7 @@ extern "C" int csgr_tape_render(
   p.n_list_ops = lists ? n_list_ops : 0;
   p.k = k;
   p.width = width; p.height = height; p.spp = spp; p.max_bounces = max_bounces;
+  p.rows = rows; p.row_offset = row_offset;
   p.seed = seed; p.sample_offset = sample_offset;
   p.lens = lens; p.sky = sky;
   p.out_rgb = static_cast<float*>(out_rgb);

@@ -46,6 +46,8 @@ KERNEL_SOURCE = "sphere_megakernel"
 LAUNCHES = 0
 LAUNCHES_BY_MODE = {"grid": 0, "brute": 0, "grid-nee": 0, "brute-nee": 0}
 _NO_LAMPS = "nee=True but the scene has no emissive spheres"
+JITTER_ON_CPU_ONLY = ("a CUDA kernel always jitters: jitter=False (pixel centres) renders only on "
+                      "the CPU, through the plain versions")
 
 
 @dataclass(frozen=True)
@@ -170,29 +172,37 @@ def render_image_plain(
     sample_offset: int = 0,
     nee: bool = False,
     counts: dict | None = None,
+    rows: int | None = None,
+    row_offset: int = 0,
+    jitter: bool = True,
+    sample_batch: int = 1,
 ) -> tuple[Tensor, Tensor]:
     """The plain torch version of the kernel, on any device. With ``nee``
     it renders with the packed lamp table as ``lights=``; ``counts`` as in
     ``integrator.trace_paths``, plus, in grid mode, the walk's work
-    (``worklist.grid_nearest_hit``, shadow rays included)."""
+    (``worklist.grid_nearest_hit``, shadow rays included); ``rows``,
+    ``row_offset``, ``jitter`` and ``sample_batch`` as in
+    ``integrator.render_image``."""
     if nee and packed.lamps is None:
         raise ValueError(_NO_LAMPS)
     hit_fn = packed.scene.nearest_hit if packed.grid is None else _grid_hit_fn(packed, counts)
     return integrator.render_image(
         hit_fn, camera, width, height, spp=spp, max_bounces=max_bounces,
-        seed=seed, sky=sky, lens=lens, sample_offset=sample_offset,
-        lights=packed.lights if nee else None, counts=counts,
+        seed=seed, sky=sky, jitter=jitter, lens=lens, sample_offset=sample_offset,
+        lights=packed.lights if nee else None, counts=counts, rows=rows, row_offset=row_offset,
+        sample_batch=sample_batch,
     )
 
 
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-_ARGTYPES = ((_VP, _VP, _I, _VP, _I, _I, _I, _I) + (_F,) * 8 + (_VP, _I) + (_I,) * 4
+_ARGTYPES = ((_VP, _VP, _I, _VP, _I, _I, _I, _I) + (_F,) * 8 + (_VP, _I) + (_I,) * 6
              + (_U, _U, _I, _I, _VP, _VP, _VP))
 
 
 def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
-            nee):
+            nee, rows=None, row_offset=0):
     global LAUNCHES
+    rows = height if rows is None else rows
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"the sphere kernel needs CUDA tensors, got {dev}")
@@ -216,14 +226,15 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
         lamp_args = [packed.lamps.data_ptr(), n_lights]
 
     fn, err_str = build.bind(KERNEL_SOURCE, "csgr_sphere_render", _ARGTYPES)
-    out_rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    out_rays = torch.empty((height, width), dtype=torch.int32, device=dev)
+    out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
+    out_rays = torch.empty((rows, width), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             cam_row.data_ptr(), packed.spheres.data_ptr(), packed.n_brute, *grid_args, *lamp_args,
-            width, height, spp, max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF,
-            int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(), out_rays.data_ptr(), stream,
+            width, height, rows, row_offset, spp, max_bounces, seed & 0xFFFFFFFF,
+            sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(),
+            out_rays.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"sphere kernel launch failed: {err_str(rc).decode()} ({rc})")
@@ -247,10 +258,19 @@ def render_image_kernel(
     sample_offset: int = 0,
     worklist: bool | str = "auto",
     nee: bool = False,
+    rows: int | None = None,
+    row_offset: int = 0,
+    jitter: bool = True,
 ) -> tuple[Tensor, Tensor]:
     """Drop-in for ``integrator.render_image`` on sphere scenes.
 
     Returns (image [H, W, 3] f32, rays traced as an int64 scalar tensor).
+    ``rows``/``row_offset`` render the full-width slab of rows
+    [row_offset, row_offset + rows) of the ``width x height`` frame
+    ([rows, W, 3] and that slab's rays; camera and RNG stay functions of
+    global pixel coordinates, so the slab is the frame's rows bit for
+    bit). ``jitter=False`` (pixel centres) runs on the CPU only: the
+    kernel always jitters, as the JAX package's does.
     ``scene`` may be a ``PackedScene`` from ``pack_scene`` (packed once,
     e.g. by a benchmark); ``worklist`` then must be "auto". Scene and
     camera tensors on a CUDA device launch the kernel; on the CPU they run
@@ -270,13 +290,17 @@ def render_image_kernel(
         packed = pack_scene(scene, worklist)
     if nee and packed.lamps is None:
         raise ValueError(_NO_LAMPS)
+    rows = integrator.slab_rows(height, rows, row_offset)
     if packed.device.type == "cpu":
         return render_image_plain(
             packed, camera, width, height, spp=spp, max_bounces=max_bounces,
             seed=seed, sky=sky, lens=lens, sample_offset=sample_offset, nee=nee,
+            rows=rows, row_offset=row_offset, jitter=jitter,
         )
+    if not jitter:
+        raise NotImplementedError(JITTER_ON_CPU_ONLY)
     return _launch(
-        packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces,
-        int(seed), int(sample_offset), lens, sky, nee,
+        packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces, int(seed),
+        int(sample_offset), lens, sky, nee, rows, int(row_offset),
     )
 

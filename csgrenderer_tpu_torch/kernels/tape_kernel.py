@@ -55,7 +55,7 @@ from ..scene.graph import NodeType
 from ..scene.partition import partition_tape
 from ..scene.tape import OP_INTERSECT, OP_PUSH, OP_UNION, CompiledTape, stack_depth
 from . import build
-from .megakernel import CAM_SIZE, pack_camera
+from .megakernel import CAM_SIZE, JITTER_ON_CPU_ONLY, pack_camera
 
 KERNEL_SOURCE = "tape_kernel"
 LEAF_ROW = 16  # rot(4) pos(3) params(4) kind param albedo(3): the JAX layout
@@ -392,22 +392,29 @@ def render_image_tape_plain(
     nee: bool = False,
     counts: dict | None = None,
     with_overflow: bool = False,
+    rows: int | None = None,
+    row_offset: int = 0,
+    jitter: bool = True,
+    sample_batch: int = 1,
 ) -> tuple[Tensor, ...]:
     """The plain torch version of the kernel, on any device. With ``nee``
     it renders with the packed lamps as ``lights=`` (a shadow ray is an
     event-flip ``tape_hit`` like any other); ``counts`` as in
     ``integrator.trace_paths``. ``with_overflow``: path segments take the
     audit mode's interval lists, and the dropped spans of the segments
-    traced are summed into a third result, ``over`` (int64 scalar)."""
+    traced are summed into a third result, ``over`` (int64 scalar).
+    ``rows``, ``row_offset``, ``jitter`` and ``sample_batch`` as in
+    ``integrator.render_image``."""
     if nee and packed.lamp_ids is None:
         raise ValueError(_NO_LAMPS)
     events = functools.partial(tape_hit, packed)
     dropped: list = []
     img, rays = integrator.render_image(
         functools.partial(tape_hit, packed, dropped=dropped) if with_overflow else events,
-        camera, width, height, spp=spp, max_bounces=max_bounces, seed=seed, sky=sky, lens=lens,
-        sample_offset=sample_offset, lights=packed.lights if nee else None, counts=counts,
-        shadow_hit_fn=events,
+        camera, width, height, spp=spp, max_bounces=max_bounces, seed=seed, sky=sky,
+        jitter=jitter, lens=lens, sample_offset=sample_offset,
+        lights=packed.lights if nee else None, counts=counts, shadow_hit_fn=events, rows=rows,
+        row_offset=row_offset, sample_batch=sample_batch,
     )
     if not with_overflow:
         return img, rays
@@ -420,7 +427,7 @@ def render_image_tape_plain(
 
 
 _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-_ARGTYPES = ((_VP, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _I) + (_I,) * 4
+_ARGTYPES = ((_VP, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _I) + (_I,) * 6
              + (_U, _U, _I, _I, _VP, _VP, _VP, _VP))
 
 
@@ -434,8 +441,9 @@ def _kernel_fn():
 
 
 def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, sample_offset,
-            lens, sky, nee, with_overflow):
+            lens, sky, nee, with_overflow, rows=None, row_offset=0):
     global LAUNCHES
+    rows = height if rows is None else rows
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"the tape kernel needs CUDA tensors, got {dev}")
@@ -460,18 +468,18 @@ def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, 
         n_list = len(packed.tape.ops)
         build.check_tensor(packed.list_ops, "list_ops", torch.int32, (n_list,), dev)
         list_args = [packed.list_ops.data_ptr(), n_list, packed.tape.k]
-        out_over = torch.empty((height, width), dtype=torch.int32, device=dev)
+        out_over = torch.empty((rows, width), dtype=torch.int32, device=dev)
 
     fn, err_str = _kernel_fn()
-    out_rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    out_rays = torch.empty((height, width), dtype=torch.int32, device=dev)
+    out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
+    out_rays = torch.empty((rows, width), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             cam_row.data_ptr(), packed.leaf_table.data_ptr(), packed.leaf_types.data_ptr(),
             n_leaves, packed.ops.data_ptr(), n_ops, packed.cluster_table.data_ptr(),
             n_clusters, packed.leaf_ids.data_ptr(), n_ids, *lamp_args, *list_args, width, height,
-            spp, max_bounces,
+            rows, row_offset, spp, max_bounces,
             seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky),
             out_rgb.data_ptr(), out_rays.data_ptr(),
             None if out_over is None else out_over.data_ptr(), stream,
@@ -502,6 +510,8 @@ def render_image_tape_kernel(
     with_overflow: bool = False,
     nee: bool = False,
     partition: bool | str | tuple = "auto",
+    rows: int | None = None,
+    row_offset: int = 0,
 ) -> tuple[Tensor, ...]:
     """Drop-in for ``integrator.render_image`` on a CSG tape.
 
@@ -517,9 +527,10 @@ def render_image_tape_kernel(
     the kernel; on the CPU they run the plain version; there is no fallback
     between the two. ``nee`` samples the emissive sphere leaves at every
     Lambertian and glossy hit (ValueError if the tape has none).
+    ``rows``/``row_offset`` and ``jitter`` as in
+    ``megakernel.render_image_kernel``: a full-width slab of the frame, and
+    pixel centres on the CPU only.
     """
-    if not jitter:
-        raise NotImplementedError("the tape kernel always jitters")
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")
     if spp < 1 or max_bounces < 0 or width < 1 or height < 1:
@@ -534,13 +545,16 @@ def render_image_tape_kernel(
         raise ValueError(_NO_LAMPS)
     if with_overflow and packed.tape.k > MAX_K:
         raise ValueError(f"tape k = {packed.tape.k}: the audit mode takes at most {MAX_K} slots")
+    rows = integrator.slab_rows(height, rows, row_offset)
     if packed.device.type == "cpu":
         return render_image_tape_plain(
             packed, camera, width, height, spp=spp, max_bounces=max_bounces,
             seed=seed, sky=sky, lens=lens, sample_offset=sample_offset, nee=nee,
-            with_overflow=with_overflow,
+            with_overflow=with_overflow, rows=rows, row_offset=row_offset, jitter=jitter,
         )
+    if not jitter:
+        raise NotImplementedError(JITTER_ON_CPU_ONLY)
     return _launch(
-        packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces,
-        int(seed), int(sample_offset), lens, sky, nee, with_overflow,
+        packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces, int(seed),
+        int(sample_offset), lens, sky, nee, with_overflow, rows, int(row_offset),
     )

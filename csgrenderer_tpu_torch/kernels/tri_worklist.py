@@ -211,9 +211,14 @@ def _bin(v0, v1, v2, fmin, fmax, idx, g0, cell, dims):
     return ci[order], fi[order]
 
 
-def pack_tri_grid(mesh: MeshScene) -> TriGridPack | None:
+def pack_tri_grid(mesh: MeshScene, cell: float | None = None) -> TriGridPack | None:
     """Bin a mesh's faces into a voxel grid on the mesh's device, or
-    return None when a grid will not help (too few faces to grid)."""
+    return None when a grid will not help (too few faces to grid).
+
+    ``cell``: the voxel edge; None takes the occupancy rule (module
+    docstring). Any cell bins every face into every voxel it touches, so
+    two grids of the same mesh give the same nearest hits; a cell whose
+    grid would pass ``MAX_VOXELS`` voxels raises."""
     t_start = time.perf_counter()
     f = mesh.num_faces
     if f < MIN_GRID_FACES:
@@ -236,16 +241,18 @@ def pack_tri_grid(mesh: MeshScene) -> TriGridPack | None:
     g0 = (lo - 1e-6).tolist()
     g1 = (hi + 1e-6).tolist()
     best, rungs = None, []
-    for n_side in N_SIDES:
-        cell = ext / n_side + 1e-9
-        dims = tuple(max(1, int(np.ceil((b - a) / cell))) for a, b in zip(g0, g1))
-        if best is not None and dims[0] * dims[1] * dims[2] > MAX_VOXELS:
+    for n_side in N_SIDES if cell is None else (ext / cell,):
+        edge = ext / n_side + 1e-9 if cell is None else float(cell)
+        dims = tuple(max(1, int(np.ceil((b - a) / edge))) for a, b in zip(g0, g1))
+        if dims[0] * dims[1] * dims[2] > MAX_VOXELS:
+            if best is None:
+                raise ValueError(f"cell {edge} makes a {dims} grid, over {MAX_VOXELS} voxels")
             break
-        ci, fi = _bin(v0, v1, v2, fmin, fmax, idx, g0, cell, dims)
+        ci, fi = _bin(v0, v1, v2, fmin, fmax, idx, g0, edge, dims)
         nonempty = int(torch.unique_consecutive(ci).numel())
         mean_occ = ci.numel() / max(nonempty, 1)
         rungs.append((n_side, dims, mean_occ))
-        best = (dims, cell, ci, fi)
+        best = (dims, edge, ci, fi)
         if mean_occ <= TARGET_OCCUPANCY:
             break
     dims, cell, ci, fi = best

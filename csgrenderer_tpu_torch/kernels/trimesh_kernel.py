@@ -39,7 +39,7 @@ from ..render.integrator import SKY_MODES, SurfaceHit
 from ..render.lights import TriLights, extract_mesh_lights
 from ..render.trimesh import MeshScene
 from . import build
-from .megakernel import CAM_SIZE, pack_camera
+from .megakernel import CAM_SIZE, JITTER_ON_CPU_ONLY, pack_camera
 from .tri_worklist import TriGridPack, pack_tri_grid, tri_grid_nearest_hit
 
 FACE_WORDS = 20  # floats per face record: v0, e1, e2, unit normal, kind, param, albedo, pad
@@ -123,13 +123,15 @@ def _lamp_table(mesh: MeshScene) -> Tensor | None:
     return tab
 
 
-def pack_mesh(mesh: MeshScene, worklist: bool | str = "auto") -> PackedMesh:
+def pack_mesh(mesh: MeshScene, worklist: bool | str = "auto", cell: float | None = None
+              ) -> PackedMesh:
     """Choose the mode and build the kernel's tables on the mesh's device.
 
     ``worklist``: "auto" takes grid mode when ``pack_tri_grid`` grids the
     mesh (192 faces or more); True forces grid mode (and raises if the
     mesh is not griddable); False forces brute mode. The JAX package's
-    "stream" and "tiered" are TPU gather modes and raise.
+    "stream" and "tiered" are TPU gather modes and raise. ``cell``: the
+    grid's voxel edge (``pack_tri_grid``); None takes its occupancy rule.
     """
     if worklist in ("stream", "tiered"):
         raise ValueError(f"worklist={worklist!r} is a TPU gather mode with no counterpart here: "
@@ -139,7 +141,7 @@ def pack_mesh(mesh: MeshScene, worklist: bool | str = "auto") -> PackedMesh:
         raise ValueError(f"worklist must be 'auto', True or False, got {worklist!r}")
     grid = None
     if worklist in (True, "auto"):
-        grid = pack_tri_grid(mesh)
+        grid = pack_tri_grid(mesh, cell)
         if grid is None and worklist is True:
             raise ValueError("worklist=True but the mesh is not griddable "
                              "(under 192 faces to grid)")
@@ -170,11 +172,17 @@ def render_image_mesh_plain(
     sample_offset: int = 0,
     nee: bool = False,
     counts: dict | None = None,
+    rows: int | None = None,
+    row_offset: int = 0,
+    jitter: bool = True,
+    sample_batch: int = 1,
 ) -> tuple[Tensor, Tensor]:
     """The plain torch version of the kernel, on any device. With ``nee``
     it renders with the packed lamp table as ``lights=``; ``counts`` as in
     ``integrator.trace_paths``, plus, in grid mode, the walk's work
-    (``tri_worklist.tri_grid_nearest_hit``, shadow rays included)."""
+    (``tri_worklist.tri_grid_nearest_hit``, shadow rays included);
+    ``rows``, ``row_offset``, ``jitter`` and ``sample_batch`` as in
+    ``integrator.render_image``."""
     if nee and packed.lamps is None:
         raise ValueError(_NO_LAMPS)
     if packed.grid is None:
@@ -183,19 +191,21 @@ def render_image_mesh_plain(
         hit_fn = _grid_hit_fn(packed, counts)
     return integrator.render_image(
         hit_fn, camera, width, height, spp=spp, max_bounces=max_bounces,
-        seed=seed, sky=sky, lens=lens, sample_offset=sample_offset,
-        lights=packed.lights if nee else None, counts=counts,
+        seed=seed, sky=sky, jitter=jitter, lens=lens, sample_offset=sample_offset,
+        lights=packed.lights if nee else None, counts=counts, rows=rows, row_offset=row_offset,
+        sample_batch=sample_batch,
     )
 
 
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-_ARGTYPES = ((_VP, _VP, _I, _VP, _I, _VP, _VP, _I, _I, _I) + (_F,) * 8 + (_VP, _I) + (_I,) * 4
+_ARGTYPES = ((_VP, _VP, _I, _VP, _I, _VP, _VP, _I, _I, _I) + (_F,) * 8 + (_VP, _I) + (_I,) * 6
              + (_U, _U, _I, _I, _VP, _VP, _VP))
 
 
 def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
-            nee):
+            nee, rows=None, row_offset=0):
     global LAUNCHES
+    rows = height if rows is None else rows
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"the mesh kernel needs CUDA tensors, got {dev}")
@@ -222,14 +232,15 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
         lamp_args = [packed.lamps.data_ptr(), n_lights]
 
     fn, err_str = build.bind(KERNEL_SOURCE, "csgr_mesh_render", _ARGTYPES)
-    out_rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    out_rays = torch.empty((height, width), dtype=torch.int32, device=dev)
+    out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
+    out_rays = torch.empty((rows, width), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             cam_row.data_ptr(), packed.faces.data_ptr(), f, *grid_args, *lamp_args,
-            width, height, spp, max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF,
-            int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(), out_rays.data_ptr(), stream,
+            width, height, rows, row_offset, spp, max_bounces, seed & 0xFFFFFFFF,
+            sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(),
+            out_rays.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"mesh kernel launch failed: {err_str(rc).decode()} ({rc})")
@@ -251,6 +262,9 @@ def render_image_mesh_kernel(
     sample_offset: int = 0,
     worklist: bool | str = "auto",
     nee: bool = False,
+    rows: int | None = None,
+    row_offset: int = 0,
+    jitter: bool = True,
 ) -> tuple[Tensor, Tensor]:
     """Drop-in for ``integrator.render_image`` on triangle meshes.
 
@@ -260,7 +274,9 @@ def render_image_mesh_kernel(
     tensors on a CUDA device launch the kernel; on the CPU they run the
     plain version; there is no fallback between the two. ``nee`` samples
     the mesh's emissive faces at every Lambertian and glossy hit
-    (ValueError if it has none).
+    (ValueError if it has none). ``rows``/``row_offset`` and ``jitter`` as
+    in ``megakernel.render_image_kernel``: a full-width slab of the frame,
+    and pixel centres on the CPU only.
     """
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")
@@ -274,12 +290,16 @@ def render_image_mesh_kernel(
         packed = pack_mesh(mesh, worklist)
     if nee and packed.lamps is None:
         raise ValueError(_NO_LAMPS)
+    rows = integrator.slab_rows(height, rows, row_offset)
     if packed.device.type == "cpu":
         return render_image_mesh_plain(
             packed, camera, width, height, spp=spp, max_bounces=max_bounces,
             seed=seed, sky=sky, lens=lens, sample_offset=sample_offset, nee=nee,
+            rows=rows, row_offset=row_offset, jitter=jitter,
         )
+    if not jitter:
+        raise NotImplementedError(JITTER_ON_CPU_ONLY)
     return _launch(
-        packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces,
-        int(seed), int(sample_offset), lens, sky, nee,
+        packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces, int(seed),
+        int(sample_offset), lens, sky, nee, rows, int(row_offset),
     )

@@ -283,37 +283,64 @@ def render_tile(
     max_bounces: int = 8,
     seed: int = 0,
     sky: str = "rtiow",
+    jitter: bool = True,
     lens: bool = False,
     sample_offset: int = 0,
     lights=None,
     counts: dict | None = None,
     shadow_hit_fn: HitFn | None = None,
+    sample_batch: int = 1,
 ) -> tuple[Tensor, Tensor]:
     """Render a sub-rectangle of a ``full_width x full_height`` image.
 
     Pixel ids, camera st coords and RNG counters are all functions of
     GLOBAL pixel coordinates. Returns (radiance_sum [th, tw, 3], NOT
-    divided by spp, and rays traced as an int64 scalar). ``lights``,
-    ``counts`` and ``shadow_hit_fn`` as in ``trace_paths``.
+    divided by spp, and rays traced as an int64 scalar). ``jitter=False``
+    takes every camera ray through the pixel centre (the lens sample
+    stays). ``lights``, ``counts`` and ``shadow_hit_fn`` as in
+    ``trace_paths``. ``sample_batch`` samples are traced together as one
+    batch of rays, and still summed one after another, so the result does
+    not depend on it: a larger batch trades memory for fewer launches.
     """
+    if sample_batch < 1:
+        raise ValueError(f"sample_batch must be at least 1, got {sample_batch}")
     dev = camera.device
     ys = tile_y0 + torch.arange(tile_height, dtype=torch.int64, device=dev)[:, None]
     xs = tile_x0 + torch.arange(tile_width, dtype=torch.int64, device=dev)[None, :]
     pixel_id = ys * full_width + xs  # [th, tw] global ids
     acc = torch.zeros((tile_height, tile_width, 3), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
-    for si in range(spp):
-        s = (si + int(sample_offset)) & 0xFFFFFFFF
+    for first in range(0, spp, sample_batch):
+        n = min(sample_batch, spp - first)
+        s = (torch.arange(first, first + n, dtype=torch.int64, device=dev)
+             + int(sample_offset)) & 0xFFFFFFFF
+        if n == 1:
+            s = int(s[0])
+        else:
+            s = s[:, None, None]  # [n, 1, 1]: the batch's samples over [th, tw]
         u = uniform4(pixel_id, s, 0xA5A5A5A5, seed)  # pixel jitter + lens sample
-        st_x = (xs.to(torch.float32) + u[..., 0]) / full_width
-        st_y = 1.0 - (ys.to(torch.float32) + u[..., 1]) / full_height
+        jx, jy = (u[..., 0], u[..., 1]) if jitter else (0.5, 0.5)
+        st_x = (xs.to(torch.float32) + jx) / full_width
+        st_y = 1.0 - (ys.to(torch.float32) + jy) / full_height
+        st_x, st_y = torch.broadcast_to(st_x, u.shape[:-1]), torch.broadcast_to(st_y, u.shape[:-1])
         lens_uv = sample_in_unit_disk(u[..., 2], u[..., 3]) if lens else None
         o, d = camera.rays(st_x, st_y, lens_uv=lens_uv)
         radiance, r = trace_paths(hit_fn, o, d, pixel_id, s, seed, max_bounces, sky=sky,
                                   lights=lights, counts=counts, shadow_hit_fn=shadow_hit_fn)
-        acc = acc + radiance
+        for one in (radiance,) if n == 1 else radiance.unbind(0):
+            acc = acc + one
         rays = rays + r
     return acc, rays
+
+
+def slab_rows(height: int, rows: int | None, row_offset: int) -> int:
+    """The rows of a full-width slab of a frame ``height`` rows high
+    (``rows=None``: the whole frame), checked to lie inside it."""
+    rows = height if rows is None else int(rows)
+    if rows < 1 or row_offset < 0 or row_offset + rows > height:
+        raise ValueError(f"slab rows={rows} at row_offset={row_offset} is not inside a frame "
+                         f"of height {height}")
+    return rows
 
 
 def render_image(
@@ -325,23 +352,32 @@ def render_image(
     max_bounces: int = 8,
     seed: int = 0,
     sky: str = "rtiow",
+    jitter: bool = True,
     lens: bool = False,
     sample_offset: int = 0,
     lights=None,
     counts: dict | None = None,
     shadow_hit_fn: HitFn | None = None,
+    rows: int | None = None,
+    row_offset: int = 0,
+    sample_batch: int = 1,
 ) -> tuple[Tensor, Tensor]:
     """Render a linear-radiance image [H, W, 3]; also returns rays traced.
 
     ``sample_offset`` advances the per-sample RNG counters for progressive
-    rendering across frames; ``lights``, ``counts`` and ``shadow_hit_fn``
-    as in ``trace_paths``.
+    rendering across frames; ``jitter``, ``lights``, ``counts``,
+    ``shadow_hit_fn`` and ``sample_batch`` as in ``render_tile``.
+    ``rows``/``row_offset`` render only the full-width slab of rows
+    [row_offset, row_offset + rows) of the ``width x height`` frame, as
+    [rows, W, 3], and return that slab's rays: the frame's own rows, bit
+    for bit, since every counter is a function of global coordinates.
     """
+    rows = slab_rows(height, rows, row_offset)
     image_sum, rays = render_tile(
-        hit_fn, camera, width, height, 0, 0, width, height,
-        spp=spp, max_bounces=max_bounces, seed=seed, sky=sky,
+        hit_fn, camera, width, height, 0, row_offset, width, rows,
+        spp=spp, max_bounces=max_bounces, seed=seed, sky=sky, jitter=jitter,
         lens=lens, sample_offset=sample_offset, lights=lights, counts=counts,
-        shadow_hit_fn=shadow_hit_fn,
+        shadow_hit_fn=shadow_hit_fn, sample_batch=sample_batch,
     )
     return image_sum / spp, rays
 

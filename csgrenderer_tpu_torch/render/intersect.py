@@ -56,7 +56,7 @@ def quadratic_t(od, oo, a, inv_a, dc, oc, cc, r2, t_min: float, t_max: float, mi
     half_b = od - dc  # (o - c) . d
     c_term = oo - 2.0 * oc + cc - r2
     disc = half_b * half_b - a * c_term
-    sqrt_disc = torch.sqrt(torch.clamp(disc, min=0.0))
+    sqrt_disc = vec.sqrt(torch.clamp(disc, min=0.0))
     t0 = (-half_b - sqrt_disc) * inv_a
     t1 = (-half_b + sqrt_disc) * inv_a
     t = torch.where(t0 > t_min, t0, t1)

@@ -1,5 +1,8 @@
 """The CUDA sphere, tape and triangle-mesh kernels against their plain
-torch versions, on the card, without and with next-event estimation (NEE).
+torch versions, on the card, without and with next-event estimation (NEE);
+their row slabs against the full frame; and the micro-experiment kernels
+(kernel rows 6-8, ``csgrenderer_tpu_torch/tools/exp_*.py``) against their
+plain versions.
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -36,6 +39,7 @@ from csgrenderer_tpu_torch.models import (
 )
 from csgrenderer_tpu_torch.render.trimesh import concat_meshes, icosphere, quad
 from csgrenderer_tpu_torch.scene import Material
+from csgrenderer_tpu_torch.tools import common, exp_dot_k, exp_gather, exp_slab
 
 pytestmark = pytest.mark.cuda
 
@@ -322,3 +326,98 @@ def test_audit_frames_pinned(cuda, mode):
     torch.cuda.synchronize()
     digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
     assert (digest, int(rays), int(over)) == PINNED_FRAMES[mode] + (0,)
+
+
+# --- row slabs (rows=, row_offset=): the full frame's rows, bit for bit -------
+
+SLAB_CASES = {
+    "sphere-grid": (mk.render_image_kernel,
+                    lambda dev: mk.pack_scene(rtiow_final_scene(device=dev)),
+                    lambda dev: _rtiow_camera(2.0, dev),
+                    dict(width=64, height=32, spp=2, max_bounces=6, seed=3, lens=True)),
+    "tape-clustered": (tk.render_image_tape_kernel,
+                       lambda dev: tk.pack_program(csg_night_scene().compile(k=4, device=dev)),
+                       lambda dev: Camera.look_at((4.5, 2.6, 4.8), (0.0, 0.8, 0.3),
+                                                  vfov_degrees=38.0, aspect_ratio=2.0,
+                                                  device=dev),
+                       dict(width=64, height=32, spp=2, max_bounces=6, seed=1, sky="black",
+                            nee=True)),
+    "mesh-grid": (tm.render_image_mesh_kernel,
+                  lambda dev: tm.pack_mesh(mesh_demo_scene(2, device=dev)),
+                  lambda dev: Camera.look_at((0.0, 1.6, 2.2), (0.0, 0.7, -2.6),
+                                             vfov_degrees=45.0, aspect_ratio=2.0, device=dev),
+                  dict(width=64, height=32, spp=2, max_bounces=6, seed=2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLAB_CASES))
+def test_row_slabs_equal_the_frame(cuda, case):
+    """Three slabs (rows 0-4, 5-22, 23-31) of each kernel equal the full
+    kernel frame's rows bit for bit, and their rays sum to the frame's."""
+    kernel, make, camera, kw = SLAB_CASES[case]
+    packed, cam = make(cuda), camera(cuda)
+    full, rays = kernel(packed, cam, **kw)
+    got, got_rays = [], 0
+    for offset, rows in ((0, 5), (5, 18), (23, 9)):
+        img, r = kernel(packed, cam, rows=rows, row_offset=offset, **kw)
+        assert img.shape == (rows, kw["width"], 3)
+        got.append(img)
+        got_rays += int(r)
+    assert torch.equal(torch.cat(got), full)
+    assert got_rays == int(rays)
+
+
+# --- kernel rows 6-8: the micro-experiments ------------------------------------
+
+N_EXP = 64  # loop length of the card tests
+
+
+def _exp_runs(dev):
+    """(tool, mode, kernel(n_iter), plain(n_iter), formula(n_iter)) per
+    mode (per combo and mode for exp_dot_k), on the tools' own inputs;
+    formula gives (float64 result, sum|terms|)."""
+    cpu = lambda t: t.float().cpu().numpy()  # noqa: E731
+    tab, idx = exp_gather.make_inputs(dev)
+    runs = [(exp_gather, m, lambda n, m=m: exp_gather.gather(tab, idx, m, n),
+             lambda n, m=m: exp_gather.gather_plain(tab, idx, m, n),
+             lambda n: exp_gather.gather_numpy(cpu(tab), cpu(idx), n)) for m in exp_gather.MODES]
+    lane, sub, sidx = exp_slab.make_inputs(dev)
+    for m in exp_slab.MODES:
+        t = lane if m == "lane" else sub
+        runs.append((exp_slab, m, lambda n, m=m, t=t: exp_slab.slab(t, sidx, m, n),
+                     lambda n, m=m, t=t: exp_slab.slab_plain(t, sidx, m, n),
+                     lambda n, m=m, t=t: exp_slab.slab_numpy(cpu(t), cpu(sidx), m, n)))
+    didx, tabs = exp_dot_k.make_inputs(dev)
+    for (rr, pw, k, m), t in tabs:  # every combo of the tool, so every kernel shape
+        a = (t, didx, rr, pw, k, m)
+        runs.append((exp_dot_k, m, lambda n, a=a: exp_dot_k.dot_k(*a, n),
+                     lambda n, a=a: exp_dot_k.dot_k_plain(*a, n),
+                     lambda n, a=a: exp_dot_k.dot_k_numpy(cpu(a[0]), cpu(a[1]), *a[2:], n)))
+    return runs
+
+
+def test_exp_kernels_match_plain(cuda):
+    """Every mode of rows 6-8 against its plain version on the same inputs
+    and against the float64 formula, within 1e-6 * sum|terms|."""
+    for tool, mode, run, plain, formula in _exp_runs(cuda):
+        before = tool.LAUNCHES_BY_MODE[mode]
+        got = run(N_EXP)
+        torch.cuda.synchronize()
+        assert tool.LAUNCHES_BY_MODE[mode] == before + 1
+        ref, terms = formula(N_EXP)
+        for other in (plain(N_EXP).cpu().numpy(), ref):
+            err, ratio = common.agreement(got.cpu().numpy(), other, terms)
+            assert ratio <= 1.0, (tool.__name__, mode, err)
+
+
+def test_exp_paired_modes_equal_bitwise(cuda):
+    """onehot = shuffle (row 8), lane = sublane and loopscalar =
+    carryscalar (row 7), to the bit."""
+    tab, idx = exp_gather.make_inputs(cuda)
+    assert torch.equal(exp_gather.gather(tab, idx, "onehot", N_EXP),
+                       exp_gather.gather(tab, idx, "shuffle", N_EXP))
+    lane, sub, sidx = exp_slab.make_inputs(cuda)
+    assert torch.equal(exp_slab.slab(lane, sidx, "lane", N_EXP),
+                       exp_slab.slab(sub, sidx, "sublane", N_EXP))
+    assert torch.equal(exp_slab.slab(sub, sidx, "loopscalar", N_EXP),
+                       exp_slab.slab(sub, sidx, "carryscalar", N_EXP))

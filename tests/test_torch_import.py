@@ -52,6 +52,13 @@ MODULES = [
     "csgrenderer_tpu_torch.convert",
     "csgrenderer_tpu_torch.bench",
     "csgrenderer_tpu_torch.__main__",
+    "csgrenderer_tpu_torch.tools",
+    "csgrenderer_tpu_torch.tools.common",
+    "csgrenderer_tpu_torch.tools.exp_gather",
+    "csgrenderer_tpu_torch.tools.exp_slab",
+    "csgrenderer_tpu_torch.tools.exp_dot_k",
+    "csgrenderer_tpu_torch.tools.validate_gpu",
+    "csgrenderer_tpu_torch.tools.shadow_walk_probe",
 ]
 
 

@@ -233,8 +233,9 @@ def test_refusals():
                                     with_overflow=True)
     with pytest.raises(ValueError, match="emissive"):  # config3 has no lamp to sample
         tk.render_image_tape_kernel(tape, cam, 8, 8, nee=True)
-    with pytest.raises(NotImplementedError, match="jitters"):
-        tk.render_image_tape_kernel(tape, cam, 8, 8, jitter=False)
+    with pytest.raises(NotImplementedError, match="jitters"):  # pixel centres: CPU only
+        tk.render_image_tape_kernel(tk.pack_program(tape).to("meta"), cam.to("meta"), 8, 8,
+                                    jitter=False)
     with pytest.raises(ValueError, match="partition=True"):
         tk.render_image_tape_kernel(tape, cam, 8, 8, partition=True)
     with pytest.raises(ValueError, match="sky"):
