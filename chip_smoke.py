@@ -5,9 +5,8 @@
 Phases (the first that fails ends the run with a non-zero exit):
 
 1. Environment: torch/CUDA/nvcc versions, the card and its power limit;
-   build the three CUDA kernels from csgrenderer_tpu_torch/kernels/csrc
-   (one nvcc each, started together) and print ptxas' registers and
-   spills.
+   build every CUDA kernel from csgrenderer_tpu_torch/kernels/csrc (one
+   nvcc each, started together) and print ptxas' registers and spills.
 2. Each kernel against its plain torch version on the card. The sphere
    kernel in brute mode (two spheres; the small RTIOW scene) and grid mode
    (the RTIOW final scene at 320x180, 4 spp, 8 bounces), grid against
@@ -94,6 +93,36 @@ Phases (the first that fails ends the run with a non-zero exit):
    same-seed RMSE of the sphere kernel against the plain path), which must
    pass. Every experiment mode and the sphere kernel's brute mode must
    have launched in this phase.
+5. The parallel path (``csgrenderer_tpu_torch/parallel``), counts from
+   zero. One process: ``render_scene_sharded`` over
+   ``single_device_mesh()`` on the RTIOW final scene (sphere grid) and the
+   two-sphere scene (brute) at 1920x1080, config5 (tape, clustered) at
+   1920x1080, mesh_demo_scene(4) (mesh grid) at 1280x720, night_scene()
+   (brute-nee) and mesh_night_scene() (grid-nee) at 960x540, each at 2 spp,
+   equal to the unsharded kernel frame bit for bit with the rays equal.
+   Two ranks on the one card (``parallel.launch.run_ranks``: spawned
+   interpreters joined by ``initialize_multihost`` over gloo on
+   127.0.0.1; the kernels were built in phase 1, so no rank compiles):
+   the same six frames at meshes 2x1 and 1x2, gathered on rank 0 and held
+   to the one-process frames (2x1 bit for bit, 1x2 within atol 1e-5; rays
+   equal); the RTIOW bench frame (1920x1080, 64 spp, 8 bounces, lens) at
+   2x1 over 3 timed frames, its Mrays/s printed beside phase 3's
+   one-process bench; ``render_to_noise_sharded`` on the two-sphere scene
+   at 96x54 (target 1e-2, 16-spp chunks) at 2x1 against
+   ``PathTraceRenderer(device="cuda").render_to_noise`` (spp used and rays
+   equal, noise within rel 1e-5, the image bit for bit; every rank holds
+   the same noise). Four ranks, mesh 2x2: the shard canary (kernel row 9)
+   in every rank on an input that varies with the tile index, equal to
+   ``scale2_plain`` and ``torch.mul(x, 2.0)`` bit for bit; config5 within
+   atol 1e-5 of the one-process frame. Each rank returns its launch
+   counts: the sphere kernel's grid, brute and brute-nee, the tape
+   kernel's clustered, the mesh kernel's grid and grid-nee modes and the
+   canary must have launched in a rank. A rank that fails, or a world
+   that has not finished in its time limit, fails the run. Then the
+   canary is timed against its plain version and ``torch.mul`` (CUDA
+   events over 1,000 calls, which at this size measure the launch rate;
+   beside them each call's device time from torch.profiler); its bound
+   is 8,192 bytes over 3.35 TB/s.
 
 The last line of output is the device JSON; the line before it lists the
 kernels with their launch counts, errors, times and bounds. There is no
@@ -174,6 +203,7 @@ KERNELS = {
     "exp_gather": (f"{CSRC}/exp_gather.cu", "tools/exp_gather.py:62"),
     "exp_slab": (f"{CSRC}/exp_slab.cu", "tools/exp_slab.py:73"),
     "exp_dot_k": (f"{CSRC}/exp_dot_k.cu", "tools/exp_dot_k.py:116"),
+    "shard_canary": (f"{CSRC}/shard_canary.cu", "tests/test_parallel.py:160"),
 }  # the NEE modes are the same pallas_call with lamps (n_lights > 0; nee_lamps)
 EXP_N_ITER = 2000  # the tools' default --n-iter: each run is checked, timed and bounded there
 EXP_REPS = {"exp_gather": 1, "exp_slab": 3, "exp_dot_k": 1}  # timed calls per loop length
@@ -405,6 +435,306 @@ def exp_bound(name, mode, mhz, table_bytes, rr_pad=0, k=0, n_iter=EXP_N_ITER):
     ops_ms = ops / (SMS * LANES * mhz * 1e6) * 1e3
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+SHARD_CASES = {  # phase 5's scenes: name -> the kernel mode it drives
+    "rtiow": "sphere_megakernel[grid]",
+    "two_spheres": "sphere_megakernel[brute]",
+    "config5": "tape_kernel[clustered]",
+    "mesh_demo(4)": "trimesh_kernel[grid]",
+    "night": "sphere_megakernel[brute-nee]",
+    "meshnight": "trimesh_kernel[grid-nee]",
+}
+NOISE_FRAME = dict(width=96, height=54, spp=16, max_bounces=8, seed=0)  # render-to-noise, 1e-2
+SHARD_BENCH = dict(spp=64, max_bounces=8, frames=3)  # the RTIOW bench frame at mesh 2x1
+
+
+def shard_case(name, dev):
+    """(scene, camera, frame) of phase 5's case ``name`` at 2 spp, on the
+    frame the main path gives its kernel mode (phases 2 and 3)."""
+    from csgrenderer_tpu_torch import bench
+    from csgrenderer_tpu_torch.camera import Camera
+    from csgrenderer_tpu_torch import models
+
+    def cam(eye, at, vfov, w, h, **kw):
+        return Camera.look_at(eye, at, vfov_degrees=vfov, aspect_ratio=w / h, device=dev, **kw)
+
+    w, h = bench.FULL[:2]
+    w5, h5, _, b5 = bench.FRAMES["deepcsg"][0]
+    wn, hn, _, bn = bench.FRAMES["night"][0]
+    night = dict(width=wn, height=hn, spp=2, max_bounces=bn, seed=0, sky="black", nee=True)
+    if name == "rtiow":
+        return (models.rtiow_final_scene(device=dev),
+                cam((13, 2, 3), (0, 0, 0), 20.0, w, h, aperture=0.1, focus_dist=10.0),
+                dict(width=w, height=h, spp=2, max_bounces=8, seed=0, lens=True))
+    if name == "two_spheres":
+        return (models.two_spheres_scene(device=dev), cam((0, 0, 0), (0, 0, -1), 90.0, w, h),
+                dict(width=w, height=h, spp=2, max_bounces=8, seed=0))
+    if name == "config5":
+        graph, animate = models.animated_csg_scene(8)
+        return (animate(graph.compile(k=4, device=dev), 1.0),
+                cam((0, 2.0, 7.0), (0.5, 0, 0), 40.0, w5, h5),
+                dict(width=w5, height=h5, spp=2, max_bounces=b5, seed=0))
+    if name == "mesh_demo(4)":
+        return (models.mesh_demo_scene(4, device=dev),
+                cam((0.0, 1.6, 2.2), (0.0, 0.7, -2.6), 45.0, 1280, 720),
+                dict(width=1280, height=720, spp=2, max_bounces=6, seed=0))
+    if name == "night":
+        return models.night_scene(device=dev), cam((6.5, 2.2, 6.5), (0.0, 0.6, 0.0), 32.0, wn, hn), night
+    return (models.mesh_night_scene(device=dev), cam((0, 1.8, 2.4), (0.0, 0.7, -2.6), 45.0, wn, hn),
+            night)
+
+
+def launch_counts():
+    """Every kernel mode's launch count in this process."""
+    from csgrenderer_tpu_torch.kernels import megakernel, shard_canary, tape_kernel, trimesh_kernel
+
+    return {f"{mod.KERNEL_SOURCE}[{m}]": n
+            for mod in (megakernel, tape_kernel, trimesh_kernel, shard_canary)
+            for m, n in mod.LAUNCHES_BY_MODE.items()}
+
+
+def phase5_rank(ref_path, device="cuda"):
+    """One rank of phase 5 (run by ``parallel.launch.run_ranks``). Two
+    ranks: the six cases at meshes 2x1 and 1x2, gathered and held on rank 0
+    to the one-process images in ``ref_path``; the RTIOW bench frame at 2x1
+    (``SHARD_BENCH``); render-to-noise at 2x1. Four ranks:
+    the shard canary in every rank, and config5 at 2x2. Returns what the
+    parent checks and prints, with this rank's launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from csgrenderer_tpu_torch.kernels import megakernel as mk
+    from csgrenderer_tpu_torch.kernels import shard_canary as sc
+    from csgrenderer_tpu_torch.models import two_spheres_scene
+    from csgrenderer_tpu_torch.camera import Camera
+    from csgrenderer_tpu_torch.parallel import (
+        gather_rows,
+        make_mesh,
+        render_scene_sharded,
+        render_to_noise_sharded,
+    )
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    refs = torch.load(ref_path) if rank == 0 else None
+    out = {"rank": rank, "checks": []}
+
+    def render_and_hold(name, mesh, exact):
+        scene, cam, frame = shard_case(name, mesh.device)
+        img, rays = render_scene_sharded(scene, cam, mesh=mesh, **frame)
+        full = gather_rows(img, mesh)
+        if rank == 0:
+            ref, ref_rays = refs[name]
+            full = full.cpu()
+            out["checks"].append(dict(
+                mesh=f"{mesh.tile_ways}x{mesh.sample_ways}", name=name, exact=exact,
+                frame=f"{frame['width']}x{frame['height']}", equal=torch.equal(full, ref),
+                max_abs=float((full - ref).abs().max()), rays=int(rays), ref_rays=ref_rays))
+
+    if world == 2:
+        for t, s in ((2, 1), (1, 2)):
+            mesh = make_mesh(t, s, device=device)
+            for name in SHARD_CASES:
+                render_and_hold(name, mesh, s == 1)
+        # the RTIOW bench frame at full width, packed once as the bench packs it
+        mesh = make_mesh(2, 1, device=device)
+        scene, cam, frame = shard_case("rtiow", mesh.device)
+        packed = mk.pack_scene(scene)
+        times, rays_total = [], 0
+        for i in range(SHARD_BENCH["frames"] + 1):  # the first is a warm-up
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, rays = render_scene_sharded(packed, cam, frame["width"], frame["height"], mesh,
+                                           spp=SHARD_BENCH["spp"],
+                                           max_bounces=SHARD_BENCH["max_bounces"], seed=0,
+                                           lens=True, sample_offset=i)
+            r = int(rays)  # the count's all-reduce waits for both ranks' kernels
+            torch.cuda.synchronize()
+            if i:
+                times.append(time.perf_counter() - t0)
+                rays_total += r
+        out["bench"] = dict(times=times, rays=rays_total,
+                            frame=f"{frame['width']}x{frame['height']}")
+        cam = Camera.look_at((0, 0, 0), (0, 0, -1), vfov_degrees=90.0,
+                             aspect_ratio=NOISE_FRAME["width"] / NOISE_FRAME["height"],
+                             device=mesh.device)
+        acc, noise, used = render_to_noise_sharded(
+            two_spheres_scene(device=mesh.device), cam, NOISE_FRAME["width"],
+            NOISE_FRAME["height"], mesh, target=1e-2, spp_chunk=NOISE_FRAME["spp"],
+            max_bounces=NOISE_FRAME["max_bounces"], seed=NOISE_FRAME["seed"])
+        image = gather_rows(acc.image(), mesh)
+        out["noise"] = (noise, used, acc.rays_traced, image.cpu() if rank == 0 else None)
+    else:
+        mesh = make_mesh(2, 2, device=device)
+        x = torch.ones(sc.SHAPE, dtype=torch.float32, device=mesh.device) + mesh.tile_index
+        o = sc.scale2_kernel(x)
+        out["canary"] = (torch.equal(o, sc.scale2_plain(x)), torch.equal(o, torch.mul(x, 2.0)),
+                         float((o - sc.scale2_plain(x)).abs().max()))
+        gathered = gather_rows(o[None], mesh)
+        if rank == 0:
+            want = torch.stack([torch.full(sc.SHAPE, 2.0 * (1 + i)) for i in range(2)])
+            out["canary_gathered"] = torch.equal(gathered.cpu(), want)
+        render_and_hold("config5", mesh, False)
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    return out
+
+
+def device_time_ms(fn, calls=200):
+    """Device time per call of ``fn`` (ms) from torch.profiler, or None
+    where the trace shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / calls / 1e3 if us else None
+
+
+def phase5(card, bench_result, mhz, dev):
+    """Phase 5, the parallel path: one process over single_device_mesh(),
+    then a two-rank and a four-rank world on the one card (gloo over
+    127.0.0.1, spawned interpreters). Returns the canary's kernels-line
+    entry."""
+    import tempfile
+
+    import torch
+
+    from csgrenderer_tpu_torch.app import PathTraceRenderer
+    from csgrenderer_tpu_torch.camera import Camera
+    from csgrenderer_tpu_torch.kernels import megakernel as mk
+    from csgrenderer_tpu_torch.kernels import shard_canary as sc
+    from csgrenderer_tpu_torch.kernels import tape_kernel as tk
+    from csgrenderer_tpu_torch.kernels import trimesh_kernel as tm
+    from csgrenderer_tpu_torch.models import two_spheres_scene
+    from csgrenderer_tpu_torch.parallel import render_scene_sharded, single_device_mesh
+    from csgrenderer_tpu_torch.parallel.launch import run_ranks
+    from csgrenderer_tpu_torch.utils.config import RenderConfig
+
+    for mod in (mk, tk, tm, sc):
+        mod.LAUNCHES = 0
+        for k in mod.LAUNCHES_BY_MODE:
+            mod.LAUNCHES_BY_MODE[k] = 0
+    t0 = time.perf_counter()
+    kernel = {"sphere": mk.render_image_kernel, "tape": tk.render_image_tape_kernel,
+              "trimesh": tm.render_image_mesh_kernel}
+    # 1. one process: the sharded path over single_device_mesh() is the kernel's frame
+    mesh1, refs, path_launches = single_device_mesh(dev), {}, {}
+    for name, mode in SHARD_CASES.items():
+        scene, cam, frame = shard_case(name, dev)
+        before = launch_counts()
+        img, rays = render_scene_sharded(scene, cam, mesh=mesh1, **frame)
+        torch.cuda.synchronize()
+        path_launches[mode] = launch_counts()[mode] - before[mode]
+        ref, ref_rays = kernel[mode.split("_")[0]](scene, cam, **frame)
+        same = torch.equal(img, ref) and int(rays) == int(ref_rays)
+        print(f"[chip_smoke] phase 5 single_device_mesh {name} {frame['width']}x{frame['height']} "
+              f"spp2 ({mode}): {'equal to' if same else 'DIFFERS from'} the unsharded kernel "
+              f"frame bit for bit; rays {int(rays)} vs {int(ref_rays)}", flush=True)
+        if not same:
+            fail(f"phase 5: single_device_mesh {name} is not the kernel's frame")
+        refs[name] = (ref.cpu(), int(ref_rays))
+    if not all(path_launches.values()):
+        fail(f"phase 5: the one-process sharded path launched no kernel: {path_launches}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ref_path = os.path.join(tmp, "refs.pt")
+        torch.save(refs, ref_path)
+        target = f"{os.path.abspath(__file__)}:phase5_rank"
+        t1 = time.perf_counter()
+        two = run_ranks(target, 2, args=(ref_path, dev.type), timeout=420)
+        t2 = time.perf_counter()
+        four = run_ranks(target, 4, args=(ref_path, dev.type), timeout=300)
+        t3 = time.perf_counter()
+    print(f"[chip_smoke] phase 5 worlds: two ranks {t2 - t1:.1f} s, four ranks {t3 - t2:.1f} s "
+          "(spawn, CUDA start-up and renders)", flush=True)
+    # 2-3. every comparison the ranks made, on rank 0 of each world
+    for chk in two[0]["checks"] + four[0]["checks"]:
+        ok_rays = chk["rays"] == chk["ref_rays"]
+        ok = chk["equal"] if chk["exact"] else chk["max_abs"] <= 1e-5
+        agreement = "bit for bit" if chk["equal"] else f"max |diff| {chk['max_abs']:.3e}"
+        print(f"[chip_smoke] phase 5 mesh {chk['mesh']} {chk['name']} {chk['frame']} spp2: "
+              f"{agreement} against "
+              f"the one-process frame ({'bit for bit' if chk['exact'] else 'atol 1e-5'} required); "
+              f"rays {chk['rays']} vs {chk['ref_rays']}", flush=True)
+        if not (ok and ok_rays):
+            fail(f"phase 5: mesh {chk['mesh']} {chk['name']} disagrees with one process")
+    if len(two[0]["checks"]) != 2 * len(SHARD_CASES) or len(four[0]["checks"]) != 1:
+        fail("phase 5: a rank skipped a comparison")
+    bench = two[0]["bench"]
+    times = sorted(bench["times"])
+    mrays = bench["rays"] / len(times) / times[len(times) // 2] / 1e6  # as bench.run_bench
+    one = bench_result["value"]
+    print(f"[chip_smoke] phase 5 RTIOW {bench['frame']} spp{SHARD_BENCH['spp']} "
+          f"b{SHARD_BENCH['max_bounces']} lens, mesh 2x1, two ranks on one card: "
+          f"{mrays:.1f} Mrays/s (median of {len(times)} frames: "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in bench['times'])} ms) vs one process "
+          f"{one:.1f} Mrays/s (phase 3's bench; {card})", flush=True)
+    cfg = RenderConfig(**NOISE_FRAME)
+    cam = Camera.look_at((0, 0, 0), (0, 0, -1), vfov_degrees=90.0, aspect_ratio=cfg.aspect_ratio,
+                         device=dev)
+    single = PathTraceRenderer(two_spheres_scene(device=dev), cam, cfg, device=dev)
+    acc_s, noise_s, used_s = single.render_to_noise(target=1e-2)
+    noises = {(n, u, r) for n, u, r, _ in (res["noise"] for res in two)}
+    noise, used, rays, image = two[0]["noise"]
+    print(f"[chip_smoke] phase 5 render_to_noise two_spheres {cfg.width}x{cfg.height} target 1e-2 "
+          f"chunk {cfg.spp}, mesh 2x1: noise {noise:.6e} at {used} spp vs one process "
+          f"{noise_s:.6e} at {used_s} spp; ranks agree: {len(noises) == 1}", flush=True)
+    if (len(noises) != 1 or used != used_s or abs(noise - noise_s) > 1e-5 * noise_s
+            or rays != acc_s.rays_traced or not torch.equal(image, acc_s.image().cpu())):
+        fail("phase 5: render_to_noise_sharded differs from PathTraceRenderer.render_to_noise")
+    canary = [res["canary"] for res in four]
+    print(f"[chip_smoke] phase 5 canary in 4 ranks (2x2): equal to scale2_plain and "
+          f"torch.mul(x, 2.0) bit for bit: {[c[:2] for c in canary]}; gathered "
+          f"{four[0]['canary_gathered']}", flush=True)
+    if not all(c[0] and c[1] for c in canary) or not four[0]["canary_gathered"]:
+        fail("phase 5: the canary kernel is not 2x in every rank")
+    # 4. launch checks: every mode of phase 5 launched in a rank
+    counts = {}
+    for res in two + four:
+        for k, n in res["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+    print(f"[chip_smoke] phase 5 took {time.perf_counter() - t0:.1f} s; launches in the ranks "
+          f"{ {k: n for k, n in counts.items() if n} }; in this process {path_launches}",
+          flush=True)
+    idle = [k for k in (*SHARD_CASES.values(), "shard_canary[scale2]") if counts.get(k, 0) == 0]
+    if idle:
+        fail(f"kernel modes never launched on the parallel path: {idle}")
+
+    # the canary against its plain version and torch.mul, timed (launches outside the path)
+    x = torch.arange(1024, dtype=torch.float32, device=dev).reshape(sc.SHAPE) * 0.37 - 11.0
+    got, ms = timed(functools.partial(sc.scale2_kernel, x), reps=1000)
+    plain, plain_ms = timed(functools.partial(sc.scale2_plain, x), reps=1000)
+    _, library_ms = timed(functools.partial(torch.mul, x, 2.0), reps=1000)
+    max_abs = float((got - plain).abs().max())
+    if not torch.equal(got, plain):
+        fail("the canary kernel differs from scale2_plain")
+    device_ms, library_device_ms = (device_time_ms(f) for f in (
+        functools.partial(sc.scale2_kernel, x), functools.partial(torch.mul, x, 2.0)))
+    io_bytes = 2 * x.numel() * x.element_size()
+    ops_ms = x.numel() / (SMS * LANES * mhz * 1e6) * 1e3
+    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    def us(v):
+        return "not measured" if v is None else f"{v * 1e3:.3f} us"
+
+    print(f"[chip_smoke] shard_canary[scale2] [8, 128] f32: kernel {ms * 1e3:.2f} us, plain "
+          f"{plain_ms * 1e3:.2f} us, torch.mul {library_ms * 1e3:.2f} us per call (CUDA events "
+          f"over 1000 calls: the launch rate); device time per call (torch.profiler): kernel "
+          f"{us(device_ms)}, torch.mul {us(library_device_ms)}; bound {bound_ms * 1e3:.5f} us "
+          f"({bound_by}: {io_bytes} bytes) ({card})", flush=True)
+    source, replaces = KERNELS["shard_canary"]
+    return dict(name="shard_canary[scale2]", route="cuda", source=source, replaces=replaces,
+                launches=counts["shard_canary[scale2]"], max_abs_err=max_abs, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                device_ms=device_ms, library_device_ms=library_device_ms)
 
 
 def main() -> None:
@@ -1144,6 +1474,9 @@ def main() -> None:
     if idle:
         fail(f"kernel modes never launched on the tools path: {idle}")
 
+    # --- phase 5: the parallel path, counts from zero
+    canary = phase5(card, result, mhz, dev)
+
     kernels = []
     for name in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",
                  "sphere_megakernel[grid-nee]", "sphere_megakernel[brute-nee]",
@@ -1185,6 +1518,7 @@ def main() -> None:
                                 ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=bound_ms,
                                 bound_by=bound_by, library_ms=None,
                                 slope_ns=row["ns_per_iter"]))
+    kernels.append(canary)
     # the benchmark frames' bounds, beside their median kernel-frame time
     for name, res, packed_ops in (
         ("rtiow", result, lambda r, fw, fh, fspp: sphere_ops(

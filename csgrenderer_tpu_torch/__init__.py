@@ -20,7 +20,8 @@ Layer map (bottom-up), mirroring ``csgrenderer_tpu``:
                the CUDA sphere megakernel (grid and brute modes), the CUDA
                CSG tape kernel (event flip, global and clustered, and the
                interval-list audit), the CUDA triangle-mesh kernel (brute
-               and grid), each with an NEE variant, and their build
+               and grid), each with an NEE variant, the shard canary, and
+               their build
 - ``io``       PNG/PPM, OBJ, GIF, progressive-accumulator checkpoints
 - ``models``   built-in scenes (two spheres, RTIOW final, the night
                scenes, the CSG configs 3 and 5, many objects, CSG night,
@@ -28,6 +29,10 @@ Layer map (bottom-up), mirroring ``csgrenderer_tpu``:
 - ``utils``    ``RenderConfig``, logging, timing and traces
 - ``app``      the renderers over the kernels, the App loop with frames in
                flight, frame statistics, the golden configs
+- ``parallel`` the ("tile", "sample") rank mesh over ``torch.distributed``
+               and the sharded renders: the plain path, the kernels on
+               row slab x sample shards, render-to-noise; a launcher for
+               local ranks
 - ``convert``  numpy state of the JAX package -> this package's containers
 
 Importing the package initialises no CUDA context and imports no

@@ -17,7 +17,7 @@ Commands:
 
 ``render`` and ``gif`` run on the GPU (``--device cuda``, the default) and
 exit non-zero on a host without CUDA; ``--device cpu`` runs the kernels'
-plain torch versions. ``--denoise`` is not ported yet (ROADMAP A8).
+plain torch versions. ``--denoise`` is not ported yet (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -175,7 +175,7 @@ def _add_common(ap) -> None:
                     help="cuda (the kernels, the default) or cpu (the plain torch version)")
     ap.add_argument("--out", default="out.png")
     ap.add_argument("--denoise", action="store_true",
-                    help="a-trous denoise guided by the AOV G-buffer: not ported yet (ROADMAP A8)")
+                    help="a-trous denoise guided by the AOV G-buffer: not ported yet (ROADMAP A3)")
 
 
 def main(argv=None) -> None:

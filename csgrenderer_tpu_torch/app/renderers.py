@@ -216,7 +216,7 @@ class PathTraceRenderer:
 
     def denoise_image(self, linear: torch.Tensor, time_sec: float = 0.0) -> torch.Tensor:
         """The configured denoise of a linear radiance image: a no-op, since
-        ``RenderConfig(denoise=True)`` is refused (ROADMAP A8)."""
+        ``RenderConfig(denoise=True)`` is refused (ROADMAP A3)."""
         return linear
 
     def render_to_noise(self, target: float = 1e-3, max_spp: int = 1 << 16,

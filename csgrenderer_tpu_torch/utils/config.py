@@ -11,7 +11,7 @@ reads the frame back to the host, so it synchronises with the device.
 
 ``denoise=True`` raises NotImplementedError: the AOV G-buffer and the
 a-trous filter it needs (``render/aov.py``, ``render/denoise.py``) are not
-ported (ROADMAP A8).
+ported (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import torch
 
 DENOISE_NOT_PORTED = ("the denoise step (render/aov.py, render/denoise.py) is not ported yet "
-                      "(ROADMAP A8)")
+                      "(ROADMAP A3)")
 
 
 @dataclass(frozen=True)
@@ -38,7 +38,7 @@ class RenderConfig:
     lens: bool = False
     nee: bool = False  # next-event estimation toward the scene's lamps
     debug: bool = False  # every frame's radiance must be finite
-    denoise: bool = False  # not ported (ROADMAP A8): raises
+    denoise: bool = False  # not ported (ROADMAP A3): raises
     denoise_iterations: int = 4
 
     def __post_init__(self):
@@ -65,8 +65,8 @@ class RenderConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout for multi-device rendering (``parallel/`` in the
-    JAX package; not ported yet, ROADMAP A9)."""
+    """Device-mesh layout for multi-device rendering: the tile and sample
+    ways of ``parallel.make_mesh``."""
 
     tile_axis: int = 1  # ways to shard image rows
     sample_axis: int = 1  # ways to shard samples-per-pixel

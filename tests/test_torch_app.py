@@ -75,7 +75,7 @@ def test_render_config_matches_jax_and_validates():
             RenderConfig(**bad)
         with pytest.raises(ValueError):
             JRenderConfig(**bad)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A3"):
         RenderConfig(denoise=True)
 
 

@@ -38,7 +38,7 @@ def test_render_unported_scene_says_so(tmp_path):
     proc = _run("csgrenderer_tpu_torch", "render", "--scene", "milestone01", "--denoise",
                 "--device", "cpu", "--out", str(tmp_path / "x.png"))
     assert proc.returncode != 0
-    assert "not ported yet (ROADMAP A8)" in proc.stderr
+    assert "not ported yet (ROADMAP A3)" in proc.stderr
     assert not (tmp_path / "x.png").exists()
 
 

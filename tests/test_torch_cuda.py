@@ -1,8 +1,10 @@
 """The CUDA sphere, tape and triangle-mesh kernels against their plain
 torch versions, on the card, without and with next-event estimation (NEE);
-their row slabs against the full frame; and the micro-experiment kernels
+their row slabs against the full frame; the micro-experiment kernels
 (kernel rows 6-8, ``csgrenderer_tpu_torch/tools/exp_*.py``) against their
-plain versions.
+plain versions; the sharded render over a one-rank mesh against the
+kernels' frames; and the shard canary (kernel row 9) against its plain
+version.
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -24,6 +26,7 @@ import torch
 
 from csgrenderer_tpu_torch.camera import Camera
 from csgrenderer_tpu_torch.kernels import megakernel as mk
+from csgrenderer_tpu_torch.kernels import shard_canary as sc
 from csgrenderer_tpu_torch.kernels import tape_kernel as tk
 from csgrenderer_tpu_torch.kernels import trimesh_kernel as tm
 from csgrenderer_tpu_torch.models import (
@@ -37,6 +40,7 @@ from csgrenderer_tpu_torch.models import (
     rtiow_final_scene,
     two_spheres_scene,
 )
+from csgrenderer_tpu_torch.parallel import render_scene_sharded, single_device_mesh
 from csgrenderer_tpu_torch.render.trimesh import concat_meshes, icosphere, quad
 from csgrenderer_tpu_torch.scene import Material
 from csgrenderer_tpu_torch.tools import common, exp_dot_k, exp_gather, exp_slab
@@ -421,3 +425,32 @@ def test_exp_paired_modes_equal_bitwise(cuda):
                        exp_slab.slab(sub, sidx, "sublane", N_EXP))
     assert torch.equal(exp_slab.slab(sub, sidx, "loopscalar", N_EXP),
                        exp_slab.slab(sub, sidx, "carryscalar", N_EXP))
+
+
+# --- the multi-device path on one card, and kernel row 9 (the shard canary) -----
+
+
+@pytest.mark.parametrize("case", sorted(SLAB_CASES))
+def test_single_device_mesh_equals_the_kernel(cuda, case):
+    """render_scene_sharded over single_device_mesh() is the unsharded
+    kernel frame bit for bit, rays equal, for each of the three kernels."""
+    kernel, make, camera, kw = SLAB_CASES[case]
+    packed, cam = make(cuda), camera(cuda)
+    full, rays = kernel(packed, cam, **kw)
+    frame = {k: v for k, v in kw.items() if k not in ("width", "height")}
+    img, got_rays = render_scene_sharded(packed, cam, kw["width"], kw["height"],
+                                         single_device_mesh(), **frame)
+    assert torch.equal(img, full) and int(got_rays) == int(rays)
+
+
+def test_canary_kernel_matches_plain(cuda):
+    """scale2_kernel launches csrc/shard_canary.cu once and equals
+    scale2_plain and torch.mul(x, 2.0) bit for bit; a wrong shape raises."""
+    x = torch.arange(1024, dtype=torch.float32, device=cuda).reshape(sc.SHAPE) * 0.37 - 11.0
+    before = sc.LAUNCHES
+    out = sc.scale2_kernel(x)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES == before + 1
+    assert torch.equal(out, sc.scale2_plain(x)) and torch.equal(out, torch.mul(x, 2.0))
+    with pytest.raises(ValueError, match="shape"):
+        sc.scale2_kernel(x[:, :64].contiguous())

@@ -1,7 +1,8 @@
 """Import purity of the PyTorch/CUDA port.
 
 The port must run on a host without JAX and must not touch the GPU or
-Triton just by being imported (the CPU tests import every module).
+Triton, or start a process group, just by being imported (the CPU tests
+import every module).
 """
 
 import os
@@ -34,6 +35,7 @@ MODULES = [
     "csgrenderer_tpu_torch.kernels.tape_kernel",
     "csgrenderer_tpu_torch.kernels.tri_worklist",
     "csgrenderer_tpu_torch.kernels.trimesh_kernel",
+    "csgrenderer_tpu_torch.kernels.shard_canary",
     "csgrenderer_tpu_torch.io",
     "csgrenderer_tpu_torch.io.obj",
     "csgrenderer_tpu_torch.io.checkpoint",
@@ -59,6 +61,10 @@ MODULES = [
     "csgrenderer_tpu_torch.tools.exp_dot_k",
     "csgrenderer_tpu_torch.tools.validate_gpu",
     "csgrenderer_tpu_torch.tools.shadow_walk_probe",
+    "csgrenderer_tpu_torch.parallel",
+    "csgrenderer_tpu_torch.parallel.mesh",
+    "csgrenderer_tpu_torch.parallel.shard",
+    "csgrenderer_tpu_torch.parallel.launch",
 ]
 
 
@@ -70,6 +76,8 @@ def test_import_touches_no_jax_triton_or_cuda():
         "bad = [m for m in ('jax', 'ml_dtypes', 'triton', 'csgrenderer_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "print('clean')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
