@@ -12,7 +12,10 @@ Phases (the first that fails ends the run with a non-zero exit):
    (the RTIOW final scene at 320x180, 4 spp, 8 bounces), grid against
    forced brute, then each mode at the frame the main path gives it
    (1920x1080: grid on the RTIOW final scene, brute on the two-sphere
-   scene). The tape kernel on config3 (BASELINE's 512x512, 16 spp, 6
+   scene), each printed with where its launches read the scene tables
+   (staged in shared memory, or global memory: the launcher's choice by
+   size); and the grid frame with its tables staged and with them forced
+   to global memory, timed, the two images equal bit for bit. The tape kernel on config3 (BASELINE's 512x512, 16 spp, 6
    bounces), on config5 (the depth-8 animated CSG chain at t = 1.0) at the
    bench's 1920x1080 with 2 spp, 5 bounces, clustered and again global
    (and the two kernel images against each other), on
@@ -75,7 +78,7 @@ Phases (the first that fails ends the run with a non-zero exit):
    sphere kernel's grid, brute, grid-nee and brute-nee modes, the tape
    kernel's clustered, clustered-nee, audit and audit-nee
    modes and the mesh kernel's grid and grid-nee modes must have launched
-   in this phase; the tape kernel's global and global-nee modes and the
+   in this phase, and a sphere launch with its tables in shared memory; the tape kernel's global and global-nee modes and the
    mesh kernel's brute and brute-nee modes must have launched in phase 2.
    Phase 2 also holds the row slabs (``rows=``, ``row_offset=``) of each
    kernel at its main-path frame to the full frame's rows, bit for bit.
@@ -121,7 +124,11 @@ Phases (the first that fails ends the run with a non-zero exit):
    that has not finished in its time limit, fails the run. Then the
    canary is timed against its plain version and ``torch.mul`` (CUDA
    events over 1,000 calls, which at this size measure the launch rate;
-   beside them each call's device time from torch.profiler); its bound
+   beside them each call's device time from torch.profiler), and each step
+   of the wrapper's host path on its own (host clock over 20,000 calls:
+   the device check, check_tensor, the allocation, the current-device
+   compare, the stream lookup, a ctypes call without CUDA and the ctypes
+   call that launches, beside the steps the launch path dropped); its bound
    is 8,192 bytes over 3.35 TB/s.
 
 The last line of output is the device JSON; the line before it lists the
@@ -598,6 +605,65 @@ def device_time_ms(fn, calls=200):
     return us / calls / 1e3 if us else None
 
 
+def host_us(fn, calls=20000):
+    """Host time per call of ``fn`` in us: perf_counter over ``calls``
+    calls, the device drained before (what a call enqueues runs on)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def launch_breakdown(x):
+    """Each step of the canary wrapper's host path timed on its own (host
+    clock), beside the whole wrapper and torch.mul; then the steps the
+    launch path no longer takes per launch. Returns step -> us per call."""
+    import ctypes
+
+    import torch
+
+    from csgrenderer_tpu_torch.kernels import build
+    from csgrenderer_tpu_torch.kernels import shard_canary as sc
+
+    kernel, dev = sc._KERNEL, x.device
+    out = torch.empty_like(x)
+    x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
+    stream = torch.cuda.current_stream(dev.index).cuda_stream
+    bind_key = functools.cache(lambda source, symbol, argtypes: None)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {
+        "wrapper scale2_kernel (all steps)": functools.partial(sc.scale2_kernel, x),
+        "torch.mul(x, 2.0)": functools.partial(torch.mul, x, 2.0),
+        "device type check (require_cuda)": functools.partial(kernel.require_cuda, dev),
+        "check_tensor": functools.partial(build.check_tensor, x, "x", torch.float32, sc.SHAPE, dev),
+        "allocation (torch.empty_like)": functools.partial(torch.empty_like, x),
+        "current-device compare": lambda: dev.index == torch.cuda.current_device(),
+        "stream lookup (current_stream(index).cuda_stream)":
+            lambda: torch.cuda.current_stream(dev.index).cuda_stream,
+        "two data_ptr() reads": lambda: (x.data_ptr(), out.data_ptr()),
+        "ctypes call, no CUDA (csgr_error_string(0))": functools.partial(kernel.error_string, 0),
+        "ctypes call with the launch (csgr_scale2)": functools.partial(kernel.fn, x_ptr, out_ptr,
+                                                                       stream),
+        "removed: torch.cuda.is_available()": torch.cuda.is_available,
+        "removed: functools.cache lookup of (source, symbol, argtypes)": functools.partial(
+            bind_key, "shard_canary", "csgr_scale2", (ctypes.c_void_p,) * 3),
+        "removed: torch.cuda.device(dev) entered and left": device_context,
+        "removed: current_stream(torch.device).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+    }
+    return {name: host_us(fn) for name, fn in steps.items()}
+
+
 def phase5(card, bench_result, mhz, dev):
     """Phase 5, the parallel path: one process over single_device_mesh(),
     then a two-rank and a four-rank world on the one card (gloo over
@@ -722,6 +788,11 @@ def phase5(card, bench_result, mhz, dev):
     ops_ms = x.numel() / (SMS * LANES * mhz * 1e6) * 1e3
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    breakdown = launch_breakdown(x)
+    for step, t in breakdown.items():
+        print(f"[chip_smoke] shard_canary[scale2] host path: {step}: {t:.3f} us per call "
+              f"(host clock over 20000 calls; {card})", flush=True)
+
     def us(v):
         return "not measured" if v is None else f"{v * 1e3:.3f} us"
 
@@ -734,7 +805,7 @@ def phase5(card, bench_result, mhz, dev):
     return dict(name="shard_canary[scale2]", route="cuda", source=source, replaces=replaces,
                 launches=counts["shard_canary[scale2]"], max_abs_err=max_abs, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                device_ms=device_ms, library_device_ms=library_device_ms)
+                device_ms=device_ms, library_device_ms=library_device_ms, host_us=breakdown)
 
 
 def main() -> None:
@@ -852,6 +923,15 @@ def main() -> None:
     }
     compare("rtiow 320x180 kernel grid vs kernel worklist=False", *images["brute"], *images["grid"])
 
+    def tables_used(label, packed, before):
+        """Where the sphere kernel's launches since ``before`` read their
+        tables (staged in shared memory, or global: the launcher's choice
+        by size), printed with the size and the device's limit."""
+        used = "+".join(k for k, n in mk.LAUNCHES_BY_TABLES.items() if n > before[k])
+        print(f"[chip_smoke] {label}: tables in {used} memory ({packed.table_bytes} bytes; a CTA "
+              f"stages up to {mk.table_limit(dev.index or 0)})", flush=True)
+        return used
+
     # each sphere mode at the frame the main path gives it (bench: grid; render CLI: brute)
     w, h = bench.FULL[:2]
     stats, frames = {}, {}
@@ -863,14 +943,30 @@ def main() -> None:
     ):
         packed = mk.pack_scene(scene)
         kw = dict(width=w, height=h, max_bounces=8, seed=0, **extra)
+        tables0 = dict(mk.LAUNCHES_BY_TABLES)
         max_abs, ms, plain_ms, _, rays = check(label, packed, cam, mode, kw, plain_reps=1)
-        stats[f"sphere_megakernel[{mode}]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        stats[f"sphere_megakernel[{mode}]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                                   tables=tables_used(label, packed, tables0))
         walk = sphere_walk_counts(packed, cam, kw) if mode == "grid" else None
         frames[f"sphere_megakernel[{mode}]"] = (
             sphere_ops(packed.n_brute, rays, w, h, extra["spp"], walk=walk),
             nbytes(packed.spheres) + (0 if packed.grid is None else nbytes(packed.grid.cell_ids)),
             w, h, "" if walk is None else f"; walk {walk}",
         )
+
+    # the sphere kernel's two table paths at the grid frame: the tables staged in
+    # shared memory (the size rule's choice) and read from global memory (forced)
+    packed = mk.pack_scene(rtiow)
+    args = (packed, mk.pack_camera(rtiow_cam(w / h)).contiguous(), w, h, 2, 8, 0, 0, True,
+            "rtiow", False)
+    (img_s, rays_s), ms_s = timed(functools.partial(mk._launch, *args), reps=5)
+    (img_g, rays_g), ms_g = timed(functools.partial(mk._launch, *args, force_global=True), reps=5)
+    same = torch.equal(img_s, img_g) and int(rays_s) == int(rays_g)
+    print(f"[chip_smoke] grid rtiow {w}x{h} spp2 b8 lens: tables in shared memory {ms_s:.3f} ms, "
+          f"in global memory {ms_g:.3f} ms; images {'equal' if same else 'DIFFER'} bit for bit "
+          f"({card})", flush=True)
+    if not same:
+        fail("the sphere kernel's shared-memory and global-memory tables give other images")
 
     # the tape kernel
     tape_check = functools.partial(check, kernel=tk.render_image_tape_kernel,
@@ -960,11 +1056,13 @@ def main() -> None:
     for mode, label, scene in (("brute", "night", night_scene(device=dev)),
                                ("grid", "night488", night_scene(grid=11, device=dev))):
         packed = mk.pack_scene(scene)
+        tables0 = dict(mk.LAUNCHES_BY_TABLES)
         max_abs, ms, plain_ms, img, rays = check(
             f"{mode}-nee {label} {wn}x{hn} spp2 b{bn}", packed, night_cam, mode, kwn, plain_reps=1)
         night_runs[label] = (scene, mode, ms, img, rays)
         name = f"sphere_megakernel[{mode}-nee]"
-        stats[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        stats[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                           tables=tables_used(f"{mode}-nee {label}", packed, tables0))
         c = plain_counts(mk.render_image_plain, packed, night_cam)
         n_brute = packed.n_brute
         walk = sphere_walk_counts(packed, night_cam, kwn) if mode == "grid" else None
@@ -1322,6 +1420,8 @@ def main() -> None:
         mod.LAUNCHES = 0
         for k in mod.LAUNCHES_BY_MODE:
             mod.LAUNCHES_BY_MODE[k] = 0
+    for k in mk.LAUNCHES_BY_TABLES:
+        mk.LAUNCHES_BY_TABLES[k] = 0
     t0 = time.perf_counter()
     result, img = bench.run_bench(quick=False, frames=3, device="cuda")
     result5, img5 = bench.run_bench(scene="deepcsg", quick=False, frames=3, device="cuda")
@@ -1427,8 +1527,10 @@ def main() -> None:
     counts = {f"sphere_megakernel[{m}]": n for m, n in mk.LAUNCHES_BY_MODE.items()}
     counts.update({f"tape_kernel[{m}]": n for m, n in tk.LAUNCHES_BY_MODE.items()})
     counts.update({f"trimesh_kernel[{m}]": n for m, n in tm.LAUNCHES_BY_MODE.items()})
-    print(f"[chip_smoke] main path took {time.perf_counter() - t0:.1f} s; launches {counts}",
-          flush=True)
+    print(f"[chip_smoke] main path took {time.perf_counter() - t0:.1f} s; launches {counts}; "
+          f"sphere kernel tables {mk.LAUNCHES_BY_TABLES}", flush=True)
+    if mk.LAUNCHES_BY_TABLES["shared"] == 0:
+        fail("no sphere launch of the main path staged its tables in shared memory")
     benches = {"rtiow": (result, img), "deepcsg": (result5, img5), **nee_benches}
     for name, (res, image) in benches.items():
         print(json.dumps(res), flush=True)

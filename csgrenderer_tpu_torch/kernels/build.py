@@ -7,8 +7,11 @@ sources include) and the flags: a changed source or header builds anew,
 an unchanged one loads the library already there. Nothing includes PyTorch's
 headers, so a build takes seconds. This module imports nothing from CUDA
 at import time; ``nvcc`` is looked up only when a build is needed.
-``bind`` declares a launch function's C signature, and ``check_tensor``
-is what every wrapper checks before it passes a pointer.
+
+``Kernel`` is every wrapper's launch path: it binds its C launch function
+at the first launch and keeps it, and each launch then costs a device
+compare, a stream lookup and the ctypes call. ``check_tensor`` is what
+every wrapper checks before it passes a pointer.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -98,18 +103,64 @@ def load_all() -> dict[str, Build]:
     return {name: b for name, (_, b) in zip(names, loaded)}
 
 
-@functools.cache
-def bind(name: str, symbol: str, argtypes: tuple):
-    """(the C function ``symbol`` of ``csrc/<name>.cu`` with its argument
-    types declared and an int error code as its result, the library's
-    ``csgr_error_string``)."""
-    lib, _ = load(name)
-    fn = getattr(lib, symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    lib.csgr_error_string.argtypes = [ctypes.c_int]
-    lib.csgr_error_string.restype = ctypes.c_char_p
-    return fn, lib.csgr_error_string
+class Kernel:
+    """One C launch function ``symbol`` of ``csrc/<source>.cu``, whose
+    arguments are ``argtypes`` and then the stream, and whose result is a
+    CUDA error code. ``name`` words the errors ("the sphere kernel ...");
+    ``check_library(lib)``, if given, runs once at binding and may raise.
+
+    The library is loaded and the symbol resolved at the first launch and
+    kept on the object, so a launch looks nothing up. A launch enters the
+    tensor's device only when it is not the current one (a process that
+    sees one device never asks), and reads the current stream by device
+    index. Every launch returns the C side's
+    ``cudaGetLastError()``, which a non-zero code turns into RuntimeError:
+    a kernel that fails to build or launch raises, it never falls back.
+    """
+
+    def __init__(self, source: str, symbol: str, argtypes: tuple, name: str,
+                 check_library=None):
+        self.source, self.symbol, self.name = source, symbol, name
+        self.argtypes = tuple(argtypes) + (ctypes.c_void_p,)  # + the stream
+        self.check_library = check_library
+        self.fn = None
+        self.error_string = None
+        self.one_device = False  # the process sees one CUDA device (set at binding)
+
+    def bind(self):
+        """Load the library and resolve the symbol (the first launch does)."""
+        lib, _ = load(self.source)
+        if self.check_library is not None:
+            self.check_library(lib)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = list(self.argtypes)
+        fn.restype = ctypes.c_int
+        lib.csgr_error_string.argtypes = [ctypes.c_int]
+        lib.csgr_error_string.restype = ctypes.c_char_p
+        self.error_string = lib.csgr_error_string
+        self.one_device = torch.cuda.device_count() == 1
+        self.fn = fn
+        return fn
+
+    def require_cuda(self, device: torch.device) -> None:
+        """ValueError unless ``device`` is a CUDA device: a CUDA tensor is the
+        proof that CUDA is there, so nothing else is asked per launch."""
+        if device.type != "cuda":
+            raise ValueError(f"the {self.name} kernel needs CUDA tensors, got {device}")
+
+    def __call__(self, device: torch.device, *args) -> None:
+        """Launch on ``device`` (a CUDA device with its index, as a
+        tensor's) and its current stream."""
+        fn = self.fn or self.bind()
+        index = device.index
+        if self.one_device or index == torch.cuda.current_device():
+            rc = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+        if rc:
+            raise RuntimeError(
+                f"{self.name} kernel launch failed: {self.error_string(rc).decode()} ({rc})")
 
 
 def check_tensor(t, name: str, dtype, shape: tuple, device) -> None:
@@ -118,7 +169,7 @@ def check_tensor(t, name: str, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
+    if t.shape != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")

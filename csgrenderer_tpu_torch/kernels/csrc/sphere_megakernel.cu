@@ -33,10 +33,24 @@
 //
 // What bounds it on an H100: divergent FP32 ALU work (threads of a warp
 // take different materials, bounce counts and DDA walk lengths; with NEE,
-// some take a shadow ray and others not) and the dependent global loads of
-// each DDA step (cell list, then each listed sphere). This first version
-// does nothing yet about either: no ray regeneration or compaction, no
-// shared-memory staging of the tables.
+// some take a shadow ray and others not) and the dependent loads of each
+// DDA step (cell list, then each listed sphere). What the design does:
+//   - the tables a sphere test reads (the [S, 8] geometry table and the
+//     cell lists: 19,456 bytes for RTIOW) are staged once per CTA in shared
+//     memory by two bulk (TMA 1D) copies on an mbarrier; a cell's eight
+//     slots are two int4 loads. Tables over the device's opt-in limit run
+//     the same code reading them from global memory (kShared = false): the
+//     launcher chooses by size;
+//   - persistent CTAs (the occupancy the 64-register budget allows: eight
+//     per SM, up to 1,056 on an H100) take 16x2-pixel work units from a
+//     per-launch counter, so the tables are staged 1,056 times a frame, not
+//     8,100, and the tail of a frame (sky rows against lattice rows) is
+//     balanced. 64 registers a thread measured best for the main path
+//     among budgets of 48-80 (and none);
+//   - paths stay one sample at a time per thread: regenerating a lane's
+//     next sample as soon as its path ends (Aila and Laine's persistent
+//     loop) was measured slower here; it mixes camera rays, whose walks are
+//     long and coherent, with bounce rays in one warp.
 //
 // Numerics: the kernel repeats, operation for operation and in the same
 // order, the float arithmetic of its plain torch version (the reference's
@@ -51,7 +65,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "path_common.cuh"
+
+// A CTA's dynamic shared memory: the [S, 8] f32 geometry table, then the
+// [cx*cz, 8] int32 cell lists (kShared instantiations only).
+extern __shared__ __align__(16) unsigned char smem_tables[];
 
 namespace {
 
@@ -61,12 +81,20 @@ constexpr float kEpsFlat = 1e-12f;
 constexpr float kTMin = 1e-3f;  // hit epsilon along t
 constexpr float kTFar = 1e9f;   // farthest valid hit
 
+constexpr int kSlots = 8;  // cell list slots (worklist.M_SLOTS): two int4 per cell
+constexpr int kThreads = 128;             // a CTA: four warps
+constexpr int kMinCtas = 8;               // per SM: at most 64 registers a thread
+constexpr int kTileW = 16, kTileH = 8;    // a tile: 16 x 8 pixels, four 16 x 2 strips
+constexpr int kStrips = kTileH / 2;       // work units per tile, one warp's strip each
+
 struct Params {
   const float* cam;      // [24]: origin, lower_left, horizontal, vertical, u, v, lens_radius
   const float4* sph;     // [S, 3] float4: (cx,cy,cz,r2) (c.c,r,kind,param) (ar,ag,ab,0)
+  const float4* geo;     // [S, 2] float4: the first two of sph's, what a sphere test reads
   int n_brute;           // spheres brute-forced per segment (the globals in grid mode)
-  const int* cell_ids;   // [cx*cz, m] reordered sphere ids, -1 = empty (grid mode)
-  int cx, cz, m, max_steps;
+  const int* cell_ids;   // [cx*cz, kSlots] reordered sphere ids, -1 = empty (grid mode)
+  int geo_bytes, cell_bytes;  // the two tables' sizes, as staged in shared memory
+  int cx, cz, max_steps;
   float x0, z0, x1, z1, y_lo, y_hi, cell, inv_cell;
   const float4* lamps;   // [n_lamps, 2] float4: (cx,cy,cz,|r|) (er,eg,eb,sphere id) (NEE)
   int n_lamps;
@@ -76,6 +104,7 @@ struct Params {
   int lens, sky;         // sky: 0 rtiow, 1 wololo, 2 black
   float* out_rgb;        // [rows, W, 3]
   int* out_rays;         // [rows, W]
+  int* work;             // the work-unit counter, zeroed before each launch
 };
 
 struct Ray {
@@ -111,8 +140,75 @@ __device__ __forceinline__ float sphere_t(const Ray& r, float4 g0, float cc) {
   return (t > kTMin && t < kTFar) ? t : kBig;
 }
 
+// The tables, read from shared memory (kShared: the geometry table, then
+// the cell lists, staged once per CTA by stage_tables) or from global
+// memory (tables too large for a CTA's shared memory).
+template <bool kShared>
+__device__ __forceinline__ float4 geo_load(const Params& p, int i) {  // float4 i of geo
+  if constexpr (kShared) return reinterpret_cast<const float4*>(smem_tables)[i];
+  else return __ldg(p.geo + i);
+}
+
+template <bool kShared>
+__device__ __forceinline__ float geo_cc(const Params& p, int id) {  // c.c of sphere id
+  if constexpr (kShared) return reinterpret_cast<const float*>(smem_tables)[8 * id + 4];
+  else return __ldg(reinterpret_cast<const float*>(p.geo) + 8 * id + 4);
+}
+
+template <bool kShared>
+__device__ __forceinline__ int4 cell_quad(const Params& p, int q) {  // int4 q of cell_ids
+  if constexpr (kShared) {
+    return reinterpret_cast<const int4*>(smem_tables + p.geo_bytes)[q];
+  } else {
+    return __ldg(reinterpret_cast<const int4*>(p.cell_ids) + q);
+  }
+}
+
+// Copies the geometry and cell tables into this CTA's dynamic shared memory
+// with one bulk (TMA 1D) copy each, completing on an mbarrier that every
+// thread waits on. Sizes and global addresses are multiples of 16 (the
+// launcher checks).
+__device__ __forceinline__ void stage_tables(const Params& p) {
+  __shared__ __align__(8) uint64_t bar;
+  const uint32_t bar_addr = static_cast<uint32_t>(__cvta_generic_to_shared(&bar));
+  const bool leader = threadIdx.x == 0 && threadIdx.y == 0;
+  if (leader) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_addr) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (leader) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar_addr),
+                 "r"(p.geo_bytes + p.cell_bytes)
+                 : "memory");
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_tables));
+    if (p.geo_bytes > 0) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+          ::"r"(dst), "l"(p.geo), "r"(p.geo_bytes), "r"(bar_addr)
+          : "memory");
+    }
+    if (p.cell_bytes > 0) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+          ::"r"(dst + p.geo_bytes), "l"(p.cell_ids), "r"(p.cell_bytes), "r"(bar_addr)
+          : "memory");
+    }
+  }
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{ .reg .pred P; mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2; "
+        "selp.u32 %0, 1, 0, P; }"
+        : "=r"(done)
+        : "r"(bar_addr), "r"(0u)
+        : "memory");
+  }
+}
+
+template <bool kShared>
 __device__ __forceinline__ float sphere_t(const Params& p, const Ray& r, int id) {
-  return sphere_t(r, __ldg(p.sph + 3 * id), __ldg(reinterpret_cast<const float*>(p.sph + 3 * id + 1)));
+  return sphere_t(r, geo_load<kShared>(p, 2 * id), geo_cc<kShared>(p, id));
 }
 
 __device__ __forceinline__ void axis_range(float o, float d, float inv, float lo, float hi,
@@ -129,8 +225,26 @@ __device__ __forceinline__ void axis_range(float o, float d, float inv, float lo
   hi_t = fmaxf(t0, t1);
 }
 
+// One slot of a cell list: sphere id's test refines (t_best, id_best).
+// Strict: the earlier cell, then the lower slot, wins ties.
+template <bool kShared>
+__device__ __forceinline__ void slot_test(const Params& p, const Ray& r, int id, float& t_best,
+                                          int& id_best) {
+  const float t = sphere_t<kShared>(p, r, id);
+  if (t < t_best) {
+    t_best = t;
+    id_best = id;
+  }
+}
+
 // 2D xz-grid DDA over the cell lists (worklist.grid_setup + grid_step),
-// refining (t_best, id_best) found by the globals.
+// refining (t_best, id_best) found by the globals. A cell's list is read
+// as two int4, both loaded before the first test. kUnrolled unrolls the
+// eight slot tests: 13% faster on the grid frame where the kernel has one
+// walk, 14% slower in the NEE kernels, which hold two (the path's and the
+// shadow ray's) at the same registers and stack: their code outgrows what
+// the unrolled walk saves.
+template <bool kShared, bool kUnrolled>
 __device__ void grid_walk(const Params& p, const Ray& r, float& t_best, int& id_best) {
   const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
   const float inv_dx = 1.0f / dx, inv_dy = 1.0f / dy, inv_dz = 1.0f / dz;
@@ -160,14 +274,23 @@ __device__ void grid_walk(const Params& p, const Ray& r, float& t_best, int& id_
   const float tdz = flat_z ? kBig : fabsf(p.cell * inv_dz);
 
   for (int step = 0; step < p.max_steps; ++step) {
-    const int* row = p.cell_ids + (ix * p.cz + iz) * p.m;
-    for (int j = 0; j < p.m; ++j) {
-      const int id = __ldg(row + j);
-      if (id < 0) break;  // lists are packed from slot 0
-      const float t = sphere_t(p, r, id);
-      if (t < t_best) {  // strict: the earlier cell, then the lower slot, wins ties
-        t_best = t;
-        id_best = id;
+    const int q = (ix * p.cz + iz) * (kSlots / 4);  // the cell's list: two int4, both loaded
+    const int4 a = cell_quad<kShared>(p, q), b = cell_quad<kShared>(p, q + 1);
+    if constexpr (kUnrolled) {
+      const int ids[kSlots] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        if (ids[j] < 0) break;  // lists are packed from slot 0
+        slot_test<kShared>(p, r, ids[j], t_best, id_best);
+      }
+    } else {
+#pragma unroll 1
+      for (int j = 0; j < kSlots; ++j) {
+        const int4 v = j < 4 ? a : b;
+        const int c = j & 3;
+        const int id = c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+        if (id < 0) break;  // lists are packed from slot 0
+        slot_test<kShared>(p, r, id, t_best, id_best);
       }
     }
     const float t_next = fminf(tmaxx, tmaxz);
@@ -184,36 +307,109 @@ __device__ void grid_walk(const Params& p, const Ray& r, float& t_best, int& id_
 
 // A shadow ray from (ox, oy, oz) along (dx, dy, dz): true iff a sphere is
 // hit below t_max (the plain version's nearest hit, compared with t_max).
-template <bool kGrid>
+template <bool kGrid, bool kShared>
 __device__ __forceinline__ bool occluded(const Params& p, float ox, float oy, float oz, float dx,
                                          float dy, float dz, float t_max) {
   const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
   for (int i = 0; i < p.n_brute; ++i) {
-    if (sphere_t(p, ray, i) < t_max) return true;
+    if (sphere_t<kShared>(p, ray, i) < t_max) return true;
   }
   if (!kGrid) return false;
   float t_best = t_max;
   int id_best = 0;
-  grid_walk(p, ray, t_best, id_best);
+  grid_walk<kShared, false>(p, ray, t_best, id_best);
   return t_best < t_max;
 }
 
-template <bool kGrid, bool kNee>
-__global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the slab
-  if (x >= p.width || row >= p.rows) return;
+// One path segment of pixel ``pix``, sample ``s``, at ``bounce``: the
+// nearest hit, then the sky (a miss) or the hit's emission, NEE sample and
+// scatter. Returns false when the path ends here. ``prev_pdf`` (NEE) is the
+// pdf of the scatter that made this ray, 0 on camera rays; it is updated
+// for the next segment.
+template <bool kGrid, bool kNee, bool kShared>
+__device__ __forceinline__ bool trace_segment(const Params& p, csgr::Path& path, uint32_t pix,
+                                              uint32_t s, int bounce, float& prev_pdf) {
+  const float ox = path.ox, oy = path.oy, oz = path.oz;
+  const float dx = path.dx, dy = path.dy, dz = path.dz;
+  const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
+
+  // nearest hit: brute pass (all spheres, or the globals), then the walk
+  float t_best = kBig;
+  int id_best = 0;
+  for (int i = 0; i < p.n_brute; ++i) {
+    const float t = sphere_t<kShared>(p, ray, i);
+    if (t < t_best) {
+      t_best = t;
+      id_best = i;
+    }
+  }
+  if (kGrid) grid_walk<kShared, !kNee>(p, ray, t_best, id_best);
+
+  const float inv_len = csgr::inv_length(path);
+  const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
+  if (!(t_best < kBigCut)) {  // miss: sky, path ends
+    csgr::add_sky(path, p.sky, udy);
+    return false;
+  }
+
+  const float4 g0 = geo_load<kShared>(p, 2 * id_best);
+  const float4 g1 = geo_load<kShared>(p, 2 * id_best + 1);
+  const float4 g2 = __ldg(p.sph + 3 * id_best + 2);  // albedo: once per hit, from global memory
+  const float rad = g1.y;  // signed: a negative radius flips the normal
+
+  const float hx = ox + t_best * dx, hy = oy + t_best * dy, hz = oz + t_best * dz;
+  const float onx = (hx - g0.x) / rad, ony = (hy - g0.y) / rad, onz = (hz - g0.z) / rad;
+  const bool front = dx * onx + dy * ony + dz * onz < 0.0f;
+  const float sgn = front ? 1.0f : -1.0f;
+  const int kind = static_cast<int>(g1.z);
+  if (!kNee) {
+    return csgr::shade(path, hx, hy, hz, onx * sgn, ony * sgn, onz * sgn, front, kind, g1.w,
+                       g2.x, g2.y, g2.z, udx, udy, udz, pix, s, static_cast<uint32_t>(bounce),
+                       p.seed);
+  }
+
+  const float nx = onx * sgn, ny = ony * sgn, nz = onz * sgn;
+  // a lamp reached by a pairable scatter: its own centre and |r| give the
+  // partner weight (common.bsdf_mis_scale_planes)
+  const float emit_scale = kind == 4 && prev_pdf > 0.0f
+      ? csgr::partner_weight(g0.x, g0.y, g0.z, fabsf(rad), ox, oy, oz, prev_pdf, p.n_lamps)
+      : 1.0f;
+  const bool lambertian = kind == 1;
+  const bool glossy = kind == 2 && g1.w > csgr::kGlossyFuzz;
+  if (lambertian || glossy) {
+    float u1, u2;
+    const int li = csgr::nee_pick(pix, s, static_cast<uint32_t>(bounce), p.seed, p.n_lamps,
+                                  u1, u2);
+    const float4 l0 = __ldg(p.lamps + 2 * li), l1 = __ldg(p.lamps + 2 * li + 1);
+    csgr::LampSample ls;
+    if (csgr::nee_sample(hx, hy, hz, nx, ny, nz, lambertian, g1.w, udx, udy, udz, g2.x, g2.y,
+                         g2.z, l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, p.n_lamps, u1, u2,
+                         ls) &&
+        !occluded<kGrid, kShared>(p, hx, hy, hz, ls.dx, ls.dy, ls.dz, ls.tl * csgr::kShadowScale)) {
+      path.sr += path.tr * ls.wr;
+      path.sg += path.tg * ls.wg;
+      path.sb += path.tb * ls.wb;
+    }
+  }
+  if (!csgr::shade<true>(path, hx, hy, hz, nx, ny, nz, front, kind, g1.w, g2.x, g2.y, g2.z,
+                         udx, udy, udz, pix, s, static_cast<uint32_t>(bounce), p.seed,
+                         emit_scale)) {
+    return false;
+  }
+  prev_pdf = csgr::carried_pdf(path, lambertian, glossy, nx, ny, nz, g1.w, udx, udy, udz);
+  return true;
+}
+
+// One pixel's spp paths, one after another, each up to max_bounces
+// segments; the radiance is summed in sample order.
+template <bool kGrid, bool kNee, bool kShared>
+__device__ __forceinline__ void render_pixel(const Params& p, const float* cam, int x, int row) {
   const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
   const size_t out_pix = static_cast<size_t>(row) * p.width + x;
-
-  float cam[csgr::kCamFloats];
-#pragma unroll
-  for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
-
-  csgr::Path path;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   int rays = 0;
+  csgr::Path path;
   for (int k = 0; k < p.spp; ++k) {
     const uint32_t s = static_cast<uint32_t>(k) + p.sample_offset;
     csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
@@ -221,77 +417,7 @@ __global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
     float prev_pdf = 0.0f;  // NEE: pdf of the scatter that made this ray, 0 on camera rays
     for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
       ++rays;
-      const float ox = path.ox, oy = path.oy, oz = path.oz;
-      const float dx = path.dx, dy = path.dy, dz = path.dz;
-      const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
-
-      // nearest hit: brute pass (all spheres, or the globals), then the walk
-      float t_best = kBig;
-      int id_best = 0;
-      for (int i = 0; i < p.n_brute; ++i) {
-        const float t = sphere_t(p, ray, i);
-        if (t < t_best) {
-          t_best = t;
-          id_best = i;
-        }
-      }
-      if (kGrid) grid_walk(p, ray, t_best, id_best);
-
-      const float inv_len = csgr::inv_length(path);
-      const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
-      if (!(t_best < kBigCut)) {  // miss: sky, path ends
-        csgr::add_sky(path, p.sky, udy);
-        break;
-      }
-
-      const float4 g0 = __ldg(p.sph + 3 * id_best);
-      const float4 g1 = __ldg(p.sph + 3 * id_best + 1);
-      const float4 g2 = __ldg(p.sph + 3 * id_best + 2);
-      const float rad = g1.y;  // signed: a negative radius flips the normal
-
-      const float hx = ox + t_best * dx, hy = oy + t_best * dy, hz = oz + t_best * dz;
-      const float onx = (hx - g0.x) / rad, ony = (hy - g0.y) / rad, onz = (hz - g0.z) / rad;
-      const bool front = dx * onx + dy * ony + dz * onz < 0.0f;
-      const float sgn = front ? 1.0f : -1.0f;
-      const int kind = static_cast<int>(g1.z);
-      if (!kNee) {
-        if (!csgr::shade(path, hx, hy, hz, onx * sgn, ony * sgn, onz * sgn, front, kind, g1.w,
-                         g2.x, g2.y, g2.z, udx, udy, udz, pix, s,
-                         static_cast<uint32_t>(bounce), p.seed)) {
-          break;
-        }
-        continue;
-      }
-
-      const float nx = onx * sgn, ny = ony * sgn, nz = onz * sgn;
-      // a lamp reached by a pairable scatter: its own centre and |r| give the
-      // partner weight (common.bsdf_mis_scale_planes)
-      const float emit_scale = kind == 4 && prev_pdf > 0.0f
-          ? csgr::partner_weight(g0.x, g0.y, g0.z, fabsf(rad), ox, oy, oz, prev_pdf, p.n_lamps)
-          : 1.0f;
-      const bool lambertian = kind == 1;
-      const bool glossy = kind == 2 && g1.w > csgr::kGlossyFuzz;
-      if (lambertian || glossy) {
-        float u1, u2;
-        const int li = csgr::nee_pick(pix, s, static_cast<uint32_t>(bounce), p.seed, p.n_lamps,
-                                      u1, u2);
-        const float4 l0 = __ldg(p.lamps + 2 * li), l1 = __ldg(p.lamps + 2 * li + 1);
-        csgr::LampSample ls;
-        if (csgr::nee_sample(hx, hy, hz, nx, ny, nz, lambertian, g1.w, udx, udy, udz, g2.x, g2.y,
-                             g2.z, l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, p.n_lamps, u1, u2,
-                             ls) &&
-            !occluded<kGrid>(p, hx, hy, hz, ls.dx, ls.dy, ls.dz, ls.tl * csgr::kShadowScale)) {
-          path.sr += path.tr * ls.wr;
-          path.sg += path.tg * ls.wg;
-          path.sb += path.tb * ls.wb;
-        }
-      }
-      if (!csgr::shade<true>(path, hx, hy, hz, nx, ny, nz, front, kind, g1.w, g2.x, g2.y, g2.z,
-                             udx, udy, udz, pix, s, static_cast<uint32_t>(bounce), p.seed,
-                             emit_scale)) {
-        break;
-      }
-      prev_pdf = csgr::carried_pdf(path, lambertian, glossy, nx, ny, nz, g1.w, udx, udy, udz);
+      if (!trace_segment<kGrid, kNee, kShared>(p, path, pix, s, bounce, prev_pdf)) break;
     }
     acc_r += path.sr;
     acc_g += path.sg;
@@ -305,24 +431,113 @@ __global__ void __launch_bounds__(128) sphere_megakernel(const Params p) {
   p.out_rays[out_pix] = rays;
 }
 
+// Persistent CTAs of four warps. A CTA stages the tables once (kShared),
+// then each warp takes work units from the launch's counter until the slab
+// is done: unit u is the 16x2 pixel strip u % 4 of the 16x8 tile u / 4
+// (tiles row-major over the slab), the strip a warp of a 16x8 block held
+// before, so lanes keep their neighbours. Taking units per warp, not per
+// CTA, keeps warps of one CTA from waiting for each other at a barrier
+// (16x8 tiles per CTA measured 6% slower on the grid frame); taking them
+// from a counter absorbs the cost gap between sky and lattice.
+template <bool kGrid, bool kNee, bool kShared>
+__global__ void __launch_bounds__(kThreads, kMinCtas) sphere_megakernel(const Params p) {
+  if constexpr (kShared) stage_tables(p);
+  float cam[csgr::kCamFloats];
+#pragma unroll
+  for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
+
+  const int lane = threadIdx.x & 31;
+  const int tiles_x = (p.width + kTileW - 1) / kTileW;
+  const int n_units = tiles_x * ((p.rows + kTileH - 1) / kTileH) * kStrips;
+  for (;;) {
+    int unit = 0;
+    if (lane == 0) unit = atomicAdd(p.work, 1);
+    unit = __shfl_sync(0xffffffffu, unit, 0);
+    if (unit >= n_units) break;
+    const int tile = unit / kStrips;
+    const int x = (tile % tiles_x) * kTileW + lane % kTileW;
+    const int row = (tile / tiles_x) * kTileH + (unit % kStrips) * 2 + lane / kTileW;  // in the slab
+    if (x < p.width && row < p.rows) render_pixel<kGrid, kNee, kShared>(p, cam, x, row);
+    __syncwarp();
+  }
+}
+
+template <bool kGrid, bool kNee, bool kShared>
+cudaError_t launch(const Params& p, cudaStream_t st) {
+  const auto kernel = sphere_megakernel<kGrid, kNee, kShared>;
+  const int smem = kShared ? p.geo_bytes + p.cell_bytes : 0;
+  if (smem > 48 * 1024) {  // above the default: opt in to the bytes this launch stages
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  }
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long units = static_cast<long long>((p.width + kTileW - 1) / kTileW) *
+                          ((p.rows + kTileH - 1) / kTileH) * kStrips;
+  const long long ctas = std::min<long long>(static_cast<long long>(sms) * per_sm,
+                                             (units + kThreads / 32 - 1) / (kThreads / 32));
+  e = cudaMemsetAsync(p.work, 0, sizeof(int), st);  // in stream order, before the launch
+  if (e != cudaSuccess) return e;
+  kernel<<<static_cast<unsigned>(ctas), kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool kShared>
+cudaError_t launch_mode(const Params& p, bool grid, bool nee, cudaStream_t st) {
+  if (grid) return nee ? launch<true, true, kShared>(p, st) : launch<true, false, kShared>(p, st);
+  return nee ? launch<false, true, kShared>(p, st) : launch<false, false, kShared>(p, st);
+}
+
 }  // namespace
 
+// The most table bytes (geometry and cell lists) a CTA can stage on
+// ``device``: its opt-in shared memory per block less the kernel's static
+// shared memory; a negative CUDA error code on failure.
+extern "C" int csgr_sphere_table_limit(int device) {
+  int optin = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, sphere_megakernel<true, true, true>);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  return optin - static_cast<int>(attr.sharedSizeBytes);
+}
+
+// shared_tables: 1 stages the geometry and cell tables in shared memory
+// (the caller has checked that they fit csgr_sphere_table_limit), 0 reads
+// them from global memory. out_rays holds rows x width int32 segment counts
+// and one int32 more: the launch's work counter.
 extern "C" int csgr_sphere_render(
-    const void* cam, const void* spheres, int n_brute, const void* cell_ids,
-    int cx, int cz, int m, int max_steps, float x0, float z0, float x1, float z1,
-    float y_lo, float y_hi, float cell, float inv_cell, const void* lamps, int n_lamps,
+    const void* cam, const void* spheres, const void* geometry, int n_spheres, int n_brute,
+    const void* cell_ids, int cx, int cz, int m, int max_steps, float x0, float z0, float x1,
+    float z1, float y_lo, float y_hi, float cell, float inv_cell, const void* lamps, int n_lamps,
     int width, int height, int rows, int row_offset,
     int spp, int max_bounces, unsigned int seed, unsigned int sample_offset,
-    int lens, int sky, void* out_rgb, void* out_rays, void* stream) {
-  if (rows < 1 || row_offset < 0 || row_offset + rows > height) {
+    int lens, int sky, int shared_tables, void* out_rgb, void* out_rays, void* stream) {
+  if (rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
+      n_brute > n_spheres || (cell_ids != nullptr && m != kSlots)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (reinterpret_cast<uintptr_t>(geometry) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(cell_ids) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);  // the bulk copies and int4 loads
   }
   Params p;
   p.cam = static_cast<const float*>(cam);
   p.sph = static_cast<const float4*>(spheres);
+  p.geo = static_cast<const float4*>(geometry);
   p.n_brute = n_brute;
   p.cell_ids = static_cast<const int*>(cell_ids);
-  p.cx = cx; p.cz = cz; p.m = m; p.max_steps = max_steps;
+  p.geo_bytes = n_spheres * 8 * 4;
+  p.cell_bytes = cell_ids != nullptr ? cx * cz * kSlots * 4 : 0;
+  p.cx = cx; p.cz = cz; p.max_steps = max_steps;
   p.x0 = x0; p.z0 = z0; p.x1 = x1; p.z1 = z1;
   p.y_lo = y_lo; p.y_hi = y_hi; p.cell = cell; p.inv_cell = inv_cell;
   p.lamps = static_cast<const float4*>(lamps);
@@ -333,23 +548,13 @@ extern "C" int csgr_sphere_render(
   p.lens = lens; p.sky = sky;
   p.out_rgb = static_cast<float*>(out_rgb);
   p.out_rays = static_cast<int*>(out_rays);
+  p.work = p.out_rays + static_cast<size_t>(rows) * width;
 
-  const dim3 block(16, 8);
-  const dim3 grid((width + block.x - 1) / block.x, (rows + block.y - 1) / block.y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool nee = n_lamps > 0;
-  if (p.cell_ids != nullptr) {
-    if (nee) {
-      sphere_megakernel<true, true><<<grid, block, 0, st>>>(p);
-    } else {
-      sphere_megakernel<true, false><<<grid, block, 0, st>>>(p);
-    }
-  } else if (nee) {
-    sphere_megakernel<false, true><<<grid, block, 0, st>>>(p);
-  } else {
-    sphere_megakernel<false, false><<<grid, block, 0, st>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool grid = cell_ids != nullptr, nee = n_lamps > 0;
+  const cudaError_t e = shared_tables ? launch_mode<true>(p, grid, nee, st)
+                                      : launch_mode<false>(p, grid, nee, st);
+  return static_cast<int>(e);
 }
 
 extern "C" const char* csgr_error_string(int code) {

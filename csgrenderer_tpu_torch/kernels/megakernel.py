@@ -18,8 +18,10 @@ Where the tensors lie decides what runs:
 ``nee=True`` adds next-event estimation toward the scene's emissive
 spheres (``render/lights.py``): the kernel's NEE variant, or the plain
 version with ``lights=``. ``LAUNCHES`` counts kernel launches
-(``LAUNCHES_BY_MODE`` per mode: grid, brute, grid-nee, brute-nee); only the
-launch site adds to them.
+(``LAUNCHES_BY_MODE`` per mode: grid, brute, grid-nee, brute-nee;
+``LAUNCHES_BY_TABLES`` by where the launch read its scene tables: staged in
+shared memory, or global memory when ``PackedScene.table_bytes`` exceeds
+``table_limit``); only the launch site adds to them.
 """
 
 from __future__ import annotations
@@ -39,12 +41,16 @@ from .worklist import GridPack, grid_nearest_hit, pack_grid
 
 GRID_MIN_SPHERES = 256  # the JAX package's measured brute/grid crossover (TPU)
 SPHERE_WORDS = 12  # floats per sphere record in the kernel's table
+GEOMETRY_WORDS = 8  # floats per sphere a test reads: the record's first two float4
 LAMP_WORDS = 8  # floats per lamp record: centre, |r|, emitted rgb, sphere id
 CAM_SIZE = 24
 KERNEL_SOURCE = "sphere_megakernel"
 
 LAUNCHES = 0
 LAUNCHES_BY_MODE = {"grid": 0, "brute": 0, "grid-nee": 0, "brute-nee": 0}
+# where a launch read the geometry and cell tables: staged in each CTA's
+# shared memory, or from global memory (tables over the device's limit)
+LAUNCHES_BY_TABLES = {"shared": 0, "global": 0}
 _NO_LAMPS = "nee=True but the scene has no emissive spheres"
 JITTER_ON_CPU_ONLY = ("a CUDA kernel always jitters: jitter=False (pixel centres) renders only on "
                       "the CPU, through the plain versions")
@@ -56,7 +62,9 @@ class PackedScene:
 
     ``scene`` is reordered globals-first in grid mode. ``spheres`` holds,
     per sphere, three float4: (cx, cy, cz, r^2), (c.c, r signed, kind,
-    param), (albedo r, g, b, 0). All values are exact f32. ``lamps`` is
+    param), (albedo r, g, b, 0). All values are exact f32. ``geometry``
+    is the first two float4 of each record, contiguous: what a sphere
+    test reads, which the kernel stages in shared memory. ``lamps`` is
     the NEE lamp table, one row (cx, cy, cz, |r|, emitted r, g, b, sphere
     id) per emissive sphere of the reordered scene, so every id is in the
     kernel's id space; None when the scene has no emissive sphere.
@@ -64,6 +72,7 @@ class PackedScene:
 
     scene: SphereScene
     spheres: Tensor  # [S, 12] f32
+    geometry: Tensor  # [S, 8] f32, spheres[:, :8]
     grid: GridPack | None
     lamps: Tensor | None  # [n_lights, 8] f32
 
@@ -80,6 +89,13 @@ class PackedScene:
         return self.spheres.device
 
     @property
+    def table_bytes(self) -> int:
+        """The bytes a CTA stages in shared memory: S x 32 of geometry and,
+        in grid mode, cx x cz x m x 4 of cell lists (both multiples of 16)."""
+        cells = 0 if self.grid is None else self.grid.cell_ids.numel() * 4
+        return self.geometry.numel() * 4 + cells
+
+    @property
     def lights(self) -> SphereLights | None:
         """The lamp table as the plain version's ``SphereLights``."""
         if self.lamps is None:
@@ -89,7 +105,8 @@ class PackedScene:
     def to(self, device) -> "PackedScene":
         grid = None if self.grid is None else self.grid.to(device)
         lamps = None if self.lamps is None else self.lamps.to(device)
-        return PackedScene(self.scene.to(device), self.spheres.to(device), grid, lamps)
+        return PackedScene(self.scene.to(device), self.spheres.to(device),
+                           self.geometry.to(device), grid, lamps)
 
 
 def _sphere_table(scene: SphereScene) -> Tensor:
@@ -136,7 +153,9 @@ def pack_scene(scene: SphereScene, worklist: bool | str = "auto") -> PackedScene
             grid, scene = packed
         elif worklist is True:
             raise ValueError("worklist=True but the scene is not griddable")
-    return PackedScene(scene, _sphere_table(scene), grid, _lamp_table(scene))
+    spheres = _sphere_table(scene)
+    return PackedScene(scene, spheres, spheres[:, :GEOMETRY_WORDS].contiguous(), grid,
+                       _lamp_table(scene))
 
 
 def pack_camera(camera) -> Tensor:
@@ -195,21 +214,41 @@ def render_image_plain(
 
 
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-_ARGTYPES = ((_VP, _VP, _I, _VP, _I, _I, _I, _I) + (_F,) * 8 + (_VP, _I) + (_I,) * 6
-             + (_U, _U, _I, _I, _VP, _VP, _VP))
+_ARGTYPES = ((_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I) + (_F,) * 8 + (_VP, _I) + (_I,) * 6
+             + (_U, _U, _I, _I, _I, _VP, _VP))
+_KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_sphere_render", _ARGTYPES, "sphere")
+_TABLE_LIMIT: dict[int, int] = {}  # device index -> the most table bytes a CTA can stage
+
+
+def table_limit(index: int) -> int:
+    """The most table bytes (``PackedScene.table_bytes``) a CTA of the
+    sphere kernel can stage in shared memory on CUDA device ``index``: its
+    opt-in shared memory per block less the kernel's static shared memory.
+    Asked of the device once per process."""
+    limit = _TABLE_LIMIT.get(index)
+    if limit is None:
+        lib, _ = build.load(KERNEL_SOURCE)
+        lib.csgr_sphere_table_limit.argtypes = [ctypes.c_int]
+        lib.csgr_sphere_table_limit.restype = ctypes.c_int
+        limit = lib.csgr_sphere_table_limit(index)
+        if limit < 0:
+            raise RuntimeError(f"the sphere kernel's table limit: CUDA error {-limit}")
+        _TABLE_LIMIT[index] = limit
+    return limit
 
 
 def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
-            nee, rows=None, row_offset=0):
+            nee, rows=None, row_offset=0, force_global=False):
+    """Launch the kernel. Its tables are staged in shared memory when
+    ``packed.table_bytes`` fits the device's limit, else read from global
+    memory; ``force_global`` (tests only) reads them from global memory."""
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
-    if dev.type != "cuda":
-        raise ValueError(f"the sphere kernel needs CUDA tensors, got {dev}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("the sphere kernel needs CUDA, and CUDA is not available")
+    _KERNEL.require_cuda(dev)
     s = packed.scene.num_spheres
     build.check_tensor(packed.spheres, "spheres", torch.float32, (s, SPHERE_WORDS), dev)
+    build.check_tensor(packed.geometry, "geometry", torch.float32, (s, GEOMETRY_WORDS), dev)
     build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
     grid_args = [None, 0, 0, 0, 0] + [0.0] * 8
     if packed.grid is not None:
@@ -225,24 +264,21 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
         build.check_tensor(packed.lamps, "lamps", torch.float32, (n_lights, LAMP_WORDS), dev)
         lamp_args = [packed.lamps.data_ptr(), n_lights]
 
-    fn, err_str = build.bind(KERNEL_SOURCE, "csgr_sphere_render", _ARGTYPES)
     out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
-    out_rays = torch.empty((rows, width), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            cam_row.data_ptr(), packed.spheres.data_ptr(), packed.n_brute, *grid_args, *lamp_args,
-            width, height, rows, row_offset, spp, max_bounces, seed & 0xFFFFFFFF,
-            sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(),
-            out_rays.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"sphere kernel launch failed: {err_str(rc).decode()} ({rc})")
+    out_rays = torch.empty(rows * width + 1, dtype=torch.int32, device=dev)  # + the work counter
+    shared = not force_global and packed.table_bytes <= table_limit(dev.index)
+    _KERNEL(
+        dev, cam_row.data_ptr(), packed.spheres.data_ptr(), packed.geometry.data_ptr(), s,
+        packed.n_brute, *grid_args, *lamp_args, width, height, rows, row_offset, spp,
+        max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens),
+        SKY_MODES.index(sky), int(shared), out_rgb.data_ptr(), out_rays.data_ptr(),
+    )
     LAUNCHES += 1
     LAUNCHES_BY_MODE[packed.mode + ("-nee" if nee else "")] += 1
+    LAUNCHES_BY_TABLES["shared" if shared else "global"] += 1
     # int64 sum: one call can pass 2**31 segments (a 1080p/64-spp frame
     # traces ~3.4e8; 4K at a few hundred spp overflows int32)
-    return out_rgb, out_rays.sum(dtype=torch.int64)
+    return out_rgb, out_rays[:-1].sum(dtype=torch.int64)
 
 
 def render_image_kernel(

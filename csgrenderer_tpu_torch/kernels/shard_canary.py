@@ -31,20 +31,16 @@ def scale2_plain(x: Tensor) -> Tensor:
     return x * 2.0
 
 
+_KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_scale2", (ctypes.c_void_p,) * 2, "canary")
+
+
 def _launch(x: Tensor) -> Tensor:
     global LAUNCHES
     dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"the canary kernel needs CUDA tensors, got {dev}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("the canary kernel needs CUDA, and CUDA is not available")
+    _KERNEL.require_cuda(dev)
     build.check_tensor(x, "x", torch.float32, SHAPE, dev)
-    fn, err_str = build.bind(KERNEL_SOURCE, "csgr_scale2", (ctypes.c_void_p,) * 3)
-    out = torch.empty(SHAPE, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"canary kernel launch failed: {err_str(rc).decode()} ({rc})")
+    out = torch.empty_like(x)
+    _KERNEL(dev, x.data_ptr(), out.data_ptr())
     LAUNCHES += 1
     LAUNCHES_BY_MODE["scale2"] += 1
     return out

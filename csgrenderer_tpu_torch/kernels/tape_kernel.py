@@ -428,16 +428,17 @@ def render_image_tape_plain(
 
 _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _ARGTYPES = ((_VP, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _I) + (_I,) * 6
-             + (_U, _U, _I, _I, _VP, _VP, _VP, _VP))
+             + (_U, _U, _I, _I, _VP, _VP, _VP))
 
 
-@functools.cache
-def _kernel_fn():
-    lib, _ = build.load(KERNEL_SOURCE)
+def _check_limits(lib) -> None:
     caps = (lib.csgr_tape_max_leaves(), lib.csgr_tape_max_stack(), lib.csgr_tape_max_k())
     if caps != (MAX_LEAVES, MAX_STACK, MAX_K):
         raise RuntimeError("tape_kernel.cu and tape_kernel.py disagree on the kernel's limits")
-    return build.bind(KERNEL_SOURCE, "csgr_tape_render", _ARGTYPES)
+
+
+_KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_tape_render", _ARGTYPES, "tape",
+                       check_library=_check_limits)
 
 
 def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, sample_offset,
@@ -445,10 +446,7 @@ def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, 
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
-    if dev.type != "cuda":
-        raise ValueError(f"the tape kernel needs CUDA tensors, got {dev}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("the tape kernel needs CUDA, and CUDA is not available")
+    _KERNEL.require_cuda(dev)
     n_leaves = packed.tape.n_leaves
     n_ops, n_ids = packed.ops.numel(), packed.leaf_ids.numel()
     n_clusters = len(packed.clusters)
@@ -470,22 +468,17 @@ def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, 
         list_args = [packed.list_ops.data_ptr(), n_list, packed.tape.k]
         out_over = torch.empty((rows, width), dtype=torch.int32, device=dev)
 
-    fn, err_str = _kernel_fn()
     out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
     out_rays = torch.empty((rows, width), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            cam_row.data_ptr(), packed.leaf_table.data_ptr(), packed.leaf_types.data_ptr(),
-            n_leaves, packed.ops.data_ptr(), n_ops, packed.cluster_table.data_ptr(),
-            n_clusters, packed.leaf_ids.data_ptr(), n_ids, *lamp_args, *list_args, width, height,
-            rows, row_offset, spp, max_bounces,
-            seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky),
-            out_rgb.data_ptr(), out_rays.data_ptr(),
-            None if out_over is None else out_over.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"tape kernel launch failed: {err_str(rc).decode()} ({rc})")
+    _KERNEL(
+        dev, cam_row.data_ptr(), packed.leaf_table.data_ptr(), packed.leaf_types.data_ptr(),
+        n_leaves, packed.ops.data_ptr(), n_ops, packed.cluster_table.data_ptr(),
+        n_clusters, packed.leaf_ids.data_ptr(), n_ids, *lamp_args, *list_args, width, height,
+        rows, row_offset, spp, max_bounces,
+        seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky),
+        out_rgb.data_ptr(), out_rays.data_ptr(),
+        None if out_over is None else out_over.data_ptr(),
+    )
     LAUNCHES += 1
     mode = "audit" if with_overflow else packed.mode
     LAUNCHES_BY_MODE[mode + ("-nee" if nee else "")] += 1

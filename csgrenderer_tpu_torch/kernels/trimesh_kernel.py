@@ -199,7 +199,8 @@ def render_image_mesh_plain(
 
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _ARGTYPES = ((_VP, _VP, _I, _VP, _I, _VP, _VP, _I, _I, _I) + (_F,) * 8 + (_VP, _I) + (_I,) * 6
-             + (_U, _U, _I, _I, _VP, _VP, _VP))
+             + (_U, _U, _I, _I, _VP, _VP))
+_KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_mesh_render", _ARGTYPES, "mesh")
 
 
 def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
@@ -207,10 +208,7 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
-    if dev.type != "cuda":
-        raise ValueError(f"the mesh kernel needs CUDA tensors, got {dev}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("the mesh kernel needs CUDA, and CUDA is not available")
+    _KERNEL.require_cuda(dev)
     f = packed.mesh.num_faces
     build.check_tensor(packed.faces, "faces", torch.float32, (f, FACE_WORDS), dev)
     build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
@@ -231,19 +229,14 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
         build.check_tensor(packed.lamps, "lamps", torch.float32, (n_lights, LAMP_WORDS), dev)
         lamp_args = [packed.lamps.data_ptr(), n_lights]
 
-    fn, err_str = build.bind(KERNEL_SOURCE, "csgr_mesh_render", _ARGTYPES)
     out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
     out_rays = torch.empty((rows, width), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            cam_row.data_ptr(), packed.faces.data_ptr(), f, *grid_args, *lamp_args,
-            width, height, rows, row_offset, spp, max_bounces, seed & 0xFFFFFFFF,
-            sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(),
-            out_rays.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"mesh kernel launch failed: {err_str(rc).decode()} ({rc})")
+    _KERNEL(
+        dev, cam_row.data_ptr(), packed.faces.data_ptr(), f, *grid_args, *lamp_args,
+        width, height, rows, row_offset, spp, max_bounces, seed & 0xFFFFFFFF,
+        sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(),
+        out_rays.data_ptr(),
+    )
     LAUNCHES += 1
     LAUNCHES_BY_MODE[packed.mode + ("-nee" if nee else "")] += 1
     return out_rgb, out_rays.sum(dtype=torch.int64)  # int32 per pixel, summed in int64

@@ -169,28 +169,21 @@ def _check_shape(shape, rr_pad, pw, k):
 
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
+_KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_exp_dot_k", (_VP, _VP, _VP) + (_I,) * 5, "dot_k")
 
 
 def _launch(tab, idx, rr_pad, pw, k, mode, n_iter) -> Tensor:
     global LAUNCHES
     dev = tab.device
-    if dev.type != "cuda":
-        raise ValueError(f"the dot_k kernel needs CUDA tensors, got {dev}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("the dot_k kernel needs CUDA, and CUDA is not available")
+    _KERNEL.require_cuda(dev)
     if (pw, k) not in KERNEL_SHAPES or rr_pad % 8 or not 0 < rr_pad <= MAX_ROWS:
         raise ValueError(f"the kernel takes (pw, k) in {KERNEL_SHAPES} and rr_pad a multiple "
                          f"of 8 up to {MAX_ROWS}, got pw={pw}, k={k}, rr_pad={rr_pad}")
     build.check_tensor(tab, "tab", torch.bfloat16, (N_PAGES * rr_pad, LANES), dev)
     build.check_tensor(idx, "idx", torch.int32, (8, LANES), dev)
-    fn, err_str = build.bind(KERNEL_SOURCE, "csgr_exp_dot_k",
-                             (_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP))
     out = torch.empty((8, LANES), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), rr_pad, pw, k, n_iter,
-                MODES.index(mode), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"dot_k kernel launch failed: {err_str(rc).decode()} ({rc})")
+    _KERNEL(dev, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), rr_pad, pw, k, n_iter,
+            MODES.index(mode))
     LAUNCHES += 1
     LAUNCHES_BY_MODE[mode] += 1
     LAUNCHES_BY_RUN[(rr_pad, pw, k, mode)] = LAUNCHES_BY_RUN.get((rr_pad, pw, k, mode), 0) + 1

@@ -78,24 +78,17 @@ def _check_mode(mode):
 
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
+_KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_exp_gather", (_VP, _VP, _VP, _I, _I), "gather")
 
 
 def _launch(tab: Tensor, idx: Tensor, mode: str, n_iter: int) -> Tensor:
     global LAUNCHES
     dev = tab.device
-    if dev.type != "cuda":
-        raise ValueError(f"the gather kernel needs CUDA tensors, got {dev}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("the gather kernel needs CUDA, and CUDA is not available")
+    _KERNEL.require_cuda(dev)
     build.check_tensor(tab, "tab", torch.float32, (R, LANES), dev)
     build.check_tensor(idx, "idx", torch.int32, (GROUPS, LANES), dev)
-    fn, err_str = build.bind(KERNEL_SOURCE, "csgr_exp_gather", (_VP, _VP, _VP, _I, _I, _VP))
     out = torch.empty((GROUPS, LANES), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n_iter, MODES.index(mode),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gather kernel launch failed: {err_str(rc).decode()} ({rc})")
+    _KERNEL(dev, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n_iter, MODES.index(mode))
     LAUNCHES += 1
     LAUNCHES_BY_MODE[mode] += 1
     return out

@@ -454,3 +454,53 @@ def test_canary_kernel_matches_plain(cuda):
     assert torch.equal(out, sc.scale2_plain(x)) and torch.equal(out, torch.mul(x, 2.0))
     with pytest.raises(ValueError, match="shape"):
         sc.scale2_kernel(x[:, :64].contiguous())
+
+
+@pytest.mark.parametrize("worklist", ["auto", False])
+def test_shared_and_global_tables_give_the_same_bytes(cuda, worklist):
+    """The sphere kernel with its tables staged in shared memory (the size
+    rule's choice for RTIOW) and with them read from global memory (forced
+    through the launcher's test-only argument) renders the same bytes, in
+    grid mode and forced brute mode."""
+    packed = mk.pack_scene(rtiow_final_scene(device=cuda), worklist)
+    assert packed.table_bytes <= mk.table_limit(cuda.index or 0)
+    cam = mk.pack_camera(_rtiow_camera(2.0, cuda)).contiguous()
+    args = (packed, cam, 64, 32, 2, 8, 11, 0, True, "rtiow", False)
+    before = dict(mk.LAUNCHES_BY_TABLES)
+    shared, shared_rays = mk._launch(*args)
+    staged_global, global_rays = mk._launch(*args, force_global=True)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES_BY_TABLES == {"shared": before["shared"] + 1,
+                                     "global": before["global"] + 1}
+    assert torch.equal(shared, staged_global) and int(shared_rays) == int(global_rays)
+
+
+def test_tables_over_the_limit_read_from_global_memory(cuda):
+    """rtiow_final_scene(grid=40) (6,402 spheres, a 32 x 32 grid, 237,632
+    table bytes) exceeds a block's opt-in shared memory: the launcher picks
+    the global-memory tables by size, and the frame matches its plain
+    version."""
+    packed = mk.pack_scene(rtiow_final_scene(grid=40, device=cuda))
+    assert packed.mode == "grid" and packed.table_bytes > mk.table_limit(cuda.index or 0)
+    cam = _rtiow_camera(2.0, cuda)
+    kw = dict(width=48, height=24, spp=2, max_bounces=8, seed=3, lens=True)
+    before = dict(mk.LAUNCHES_BY_TABLES)
+    img, rays = mk.render_image_kernel(packed, cam, **kw)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES_BY_TABLES["global"] == before["global"] + 1
+    assert mk.LAUNCHES_BY_TABLES["shared"] == before["shared"]
+    ref, ref_rays = mk.render_image_plain(packed, cam, **kw)
+    _assert_close(ref, ref_rays, img, rays)
+
+
+def test_grid_nee_matches_plain_with_equal_rays(cuda):
+    """night488 in grid-nee mode at 64x32: within compare()'s bounds of its
+    plain version, and the same number of path segments."""
+    packed = mk.pack_scene(night_scene(grid=11, device=cuda))
+    cam = _night_cam(cuda)
+    assert packed.mode == "grid"
+    img, rays = mk.render_image_kernel(packed, cam, **NEE_KW)
+    torch.cuda.synchronize()
+    ref, ref_rays = mk.render_image_plain(packed, cam, **NEE_KW)
+    _assert_close(ref, ref_rays, img, rays)
+    assert int(rays) == int(ref_rays)
