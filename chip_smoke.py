@@ -36,8 +36,15 @@ Phases (the first that fails ends the run with a non-zero exit):
    forced brute at 1280x720, 2 spp, 6 bounces (its image also against the
    grid kernel's); grid mode on mesh_demo_scene(4) at the same frame;
    brute-nee on tests/test_nee.py's 82-face lamp scene and grid-nee on
-   mesh_night_scene() at 960x540, 2 spp, 6 bounces; grid-nee on the
-   80-lamp scene of tests/test_nee.py; degenerate faces in both modes
+   mesh_night_scene() at 960x540, 2 spp, 6 bounces, each printed with where
+   its launches read the tables (the tape kernel stages them always, the
+   mesh kernel when they fit); the meshnight frame with its tables staged
+   and with them forced to global memory, timed, the two images equal bit
+   for bit; config 7's launch of tools/validate_gpu.py (mesh_night_scene(),
+   96x54, 1,024 spp at sample offset 6,144) three times on the grid-nee
+   build as shipped, in a child process under a time limit
+   (``tools/shadow_walk_probe.config7_counts``, ROADMAP C-7), each tracing
+   9,416,222 segments; grid-nee on the 80-lamp scene of tests/test_nee.py; degenerate faces in both modes
    (never hit); and the face-count ladder of tools/bench_mesh.py (962 to
    245,762 faces), each rung packed (times printed) and kernel-timed at
    1280x720, 16 spp, 6 bounces, the last also against the plain walk at
@@ -78,7 +85,9 @@ Phases (the first that fails ends the run with a non-zero exit):
    sphere kernel's grid, brute, grid-nee and brute-nee modes, the tape
    kernel's clustered, clustered-nee, audit and audit-nee
    modes and the mesh kernel's grid and grid-nee modes must have launched
-   in this phase, and a sphere launch with its tables in shared memory; the tape kernel's global and global-nee modes and the
+   in this phase, a sphere launch with its tables in shared memory and mesh
+   launches with theirs in shared memory (meshnight) and in global memory
+   (the bench mesh); the tape kernel's global and global-nee modes and the
    mesh kernel's brute and brute-nee modes must have launched in phase 2.
    Phase 2 also holds the row slabs (``rows=``, ``row_offset=``) of each
    kernel at its main-path frame to the full frame's rows, bit for bit.
@@ -840,7 +849,8 @@ def main() -> None:
     )
     from csgrenderer_tpu_torch.render.trimesh import concat_meshes, icosphere, quad
     from csgrenderer_tpu_torch.scene import Material, NodeArgument, SceneGraph
-    from csgrenderer_tpu_torch.tools import exp_dot_k, exp_gather, exp_slab, validate_gpu
+    from csgrenderer_tpu_torch.tools import (exp_dot_k, exp_gather, exp_slab, shadow_walk_probe,
+                                             validate_gpu)
 
     dev = torch.device("cuda")
 
@@ -971,6 +981,14 @@ def main() -> None:
     # the tape kernel
     tape_check = functools.partial(check, kernel=tk.render_image_tape_kernel,
                                    plain=tk.render_image_tape_plain)
+
+    def tape_tables(label, packed):
+        """The tape kernel stages its tables in every CTA's shared memory
+        (the 255 leaves of many_objects_scene(127) need 24,000 bytes);
+        printed with their size and the interval arrays' cap."""
+        print(f"[chip_smoke] {label}: tables in shared memory ({packed.table_bytes} bytes), "
+              f"interval arrays of {packed.interval_cap} slots", flush=True)
+        return "shared"
     c3 = tk.pack_program(config3_csg_scene().compile(device=dev))
     tape_check("tape config3 512x512 spp16 b6", c3, cam_at((3, 2.5, 4), (0.1, 0, 0), 35.0, 1.0),
                "global", dict(width=512, height=512, spp=16, max_bounces=6, seed=3))
@@ -986,12 +1004,10 @@ def main() -> None:
         max_abs, ms, plain_ms, img, rays = tape_check(
             f"tape config5 {mode} {w5}x{h5} spp2 b{b5}", packed, cam5, mode, kw5, plain_reps=1)
         tape_images[mode] = (img, rays)
-        stats[f"tape_kernel[{mode}]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        stats[f"tape_kernel[{mode}]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                             tables=tape_tables(f"tape config5 {mode}", packed))
         frames[f"tape_kernel[{mode}]"] = (
-            tape_ops(packed, rays, w5, h5, kw5["spp"]),
-            nbytes(packed.leaf_table, packed.leaf_types, packed.ops, packed.cluster_table,
-                   packed.leaf_ids),
-            w5, h5, "",
+            tape_ops(packed, rays, w5, h5, kw5["spp"]), nbytes(packed.tables), w5, h5, "",
         )
         if mode == "clustered":
             mhz = sm_clock_under_load(functools.partial(tk.render_image_tape_kernel, packed, cam5,
@@ -1093,7 +1109,9 @@ def main() -> None:
     max_abs, ms, plain_ms, img_c, rays_c = tape_check(
         f"tape csgnight clustered-nee {wn}x{hn} spp2 b{bn}", packed, csg_cam, "clustered", kwn,
         plain_reps=1)
-    stats["tape_kernel[clustered-nee]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    stats["tape_kernel[clustered-nee]"] = dict(
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+        tables=tape_tables("tape csgnight clustered-nee", packed))
     c = plain_counts(tk.render_image_tape_plain, packed, csg_cam)
     n_lamps = packed.lamp_ids.numel()
     frames["tape_kernel[clustered-nee]"] = (
@@ -1102,15 +1120,16 @@ def main() -> None:
             + 2 * packed.tape.n_leaves * OPS["candidate_test"],
             leaf_interval_ops(packed, packed.clusters[0][1]),
             OPS["partner"] + n_lamps * OPS["lamp_match"]),
-        nbytes(packed.leaf_table, packed.leaf_types, packed.ops, packed.cluster_table,
-               packed.leaf_ids, packed.lamp_ids),
-        wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)",
+        nbytes(packed.tables), wn, hn,
+        f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)",
     )
     packed_g = tk.pack_program(night_tape, False)
     max_abs, ms_g, plain_ms, img_g, rays_g = tape_check(
         f"tape csgnight global-nee {wn}x{hn} spp2 b{bn}", packed_g, csg_cam, "global", kwn,
         plain_reps=1)
-    stats["tape_kernel[global-nee]"] = dict(max_abs_err=max_abs, ms=ms_g, plain_ms=plain_ms)
+    stats["tape_kernel[global-nee]"] = dict(
+        max_abs_err=max_abs, ms=ms_g, plain_ms=plain_ms,
+        tables=tape_tables("tape csgnight global-nee", packed_g))
     c = plain_counts(tk.render_image_tape_plain, packed_g, csg_cam)
     all_leaves = range(packed_g.tape.n_leaves)
     frames["tape_kernel[global-nee]"] = (
@@ -1119,9 +1138,7 @@ def main() -> None:
             + 2 * packed_g.tape.n_leaves * OPS["candidate_test"],
             leaf_interval_ops(packed_g, packed_g.clusters[0][1]),
             OPS["partner"] + n_lamps * OPS["lamp_match"]),
-        nbytes(packed_g.leaf_table, packed_g.leaf_types, packed_g.ops, packed_g.cluster_table,
-               packed_g.leaf_ids, packed_g.lamp_ids),
-        wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)",
+        nbytes(packed_g.tables), wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)",
     )
     compare(f"tape csgnight {wn}x{hn} kernel global-nee vs kernel clustered-nee", img_c, rays_c,
             img_g, rays_g)
@@ -1177,11 +1194,11 @@ def main() -> None:
     packed = tk.pack_program(tape5)
     max_abs, ms, plain_ms, _, rays, _ = audit_check(
         f"audit config5 k=4 {w5}x{h5} spp2 b{b5}", packed, cam5, kw5, True, plain_reps=1)
-    stats["tape_kernel[audit]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    stats["tape_kernel[audit]"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                       tables=tape_tables("audit config5", packed))
     frames["tape_kernel[audit]"] = (
         audit_ops(packed, rays, w5, h5, kw5["spp"]),
-        nbytes(packed.leaf_table, packed.leaf_types, packed.ops, packed.cluster_table,
-               packed.leaf_ids, packed.list_ops) + w5 * h5 * 4,  # + the int32 over plane
+        nbytes(packed.tables) + w5 * h5 * 4,  # + the int32 over plane
         w5, h5, "",
     )
     print(f"[chip_smoke] config5 {w5}x{h5} spp2 b{b5}: kernel audit {ms:.3f} ms vs event flip "
@@ -1194,7 +1211,8 @@ def main() -> None:
     packed_n = tk.pack_program(night_tape)  # clustered: the shadow rays' event flip
     max_abs, ms_a, plain_ms, _, rays_a, _ = audit_check(
         f"audit-nee csgnight {wn}x{hn} spp2 b{bn}", packed_n, csg_cam, kwn, False, plain_reps=1)
-    stats["tape_kernel[audit-nee]"] = dict(max_abs_err=max_abs, ms=ms_a, plain_ms=plain_ms)
+    stats["tape_kernel[audit-nee]"] = dict(max_abs_err=max_abs, ms=ms_a, plain_ms=plain_ms,
+                                           tables=tape_tables("audit-nee csgnight", packed_n))
     c = plain_counts(tk.render_image_tape_plain, packed_n, csg_cam)
     frames["tape_kernel[audit-nee]"] = (
         audit_ops(packed_n, rays_a, wn, hn, 2, "black") + nee_ops(
@@ -1202,8 +1220,7 @@ def main() -> None:
             + 2 * packed_n.tape.n_leaves * OPS["candidate_test"],
             leaf_interval_ops(packed_n, packed_n.clusters[0][1]),
             OPS["partner"] + n_lamps * OPS["lamp_match"]),
-        nbytes(packed_n.leaf_table, packed_n.leaf_types, packed_n.ops, packed_n.cluster_table,
-               packed_n.leaf_ids, packed_n.lamp_ids, packed_n.list_ops) + wn * hn * 4,
+        nbytes(packed_n.tables) + wn * hn * 4,
         wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)",
     )
     print(f"[chip_smoke] csgnight {wn}x{hn} spp2 b{bn}: kernel audit-nee {ms_a:.3f} ms vs "
@@ -1246,6 +1263,14 @@ def main() -> None:
     def mesh_cam(eye, fw, fh, at=(0.0, 0.7, -2.6), vfov=45.0):
         return cam_at(eye, at, vfov, fw / fh)
 
+    def mesh_tables(label, packed, before):
+        """Where the mesh kernel's launches since ``before`` read their
+        tables (the launcher's choice by size), printed with the size."""
+        used = "+".join(k for k, n in tm.LAUNCHES_BY_TABLES.items() if n > before[k])
+        print(f"[chip_smoke] {label}: tables in {used} memory ({packed.table_bytes} bytes; a CTA "
+              f"stages up to {tm.table_limit(dev.index or 0)})", flush=True)
+        return used
+
     def walk_counts(packed, cam, kw):
         """The plain walk's work over the frame's path segments (NEE adds
         shadow rays, never segments, so a run without it has the same)."""
@@ -1270,15 +1295,15 @@ def main() -> None:
         ("brute", "mesh_demo_scene(2) forced brute", tm.pack_mesh(demo2, False)),
         ("grid", "mesh_demo_scene(4)", tm.pack_mesh(mesh_demo_scene(4, device=dev))),
     ):
+        tables0 = dict(tm.LAUNCHES_BY_TABLES)
         max_abs, ms, plain_ms, img, rays = mesh_check(
             f"mesh {mode} {label} {wm}x{hm} spp2 b6", packed, cam_m, mode, kwm, plain_reps=1)
         name = f"trimesh_kernel[{mode}]"
-        stats[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        stats[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                           tables=mesh_tables(f"mesh {mode} {label}", packed, tables0))
         walk = walk_counts(packed, cam_m, kwm) if mode == "grid" else None
         frames[name] = (
-            mesh_ops(packed, rays, wm, hm, 2, walk=walk),
-            nbytes(packed.faces) + (0 if packed.grid is None else nbytes(
-                packed.grid.offsets, packed.grid.face_ids, packed.grid.globals_idx)),
+            mesh_ops(packed, rays, wm, hm, 2, walk=walk), nbytes(packed.faces, packed.tables),
             wm, hm, "" if walk is None else f"; walk {walk}",
         )
         if mode == "brute":
@@ -1302,10 +1327,12 @@ def main() -> None:
         ("grid", "mesh_night_scene()", tm.pack_mesh(mesh_night_scene(device=dev)),
          mesh_cam((0, 1.8, 2.4), wn, hn)),
     ):
+        tables0 = dict(tm.LAUNCHES_BY_TABLES)
         max_abs, ms, plain_ms, img, rays = mesh_check(
             f"mesh {mode}-nee {label} {wn}x{hn} spp2 b{bn}", packed, cam, mode, kwmn, plain_reps=1)
         name = f"trimesh_kernel[{mode}-nee]"
-        stats[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        stats[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                           tables=mesh_tables(f"mesh {mode}-nee {label}", packed, tables0))
         counts = {}
         tm.render_image_mesh_plain(packed, cam, counts=counts, **kwmn)
         c = {k: int(counts[k]) for k in ("nee_vertices", "shadow_rays", "shadow_clear",
@@ -1320,11 +1347,32 @@ def main() -> None:
             mesh_ops(packed, rays, wn, hn, 2, "black", walk) + nee_ops(
                 c, 1 + OPS["tri_weight"], clear, OPS["mt_test"],
                 OPS["tri_partner"] + n_lamps * OPS["tri_lamp_match"], OPS["tri_sample"]),
-            nbytes(packed.faces, packed.lamps) + (0 if packed.grid is None else nbytes(
-                packed.grid.offsets, packed.grid.face_ids, packed.grid.globals_idx)),
-            wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach a lamp)"
+            nbytes(packed.faces, packed.tables, packed.lamps), wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach a lamp)"
             + ("" if walk is None else f"; walk {walk}"),
         )
+    # the mesh kernel's two table paths at the grid-nee frame: the tables staged in
+    # shared memory (the size rule's choice for meshnight) and read from global memory
+    packed = tm.pack_mesh(mesh_night_scene(device=dev))
+    args = (packed, mk.pack_camera(mesh_cam((0, 1.8, 2.4), wn, hn)).contiguous(), wn, hn, 2, bn,
+            0, 0, False, "black", True)
+    (img_s, rays_s), ms_s = timed(functools.partial(tm._launch, *args), reps=5)
+    (img_g, rays_g), ms_g = timed(functools.partial(tm._launch, *args, force_global=True), reps=5)
+    same = torch.equal(img_s, img_g) and int(rays_s) == int(rays_g)
+    print(f"[chip_smoke] mesh grid-nee meshnight {wn}x{hn} spp2 b{bn}: tables in shared memory "
+          f"{ms_s:.3f} ms, in global memory {ms_g:.3f} ms; images {'equal' if same else 'DIFFER'} "
+          f"bit for bit ({card})", flush=True)
+    if not same:
+        fail("the mesh kernel's shared-memory and global-memory tables give other images")
+    # ROADMAP C-7: config 7's launch on the grid-nee build as shipped, in a child process
+    # under a time limit, three times; each must trace the segments every other build does
+    t_c7 = time.perf_counter()
+    counts7 = shadow_walk_probe.config7_counts(repeats=3, timeout=120.0)
+    print(f"[chip_smoke] C-7 probe: config 7's launch (96x54, 1,024 spp at offset 6,144) traced "
+          f"{counts7} segments, expected {shadow_walk_probe.CONFIG7_SEGMENTS} three times "
+          f"({time.perf_counter() - t_c7:.1f} s)", flush=True)
+    if counts7 != [shadow_walk_probe.CONFIG7_SEGMENTS] * 3:
+        fail("C-7: the grid-nee kernel did not trace config 7's launch right three times")
+
     # the 80-lamp scene of tests/test_nee.py (an emissive icosphere) in grid-nee
     lamps80 = concat_meshes(
         icosphere((-0.9, 0.7, -3.0), 0.7, Material.lambertian((0.6, 0.3, 0.3)), 2, dev),
@@ -1420,8 +1468,9 @@ def main() -> None:
         mod.LAUNCHES = 0
         for k in mod.LAUNCHES_BY_MODE:
             mod.LAUNCHES_BY_MODE[k] = 0
-    for k in mk.LAUNCHES_BY_TABLES:
-        mk.LAUNCHES_BY_TABLES[k] = 0
+    for tables in (mk.LAUNCHES_BY_TABLES, tm.LAUNCHES_BY_TABLES):
+        for k in tables:
+            tables[k] = 0
     t0 = time.perf_counter()
     result, img = bench.run_bench(quick=False, frames=3, device="cuda")
     result5, img5 = bench.run_bench(scene="deepcsg", quick=False, frames=3, device="cuda")
@@ -1528,9 +1577,12 @@ def main() -> None:
     counts.update({f"tape_kernel[{m}]": n for m, n in tk.LAUNCHES_BY_MODE.items()})
     counts.update({f"trimesh_kernel[{m}]": n for m, n in tm.LAUNCHES_BY_MODE.items()})
     print(f"[chip_smoke] main path took {time.perf_counter() - t0:.1f} s; launches {counts}; "
-          f"sphere kernel tables {mk.LAUNCHES_BY_TABLES}", flush=True)
+          f"sphere kernel tables {mk.LAUNCHES_BY_TABLES}; mesh kernel tables "
+          f"{tm.LAUNCHES_BY_TABLES}", flush=True)
     if mk.LAUNCHES_BY_TABLES["shared"] == 0:
         fail("no sphere launch of the main path staged its tables in shared memory")
+    if not all(tm.LAUNCHES_BY_TABLES.values()):  # meshnight stages, the bench mesh cannot
+        fail(f"the mesh launches of the main path read their tables from {tm.LAUNCHES_BY_TABLES}")
     benches = {"rtiow": (result, img), "deepcsg": (result5, img5), **nee_benches}
     for name, (res, image) in benches.items():
         print(json.dumps(res), flush=True)

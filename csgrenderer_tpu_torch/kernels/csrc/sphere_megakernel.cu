@@ -65,13 +65,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "path_common.cuh"
+#include "persistent.cuh"
 
-// A CTA's dynamic shared memory: the [S, 8] f32 geometry table, then the
-// [cx*cz, 8] int32 cell lists (kShared instantiations only).
-extern __shared__ __align__(16) unsigned char smem_tables[];
+// The CTA's dynamic shared memory (smem_tables, persistent.cuh) holds the
+// [S, 8] f32 geometry table, then the [cx*cz, 8] int32 cell lists (kShared
+// instantiations only).
 
 namespace {
 
@@ -84,8 +83,6 @@ constexpr float kTFar = 1e9f;   // farthest valid hit
 constexpr int kSlots = 8;  // cell list slots (worklist.M_SLOTS): two int4 per cell
 constexpr int kThreads = 128;             // a CTA: four warps
 constexpr int kMinCtas = 8;               // per SM: at most 64 registers a thread
-constexpr int kTileW = 16, kTileH = 8;    // a tile: 16 x 8 pixels, four 16 x 2 strips
-constexpr int kStrips = kTileH / 2;       // work units per tile, one warp's strip each
 
 struct Params {
   const float* cam;      // [24]: origin, lower_left, horizontal, vertical, u, v, lens_radius
@@ -161,48 +158,6 @@ __device__ __forceinline__ int4 cell_quad(const Params& p, int q) {  // int4 q o
     return reinterpret_cast<const int4*>(smem_tables + p.geo_bytes)[q];
   } else {
     return __ldg(reinterpret_cast<const int4*>(p.cell_ids) + q);
-  }
-}
-
-// Copies the geometry and cell tables into this CTA's dynamic shared memory
-// with one bulk (TMA 1D) copy each, completing on an mbarrier that every
-// thread waits on. Sizes and global addresses are multiples of 16 (the
-// launcher checks).
-__device__ __forceinline__ void stage_tables(const Params& p) {
-  __shared__ __align__(8) uint64_t bar;
-  const uint32_t bar_addr = static_cast<uint32_t>(__cvta_generic_to_shared(&bar));
-  const bool leader = threadIdx.x == 0 && threadIdx.y == 0;
-  if (leader) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_addr) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (leader) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar_addr),
-                 "r"(p.geo_bytes + p.cell_bytes)
-                 : "memory");
-    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_tables));
-    if (p.geo_bytes > 0) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-          ::"r"(dst), "l"(p.geo), "r"(p.geo_bytes), "r"(bar_addr)
-          : "memory");
-    }
-    if (p.cell_bytes > 0) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-          ::"r"(dst + p.geo_bytes), "l"(p.cell_ids), "r"(p.cell_bytes), "r"(bar_addr)
-          : "memory");
-    }
-  }
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{ .reg .pred P; mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2; "
-        "selp.u32 %0, 1, 0, P; }"
-        : "=r"(done)
-        : "r"(bar_addr), "r"(0u)
-        : "memory");
   }
 }
 
@@ -431,62 +386,26 @@ __device__ __forceinline__ void render_pixel(const Params& p, const float* cam, 
   p.out_rays[out_pix] = rays;
 }
 
-// Persistent CTAs of four warps. A CTA stages the tables once (kShared),
-// then each warp takes work units from the launch's counter until the slab
-// is done: unit u is the 16x2 pixel strip u % 4 of the 16x8 tile u / 4
-// (tiles row-major over the slab), the strip a warp of a 16x8 block held
-// before, so lanes keep their neighbours. Taking units per warp, not per
-// CTA, keeps warps of one CTA from waiting for each other at a barrier
-// (16x8 tiles per CTA measured 6% slower on the grid frame); taking them
-// from a counter absorbs the cost gap between sky and lattice.
+// Persistent CTAs of four warps (persistent.cuh): a CTA stages the tables
+// once (kShared), then each warp takes 16x2-pixel work units from the
+// launch's counter until the slab is done (16x8 tiles per CTA measured 6%
+// slower on the grid frame).
 template <bool kGrid, bool kNee, bool kShared>
 __global__ void __launch_bounds__(kThreads, kMinCtas) sphere_megakernel(const Params p) {
-  if constexpr (kShared) stage_tables(p);
+  if constexpr (kShared) csgr::stage_tables<2>({p.geo, p.cell_ids}, {p.geo_bytes, p.cell_bytes});
   float cam[csgr::kCamFloats];
 #pragma unroll
   for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
-
-  const int lane = threadIdx.x & 31;
-  const int tiles_x = (p.width + kTileW - 1) / kTileW;
-  const int n_units = tiles_x * ((p.rows + kTileH - 1) / kTileH) * kStrips;
-  for (;;) {
-    int unit = 0;
-    if (lane == 0) unit = atomicAdd(p.work, 1);
-    unit = __shfl_sync(0xffffffffu, unit, 0);
-    if (unit >= n_units) break;
-    const int tile = unit / kStrips;
-    const int x = (tile % tiles_x) * kTileW + lane % kTileW;
-    const int row = (tile / tiles_x) * kTileH + (unit % kStrips) * 2 + lane / kTileW;  // in the slab
-    if (x < p.width && row < p.rows) render_pixel<kGrid, kNee, kShared>(p, cam, x, row);
-    __syncwarp();
-  }
+  csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
+    render_pixel<kGrid, kNee, kShared>(p, cam, x, row);
+  });
 }
 
 template <bool kGrid, bool kNee, bool kShared>
 cudaError_t launch(const Params& p, cudaStream_t st) {
-  const auto kernel = sphere_megakernel<kGrid, kNee, kShared>;
   const int smem = kShared ? p.geo_bytes + p.cell_bytes : 0;
-  if (smem > 48 * 1024) {  // above the default: opt in to the bytes this launch stages
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  }
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long units = static_cast<long long>((p.width + kTileW - 1) / kTileW) *
-                          ((p.rows + kTileH - 1) / kTileH) * kStrips;
-  const long long ctas = std::min<long long>(static_cast<long long>(sms) * per_sm,
-                                             (units + kThreads / 32 - 1) / (kThreads / 32));
-  e = cudaMemsetAsync(p.work, 0, sizeof(int), st);  // in stream order, before the launch
-  if (e != cudaSuccess) return e;
-  kernel<<<static_cast<unsigned>(ctas), kThreads, smem, st>>>(p);
-  return cudaGetLastError();
+  return csgr::launch_persistent(sphere_megakernel<kGrid, kNee, kShared>, p, kThreads, smem,
+                                 p.width, p.rows, p.work, st);
 }
 
 template <bool kShared>
@@ -501,13 +420,7 @@ cudaError_t launch_mode(const Params& p, bool grid, bool nee, cudaStream_t st) {
 // ``device``: its opt-in shared memory per block less the kernel's static
 // shared memory; a negative CUDA error code on failure.
 extern "C" int csgr_sphere_table_limit(int device) {
-  int optin = 0;
-  cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, sphere_megakernel<true, true, true>);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  return optin - static_cast<int>(attr.sharedSizeBytes);
+  return csgr::table_limit(sphere_megakernel<true, true, true>, device);
 }
 
 // shared_tables: 1 stages the geometry and cell tables in shared memory

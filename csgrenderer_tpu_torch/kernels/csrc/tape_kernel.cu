@@ -43,12 +43,13 @@
 //     the hit point by |dist - r| over the lamp table
 //     (bsdf_mis_scale_table_planes). Shadow rays are not counted as
 //     segments.
-// One thread per pixel loops over samples and bounces. The tape is data,
-// not code: the leaf table, leaf types, op tables and cluster table are
-// staged in shared memory per block and interpreted at run time, so a new
-// tape or a new clustering costs no build. Membership below and above a
-// candidate boundary is walked through the cluster's postfix ops with two
-// bit stacks (one uint64 each: stack depth <= 64).
+// A thread renders a pixel, looping over samples and bounces. The tape is
+// data, not code: the leaf table, leaf types, op tables, cluster table,
+// lamp ids and the audit's list ops are one block of tables that each CTA
+// stages in shared memory and interprets at run time, so a new tape or a
+// new clustering costs no build. Membership below and above a candidate
+// boundary is walked through the cluster's postfix ops with two bit
+// stacks (one uint64 each: stack depth <= 64).
 //
 // What bounds it on an H100: FP32 ALU work, O(sum L_c^2) for the flip
 // walks (two candidates per leaf, each a walk over the cluster's ops) and
@@ -57,10 +58,27 @@
 // skip). The audit mode adds O(k^2) per combine (every midpoint tested
 // against every slot of both operands) and keeps its list stack
 // (kMaxStack x kMaxK pairs) and event buffer in per-thread local memory:
-// it is a correctness audit, slower than event-flip mode by design. This
-// first version keeps each ray's leaf intervals in a per-thread array
-// (local memory, cap kMaxLeaves), attributes over all leaves even when
-// clustered, and does no ray regeneration or compaction.
+// it is a correctness audit, slower than event-flip mode by design. What
+// the design does:
+//   - persistent CTAs (persistent.cuh): a CTA stages the tables once (one
+//     bulk TMA copy on an mbarrier; deepcsg's whole block is 736 bytes),
+//     then each warp takes 16x2-pixel work units from a per-launch
+//     counter, where a one-thread-per-pixel grid staged them in every
+//     16x8 block (16,200 times a 1080p frame) behind a barrier;
+//   - a register budget per mode (kFlipMinCtas ...): persistent, the
+//     kernels took twice the registers the block-per-tile kernel did, and
+//     an SM held five CTAs where it held twelve;
+//   - the NEE kernels run the flip search's loops rolled (they hold two
+//     searches, the path's and the shadow ray's); the event flip runs them
+//     as the compiler unrolls them;
+//   - a ray's leaf intervals are held for one cluster at a time, in
+//     per-thread arrays of kCap slots, the launcher picking the smallest
+//     of 8, 32 and 256 that holds the tape's largest cluster (the bench
+//     tapes' clusters hold 2-9 leaves): the stack frame of the event flip
+//     is 96 bytes where one size of 256 slots made it 2,080 (measured
+//     neither faster nor slower; slots in shared memory, [slot][thread],
+//     were slower on the event flip).
+// Attribution still runs over all leaves at every hit.
 //
 // Numerics: the kernel repeats, operation for operation, the float
 // arithmetic of its plain torch version (kernels/tape_kernel.py:
@@ -77,35 +95,45 @@
 #include <stdint.h>
 
 #include "path_common.cuh"
+#include "persistent.cuh"
+
+// The CTA's dynamic shared memory (smem_tables, persistent.cuh) holds the
+// staged tables as one block: the [L, 16] f32 leaf table, then the int32
+// leaf types, cluster ops, cluster leaf ids, [C, 4] cluster table, lamp ids
+// and (audit) list ops, each at the byte offset the packer gave it.
 
 namespace {
 
-constexpr int kMaxLeaves = 256;  // per-thread interval arrays
+constexpr int kMaxLeaves = 256;  // leaves of a tape: the largest interval-array cap
 constexpr int kMaxStack = 64;    // bits of one membership stack; lists on the audit stack
 constexpr int kMaxK = 16;        // audit mode: slots of one interval list (the tape's k)
 constexpr int kLeafRow = 16;     // rot(4) pos(3) params(4) kind param albedo(3)
 constexpr float kTFar = 1e9f;    // "no boundary"
 constexpr float kCut = 5e8f;     // boundaries at or past this are not surfaces
 constexpr float kEps = 1e-3f;    // hit epsilon along t
+constexpr int kThreads = 128;    // a CTA: four warps
+// CTAs per SM the register budget allows, per mode (measured, PERF.md):
+// the event flip 80 registers, with NEE 64, the audit 64, the audit with
+// NEE 64.
+constexpr int kFlipMinCtas = 6, kFlipNeeMinCtas = 8, kAuditMinCtas = 8, kAuditNeeMinCtas = 8;
+
+template <bool kNee, bool kLists>
+constexpr int kMinCtas = kLists ? (kNee ? kAuditNeeMinCtas : kAuditMinCtas)
+                                : (kNee ? kFlipNeeMinCtas : kFlipMinCtas);
 
 enum LeafType { kSphere = 0, kPlane = 1, kBox = 2, kCylinder = 3 };
 enum OpCode { kPush = 0, kUnion = 1, kIntersect = 2, kDiff = 3 };
 
 struct Params {
   const float* cam;        // [24]
-  const float* leaves;     // [L, 16] f32, the JAX leaf-table layout
-  const int* leaf_types;   // [L]
-  int n_leaves;
-  const int* ops;          // [n_ops]: opcode | (cluster-local leaf slot << 2)
-  int n_ops;
-  const int* clusters;     // [C, 4]: op offset, op count, leaf offset, leaf count
-  int n_clusters;
-  const int* leaf_ids;     // [n_ids]: each cluster's leaves, in slot order
-  int n_ids;
-  const int* lamp_ids;     // [n_lamps]: the emissive sphere leaves (NEE)
-  int n_lamps;
-  const int* list_ops;     // audit mode: [n_list_ops] the whole tape, opcode | (leaf << 2)
-  int n_list_ops;
+  const unsigned char* tables;  // the staged block in global memory (layout above)
+  int table_bytes;
+  int type_at, ops_at, ids_at, cl_at, lamp_at, list_at;  // byte offsets in the tables
+  int n_leaves;            // leaf table [L, 16] f32, the JAX leaf-table layout; types [L]
+  int n_ops;               // cluster ops [n_ops]: opcode | (cluster-local leaf slot << 2)
+  int n_clusters;          // [C, 4]: op offset, op count, leaf offset, leaf count
+  int n_lamps;             // lamp ids [n_lamps]: the emissive sphere leaves (NEE)
+  int n_list_ops;          // audit mode: [n_list_ops] the whole tape, opcode | (leaf << 2)
   int k;                   // audit mode: the tape's interval-list capacity
   int width, height, spp, max_bounces;
   int rows, row_offset;  // the slab rendered: rows [row_offset, row_offset + rows)
@@ -114,6 +142,7 @@ struct Params {
   float* out_rgb;          // [rows, W, 3]
   int* out_rays;           // [rows, W]
   int* out_over;           // audit mode: [rows, W] dropped spans over the pixel's segments
+  int* work;               // the work-unit counter, zeroed before each launch
 };
 
 // v rotated by unit quaternion q: v + w t + u x t, t = 2 u x v
@@ -322,16 +351,81 @@ struct Tables {
   const int* ops;
   const int* ids;
   const int* cl;
+  const int* lamp;      // NEE
   const int* list_ops;  // audit mode
 };
+
+__device__ __forceinline__ Tables staged_tables(const Params& p) {
+  const unsigned char* b = smem_tables;
+  return Tables{reinterpret_cast<const float*>(b), reinterpret_cast<const int*>(b + p.type_at),
+                reinterpret_cast<const int*>(b + p.ops_at),
+                reinterpret_cast<const int*>(b + p.ids_at),
+                reinterpret_cast<const int*>(b + p.cl_at),
+                reinterpret_cast<const int*>(b + p.lamp_at),
+                reinterpret_cast<const int*>(b + p.list_at)};
+}
+
+// One postfix op of a cluster, walked for membership just below and just
+// above a candidate boundary tj: two bit stacks, top at bit 0. A PUSH's
+// leaf is inside below tj iff enter < tj <= exit, above iff enter <= tj < exit.
+__device__ __forceinline__ void op_step(int code, const float* enter, const float* exit_,
+                                        float tj, uint64_t& below, uint64_t& above) {
+  const int opc = code & 3;
+  if (opc == kPush) {
+    const float e = enter[code >> 2], xt = exit_[code >> 2];
+    below = (below << 1) | static_cast<uint64_t>(e < tj && xt >= tj);
+    above = (above << 1) | static_cast<uint64_t>(e <= tj && xt > tj);
+  } else {
+    const uint64_t rb = below & 1ull, ra = above & 1ull;
+    below >>= 1;
+    above >>= 1;
+    const uint64_t lb = below & 1ull, la = above & 1ull;
+    uint64_t vb, va;
+    if (opc == kUnion) {
+      vb = lb | rb; va = la | ra;
+    } else if (opc == kIntersect) {
+      vb = lb & rb; va = la & ra;
+    } else {  // kDiff
+      vb = lb & (rb ^ 1ull); va = la & (ra ^ 1ull);
+    }
+    below = (below & ~1ull) | vb;
+    above = (above & ~1ull) | va;
+  }
+}
+
+// Candidate boundary tj of a cluster (ops [op_off, op_off + op_n)): if the
+// root flips there and tj is nearer than t (strict <), t becomes tj and
+// `entering` the root's membership just above it; returns whether it did.
+template <bool kRolled>
+__device__ __forceinline__ bool candidate(const Tables& tb, int op_off, int op_n,
+                                          const float* enter, const float* exit_, float tj,
+                                          float& t, bool& entering) {
+  // only a flip nearer than the best so far can be taken (strict <)
+  if (!(tj > kEps && tj < kCut && tj < t)) return false;
+  uint64_t below = 0, above = 0;
+  if constexpr (kRolled) {
+#pragma unroll 1
+    for (int i = 0; i < op_n; ++i) op_step(tb.ops[op_off + i], enter, exit_, tj, below, above);
+  } else {
+    for (int i = 0; i < op_n; ++i) op_step(tb.ops[op_off + i], enter, exit_, tj, below, above);
+  }
+  if (!((below ^ above) & 1ull)) return false;
+  t = tj;
+  entering = (above & 1ull) != 0;
+  return true;
+}
 
 // The nearest flip of the root's membership along (o, d), cluster by
 // cluster: the smallest candidate boundary tj with kEps < tj < kCut and
 // tj < t (t comes in as the bound: kTFar for a path ray), and `entering`,
 // the root's membership just above it. kAnyHit returns at the first flip
 // below the bound (a shadow ray needs no nearest one, nor attribution).
-// enter / exit_ are the caller's per-thread interval arrays.
-template <bool kAnyHit>
+// enter / exit_ are the caller's per-thread interval arrays. kRolled runs
+// the loops rolled, as the NEE kernels do (they hold two searches, the
+// path's and the shadow ray's; unrolled they ran 26-28% slower), else as
+// the compiler unrolls them (rolled, the event flip's deepcsg frame ran
+// 3-8% slower; unrolled four times, 10-15%).
+template <bool kAnyHit, bool kRolled>
 __device__ __forceinline__ float nearest_flip(const Params& p, const Tables& tb, float ox,
                                               float oy, float oz, float dx, float dy, float dz,
                                               float t, bool& entering, float* enter,
@@ -339,44 +433,26 @@ __device__ __forceinline__ float nearest_flip(const Params& p, const Tables& tb,
   for (int c = 0; c < p.n_clusters; ++c) {
     const int op_off = tb.cl[4 * c], op_n = tb.cl[4 * c + 1];
     const int id_off = tb.cl[4 * c + 2], id_n = tb.cl[4 * c + 3];
-    for (int j = 0; j < id_n; ++j) {
+    const auto interval = [&](int j) {
       const int leaf = tb.ids[id_off + j];
       leaf_interval(tb.leaf + kLeafRow * leaf, tb.type[leaf], ox, oy, oz, dx, dy, dz, enter[j],
                     exit_[j]);
-    }
-    for (int cand = 0; cand < 2 * id_n; ++cand) {
+    };
+    const auto flip = [&](int cand) {
       const float tj = (cand & 1) ? exit_[cand >> 1] : enter[cand >> 1];
-      // only a flip nearer than the best so far can be taken (strict <)
-      if (!(tj > kEps && tj < kCut && tj < t)) continue;
-      uint64_t below = 0, above = 0;  // membership stacks, top at bit 0
-      for (int i = 0; i < op_n; ++i) {
-        const int code = tb.ops[op_off + i];
-        const int opc = code & 3;
-        if (opc == kPush) {
-          const float e = enter[code >> 2], xt = exit_[code >> 2];
-          below = (below << 1) | static_cast<uint64_t>(e < tj && xt >= tj);
-          above = (above << 1) | static_cast<uint64_t>(e <= tj && xt > tj);
-        } else {
-          const uint64_t rb = below & 1ull, ra = above & 1ull;
-          below >>= 1;
-          above >>= 1;
-          const uint64_t lb = below & 1ull, la = above & 1ull;
-          uint64_t vb, va;
-          if (opc == kUnion) {
-            vb = lb | rb; va = la | ra;
-          } else if (opc == kIntersect) {
-            vb = lb & rb; va = la & ra;
-          } else {  // kDiff
-            vb = lb & (rb ^ 1ull); va = la & (ra ^ 1ull);
-          }
-          below = (below & ~1ull) | vb;
-          above = (above & ~1ull) | va;
-        }
+      return candidate<kRolled>(tb, op_off, op_n, enter, exit_, tj, t, entering);
+    };
+    if constexpr (kRolled) {
+#pragma unroll 1
+      for (int j = 0; j < id_n; ++j) interval(j);
+#pragma unroll 1
+      for (int cand = 0; cand < 2 * id_n; ++cand) {
+        if (flip(cand) && kAnyHit) return t;
       }
-      if ((below ^ above) & 1ull) {
-        t = tj;
-        entering = (above & 1ull) != 0;
-        if (kAnyHit) return t;
+    } else {
+      for (int j = 0; j < id_n; ++j) interval(j);
+      for (int cand = 0; cand < 2 * id_n; ++cand) {
+        if (flip(cand) && kAnyHit) return t;
       }
     }
   }
@@ -433,44 +509,20 @@ __device__ float list_hit(const Params& p, const Tables& tb, float ox, float oy,
   return fminf(t_enter, t_exit);
 }
 
-template <bool kNee, bool kLists>
-__global__ void __launch_bounds__(128) tape_kernel(const Params p) {
-  extern __shared__ float smem[];
-  float* s_leaf = smem;
-  int* s_type = reinterpret_cast<int*>(s_leaf + p.n_leaves * kLeafRow);
-  int* s_ops = s_type + p.n_leaves;
-  int* s_ids = s_ops + p.n_ops;
-  int* s_cl = s_ids + p.n_ids;
-  int* s_lamp = s_cl + 4 * p.n_clusters;
-  int* s_list = s_lamp + p.n_lamps;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int n_threads = blockDim.x * blockDim.y;
-  for (int i = tid; i < p.n_leaves * kLeafRow; i += n_threads) s_leaf[i] = p.leaves[i];
-  for (int i = tid; i < p.n_leaves; i += n_threads) s_type[i] = p.leaf_types[i];
-  for (int i = tid; i < p.n_ops; i += n_threads) s_ops[i] = p.ops[i];
-  for (int i = tid; i < p.n_ids; i += n_threads) s_ids[i] = p.leaf_ids[i];
-  for (int i = tid; i < 4 * p.n_clusters; i += n_threads) s_cl[i] = p.clusters[i];
-  if (kNee) {
-    for (int i = tid; i < p.n_lamps; i += n_threads) s_lamp[i] = p.lamp_ids[i];
-  }
-  if (kLists) {
-    for (int i = tid; i < p.n_list_ops; i += n_threads) s_list[i] = p.list_ops[i];
-  }
-  __syncthreads();
-  const Tables tb{s_leaf, s_type, s_ops, s_ids, s_cl, s_list};
-
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the slab
-  if (x >= p.width || row >= p.rows) return;
+// One pixel's spp paths, one after another, each up to max_bounces
+// segments; the radiance is summed in sample order. kCap: slots of the
+// per-thread interval arrays (at least the largest cluster's leaves).
+template <bool kNee, bool kLists, int kCap>
+__device__ __forceinline__ void render_pixel(const Params& p, const Tables& tb, const float* cam,
+                                             int x, int row) {
+  const float* s_leaf = tb.leaf;
+  const int* s_type = tb.type;
+  const int* s_lamp = tb.lamp;
   const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
   const size_t out_pix = static_cast<size_t>(row) * p.width + x;
 
-  float cam[csgr::kCamFloats];
-#pragma unroll
-  for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
-
-  float enter[kMaxLeaves], exit_[kMaxLeaves];  // one cluster's leaves, by slot
+  float enter[kCap], exit_[kCap];  // one cluster's leaves, by slot
   csgr::Path path;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   int rays = 0, over = 0;
@@ -491,7 +543,8 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
         t = list_hit(p, tb, ox, oy, oz, dx, dy, dz, entering, dropped);
         over += dropped;
       } else {
-        t = nearest_flip<false>(p, tb, ox, oy, oz, dx, dy, dz, kTFar, entering, enter, exit_);
+        t = nearest_flip<false, kNee>(p, tb, ox, oy, oz, dx, dy, dz, kTFar, entering, enter,
+                                      exit_);
       }
 
       const float inv_len = csgr::inv_length(path);
@@ -562,8 +615,8 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
                              p.n_lamps, u1, u2, ls)) {
           const float t_max = ls.tl * csgr::kShadowScale;
           bool unused;
-          if (!(nearest_flip<true>(p, tb, hx, hy, hz, ls.dx, ls.dy, ls.dz, t_max, unused, enter,
-                                   exit_) < t_max)) {
+          if (!(nearest_flip<true, kNee>(p, tb, hx, hy, hz, ls.dx, ls.dy, ls.dz, t_max, unused,
+                                         enter, exit_) < t_max)) {
             path.sr += path.tr * ls.wr;
             path.sg += path.tg * ls.wg;
             path.sb += path.tb * ls.wb;
@@ -590,18 +643,33 @@ __global__ void __launch_bounds__(128) tape_kernel(const Params p) {
   if (kLists) p.out_over[out_pix] = over;
 }
 
+// Persistent CTAs (persistent.cuh): a CTA stages the tables once, then each
+// warp takes 16x2-pixel work units from the launch's counter.
+template <bool kNee, bool kLists, int kCap>
+__global__ void __launch_bounds__(kThreads, (kMinCtas<kNee, kLists>)) tape_kernel(const Params p) {
+  csgr::stage_tables<1>({p.tables}, {p.table_bytes});
+  const Tables tb = staged_tables(p);
+  float cam[csgr::kCamFloats];
+#pragma unroll
+  for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
+  csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
+    render_pixel<kNee, kLists, kCap>(p, tb, cam, x, row);
+  });
+}
+
+template <bool kNee, bool kLists, int kCap>
+cudaError_t launch(const Params& p, cudaStream_t st) {
+  return csgr::launch_persistent(tape_kernel<kNee, kLists, kCap>, p, kThreads, p.table_bytes,
+                                 p.width, p.rows, p.work, st);
+}
+
+// The audit without NEE holds no cluster intervals: one small cap serves.
 template <bool kNee, bool kLists>
-cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(tape_kernel<kNee, kLists>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 block(16, 8);
-  const dim3 grid((p.width + block.x - 1) / block.x, (p.rows + block.y - 1) / block.y);
-  tape_kernel<kNee, kLists><<<grid, block, smem, stream>>>(p);
-  return cudaGetLastError();
+cudaError_t launch_cap(const Params& p, int cap, cudaStream_t st) {
+  if (kLists && !kNee) return launch<kNee, kLists, 8>(p, st);
+  if (cap == 8) return launch<kNee, kLists, 8>(p, st);
+  if (cap == 32) return launch<kNee, kLists, 32>(p, st);
+  return launch<kNee, kLists, kMaxLeaves>(p, st);
 }
 
 }  // namespace
@@ -612,34 +680,40 @@ extern "C" int csgr_tape_max_stack() { return kMaxStack; }
 
 extern "C" int csgr_tape_max_k() { return kMaxK; }
 
+// tables: the leaf table [L, 16] f32, then int32 leaf types, cluster ops,
+// cluster leaf ids, the [C, 4] cluster table, lamp ids and (audit) list
+// ops at byte offsets type_at ... list_at; table_bytes long, 16-byte
+// aligned, a multiple of 16. cap: the interval arrays' slots (8, 32 or
+// 256), at least the largest cluster's leaves. list_at non-negative: the
+// audit mode, which writes out_over. out_rays holds rows x width int32
+// segment counts and one int32 more: the launch's work counter.
 extern "C" int csgr_tape_render(
-    const void* cam, const void* leaves, const void* leaf_types, int n_leaves, const void* ops,
-    int n_ops, const void* clusters, int n_clusters, const void* leaf_ids, int n_ids,
-    const void* lamp_ids, int n_lamps, const void* list_ops, int n_list_ops, int k, int width,
-    int height, int rows, int row_offset, int spp, int max_bounces, unsigned int seed,
-    unsigned int sample_offset, int lens, int sky, void* out_rgb, void* out_rays, void* out_over,
-    void* stream) {
-  // list_ops given: the audit mode, which writes out_over
-  const bool lists = list_ops != nullptr;
+    const void* cam, const void* tables, int table_bytes, int type_at, int ops_at, int ids_at,
+    int cl_at, int lamp_at, int list_at, int n_leaves, int n_ops, int n_clusters, int n_lamps,
+    int n_list_ops, int k, int cap, int width, int height, int rows, int row_offset, int spp,
+    int max_bounces, unsigned int seed, unsigned int sample_offset, int lens, int sky,
+    void* out_rgb, void* out_rays, void* out_over, void* stream) {
+  const bool lists = list_at >= 0;
   if (n_leaves < 1 || n_leaves > kMaxLeaves || n_clusters < 1 ||
+      (cap != 8 && cap != 32 && cap != kMaxLeaves) ||
       (lists && (k < 1 || k > kMaxK || n_list_ops < 1 || out_over == nullptr)) ||
-      rows < 1 || row_offset < 0 || row_offset + rows > height) {
+      rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
+      table_bytes % 16 != 0 || table_bytes < n_leaves * kLeafRow * 4) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (reinterpret_cast<uintptr_t>(tables) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);  // the bulk copy
   }
   Params p;
   p.cam = static_cast<const float*>(cam);
-  p.leaves = static_cast<const float*>(leaves);
-  p.leaf_types = static_cast<const int*>(leaf_types);
+  p.tables = static_cast<const unsigned char*>(tables);
+  p.table_bytes = table_bytes;
+  p.type_at = type_at; p.ops_at = ops_at; p.ids_at = ids_at; p.cl_at = cl_at;
+  p.lamp_at = lamp_at; p.list_at = list_at;
   p.n_leaves = n_leaves;
-  p.ops = static_cast<const int*>(ops);
   p.n_ops = n_ops;
-  p.clusters = static_cast<const int*>(clusters);
   p.n_clusters = n_clusters;
-  p.leaf_ids = static_cast<const int*>(leaf_ids);
-  p.n_ids = n_ids;
-  p.lamp_ids = static_cast<const int*>(lamp_ids);
   p.n_lamps = n_lamps;
-  p.list_ops = static_cast<const int*>(list_ops);
   p.n_list_ops = lists ? n_list_ops : 0;
   p.k = k;
   p.width = width; p.height = height; p.spp = spp; p.max_bounces = max_bounces;
@@ -649,16 +723,14 @@ extern "C" int csgr_tape_render(
   p.out_rgb = static_cast<float*>(out_rgb);
   p.out_rays = static_cast<int*>(out_rays);
   p.out_over = static_cast<int*>(out_over);
+  p.work = p.out_rays + static_cast<size_t>(rows) * width;
 
-  const size_t smem = sizeof(float) * (static_cast<size_t>(n_leaves) * kLeafRow + n_leaves +
-                                       n_ops + n_ids + 4 * static_cast<size_t>(n_clusters) +
-                                       n_lamps + p.n_list_ops);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (n_lamps > 0) {
-    err = lists ? launch<true, true>(p, smem, st) : launch<true, false>(p, smem, st);
+    err = lists ? launch_cap<true, true>(p, cap, st) : launch_cap<true, false>(p, cap, st);
   } else {
-    err = lists ? launch<false, true>(p, smem, st) : launch<false, false>(p, smem, st);
+    err = lists ? launch_cap<false, true>(p, cap, st) : launch_cap<false, false>(p, cap, st);
   }
   return static_cast<int>(err);
 }

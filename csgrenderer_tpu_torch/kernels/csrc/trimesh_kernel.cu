@@ -18,10 +18,10 @@
 // It computes what the TPU kernel computes (RTIOW materials, PCG4D counters
 // keyed by (pixel, sample, bounce, seed), per-pixel radiance over spp,
 // traced-segment counts; shadow rays are not counted), not its block
-// structure: one thread per pixel, looping over samples and bounces. The
-// TPU's one-hot MXU gathers, bf16 hi/lo tables with cell-relative v0,
+// structure: a thread renders a pixel, looping over samples and bounces.
+// The TPU's one-hot MXU gathers, bf16 hi/lo tables with cell-relative v0,
 // occupancy tiers, paged dense map and chunk chains are not here: a thread
-// loads a face record by its id.
+// loads a face's record by its id.
 //
 // Shadow rays are any-hit tests with the plain version's identity-free
 // rule: the lamp is occluded iff some face is hit below tl * (1 - 1e-4).
@@ -31,10 +31,26 @@
 //
 // What bounds it on an H100: divergent FP32 ALU work (an MT test is 52
 // operations, and threads of a warp take different walks, materials
-// and bounce counts) and the dependent global loads of each DDA step (the
-// voxel's offsets, then each listed face's 48 bytes). This first version
-// does nothing yet about either: no ray compaction, no shared-memory
-// staging, no wider-than-a-thread traversal.
+// and bounce counts) and the dependent loads of each DDA step (the voxel's
+// offsets, then each listed face's id and record). What the design does:
+//   - the MT table ([F, 3] float4: v0, e1, e2, the 48 bytes a test reads,
+//     16-byte aligned) is apart from the shading record (normal, material,
+//     albedo: read once per hit), so a test's three loads stay in one
+//     record and the tables are small enough to stage;
+//   - the tables a walk reads (MT table, CSR offsets, face ids, globals;
+//     65 KB for the 966-face meshnight scene) are staged once per CTA in
+//     shared memory by one bulk (TMA 1D) copy on an mbarrier whenever they
+//     fit a block's opt-in shared memory; larger meshes (the 15,362-face
+//     bench mesh: 1.6 MB) run the same code reading them from global
+//     memory and L2 (kShared = false): the launcher chooses by size;
+//   - persistent CTAs (persistent.cuh) take 16x2-pixel work units per warp
+//     from a per-launch counter, so the tables are staged once per CTA and
+//     the tail of a frame is balanced. CTAs that stage are larger (kStagedThreads),
+//     so the SM's shared memory holds fewer copies of the tables while its
+//     warps stay resident;
+//   - the walk keeps its per-axis state (voxel, next crossing, step) in
+//     scalars, not in arrays indexed by the axis it advances, so nothing of
+//     it lives in the local-memory stack frame.
 //
 // Numerics: the kernel repeats, operation for operation and in the same
 // order, the float arithmetic of its plain torch version
@@ -49,6 +65,12 @@
 #include <stdint.h>
 
 #include "path_common.cuh"
+#include "persistent.cuh"
+
+// The CTA's dynamic shared memory (smem_tables, persistent.cuh) holds the
+// staged tables as one block: the [F, 3] float4 MT table, then (grid mode)
+// the CSR offsets, the face ids and the globals, each at the byte offset
+// the packer gave it (kShared instantiations only).
 
 namespace {
 
@@ -57,17 +79,36 @@ constexpr float kHitCut = 5e29f;   // a nearest t below this is a hit
 constexpr float kBig = 1e30f;      // the walk's infinity
 constexpr float kEpsFlat = 1e-12f;
 constexpr float kTMin = 1e-3f;     // hit epsilon along t
-constexpr int kFaceF4 = 5;         // float4 per face record
+constexpr int kFaceF4 = 5;         // float4 per shading record
+constexpr int kMtF4 = 3;           // float4 per MT record
+
+// CTA size and register budget (measured, PERF.md): CTAs that read global
+// memory are four warps, eight per SM (at most 64 registers a thread);
+// CTAs that stage the tables are sixteen warps, two per SM (64 registers;
+// 128-thread CTAs, three per SM under 65 KB of tables, ran the meshnight
+// grid-NEE frame 17% slower). The NEE kernels, which hold a path and a
+// shadow ray, are sixteen warps with no register budget: at 64 registers
+// the grid-NEE kernel spilled 352 bytes a thread and ran that frame 18%
+// slower.
+constexpr int kGlobalThreads = 128, kGlobalMinCtas = 8;
+constexpr int kStagedThreads = 512, kStagedMinCtas = 2;
+constexpr int kNeeThreads = 512, kNeeMinCtas = 1;
+
+template <bool kShared, bool kNee>
+constexpr int kThreads = kNee ? kNeeThreads : kShared ? kStagedThreads : kGlobalThreads;
+template <bool kShared, bool kNee>
+constexpr int kMinCtas = kNee ? kNeeMinCtas : kShared ? kStagedMinCtas : kGlobalMinCtas;
 
 struct Params {
   const float* cam;       // [24]: origin, lower_left, horizontal, vertical, u, v, lens_radius
-  const float4* faces;    // [F, 5] float4: (v0, e1x) (e1yz, e2xy) (e2z, n)
+  const float4* faces;    // [F, 5] float4 shading records: (v0, e1x) (e1yz, e2xy) (e2z, n)
                           // (kind, param, ar, ag) (ab, 0, 0, 0)
+  const unsigned char* tables;  // the staged block in global memory (layout above)
+  int table_bytes;
   int n_faces;
-  const int* glob_ids;    // [G] globals (grid mode)
-  int n_glob;
-  const int* offsets;     // [V + 1] CSR offsets, voxel (ix * ny + iy) * nz + iz; null: brute mode
-  const int* face_ids;    // [P] face ids, ascending within a voxel
+  int n_glob, glob_at;    // globals (grid mode): count, byte offset in the tables
+  int off_at, ids_at;     // CSR offsets [V + 1] (voxel (ix * ny + iy) * nz + iz) and face
+                          // ids [P] (ascending within a voxel): byte offsets in the tables
   int nx, ny, nz;
   float lo[3], hi[3], cell, inv_cell;
   const float4* lamps;    // [n_lamps, 4] float4: (v0, e1x) (e1yz, e2xy) (e2z, emit) (n, area)
@@ -78,17 +119,30 @@ struct Params {
   int lens, sky;          // sky: 0 rtiow, 1 wololo, 2 black
   float* out_rgb;         // [rows, W, 3]
   int* out_rays;          // [rows, W]
+  int* work;              // the work-unit counter, zeroed before each launch
 };
 
 struct Ray {
   float o[3], d[3];
 };
 
-// MT t of face id, kMiss where not hit (render/trimesh.mt_t).
-__device__ __forceinline__ float tri_t(const Params& p, const Ray& r, int id) {
-  const float4 a = __ldg(p.faces + kFaceF4 * id);
-  const float4 b = __ldg(p.faces + kFaceF4 * id + 1);
-  const float4 c = __ldg(p.faces + kFaceF4 * id + 2);
+// The tables, read from shared memory (kShared: staged once per CTA) or
+// from global memory (tables too large for a CTA's shared memory).
+template <bool kShared>
+__device__ __forceinline__ float4 mt_load(const Params& p, int i) {  // float4 i of the MT table
+  if constexpr (kShared) return reinterpret_cast<const float4*>(smem_tables)[i];
+  else return __ldg(reinterpret_cast<const float4*>(p.tables) + i);
+}
+
+template <bool kShared>
+__device__ __forceinline__ int int_load(const Params& p, int at, int i) {  // int i at byte at
+  if constexpr (kShared) return reinterpret_cast<const int*>(smem_tables + at)[i];
+  else return __ldg(reinterpret_cast<const int*>(p.tables + at) + i);
+}
+
+// MT t of the face whose record is (a, b, c), kMiss where not hit
+// (render/trimesh.mt_t).
+__device__ __forceinline__ float tri_t(const Ray& r, float4 a, float4 b, float4 c) {
   const float e1x = a.w, e1y = b.x, e1z = b.y, e2x = b.z, e2y = b.w, e2z = c.x;
   const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
   const float pvx = dy * e2z - dz * e2y;
@@ -107,10 +161,34 @@ __device__ __forceinline__ float tri_t(const Params& p, const Ray& r, int id) {
   return (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin) ? t : kMiss;
 }
 
+template <bool kShared>
+__device__ __forceinline__ float face_t(const Params& p, const Ray& r, int id) {
+  return tri_t(r, mt_load<kShared>(p, kMtF4 * id), mt_load<kShared>(p, kMtF4 * id + 1),
+               mt_load<kShared>(p, kMtF4 * id + 2));
+}
+
+// One voxel's list [k0, k1) refines (t_best, id_best); kAny returns true at
+// the first t below t_best. Strict: the earlier voxel, then the lower list
+// slot, wins ties.
+template <bool kAny, bool kShared>
+__device__ __forceinline__ bool list_test(const Params& p, const Ray& r, int k, float& t_best,
+                                          int& id_best) {
+  const int id = int_load<kShared>(p, p.ids_at, k);
+  const float t = face_t<kShared>(p, r, id);
+  if (t < t_best) {
+    if (kAny) return true;
+    t_best = t;
+    id_best = id;
+  }
+  return false;
+}
+
 // 3D DDA over the voxel lists (tri_worklist._walk), refining (t_best,
 // id_best) found by the globals. kAny: stop at the first t below t_best
 // (a shadow ray whose t_best starts at its bound) and return true then.
-template <bool kAny>
+// kRolled runs each voxel's list as a rolled loop (the compiler unrolls it
+// otherwise).
+template <bool kAny, bool kShared, bool kRolled>
 __device__ __forceinline__ bool grid_walk(const Params& p, const Ray& r, float& t_best,
                                           int& id_best) {
   const int dims[3] = {p.nx, p.ny, p.nz};
@@ -150,92 +228,105 @@ __device__ __forceinline__ bool grid_walk(const Params& p, const Ray& r, float& 
     tmax[ax] = flat ? kBig : (next_b - o) / d;
     td[ax] = flat ? kBig : fabsf(p.cell / d);
   }
+  // the walk's state in scalars (an array indexed by the advancing axis
+  // would live in local memory)
+  int ix = idx[0], iy = idx[1], iz = idx[2];
+  float tmx = tmax[0], tmy = tmax[1], tmz = tmax[2];
 
   const int max_steps = p.nx + p.ny + p.nz;
   for (int s = 0; s < max_steps; ++s) {
-    const int vox = (idx[0] * p.ny + idx[1]) * p.nz + idx[2];
-    const int k1 = __ldg(p.offsets + vox + 1);
-    for (int k = __ldg(p.offsets + vox); k < k1; ++k) {
-      const int id = __ldg(p.face_ids + k);
-      const float t = tri_t(p, r, id);
-      if (t < t_best) {  // strict: the earlier voxel, then the lower list slot, wins ties
-        if (kAny) return true;
-        t_best = t;
-        id_best = id;
+    const int vox = (ix * p.ny + iy) * p.nz + iz;
+    const int k1 = int_load<kShared>(p, p.off_at, vox + 1);
+    const int k0 = int_load<kShared>(p, p.off_at, vox);
+    if constexpr (kRolled) {
+#pragma unroll 1
+      for (int k = k0; k < k1; ++k) {
+        if (list_test<kAny, kShared>(p, r, k, t_best, id_best)) return true;
+      }
+    } else {
+      for (int k = k0; k < k1; ++k) {
+        if (list_test<kAny, kShared>(p, r, k, t_best, id_best)) return true;
       }
     }
-    const float t_next = fminf(fminf(tmax[0], tmax[1]), tmax[2]);
-    const bool go_x = tmax[0] <= tmax[1] && tmax[0] <= tmax[2];
-    const bool go_y = !go_x && tmax[1] <= tmax[2];
-    const int ax = go_x ? 0 : (go_y ? 1 : 2);
-    idx[ax] += step[ax];
-    tmax[ax] += td[ax];
-    const bool in_grid = idx[0] >= 0 && idx[0] < p.nx && idx[1] >= 0 && idx[1] < p.ny &&
-                         idx[2] >= 0 && idx[2] < p.nz;
+    const float t_next = fminf(fminf(tmx, tmy), tmz);
+    const bool go_x = tmx <= tmy && tmx <= tmz;
+    const bool go_y = !go_x && tmy <= tmz;
+    if (go_x) {
+      ix += step[0];
+      tmx += td[0];
+    } else if (go_y) {
+      iy += step[1];
+      tmy += td[1];
+    } else {
+      iz += step[2];
+      tmz += td[2];
+    }
+    const bool in_grid = ix >= 0 && ix < p.nx && iy >= 0 && iy < p.ny && iz >= 0 && iz < p.nz;
     if (!(in_grid && t_next <= t_out && t_next < t_best)) break;
   }
   return false;
 }
 
 // The nearest hit: every face (brute), or the globals then the walk (grid).
-template <bool kGrid>
+template <bool kGrid, bool kNee, bool kShared>
 __device__ __forceinline__ void nearest(const Params& p, const Ray& r, float& t_best,
                                         int& id_best) {
   t_best = kMiss;
   id_best = 0;
   const int n = kGrid ? p.n_glob : p.n_faces;
   for (int i = 0; i < n; ++i) {
-    const int id = kGrid ? __ldg(p.glob_ids + i) : i;
-    const float t = tri_t(p, r, id);
+    const int id = kGrid ? int_load<kShared>(p, p.glob_at, i) : i;
+    const float t = face_t<kShared>(p, r, id);
     if (t < t_best) {  // strict: the lowest face id wins ties (argmin)
       t_best = t;
       id_best = id;
     }
   }
-  if (kGrid) grid_walk<false>(p, r, t_best, id_best);
+  if (kGrid) grid_walk<false, kShared, kNee>(p, r, t_best, id_best);
 }
 
-// The shadow rays' walk, kept out of line (ROADMAP C-7, open). Inlined
-// into the grid-NEE instantiation, the compiled kernel sometimes never
-// finished validate_gpu config 7's launch (96x54, 1,024 spp at sample
-// offset 6,144) and sometimes finished it with 9,331,715 segments where
-// every other build and mode trace 9,416,222, though a shadow ray cannot
-// change the segment count. A host build of this source, inlined or not,
-// under AddressSanitizer and UBSan, and with its stack filled with zeros
-// or with a pattern, traces that launch with 9,416,222 segments and the
-// same bits, so the cause is not shown in the source and is not known.
-// Out of line the launch takes 0.30 s with the right count, and
-// chip_smoke.py's grid-NEE frame takes about 10% longer than inlined.
+// The shadow rays' walk, kept out of line (ROADMAP C-7). Inlined into the
+// grid-NEE kernel as it was before its persistent-CTA redesign, the
+// compiled kernel sometimes never finished validate_gpu config 7's launch
+// (96x54, 1,024 spp at sample offset 6,144) and sometimes finished it with
+// fewer segments (9,331,715 where every other build traces 9,416,222),
+// though a shadow ray cannot change the segment count: every lane of two
+// 16x2 warps lost segments, the other warps none. A host build of that
+// source, inlined or not, under AddressSanitizer and UBSan and with its
+// stack filled with zeros or a pattern, traced the launch right. In this
+// design every build tools/shadow_walk_probe.py makes (out of line,
+// inlined, inlined at -Xptxas -O0, inlined with the walk's state in
+// axis-indexed arrays) traces it right three times out of three, and the
+// inlined walk is 1% faster on meshnight; the fault's cause is not shown,
+// so the walk stays out of line.
+template <bool kShared>
 __device__ __noinline__ bool shadow_walk(const Params& p, const Ray& r, float& t_best,
                                          int& id_best) {
-  return grid_walk<true>(p, r, t_best, id_best);
+  return grid_walk<true, kShared, true>(p, r, t_best, id_best);
 }
 
 // A shadow ray: true iff some face is hit below t_max.
-template <bool kGrid>
+template <bool kGrid, bool kShared>
 __device__ __forceinline__ bool occluded(const Params& p, const Ray& r, float t_max) {
   const int n = kGrid ? p.n_glob : p.n_faces;
   for (int i = 0; i < n; ++i) {
-    if (tri_t(p, r, kGrid ? __ldg(p.glob_ids + i) : i) < t_max) return true;
+    if (face_t<kShared>(p, r, kGrid ? int_load<kShared>(p, p.glob_at, i) : i) < t_max) {
+      return true;
+    }
   }
   if (!kGrid) return false;
   float t_best = t_max;
   int id_best = 0;
-  return shadow_walk(p, r, t_best, id_best);
+  return shadow_walk<kShared>(p, r, t_best, id_best);
 }
 
-template <bool kGrid, bool kNee>
-__global__ void __launch_bounds__(128) trimesh_kernel(const Params p) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;  // in the slab
-  if (x >= p.width || row >= p.rows) return;
+// One pixel's spp paths, one after another, each up to max_bounces
+// segments; the radiance is summed in sample order.
+template <bool kGrid, bool kNee, bool kShared>
+__device__ __forceinline__ void render_pixel(const Params& p, const float* cam, int x, int row) {
   const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
   const size_t out_pix = static_cast<size_t>(row) * p.width + x;
-
-  float cam[csgr::kCamFloats];
-#pragma unroll
-  for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
 
   csgr::Path path;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -252,7 +343,7 @@ __global__ void __launch_bounds__(128) trimesh_kernel(const Params p) {
       const Ray ray = {{ox, oy, oz}, {dx, dy, dz}};
       float t_best;
       int id_best;
-      nearest<kGrid>(p, ray, t_best, id_best);
+      nearest<kGrid, kNee, kShared>(p, ray, t_best, id_best);
 
       const float inv_len = csgr::inv_length(path);
       const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
@@ -261,7 +352,7 @@ __global__ void __launch_bounds__(128) trimesh_kernel(const Params p) {
         break;
       }
 
-      const float4* f = p.faces + kFaceF4 * id_best;
+      const float4* f = p.faces + kFaceF4 * id_best;  // the shading record, once per hit
       const float4 g2 = __ldg(f + 2), g3 = __ldg(f + 3), g4 = __ldg(f + 4);
       const float hx = ox + t_best * dx, hy = oy + t_best * dy, hz = oz + t_best * dz;
       // the geometric normal turned against the ray; front face from it
@@ -292,7 +383,7 @@ __global__ void __launch_bounds__(128) trimesh_kernel(const Params p) {
         if (csgr::nee_sample_tri(hx, hy, hz, nx, ny, nz, lambertian, param, udx, udy, udz, ar, ag,
                                  ab, p.lamps + 4 * li, p.n_lamps, u1, u2, ls)) {
           const Ray shadow = {{hx, hy, hz}, {ls.dx, ls.dy, ls.dz}};
-          if (!occluded<kGrid>(p, shadow, ls.tl * csgr::kShadowScale)) {
+          if (!occluded<kGrid, kShared>(p, shadow, ls.tl * csgr::kShadowScale)) {
             path.sr += path.tr * ls.wr;
             path.sg += path.tg * ls.wg;
             path.sb += path.tb * ls.wb;
@@ -318,26 +409,70 @@ __global__ void __launch_bounds__(128) trimesh_kernel(const Params p) {
   p.out_rays[out_pix] = rays;
 }
 
+// Persistent CTAs (persistent.cuh): a CTA stages the tables once (kShared),
+// then each warp takes 16x2-pixel work units from the launch's counter.
+template <bool kGrid, bool kNee, bool kShared>
+__global__ void __launch_bounds__(kThreads<kShared, kNee>, kMinCtas<kShared, kNee>)
+    trimesh_kernel(const Params p) {
+  if constexpr (kShared) csgr::stage_tables<1>({p.tables}, {p.table_bytes});
+  float cam[csgr::kCamFloats];
+#pragma unroll
+  for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
+  csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
+    render_pixel<kGrid, kNee, kShared>(p, cam, x, row);
+  });
+}
+
+template <bool kGrid, bool kNee, bool kShared>
+cudaError_t launch(const Params& p, cudaStream_t st) {
+  return csgr::launch_persistent(trimesh_kernel<kGrid, kNee, kShared>, p, kThreads<kShared, kNee>,
+                                 kShared ? p.table_bytes : 0, p.width, p.rows, p.work, st);
+}
+
+template <bool kShared>
+cudaError_t launch_mode(const Params& p, bool grid, bool nee, cudaStream_t st) {
+  if (grid) return nee ? launch<true, true, kShared>(p, st) : launch<true, false, kShared>(p, st);
+  return nee ? launch<false, true, kShared>(p, st) : launch<false, false, kShared>(p, st);
+}
+
 }  // namespace
 
+// The most table bytes a CTA of the mesh kernel can stage on ``device``:
+// its opt-in shared memory per block less the kernel's static shared
+// memory; a negative CUDA error code on failure.
+extern "C" int csgr_mesh_table_limit(int device) {
+  return csgr::table_limit(trimesh_kernel<true, true, true>, device);
+}
+
+// tables: the MT table [F, 3] float4, then (grid: offsets non-negative)
+// the CSR offsets, face ids and globals at byte offsets off_at, ids_at and
+// glob_at; table_bytes long, 16-byte aligned, a multiple of 16.
+// shared_tables: 1 stages them in shared memory (the caller has checked
+// that they fit csgr_mesh_table_limit), 0 reads them from global memory.
+// out_rays holds rows x width int32 segment counts and one int32 more: the
+// launch's work counter.
 extern "C" int csgr_mesh_render(
-    const void* cam, const void* faces, int n_faces, const void* glob_ids, int n_glob,
-    const void* offsets, const void* face_ids, int nx, int ny, int nz, float x0, float y0,
+    const void* cam, const void* faces, const void* tables, int table_bytes, int n_faces,
+    int n_glob, int glob_at, int off_at, int ids_at, int nx, int ny, int nz, float x0, float y0,
     float z0, float x1, float y1, float z1, float cell, float inv_cell, const void* lamps,
     int n_lamps, int width, int height, int rows, int row_offset, int spp, int max_bounces,
-    unsigned int seed, unsigned int sample_offset, int lens, int sky, void* out_rgb,
-    void* out_rays, void* stream) {
-  if (rows < 1 || row_offset < 0 || row_offset + rows > height) {
+    unsigned int seed, unsigned int sample_offset, int lens, int sky, int shared_tables,
+    void* out_rgb, void* out_rays, void* stream) {
+  if (rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
+      table_bytes % 16 != 0 || table_bytes < n_faces * kMtF4 * 16) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (reinterpret_cast<uintptr_t>(tables) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);  // the bulk copy and float4 loads
   }
   Params p;
   p.cam = static_cast<const float*>(cam);
   p.faces = static_cast<const float4*>(faces);
+  p.tables = static_cast<const unsigned char*>(tables);
+  p.table_bytes = table_bytes;
   p.n_faces = n_faces;
-  p.glob_ids = static_cast<const int*>(glob_ids);
-  p.n_glob = n_glob;
-  p.offsets = static_cast<const int*>(offsets);
-  p.face_ids = static_cast<const int*>(face_ids);
+  p.n_glob = n_glob; p.glob_at = glob_at;
+  p.off_at = off_at; p.ids_at = ids_at;
   p.nx = nx; p.ny = ny; p.nz = nz;
   p.lo[0] = x0; p.lo[1] = y0; p.lo[2] = z0;
   p.hi[0] = x1; p.hi[1] = y1; p.hi[2] = z1;
@@ -350,23 +485,13 @@ extern "C" int csgr_mesh_render(
   p.lens = lens; p.sky = sky;
   p.out_rgb = static_cast<float*>(out_rgb);
   p.out_rays = static_cast<int*>(out_rays);
+  p.work = p.out_rays + static_cast<size_t>(rows) * width;
 
-  const dim3 block(16, 8);
-  const dim3 grid((width + block.x - 1) / block.x, (rows + block.y - 1) / block.y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool nee = n_lamps > 0;
-  if (p.offsets != nullptr) {
-    if (nee) {
-      trimesh_kernel<true, true><<<grid, block, 0, st>>>(p);
-    } else {
-      trimesh_kernel<true, false><<<grid, block, 0, st>>>(p);
-    }
-  } else if (nee) {
-    trimesh_kernel<false, true><<<grid, block, 0, st>>>(p);
-  } else {
-    trimesh_kernel<false, false><<<grid, block, 0, st>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool grid = off_at >= 0, nee = n_lamps > 0;
+  const cudaError_t e = shared_tables ? launch_mode<true>(p, grid, nee, st)
+                                      : launch_mode<false>(p, grid, nee, st);
+  return static_cast<int>(e);
 }
 
 extern "C" const char* csgr_error_string(int code) {

@@ -38,8 +38,10 @@ site adds to them.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 from torch import Tensor
@@ -59,9 +61,10 @@ from .megakernel import CAM_SIZE, JITTER_ON_CPU_ONLY, pack_camera
 
 KERNEL_SOURCE = "tape_kernel"
 LEAF_ROW = 16  # rot(4) pos(3) params(4) kind param albedo(3): the JAX layout
-MAX_LEAVES = 256  # the kernel's per-thread interval arrays (csrc kMaxLeaves)
+MAX_LEAVES = 256  # leaves of a tape: the kernel's largest interval-array cap (csrc kMaxLeaves)
 MAX_STACK = 64  # the kernel's membership bit stacks and audit list stack (csrc kMaxStack)
 MAX_K = 16  # the audit mode's slots per interval list (csrc kMaxK)
+INTERVAL_CAPS = (8, 32, MAX_LEAVES)  # the kernel's interval-array sizes (csrc launch_cap)
 EPS = 1e-3  # hit epsilon along t
 # candidate-by-leaf membership elements per chunk of the plain version
 _PLAIN_CHUNK = 1 << 26
@@ -90,7 +93,11 @@ class PackedTape:
     - ``lamp_ids`` [n_lamps] int32, the emissive sphere leaves
       (``extract_tape_lights``), or None when the tape has none;
     - ``list_ops`` [len(tape.ops)] int32, the whole tape as the audit mode
-      runs it: ``opcode | leaf << 2``.
+      runs it: ``opcode | leaf << 2``;
+    - ``tables``: all of the above but the clusters' host tuple, in one
+      block the kernel stages in shared memory (``table_layout``): the leaf
+      table's f32 words, then the int32 tables, each at a 16-byte aligned
+      offset and padded to 16 bytes.
     """
 
     tape: CompiledTape
@@ -102,6 +109,7 @@ class PackedTape:
     leaf_ids: Tensor
     lamp_ids: Tensor | None
     list_ops: Tensor
+    tables: Tensor  # [table_bytes / 4] f32 (int32 words past the leaf table)
 
     @property
     def mode(self) -> str:
@@ -120,12 +128,71 @@ class PackedTape:
         rows = self.leaf_table[self.lamp_ids.long()]
         return SphereLights(rows[:, 4:7], torch.abs(rows[:, 7]), rows[:, 13:16])
 
+    @property
+    def layout(self) -> "TableLayout":
+        return table_layout(self)
+
+    @property
+    def table_bytes(self) -> int:
+        """The bytes a CTA stages in shared memory (a multiple of 16)."""
+        return self.tables.numel() * 4
+
+    @property
+    def interval_cap(self) -> int:
+        """The kernel's interval-array slots for this tape: the smallest of
+        ``INTERVAL_CAPS`` that holds its largest cluster's leaves."""
+        largest = max(len(leaves) for _, leaves in self.clusters)
+        return next(cap for cap in INTERVAL_CAPS if cap >= largest)
+
     def to(self, device) -> "PackedTape":
         lamp_ids = None if self.lamp_ids is None else self.lamp_ids.to(device)
         return PackedTape(self.tape.to(device), self.clusters, *(
             getattr(self, f).to(device)
             for f in ("leaf_table", "leaf_types", "ops", "cluster_table", "leaf_ids")
-        ), lamp_ids, self.list_ops.to(device))
+        ), lamp_ids, self.list_ops.to(device), self.tables.to(device))
+
+
+class TableLayout(NamedTuple):
+    """Byte offsets of the int32 sections of ``PackedTape.tables`` (the
+    leaf table is at 0) and the block's length."""
+
+    type_at: int
+    ops_at: int
+    ids_at: int
+    cl_at: int
+    lamp_at: int
+    list_at: int
+    nbytes: int
+
+
+def _pad16(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
+
+
+def table_layout(packed: PackedTape) -> TableLayout:
+    """Where ``PackedTape.tables`` holds what: the [L, 16] f32 leaf table
+    from byte 0, then the leaf types, cluster ops, cluster leaf ids, [C, 4]
+    cluster table, lamp ids and list ops, each padded to 16 bytes."""
+    at = [packed.leaf_table.numel() * 4]
+    for t in _int_tables(packed):
+        at.append(at[-1] + _pad16(4 * t.numel()))
+    return TableLayout(*at)
+
+
+def _int_tables(packed: PackedTape) -> tuple:
+    lamps = packed.leaf_types.new_zeros(0) if packed.lamp_ids is None else packed.lamp_ids
+    return (packed.leaf_types, packed.ops, packed.leaf_ids, packed.cluster_table.reshape(-1),
+            lamps, packed.list_ops)
+
+
+def _tables(packed: PackedTape) -> Tensor:
+    lay = table_layout(packed)
+    tab = torch.zeros(lay.nbytes // 4, dtype=torch.float32, device=packed.leaf_table.device)
+    tab[:packed.leaf_table.numel()] = packed.leaf_table.reshape(-1)
+    words = tab.view(torch.int32)
+    for at, t in zip(lay[:6], _int_tables(packed)):
+        words[at // 4:at // 4 + t.numel()] = t
+    return tab
 
 
 def _leaf_table(tape: CompiledTape) -> Tensor:
@@ -183,7 +250,7 @@ def pack_program(tape: CompiledTape, partition: bool | str | tuple = "auto") -> 
         return torch.tensor(x, dtype=torch.int32, device=dev)
 
     _, lamp_ids = extract_tape_lights(tape, return_ids=True)
-    return PackedTape(
+    packed = PackedTape(
         tape=tape,
         clusters=tuple((tuple(o), tuple(ls)) for o, ls in clusters),
         leaf_table=_leaf_table(tape),
@@ -193,7 +260,9 @@ def pack_program(tape: CompiledTape, partition: bool | str | tuple = "auto") -> 
         leaf_ids=i32(ids),
         lamp_ids=i32(lamp_ids.tolist()) if lamp_ids.size else None,
         list_ops=i32([opc | (arg << 2) if opc == OP_PUSH else opc for opc, arg in tape.ops]),
+        tables=torch.zeros(0, dtype=torch.float32, device=dev),
     )
+    return dataclasses.replace(packed, tables=_tables(packed))
 
 
 # ---------------------------------------------------------------------------
@@ -427,8 +496,7 @@ def render_image_tape_plain(
 
 
 _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-_ARGTYPES = ((_VP, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _I) + (_I,) * 6
-             + (_U, _U, _I, _I, _VP, _VP, _VP))
+_ARGTYPES = (_VP, _VP) + (_I,) * 20 + (_U, _U, _I, _I, _VP, _VP, _VP)
 
 
 def _check_limits(lib) -> None:
@@ -441,48 +509,46 @@ _KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_tape_render", _ARGTYPES, "tape",
                        check_library=_check_limits)
 
 
+def launch_args(packed: PackedTape, cam_row, width, height, rows, row_offset, spp, max_bounces,
+                seed, sample_offset, lens, sky, nee, with_overflow, out_rgb, out_rays,
+                out_over) -> tuple:
+    """The arguments of ``csgr_tape_render`` but the stream, after checking
+    every tensor it passes (``out_rays``: rows x width + 1 int32)."""
+    dev = packed.device
+    lay = packed.layout
+    build.check_tensor(packed.tables, "tables", torch.float32, (lay.nbytes // 4,), dev)
+    build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
+    build.check_tensor(out_rgb, "out_rgb", torch.float32, (rows, width, 3), dev)
+    build.check_tensor(out_rays, "out_rays", torch.int32, (rows * width + 1,), dev)
+    if with_overflow:
+        build.check_tensor(out_over, "out_over", torch.int32, (rows, width), dev)
+    n_lamps = packed.lamp_ids.numel() if nee else 0
+    return (cam_row.data_ptr(), packed.tables.data_ptr(), lay.nbytes, lay.type_at, lay.ops_at,
+            lay.ids_at, lay.cl_at, lay.lamp_at, lay.list_at if with_overflow else -1,
+            packed.tape.n_leaves, packed.ops.numel(), len(packed.clusters), n_lamps,
+            packed.list_ops.numel(), packed.tape.k, packed.interval_cap, width, height, rows,
+            row_offset, spp, max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF,
+            int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(), out_rays.data_ptr(),
+            None if out_over is None else out_over.data_ptr())
+
+
 def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, sample_offset,
             lens, sky, nee, with_overflow, rows=None, row_offset=0):
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
     _KERNEL.require_cuda(dev)
-    n_leaves = packed.tape.n_leaves
-    n_ops, n_ids = packed.ops.numel(), packed.leaf_ids.numel()
-    n_clusters = len(packed.clusters)
-    build.check_tensor(packed.leaf_table, "leaf_table", torch.float32, (n_leaves, LEAF_ROW), dev)
-    build.check_tensor(packed.leaf_types, "leaf_types", torch.int32, (n_leaves,), dev)
-    build.check_tensor(packed.ops, "ops", torch.int32, (n_ops,), dev)
-    build.check_tensor(packed.cluster_table, "cluster_table", torch.int32, (n_clusters, 4), dev)
-    build.check_tensor(packed.leaf_ids, "leaf_ids", torch.int32, (n_ids,), dev)
-    build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
-    lamp_args = [None, 0]
-    if nee:
-        n_lamps = packed.lamp_ids.numel()
-        build.check_tensor(packed.lamp_ids, "lamp_ids", torch.int32, (n_lamps,), dev)
-        lamp_args = [packed.lamp_ids.data_ptr(), n_lamps]
-    list_args, out_over = [None, 0, 0], None
-    if with_overflow:
-        n_list = len(packed.tape.ops)
-        build.check_tensor(packed.list_ops, "list_ops", torch.int32, (n_list,), dev)
-        list_args = [packed.list_ops.data_ptr(), n_list, packed.tape.k]
-        out_over = torch.empty((rows, width), dtype=torch.int32, device=dev)
-
+    out_over = (torch.empty((rows, width), dtype=torch.int32, device=dev) if with_overflow
+                else None)
     out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
-    out_rays = torch.empty((rows, width), dtype=torch.int32, device=dev)
-    _KERNEL(
-        dev, cam_row.data_ptr(), packed.leaf_table.data_ptr(), packed.leaf_types.data_ptr(),
-        n_leaves, packed.ops.data_ptr(), n_ops, packed.cluster_table.data_ptr(),
-        n_clusters, packed.leaf_ids.data_ptr(), n_ids, *lamp_args, *list_args, width, height,
-        rows, row_offset, spp, max_bounces,
-        seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky),
-        out_rgb.data_ptr(), out_rays.data_ptr(),
-        None if out_over is None else out_over.data_ptr(),
-    )
+    out_rays = torch.empty(rows * width + 1, dtype=torch.int32, device=dev)  # + the work counter
+    _KERNEL(dev, *launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounces,
+                              seed, sample_offset, lens, sky, nee, with_overflow, out_rgb,
+                              out_rays, out_over))
     LAUNCHES += 1
     mode = "audit" if with_overflow else packed.mode
     LAUNCHES_BY_MODE[mode + ("-nee" if nee else "")] += 1
-    rays = out_rays.sum(dtype=torch.int64)
+    rays = out_rays[:-1].sum(dtype=torch.int64)
     if with_overflow:
         return out_rgb, rays, out_over.sum(dtype=torch.int64)
     return out_rgb, rays

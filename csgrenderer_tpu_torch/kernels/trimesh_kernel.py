@@ -21,8 +21,10 @@ Where the tensors lie decides what runs:
 ``nee=True`` adds next-event estimation toward the mesh's emissive faces
 (``render/lights.py``, ``TriLights``): the kernel's NEE variant, or the
 plain version with ``lights=``. ``LAUNCHES`` counts kernel launches
-(``LAUNCHES_BY_MODE`` per mode: brute, grid, brute-nee, grid-nee); only
-the launch site adds to them.
+(``LAUNCHES_BY_MODE`` per mode: brute, grid, brute-nee, grid-nee;
+``LAUNCHES_BY_TABLES`` by where the launch read the tables a walk reads:
+staged in shared memory, or global memory when ``PackedMesh.table_bytes``
+exceeds ``table_limit``); only the launch site adds to them.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 from torch import Tensor
@@ -43,11 +46,15 @@ from .megakernel import CAM_SIZE, JITTER_ON_CPU_ONLY, pack_camera
 from .tri_worklist import TriGridPack, pack_tri_grid, tri_grid_nearest_hit
 
 FACE_WORDS = 20  # floats per face record: v0, e1, e2, unit normal, kind, param, albedo, pad
+MT_WORDS = 12  # floats per MT record: v0, e1, e2, pad, as (v0, e1x) (e1yz, e2xy) (e2z, pad)
 LAMP_WORDS = 16  # floats per lamp record: v0, e1, e2, emitted rgb, unit normal, area
 KERNEL_SOURCE = "trimesh_kernel"
 
 LAUNCHES = 0
 LAUNCHES_BY_MODE = {"brute": 0, "grid": 0, "brute-nee": 0, "grid-nee": 0}
+# where a launch read the MT table and the grid's lists: staged in each
+# CTA's shared memory, or from global memory (tables over the device's limit)
+LAUNCHES_BY_TABLES = {"shared": 0, "global": 0}
 _NO_LAMPS = "nee=True but the mesh has no emissive faces"
 
 
@@ -64,12 +71,19 @@ class PackedMesh:
     (``trimesh_kernel.py:771-777``): one row (v0, e1, e2, emitted rgb,
     unit normal, area) per emissive face, as ``extract_mesh_lights``
     gives them; None when the mesh has no emissive face.
+
+    ``tables`` is what a walk reads, in one block the kernel stages in
+    shared memory when it fits (``table_layout``): the MT table ``mt``
+    ([F, 12] f32: v0, e1, e2 and a pad word, the floats of ``faces``
+    columns 0-8), then in grid mode the CSR offsets, face ids and globals
+    as int32, each at a 16-byte aligned offset and padded to 16 bytes.
     """
 
     mesh: MeshScene
     faces: Tensor  # [F, 20] f32
     grid: TriGridPack | None
     lamps: Tensor | None  # [n_lights, 16] f32
+    tables: Tensor  # [table_bytes / 4] f32 (int32 words in grid mode's sections)
 
     @property
     def mode(self) -> str:
@@ -84,6 +98,21 @@ class PackedMesh:
         return self.faces[:, 9:12]
 
     @property
+    def mt(self) -> Tensor:
+        """[F, 12] f32: each face's MT record (a view of ``tables``)."""
+        f = self.mesh.num_faces
+        return self.tables[:f * MT_WORDS].view(f, MT_WORDS)
+
+    @property
+    def table_bytes(self) -> int:
+        """The bytes a CTA stages in shared memory (a multiple of 16)."""
+        return self.tables.numel() * 4
+
+    @property
+    def layout(self) -> TableLayout:
+        return table_layout(self.mesh.num_faces, self.grid)
+
+    @property
     def lights(self) -> TriLights | None:
         """The lamp table as the plain version's ``TriLights``."""
         if self.lamps is None:
@@ -94,7 +123,35 @@ class PackedMesh:
     def to(self, device) -> "PackedMesh":
         grid = None if self.grid is None else self.grid.to(device)
         lamps = None if self.lamps is None else self.lamps.to(device)
-        return PackedMesh(self.mesh.to(device), self.faces.to(device), grid, lamps)
+        return PackedMesh(self.mesh.to(device), self.faces.to(device), grid, lamps,
+                          self.tables.to(device))
+
+
+class TableLayout(NamedTuple):
+    """Byte offsets of the grid's sections in ``PackedMesh.tables`` (-1 in
+    brute mode) and the block's length."""
+
+    off_at: int
+    ids_at: int
+    glob_at: int
+    nbytes: int
+
+
+def _pad16(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
+
+
+def table_layout(n_faces: int, grid: TriGridPack | None) -> TableLayout:
+    """Where ``PackedMesh.tables`` holds what: the [F, 3] float4 MT table
+    from byte 0, then (grid mode) the [V + 1] offsets, the [P] face ids and
+    the [G] globals, each padded to a multiple of 16 bytes."""
+    at = n_faces * MT_WORDS * 4
+    if grid is None:
+        return TableLayout(-1, -1, -1, at)
+    off_at = at
+    ids_at = off_at + _pad16(4 * grid.offsets.numel())
+    glob_at = ids_at + _pad16(4 * grid.face_ids.numel())
+    return TableLayout(off_at, ids_at, glob_at, glob_at + _pad16(4 * grid.n_globals))
 
 
 def _face_table(mesh: MeshScene) -> Tensor:
@@ -106,6 +163,19 @@ def _face_table(mesh: MeshScene) -> Tensor:
     tab[:, 12] = mesh.mat_kind.to(torch.float32)
     tab[:, 13] = mesh.mat_param
     tab[:, 14:17] = mesh.albedo
+    return tab
+
+
+def _tables(mesh: MeshScene, faces: Tensor, grid: TriGridPack | None) -> Tensor:
+    lay = table_layout(mesh.num_faces, grid)
+    tab = torch.zeros(lay.nbytes // 4, dtype=torch.float32, device=mesh.device)
+    f = mesh.num_faces
+    tab[:f * MT_WORDS].view(f, MT_WORDS)[:, 0:9] = faces[:, 0:9]
+    if grid is not None:
+        words = tab.view(torch.int32)
+        for at, t in ((lay.off_at, grid.offsets), (lay.ids_at, grid.face_ids),
+                      (lay.glob_at, grid.globals_idx)):
+            words[at // 4:at // 4 + t.numel()] = t
     return tab
 
 
@@ -145,7 +215,8 @@ def pack_mesh(mesh: MeshScene, worklist: bool | str = "auto", cell: float | None
         if grid is None and worklist is True:
             raise ValueError("worklist=True but the mesh is not griddable "
                              "(under 192 faces to grid)")
-    return PackedMesh(mesh, _face_table(mesh), grid, _lamp_table(mesh))
+    faces = _face_table(mesh)
+    return PackedMesh(mesh, faces, grid, _lamp_table(mesh), _tables(mesh, faces, grid))
 
 
 def _grid_hit_fn(packed: PackedMesh, counts: dict | None):
@@ -198,48 +269,77 @@ def render_image_mesh_plain(
 
 
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-_ARGTYPES = ((_VP, _VP, _I, _VP, _I, _VP, _VP, _I, _I, _I) + (_F,) * 8 + (_VP, _I) + (_I,) * 6
-             + (_U, _U, _I, _I, _VP, _VP))
+_ARGTYPES = ((_VP, _VP, _VP) + (_I,) * 9 + (_F,) * 8 + (_VP,) + (_I,) * 7 + (_U, _U)
+             + (_I,) * 3 + (_VP, _VP))
 _KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_mesh_render", _ARGTYPES, "mesh")
+_TABLE_LIMIT: dict[int, int] = {}  # device index -> the most table bytes a CTA can stage
 
 
-def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
-            nee, rows=None, row_offset=0):
-    global LAUNCHES
-    rows = height if rows is None else rows
+def table_limit(index: int) -> int:
+    """The most table bytes (``PackedMesh.table_bytes``) a CTA of the mesh
+    kernel can stage in shared memory on CUDA device ``index``: its opt-in
+    shared memory per block less the kernel's static shared memory. Asked
+    of the device once per process."""
+    limit = _TABLE_LIMIT.get(index)
+    if limit is None:
+        lib, _ = build.load(KERNEL_SOURCE)
+        lib.csgr_mesh_table_limit.argtypes = [ctypes.c_int]
+        lib.csgr_mesh_table_limit.restype = ctypes.c_int
+        limit = lib.csgr_mesh_table_limit(index)
+        if limit < 0:
+            raise RuntimeError(f"the mesh kernel's table limit: CUDA error {-limit}")
+        _TABLE_LIMIT[index] = limit
+    return limit
+
+
+def launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounces, seed,
+                sample_offset, lens, sky, nee, shared, out_rgb, out_rays) -> tuple:
+    """The arguments of ``csgr_mesh_render`` but the stream, after checking
+    every tensor it passes (``out_rays``: rows x width + 1 int32)."""
     dev = packed.device
-    _KERNEL.require_cuda(dev)
     f = packed.mesh.num_faces
+    lay = packed.layout
     build.check_tensor(packed.faces, "faces", torch.float32, (f, FACE_WORDS), dev)
+    build.check_tensor(packed.tables, "tables", torch.float32, (lay.nbytes // 4,), dev)
     build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
-    grid_args = [None, 0, None, None, 0, 0, 0] + [0.0] * 8
+    build.check_tensor(out_rgb, "out_rgb", torch.float32, (rows, width, 3), dev)
+    build.check_tensor(out_rays, "out_rays", torch.int32, (rows * width + 1,), dev)
+    grid_args = [0, -1, -1, -1, 0, 0, 0] + [0.0] * 8
     if packed.grid is not None:
-        g = packed.grid
-        gs = g.static
-        build.check_tensor(g.globals_idx, "globals_idx", torch.int32, (g.n_globals,), dev)
-        build.check_tensor(g.offsets, "offsets", torch.int32, (gs.n_voxels + 1,), dev)
-        build.check_tensor(g.face_ids, "face_ids", torch.int32, (g.face_ids.numel(),), dev)
+        gs = packed.grid.static
         p = gs.f32_params()
-        grid_args = [g.globals_idx.data_ptr(), g.n_globals, g.offsets.data_ptr(),
-                     g.face_ids.data_ptr(), gs.nx, gs.ny, gs.nz] + [
-            float(v) for v in (*p["lo"], *p["hi"], p["cell"], p["inv_cell"])]
+        grid_args = [packed.grid.n_globals, lay.glob_at, lay.off_at, lay.ids_at, gs.nx, gs.ny,
+                     gs.nz] + [float(v) for v in (*p["lo"], *p["hi"], p["cell"], p["inv_cell"])]
     lamp_args = [None, 0]
     if nee:
         n_lights = packed.lamps.shape[0]
         build.check_tensor(packed.lamps, "lamps", torch.float32, (n_lights, LAMP_WORDS), dev)
         lamp_args = [packed.lamps.data_ptr(), n_lights]
+    return (cam_row.data_ptr(), packed.faces.data_ptr(), packed.tables.data_ptr(),
+            lay.nbytes, f, *grid_args, *lamp_args, width, height, rows, row_offset, spp,
+            max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens),
+            SKY_MODES.index(sky), int(shared), out_rgb.data_ptr(), out_rays.data_ptr())
 
+
+def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
+            nee, rows=None, row_offset=0, force_global=False):
+    """Launch the kernel. Its tables are staged in shared memory when
+    ``packed.table_bytes`` fits the device's limit, else read from global
+    memory; ``force_global`` (tests only) reads them from global memory."""
+    global LAUNCHES
+    rows = height if rows is None else rows
+    dev = packed.device
+    _KERNEL.require_cuda(dev)
     out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
-    out_rays = torch.empty((rows, width), dtype=torch.int32, device=dev)
-    _KERNEL(
-        dev, cam_row.data_ptr(), packed.faces.data_ptr(), f, *grid_args, *lamp_args,
-        width, height, rows, row_offset, spp, max_bounces, seed & 0xFFFFFFFF,
-        sample_offset & 0xFFFFFFFF, int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(),
-        out_rays.data_ptr(),
-    )
+    out_rays = torch.empty(rows * width + 1, dtype=torch.int32, device=dev)  # + the work counter
+    shared = not force_global and packed.table_bytes <= table_limit(dev.index)
+    _KERNEL(dev, *launch_args(packed, cam_row, width, height, rows, row_offset, spp,
+                              max_bounces, seed, sample_offset, lens, sky, nee, shared, out_rgb,
+                              out_rays))
     LAUNCHES += 1
     LAUNCHES_BY_MODE[packed.mode + ("-nee" if nee else "")] += 1
-    return out_rgb, out_rays.sum(dtype=torch.int64)  # int32 per pixel, summed in int64
+    LAUNCHES_BY_TABLES["shared" if shared else "global"] += 1
+    return out_rgb, out_rays[:-1].sum(dtype=torch.int64)  # int32 per pixel, summed in int64
 
 
 def render_image_mesh_kernel(

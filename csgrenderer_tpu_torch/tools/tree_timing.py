@@ -1,30 +1,49 @@
 """Compare trees of the port on one card in one run: the sphere kernel's
 frames (kernel rows 1-3), the RTIOW bench frame, the realtime loop and the
-shard canary's launch path (kernel row 9).
+shard canary's launch path (kernel row 9); the tape kernel's frames (rows
+4a-4c) and the deepcsg, csgnight and manyobjects bench frames; the mesh
+kernel's frames (row 5, its four modes) and the mesh and meshnight bench
+frames; and the mesh face-count ladder.
 
     python -m csgrenderer_tpu_torch.tools.tree_timing --trees parent=DIR,change=DIR [--out DIR]
+        [--groups sphere,tape,mesh,ladder]
     PYTHONPATH=DIR python csgrenderer_tpu_torch/tools/tree_timing.py --label NAME [--json FILE]
 
 ``--trees`` takes ``label=directory`` pairs, each directory the root of a
 tree that holds ``csgrenderer_tpu_torch`` (e.g. an unpacked ``git
-archive`` of a commit). It builds every tree's sphere kernel and canary at
-once (one process per tree, each running nvcc for its own sources), then
+archive`` of a commit). It builds every tree's kernels at once (one process
+per tree, each running nvcc for its own sources), then
 measures each tree in its own process, twice, in the order given and then
 in reverse (parent, change, change, parent for two trees), and prints each
 measurement beside the first tree's. ``--label`` measures the package found
 on ``sys.path`` and writes one JSON file; ``--trees`` runs it so.
 
-Measured per tree, CUDA events unless named otherwise:
+Measured per tree, CUDA events unless named otherwise, for the groups
+``--groups`` names (all four by default):
 
-- kernel rows 1-3 at the frames of PERF.md's kernel table (grid: the RTIOW
-  final scene at 1920x1080, 2 spp, 8 bounces, lens; brute: the two-sphere
-  scene at 1920x1080, 4 spp, 8 bounces; brute-nee and grid-nee: night and
-  night488 at 960x540, 2 spp, 6 bounces, black sky): the median ms of
-  ``REPS`` back-to-back launches after a warm-up, and the sha256 of the
-  last frame's f32 bytes with its ray count, so the trees' images are held
-  to each other bit for bit;
-- the RTIOW bench frame (``bench.run_bench``: 1920x1080, 64 spp, 8 bounces,
-  5 frames): Mrays/s and frame times;
+- sphere: kernel rows 1-3 at the frames of PERF.md's kernel table (grid:
+  the RTIOW final scene at 1920x1080, 2 spp, 8 bounces, lens; brute: the
+  two-sphere scene at 1920x1080, 4 spp, 8 bounces; brute-nee and grid-nee:
+  night and night488 at 960x540, 2 spp, 6 bounces, black sky);
+- tape: rows 4a-4c (config5 at t = 1.0, 1920x1080, 2 spp, 5 bounces,
+  clustered, global and the audit at k = 4; csgnight at 960x540, 2 spp, 6
+  bounces, black sky, clustered-nee, global-nee and audit-nee);
+- mesh: row 5 (mesh_demo_scene(2) forced brute and mesh_demo_scene(4) grid
+  at 1280x720, 2 spp, 6 bounces; tests/test_nee.py's 82-face lamp scene
+  brute-nee and mesh_night_scene() grid-nee at 960x540, 2 spp, 6 bounces,
+  black sky);
+- ladder: chip_smoke.py's face-count ladder (mesh_demo_scene at subdiv 2-6,
+  962 to 245,762 faces) at 1280x720, 16 spp, 6 bounces (``LADDER_REPS``
+  launches each);
+
+each frame: the median ms of ``REPS`` back-to-back launches after a
+warm-up, and the sha256 of the last frame's f32 bytes with its ray count
+(and the audit's dropped spans), so the trees' images are held to each
+other bit for bit;
+
+- the bench frames (``bench.run_bench``, 5 frames each): rtiow (sphere
+  group; 1920x1080, 64 spp, 8 bounces), deepcsg, csgnight and manyobjects
+  (tape), mesh and meshnight (mesh): Mrays/s and frame times;
 - the realtime loop (``PathTraceRenderer(rtiow_final_scene(),
   advance_samples=True)`` at 1280x720, 2 spp, lens): the host's time to
   enqueue a frame and the time per frame drained (host clock, 200 frames),
@@ -32,7 +51,7 @@ Measured per tree, CUDA events unless named otherwise:
   read back (three runs);
 - the canary wrapper and ``torch.mul(x, 2.0)`` on one [8, 128] f32 tensor,
   in turns (kernel, mul, kernel, mul, ...; 5 rounds of 1,000 calls each):
-  per-call time by CUDA events over each loop.
+  per-call time by CUDA events over each loop (the last two: sphere group).
 
 It uses only the entry points every tree of the port has.
 """
@@ -50,36 +69,102 @@ import time
 from pathlib import Path
 
 REPS = 15  # timed launches per kernel frame
+LADDER_REPS = 5  # timed launches per ladder rung
 CANARY_CALLS, CANARY_ROUNDS = 1000, 5
 REALTIME_FRAMES, REALTIME_RUNS = 200, 3
-KERNEL_SOURCES = ("sphere_megakernel", "shard_canary")
+GROUPS = ("sphere", "tape", "mesh", "ladder")
+KERNEL_SOURCES = ("sphere_megakernel", "shard_canary", "tape_kernel", "trimesh_kernel")
+BENCH_SCENES = {"sphere": ("rtiow",), "tape": ("deepcsg", "csgnight", "manyobjects"),
+                "mesh": ("mesh", "meshnight"), "ladder": ()}
+LADDER = ((2, 3), (3, 3), (4, 3), (5, 3), (5, 5), (6, 3))  # (subdiv, spheres) of mesh_demo_scene
 
 
-def _frames(dev):
-    """label -> (packed scene, camera, kwargs): the kernel table's frames."""
+def _frames(dev, groups):
+    """label -> (render, reps): the kernel table's frames of ``groups``,
+    each a function of no arguments returning (image, rays[, dropped])."""
     from csgrenderer_tpu_torch.camera import Camera
     from csgrenderer_tpu_torch.kernels import megakernel as mk
-    from csgrenderer_tpu_torch.models import night_scene, rtiow_final_scene, two_spheres_scene
+    from csgrenderer_tpu_torch.kernels import tape_kernel as tk
+    from csgrenderer_tpu_torch.kernels import trimesh_kernel as tm
+    from csgrenderer_tpu_torch.models import (animated_csg_scene, csg_night_scene,
+                                              mesh_demo_scene, mesh_night_scene, night_scene,
+                                              rtiow_final_scene, two_spheres_scene)
+    from csgrenderer_tpu_torch.render.trimesh import concat_meshes, icosphere, quad
+    from csgrenderer_tpu_torch.scene import Material
 
     def cam(eye, at, vfov, aspect, **kw):
         return Camera.look_at(eye, at, vfov_degrees=vfov, aspect_ratio=aspect, device=dev, **kw)
 
+    def frame(render, scene, camera, reps=REPS, **kw):
+        return functools.partial(render, scene, camera, **kw), reps
+
+    frames = {}
     night = dict(width=960, height=540, spp=2, max_bounces=6, seed=0, sky="black", nee=True)
-    night_cam = cam((6.5, 2.2, 6.5), (0.0, 0.6, 0.0), 32.0, 960 / 540)
-    return {
-        "grid rtiow 1920x1080 spp2 b8 lens": (
-            mk.pack_scene(rtiow_final_scene(device=dev)),
-            cam((13, 2, 3), (0, 0, 0), 20.0, 1920 / 1080, aperture=0.1, focus_dist=10.0),
-            dict(width=1920, height=1080, spp=2, max_bounces=8, seed=0, lens=True)),
-        "brute two_spheres 1920x1080 spp4 b8": (
-            mk.pack_scene(two_spheres_scene(device=dev)),
-            cam((0, 0, 0), (0, 0, -1), 90.0, 1920 / 1080),
-            dict(width=1920, height=1080, spp=4, max_bounces=8, seed=0)),
-        "brute-nee night 960x540 spp2 b6": (mk.pack_scene(night_scene(device=dev)), night_cam,
-                                            night),
-        "grid-nee night488 960x540 spp2 b6": (mk.pack_scene(night_scene(grid=11, device=dev)),
-                                              night_cam, night),
-    }
+    if "sphere" in groups:
+        sphere = functools.partial(frame, mk.render_image_kernel)
+        night_cam = cam((6.5, 2.2, 6.5), (0.0, 0.6, 0.0), 32.0, 960 / 540)
+        frames.update({
+            "grid rtiow 1920x1080 spp2 b8 lens": sphere(
+                mk.pack_scene(rtiow_final_scene(device=dev)),
+                cam((13, 2, 3), (0, 0, 0), 20.0, 1920 / 1080, aperture=0.1, focus_dist=10.0),
+                width=1920, height=1080, spp=2, max_bounces=8, seed=0, lens=True),
+            "brute two_spheres 1920x1080 spp4 b8": sphere(
+                mk.pack_scene(two_spheres_scene(device=dev)),
+                cam((0, 0, 0), (0, 0, -1), 90.0, 1920 / 1080),
+                width=1920, height=1080, spp=4, max_bounces=8, seed=0),
+            "brute-nee night 960x540 spp2 b6": sphere(mk.pack_scene(night_scene(device=dev)),
+                                                      night_cam, **night),
+            "grid-nee night488 960x540 spp2 b6": sphere(
+                mk.pack_scene(night_scene(grid=11, device=dev)), night_cam, **night),
+        })
+    if "tape" in groups:
+        tape = functools.partial(frame, tk.render_image_tape_kernel)
+        graph5, animate5 = animated_csg_scene(8)
+        tape5 = animate5(graph5.compile(k=4, device=dev), 1.0)
+        cam5 = cam((0, 2.0, 7.0), (0.5, 0, 0), 40.0, 1920 / 1080)
+        kw5 = dict(width=1920, height=1080, spp=2, max_bounces=5, seed=0)
+        csg_cam = cam((4.5, 2.6, 4.8), (0.0, 0.8, 0.3), 38.0, 960 / 540)
+        night_tape = csg_night_scene().compile(k=4, device=dev)
+        frames.update({
+            "4a clustered config5 1920x1080 spp2 b5": tape(tk.pack_program(tape5), cam5, **kw5),
+            "4a global config5 1920x1080 spp2 b5": tape(tk.pack_program(tape5, False), cam5,
+                                                        **kw5),
+            "4b audit config5 k4 1920x1080 spp2 b5": tape(tk.pack_program(tape5), cam5,
+                                                          with_overflow=True, **kw5),
+            "4b audit-nee csgnight k4 960x540 spp2 b6": tape(tk.pack_program(night_tape), csg_cam,
+                                                             with_overflow=True, **night),
+            "4c clustered-nee csgnight 960x540 spp2 b6": tape(tk.pack_program(night_tape),
+                                                              csg_cam, **night),
+            "4c global-nee csgnight 960x540 spp2 b6": tape(tk.pack_program(night_tape, False),
+                                                           csg_cam, **night),
+        })
+    if "mesh" in groups or "ladder" in groups:
+        mesh = functools.partial(frame, tm.render_image_mesh_kernel)
+        kwm = dict(width=1280, height=720, spp=2, max_bounces=6, seed=0)
+        cam_m = cam((0.0, 1.6, 2.2), (0.0, 0.7, -2.6), 45.0, 1280 / 720)
+    if "mesh" in groups:
+        lamp82 = concat_meshes(
+            icosphere((0, 0.7, -3), 0.7, Material.lambertian((0.6, 0.3, 0.3)), 1, dev),
+            quad((-0.6, 2.2, -3.4), (0.6, 2.2, -3.4), (0.6, 2.2, -2.4), (-0.6, 2.2, -2.4),
+                 Material.emissive((12.0, 10.0, 8.0)), dev))
+        frames.update({
+            "5 brute mesh_demo_scene(2) 1280x720 spp2 b6": mesh(
+                tm.pack_mesh(mesh_demo_scene(2, device=dev), False), cam_m, **kwm),
+            "5 grid mesh_demo_scene(4) 1280x720 spp2 b6": mesh(
+                tm.pack_mesh(mesh_demo_scene(4, device=dev)), cam_m, **kwm),
+            "5 brute-nee lamp82 960x540 spp2 b6": mesh(
+                tm.pack_mesh(lamp82), cam((0, 1.4, 1.6), (0, 0.6, -3), 50.0, 960 / 540),
+                **night),
+            "5 grid-nee meshnight 960x540 spp2 b6": mesh(
+                tm.pack_mesh(mesh_night_scene(device=dev)),
+                cam((0, 1.8, 2.4), (0.0, 0.7, -2.6), 45.0, 960 / 540), **night),
+        })
+    if "ladder" in groups:
+        for sub, spheres in LADDER:
+            packed = tm.pack_mesh(mesh_demo_scene(sub, spheres, device=dev))
+            frames[f"ladder {packed.mesh.num_faces} faces 1280x720 spp16 b6"] = mesh(
+                packed, cam_m, LADDER_REPS, **{**kwm, "spp": 16})
+    return frames
 
 
 def _events_ms(fn, reps):
@@ -110,8 +195,9 @@ def _median_ms(fn, reps):
     return out, sorted(each)[reps // 2], each
 
 
-def measure(label: str) -> dict:
-    """Every measurement of the module docstring for the package on sys.path."""
+def measure(label: str, groups=GROUPS) -> dict:
+    """Every measurement of the module docstring for the package on
+    sys.path, for ``groups``."""
     import torch
 
     import csgrenderer_tpu_torch
@@ -119,7 +205,6 @@ def measure(label: str) -> dict:
     from csgrenderer_tpu_torch.app import App, PathTraceRenderer, StatsClock
     from csgrenderer_tpu_torch.camera import Camera
     from csgrenderer_tpu_torch.kernels import build
-    from csgrenderer_tpu_torch.kernels import megakernel as mk
     from csgrenderer_tpu_torch.kernels import shard_canary as sc
     from csgrenderer_tpu_torch.models import rtiow_final_scene
     from csgrenderer_tpu_torch.utils.config import RenderConfig
@@ -129,20 +214,24 @@ def measure(label: str) -> dict:
     dev = torch.device("cuda")
     out = dict(label=label, package=str(Path(csgrenderer_tpu_torch.__file__).parent),
                card=bench.card_info(), frames={})
-    sphere = build.load("sphere_megakernel")[1]
-    out["ptxas"] = [line.strip() for line in sphere.log.splitlines()
+    out["ptxas"] = [f"{name}: {line.strip()}" for name in KERNEL_SOURCES
+                    for line in build.load(name)[1].log.splitlines()
                     if "registers" in line or "spill" in line or "entry function" in line]
-    for name, (packed, cam, kw) in _frames(dev).items():
-        run = functools.partial(mk.render_image_kernel, packed, cam, **kw)
+    for name, (run, reps) in _frames(dev, groups).items():
         run()  # warm-up
         torch.cuda.synchronize()
-        (img, rays), ms, each = _median_ms(run, REPS)
+        (img, *counts), ms, each = _median_ms(run, reps)
         digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
-        out["frames"][name] = dict(ms=ms, each_ms=each, sha256=digest, rays=int(rays))
+        out["frames"][name] = dict(ms=ms, each_ms=each, sha256=digest,
+                                   rays=[int(c) for c in counts])
 
-    result, _ = bench.run_bench(quick=False, frames=5, device="cuda")
-    out["bench_rtiow"] = dict(mrays_s=result["value"], frame_times_s=result["frame_times_s"],
-                              p50_16spp_ms=result["p50_frame_ms_16spp"])
+    out["bench"] = {}
+    for scene in (s for g in groups for s in BENCH_SCENES[g]):
+        result, _ = bench.run_bench(scene=scene, quick=False, frames=5, device="cuda")
+        out["bench"][scene] = dict(mrays_s=result["value"], frame_times_s=result["frame_times_s"],
+                                   p50_16spp_ms=result.get("p50_frame_ms_16spp"))
+    if "sphere" not in groups:
+        return out
 
     scene = rtiow_final_scene(device=dev)
     cam = Camera.look_at((13, 2, 3), (0, 0, 0), vfov_degrees=20.0, aspect_ratio=1280 / 720,
@@ -182,7 +271,7 @@ def measure(label: str) -> dict:
     return out
 
 
-def _run_trees(trees: list[tuple[str, Path]], out_dir: Path) -> int:
+def _run_trees(trees: list[tuple[str, Path]], out_dir: Path, groups) -> int:
     def env(root):
         return {**os.environ, "PYTHONPATH": str(root)}
 
@@ -200,7 +289,7 @@ def _run_trees(trees: list[tuple[str, Path]], out_dir: Path) -> int:
     for label, root in trees + trees[::-1]:
         path = out_dir / f"{label}.{len(results[label])}.json"
         rc = subprocess.call([sys.executable, os.path.abspath(__file__), "--label", label,
-                              "--json", str(path)], env=env(root))
+                              "--json", str(path), "--groups", ",".join(groups)], env=env(root))
         if rc:
             print(f"[tree_timing] {label} failed ({rc})", flush=True)
             return rc
@@ -223,14 +312,19 @@ def _run_trees(trees: list[tuple[str, Path]], out_dir: Path) -> int:
             ok &= same
             base_ms = [run["frames"][name]["ms"] for run in results[base_label]]
             print(f"[tree_timing] {label} {name}: {join([f['ms'] for f in fr], '.4f')} ms "
-                  f"({base_label} {join(base_ms, '.4f')}); image and rays "
-                  f"{'equal to' if same else 'DIFFER from'} {base_label}'s ({fr[0]['rays']} rays)",
+                  f"({base_label} {join(base_ms, '.4f')}); image and counts "
+                  f"{'equal to' if same else 'DIFFER from'} {base_label}'s ({fr[0]['rays']})",
                   flush=True)
         for run in runs:
-            b, rt, c = run["bench_rtiow"], run["realtime_rtiow_720p"], run["canary"]
-            print(f"[tree_timing] {label} bench rtiow 1080p 64spp: {b['mrays_s']:.1f} Mrays/s "
-                  f"(frames {join([t * 1e3 for t in b['frame_times_s']], '.3f')} ms; 16-spp p50 "
-                  f"{b['p50_16spp_ms']:.3f} ms); realtime 720p spp2: enqueue "
+            for scene, b in run["bench"].items():
+                base_mrays = [r["bench"][scene]["mrays_s"] for r in results[base_label]]
+                print(f"[tree_timing] {label} bench {scene}: {b['mrays_s']:.1f} Mrays/s "
+                      f"({base_label} {join(base_mrays, '.1f')}; frames "
+                      f"{join([t * 1e3 for t in b['frame_times_s']], '.3f')} ms)", flush=True)
+            if "canary" not in run:
+                continue
+            rt, c = run["realtime_rtiow_720p"], run["canary"]
+            print(f"[tree_timing] {label} realtime 720p spp2: enqueue "
                   f"{join(rt['enqueue_ms'], '.4f')} ms, drained {join(rt['drained_ms'], '.4f')} "
                   f"ms per frame, App.run {join(rt['fps'], '.1f')} frames/s; canary "
                   f"{join(c['kernel_us'], '.2f')} us vs torch.mul {join(c['mul_us'], '.2f')} us "
@@ -247,9 +341,14 @@ def main(argv=None) -> int:
     ap.add_argument("--label", help="measure the package on sys.path under this label")
     ap.add_argument("--json", help="with --label: write the result here")
     ap.add_argument("--out", default="_scratch/tree_timing", help="with --trees: results")
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help=f"comma-separated, of {', '.join(GROUPS)}")
     args = ap.parse_args(argv)
+    groups = tuple(g for g in args.groups.split(",") if g)
+    if not groups or any(g not in GROUPS for g in groups):
+        ap.error(f"--groups takes {', '.join(GROUPS)}")
     if args.label:
-        res = measure(args.label)
+        res = measure(args.label, groups)
         text = json.dumps(res)
         if args.json:
             Path(args.json).write_text(text)
@@ -265,7 +364,7 @@ def main(argv=None) -> int:
         trees.append((label, Path(root).resolve()))
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    return _run_trees(trees, out_dir)
+    return _run_trees(trees, out_dir, groups)
 
 
 if __name__ == "__main__":

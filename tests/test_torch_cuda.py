@@ -233,6 +233,49 @@ def test_non_nee_frames_unchanged(cuda, mode):
     assert (digest, int(rays)) == PINNED_FRAMES[mode]
 
 
+# sha256 of the float32 image bytes, the ray count and (audit) the
+# dropped-span count of the mesh kernel's four modes and the tape kernel's
+# NEE and audit modes at small frames, as the kernels before their
+# persistent-CTA redesign rendered them on an H100: every later design of
+# these kernels must keep giving these images
+PINNED_MESH_TAPE_FRAMES = {
+    "mesh-brute": ("4b2fa4ea3323ced81f7d3625e3483da2980d69d090d6a67c666141f3a7734fba", 7429),
+    "mesh-grid": ("96086beda1db2854b865d54c6f7f49188264d482fe4d403e4deb8b88da5dee93", 7425),
+    "mesh-brute-nee": ("31528be7f48693988d3876b7474fd8aeae8bde6379b17e84ad5a6ea3d5f7af50", 4293),
+    "mesh-grid-nee": ("bb21d06fccf74451cb8ba98b2b91578c5fba95c8b2e1bdb65290fa6fd540bf9d", 7150),
+    "tape-clustered-nee": ("95ad45b4d23235ac80bfb65a976dfb0da4cf7cad4c3a691c4669aff7a8d1b047", 9080),
+    "tape-global-nee": ("95ad45b4d23235ac80bfb65a976dfb0da4cf7cad4c3a691c4669aff7a8d1b047", 9080),
+    "tape-audit": ("c247a08cc29a0c57b9ad45b7efc1b1115f07ca23095b7dad8fd80ec8e785c60c", 4733, 59),
+    "tape-audit-nee": ("95ad45b4d23235ac80bfb65a976dfb0da4cf7cad4c3a691c4669aff7a8d1b047", 9080, 64),
+}
+
+
+def _pinned_mesh_tape_frame(name, dev):
+    """(sha256 of the image bytes, rays[, dropped spans]) of frame ``name``."""
+    if name.startswith("mesh-"):
+        make_packed, eye, extra = MESH_CASES[name[len("mesh-"):]]
+        out = tm.render_image_mesh_kernel(make_packed(dev), _mesh_cam(eye, dev), **MESH_KW,
+                                          **extra)
+    elif name == "tape-audit":
+        make_packed, make_cam, kw, _ = AUDIT_CASES["pearls-k2-bounces"]
+        out = tk.render_image_tape_kernel(make_packed(dev), make_cam(dev), with_overflow=True,
+                                          **kw)
+    else:
+        k, partition = (2, "auto") if name == "tape-audit-nee" else (
+            4, "auto" if name == "tape-clustered-nee" else False)
+        tape = csg_night_scene().compile(k=k, device=dev)
+        out = tk.render_image_tape_kernel(tk.pack_program(tape, partition), _csg_night_cam(dev),
+                                          with_overflow=name == "tape-audit-nee", **NEE_KW)
+    torch.cuda.synchronize()
+    return (hashlib.sha256(out[0].cpu().numpy().tobytes()).hexdigest(),
+            *(int(x) for x in out[1:]))
+
+
+@pytest.mark.parametrize("name", sorted(PINNED_MESH_TAPE_FRAMES))
+def test_mesh_and_tape_frames_unchanged(cuda, name):
+    assert _pinned_mesh_tape_frame(name, cuda) == PINNED_MESH_TAPE_FRAMES[name]
+
+
 def _mesh_cam(eye, dev):
     return Camera.look_at(eye, (0.0, 0.7, -2.6), vfov_degrees=45.0, aspect_ratio=2.0, device=dev)
 
@@ -504,3 +547,39 @@ def test_grid_nee_matches_plain_with_equal_rays(cuda):
     ref, ref_rays = mk.render_image_plain(packed, cam, **NEE_KW)
     _assert_close(ref, ref_rays, img, rays)
     assert int(rays) == int(ref_rays)
+
+
+@pytest.mark.parametrize("mode", ["grid-nee", "brute"])
+def test_mesh_shared_and_global_tables_give_the_same_bytes(cuda, mode):
+    """The mesh kernel with its tables staged in shared memory (the size
+    rule's choice for meshnight and the 242-face brute mesh) and with
+    them read from global memory (forced through the launcher's test-only
+    argument) renders the same bytes and rays."""
+    make_packed, eye, extra = MESH_CASES[mode]
+    packed = make_packed(cuda)
+    assert packed.table_bytes <= tm.table_limit(cuda.index or 0)
+    cam = mk.pack_camera(_mesh_cam(eye, cuda)).contiguous()
+    args = (packed, cam, 64, 32, 2, 6, 2, 0, False, extra.get("sky", "rtiow"),
+            extra.get("nee", False))
+    before = dict(tm.LAUNCHES_BY_TABLES)
+    shared, shared_rays = tm._launch(*args)
+    staged_global, global_rays = tm._launch(*args, force_global=True)
+    torch.cuda.synchronize()
+    assert tm.LAUNCHES_BY_TABLES == {"shared": before["shared"] + 1,
+                                     "global": before["global"] + 1}
+    assert torch.equal(shared, staged_global) and int(shared_rays) == int(global_rays)
+
+
+def test_mesh_over_the_limit_reads_global_memory(cuda):
+    """mesh_demo_scene(4) (15,362 faces, 1,251,952 table bytes) exceeds a
+    block's opt-in shared memory: the launcher picks global memory by size,
+    and the frame matches its plain version."""
+    packed = tm.pack_mesh(mesh_demo_scene(4, device=cuda))
+    assert packed.mode == "grid" and packed.table_bytes > tm.table_limit(cuda.index or 0)
+    cam = _mesh_cam((0.0, 1.6, 2.2), cuda)
+    before = dict(tm.LAUNCHES_BY_TABLES)
+    img, rays = tm.render_image_mesh_kernel(packed, cam, **MESH_KW)
+    torch.cuda.synchronize()
+    assert tm.LAUNCHES_BY_TABLES == {"shared": before["shared"], "global": before["global"] + 1}
+    ref, ref_rays = tm.render_image_mesh_plain(packed, cam, **MESH_KW)
+    _assert_close(ref, ref_rays, img, rays)
