@@ -139,6 +139,33 @@ Phases (the first that fails ends the run with a non-zero exit):
    compare, the stream lookup, a ctypes call without CUDA and the ctypes
    call that launches, beside the steps the launch path dropped); its bound
    is 8,192 bytes over 3.35 TB/s.
+6. The realtime and denoise path. First the a-trous kernel
+   (``kernels/csrc/atrous.cu``, one launch a pass) against its plain
+   version on the card: the RTIOW final scene's 2-spp lens frame and its
+   AOVs at 1280x720 and 1920x1080, 4 passes, max abs <= 1e-5 on the
+   linear image (the same float operations on both sides), each timed
+   (CUDA events) beside the eager plain filter. Then, counts from zero:
+   the denoised realtime frame (``PathTraceRenderer(rtiow_final_scene(),
+   advance_samples=True)`` at 1280x720, 2 spp, lens, ``denoise=True``):
+   host enqueue and drained ms a frame over 50 frames beside phase 3's
+   undenoised ones, with torch's sync debug mode raising on any host wait
+   inside a frame; the frame's split into the beauty kernel, the AOV cast
+   and the 4 filter passes (CUDA events behind a device sleep, so each
+   interval is device time) beside the eager plain filter; ``App.run``
+   over it. ``AdaptiveSppRenderer`` on night_scene() (NEE, 960x540,
+   target 0.02) through ``App.run`` for 256 frames, two in flight: the
+   spp rungs visited and frames per second; it fails if the ladder never
+   leaves its first rung or a frame's samples overlap another's. The demo
+   6 twin (``python -m csgrenderer_tpu_torch.demos.demo6_realtime --scene
+   rtiow --denoise --serve 0 --seconds 3``) in a child process, one
+   ``/frame`` fetched from its preview server while it runs; it fails on a
+   non-zero exit or an empty frame. ``tools.validate_gpu --only config11``
+   (rmse_den < 0.72 x rmse_raw and rmse_den <= 0.08), which must pass.
+   The a-trous kernel, the sphere kernel's grid mode and its brute-nee
+   mode must have launched. The a-trous entry in the kernels line is a
+   quarter of the whole 4-pass filter at 1280x720 (its time with the
+   demodulation and remodulation, its bound from the operations the
+   filter needs, ``atrous_bound``, not those the kernel does).
 
 The last line of output is the device JSON; the line before it lists the
 kernels with their launch counts, errors, times and bounds. There is no
@@ -220,6 +247,8 @@ KERNELS = {
     "exp_slab": (f"{CSRC}/exp_slab.cu", "tools/exp_slab.py:73"),
     "exp_dot_k": (f"{CSRC}/exp_dot_k.cu", "tools/exp_dot_k.py:116"),
     "shard_canary": (f"{CSRC}/shard_canary.cu", "tests/test_parallel.py:160"),
+    "atrous": (f"{CSRC}/atrous.cu", "no Pallas kernel: the XLA fusion of "
+               "csgrenderer_tpu/render/denoise.py:37 (atrous_denoise)"),
 }  # the NEE modes are the same pallas_call with lamps (n_lights > 0; nee_lamps)
 EXP_N_ITER = 2000  # the tools' default --n-iter: each run is checked, timed and bounded there
 EXP_REPS = {"exp_gather": 1, "exp_slab": 3, "exp_dot_k": 1}  # timed calls per loop length
@@ -227,6 +256,13 @@ SMS, LANES = 132, 128
 REALTIME_FRAMES = 200
 REALTIME_REPEATS = 3  # runs of each frames-in-flight / readback setting
 HBM_BYTES_PER_S = 3.35e12
+DENOISE_TOL = 1e-5  # max abs, a-trous kernel against its plain version, on the linear image
+DENOISE_FRAMES = 50  # timed frames of the denoised realtime frame
+DENOISE_FRAME = (1280, 720)  # the realtime cell's frame
+DENOISE_CHECKS = (DENOISE_FRAME, (1920, 1080))  # frames the a-trous kernel is held at
+ADAPTIVE_FRAMES = 256  # App.run frames of the adaptive night run
+ADAPTIVE_FRAME = (960, 540)  # the night benchmarks' frame
+DEMO6_ARGS = ("--scene", "rtiow", "--denoise", "--serve", "0", "--seconds", "3")
 
 # FP32 operations counted from the kernel sources (see the docstring's rule)
 OPS = {
@@ -815,6 +851,279 @@ def phase5(card, bench_result, mhz, dev):
                 launches=counts["shard_canary[scale2]"], max_abs_err=max_abs, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 device_ms=device_ms, library_device_ms=library_device_ms, host_us=breakdown)
+
+
+def atrous_bound(aovs, iterations, mhz):
+    """(bound_ms, bound_by, ops, bytes) of the demodulated a-trous filter
+    (``render/denoise.py::atrous_denoise``) on these AOVs: the operations
+    the function needs, not the kernel's. FP32 operations, expf and powf
+    one each: once a pixel, the albedo clamp, divide and multiply (9) and
+    the depth's miss select (1); per pixel and pass the centre's luminance
+    (5) and the normalisation (max, 3 divides: 4); per tap 23 (luminance
+    difference 1, colour weight 3, depth difference 5 (no abs: it is
+    squared), depth weight 3, hit gate 1, the weight's product 3, the
+    accumulation 7) and, only where both pixels hit, 8 more (normal dot 5,
+    max, powf, the product). Bytes: colour, albedo, normal (12 each),
+    depth (4) and hit (1) read once, the image (12) written once."""
+    import torch
+
+    h, w = aovs.hit.shape
+    hit = aovs.hit
+    rows, cols = torch.arange(h, device=hit.device), torch.arange(w, device=hit.device)
+    ops = h * w * 10
+    for it in range(iterations):
+        step = 1 << it
+        both = 0
+        for dy in range(-2, 3):
+            ys = torch.clamp(rows + dy * step, 0, h - 1)
+            for dx in range(-2, 3):
+                xs = torch.clamp(cols + dx * step, 0, w - 1)
+                both += int((hit & hit[ys][:, xs]).sum())
+        ops += h * w * (5 + 4 + 25 * 23) + 8 * both
+    nbytes = h * w * (12 + 12 + 12 + 4 + 1 + 12)
+    ops_ms = ops / (SMS * LANES * mhz * 1e6) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations", ops, nbytes) if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes", ops, nbytes)
+
+
+class SpanRecorder:
+    """An App renderer that forwards to ``inner`` (an AdaptiveSppRenderer)
+    and records each frame's sample span [offset before, offset after) and
+    spp, for phase 6's disjointness check."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.spans = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _record(self, draw, t):
+        off0, spp = self.inner._offset, self.inner.spp
+        out = draw(t)
+        self.spans.append((off0, self.inner._offset, spp))
+        return out
+
+    def draw_frame(self, t):
+        return self._record(self.inner.draw_frame, t)
+
+    def draw_frame_async(self, t):
+        return self._record(self.inner.draw_frame_async, t)
+
+
+def run_demo6(card):
+    """``python -m csgrenderer_tpu_torch.demos.demo6_realtime --scene rtiow
+    --denoise --serve 0`` in a child process: one /frame fetched from its
+    preview server while it runs; returns (frame bytes, content type, the
+    demo's fps line). The child is killed on any failure."""
+    import urllib.error
+    import urllib.request
+
+    cmd = [sys.executable, "-m", "csgrenderer_tpu_torch.demos.demo6_realtime", *DEMO6_ARGS]
+    err_path = os.path.join(OUT_DIR, "demo6.stderr")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        lines, url = [], None
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if "live preview at" in line:
+                url = line.split("live preview at")[1].strip()
+                break
+        if url is None:
+            fail(f"demo 6 printed no preview URL: {lines}")
+        frame, ctype, deadline = b"", None, time.perf_counter() + 120
+        while not frame and proc.poll() is None and time.perf_counter() < deadline:
+            try:
+                with urllib.request.urlopen(url + "frame", timeout=5) as resp:
+                    frame, ctype = resp.read(), resp.headers["Content-Type"]
+            except (urllib.error.URLError, ConnectionError, OSError):
+                time.sleep(0.05)  # 503 until the first frame is published
+        rest, _ = proc.communicate(timeout=120)
+        lines += rest.splitlines()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in lines:
+        print(f"[chip_smoke] demo6: {line}", flush=True)
+    if proc.returncode != 0:
+        with open(err_path) as f:
+            fail(f"demo 6 exited {proc.returncode}: {f.read()[-2000:]}")
+    if not frame:
+        fail("demo 6 served no frame while it ran")
+    fps_line = next((l for l in lines if "fps sustained" in l), "")
+    return frame, ctype, fps_line
+
+
+def phase6(card, mhz, dev, undenoised):
+    """Phase 6, the realtime and denoise path. (a) the a-trous kernel
+    against its plain version at 1280x720 and 1920x1080 (launches outside
+    the path's count); then, counts from zero, (b) the denoised realtime
+    frame, (c) the adaptive ladder on the night scene through App.run, (d)
+    demo 6 serving a frame, (e) validate_gpu config 11. ``undenoised``:
+    phase 3's (enqueue ms, drained ms) of the rtiow realtime frame.
+    Returns the a-trous kernel's kernels-line entry."""
+    import numpy as np
+    import torch
+
+    from csgrenderer_tpu_torch.app import AdaptiveSppRenderer, App, PathTraceRenderer, StatsClock
+    from csgrenderer_tpu_torch.app.renderers import hit_fn_for
+    from csgrenderer_tpu_torch.camera import Camera
+    from csgrenderer_tpu_torch.kernels import atrous
+    from csgrenderer_tpu_torch.kernels import megakernel as mk
+    from csgrenderer_tpu_torch.models import night_scene, rtiow_final_scene
+    from csgrenderer_tpu_torch.render import denoise, render_aovs
+    from csgrenderer_tpu_torch.tools import validate_gpu
+    from csgrenderer_tpu_torch.utils.config import RenderConfig
+
+    t_phase = time.perf_counter()
+    rtiow = rtiow_final_scene(device=dev)
+    packed = mk.pack_scene(rtiow)
+
+    def rtiow_cam(w, h):
+        return Camera.look_at((13, 2, 3), (0, 0, 0), vfov_degrees=20.0, aspect_ratio=w / h,
+                              aperture=0.1, focus_dist=10.0, device=dev)
+
+    # (a) the kernel against its plain version: the 2-spp beauty frame and its AOVs
+    stats = None
+    for fw, fh in DENOISE_CHECKS:
+        cam = rtiow_cam(fw, fh)
+        raw, _ = mk.render_image_kernel(packed, cam, fw, fh, spp=2, max_bounces=8, seed=0,
+                                        lens=True)
+        aovs = render_aovs(rtiow.nearest_hit, cam, fw, fh, sky="rtiow", row_chunk=180)
+        got, ms = timed(functools.partial(denoise.atrous_denoise, raw, aovs, 4), reps=50)
+        ref, plain_ms = timed(functools.partial(denoise.atrous_denoise_plain, raw, aovs, 4),
+                              reps=3)
+        err = float((got - ref).abs().max())
+        same = bool(torch.equal(got, ref))
+        bound_ms, bound_by, ops, nb = atrous_bound(aovs, 4, mhz)
+        print(f"[chip_smoke] phase 6 atrous 4 passes {fw}x{fh} on the rtiow 2-spp frame: max abs "
+              f"{err:.3e} against the plain version ({'equal bit for bit' if same else 'not equal'}"
+              f"; tolerance {DENOISE_TOL}); kernel {ms:.4f} ms, plain (eager torch) "
+              f"{plain_ms:.3f} ms for the 4 passes; bound {bound_ms:.4f} ms ({bound_by}: {ops} FP32 "
+              f"ops, {nb} bytes) ({card})", flush=True)
+        if not bool(torch.isfinite(got).all()) or err > DENOISE_TOL:
+            fail(f"phase 6: the a-trous kernel is {err:.3e} off its plain version at {fw}x{fh}")
+        if (fw, fh) == DENOISE_FRAME:  # the realtime frame's filter: the kernels line's entry
+            stats = dict(max_abs_err=err, ms=ms / 4, plain_ms=plain_ms / 4,
+                         bound_ms=bound_ms / 4, bound_by=bound_by)
+
+    for mod in (mk, atrous):
+        mod.LAUNCHES = 0
+        for k in mod.LAUNCHES_BY_MODE:
+            mod.LAUNCHES_BY_MODE[k] = 0
+    t0 = time.perf_counter()
+
+    # (b) the denoised realtime frame: rtiow 1280x720, 2 spp, lens, 4 passes
+    fw, fh = DENOISE_FRAME
+    r = PathTraceRenderer(rtiow, rtiow_cam(fw, fh),
+                          RenderConfig(width=fw, height=fh, spp=2, lens=True, denoise=True),
+                          advance_samples=True, device=dev)
+    r.draw_frame(0.0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a host wait inside a frame raises
+    try:
+        t_enqueue = time.perf_counter()
+        for i in range(DENOISE_FRAMES):
+            r.draw_frame_async(i / 60.0)
+            if i == 4:  # a few frames' launches, far below the device's launch queue
+                first_ms = (time.perf_counter() - t_enqueue) * 1e3 / 5
+        enqueue_ms = (time.perf_counter() - t_enqueue) * 1e3 / DENOISE_FRAMES
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    drained_ms = (time.perf_counter() - t_enqueue) * 1e3 / DENOISE_FRAMES
+    print(f"[chip_smoke] phase 6 realtime rtiow {fw}x{fh} spp2 denoised (4 passes): host enqueue "
+          f"{enqueue_ms:.3f} ms ({first_ms:.3f} over the first 5), drained {drained_ms:.3f} ms per "
+          f"frame ({DENOISE_FRAMES} frames, no host wait inside a frame); undenoised (phase 3): "
+          f"enqueue {undenoised[0]:.3f} ms, drained {undenoised[1]:.3f} ms ({card})", flush=True)
+    # the frame's split, CUDA events: beauty kernel, AOV cast, 4 filter passes, tonemap;
+    # a 10 ms device sleep first lets the host enqueue the whole frame before the
+    # device reaches it, so each interval is device time, not the host's launches
+    splits = []
+    for i in range(10):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda._sleep(int(mhz * 1e4))
+        ev[0].record()
+        radiance, _ = r._render(i / 60.0)
+        ev[1].record()
+        aovs = render_aovs(hit_fn_for(r.scene), r.camera, fw, fh, sky=r.config.sky)
+        ev[2].record()
+        den = denoise.atrous_denoise(radiance, aovs, 4)
+        ev[3].record()
+        r._tonemap(den)
+        ev[4].record()
+        torch.cuda.synchronize()
+        splits.append([ev[k].elapsed_time(ev[k + 1]) for k in range(4)])
+    beauty, aov_ms, filt, tone = (float(np.median(c)) for c in zip(*splits))
+    _, plain_filter_ms = timed(functools.partial(denoise.atrous_denoise_plain, radiance, aovs, 4),
+                               reps=3)
+    print(f"[chip_smoke] phase 6 denoised frame split (CUDA events, median of 10): beauty kernel "
+          f"{beauty:.3f} ms, AOV cast (torch ops, brute over {rtiow.num_spheres} spheres) "
+          f"{aov_ms:.3f} ms, a-trous kernel 4 passes {filt:.4f} ms, tonemap {tone:.3f} ms; the "
+          f"eager plain filter {plain_filter_ms:.3f} ms ({card})", flush=True)
+    app = App(width=fw, height=fh, stats=StatsClock(emit=None), frame_sink=None)
+    app.swap_scene(r)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    if not app.run(max_frames=DENOISE_FRAMES, frames_in_flight=2, readback="fence"):
+        fail("phase 6: the App loop failed on the denoised frame")
+    torch.cuda.synchronize()
+    print(f"[chip_smoke] phase 6 App.run denoised rtiow: {DENOISE_FRAMES} frames, 2 in flight, "
+          f"readback fence: {DENOISE_FRAMES / (time.perf_counter() - t_run):.1f} fps ({card})",
+          flush=True)
+
+    # (c) the adaptive ladder on the night scene (NEE) through App.run
+    aw, ah = ADAPTIVE_FRAME
+    night_cam = Camera.look_at((6.5, 2.2, 6.5), (0.0, 0.6, 0.0), vfov_degrees=32.0,
+                               aspect_ratio=aw / ah, device=dev)
+    adaptive = SpanRecorder(AdaptiveSppRenderer(
+        night_scene(device=dev), night_cam,
+        RenderConfig(width=aw, height=ah, spp=2, max_bounces=8, seed=6, sky="black", nee=True),
+        target=0.02, probe_stride=16, device=dev))
+    app = App(width=aw, height=ah, stats=StatsClock(emit=None), frame_sink=None)
+    app.swap_scene(adaptive)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    if not app.run(max_frames=ADAPTIVE_FRAMES, frames_in_flight=2, readback="fence"):
+        fail("phase 6: the App loop failed on the adaptive renderer")
+    torch.cuda.synchronize()
+    fps = ADAPTIVE_FRAMES / (time.perf_counter() - t_run)
+    spans = adaptive.spans
+    visited = sorted({s for _, _, s in spans})
+    contiguous = all(b - a == s for a, b, s in spans) and all(
+        spans[i + 1][0] == spans[i][1] for i in range(len(spans) - 1))
+    print(f"[chip_smoke] phase 6 adaptive night {aw}x{ah} nee target 0.02: {len(spans)} frames, "
+          f"spp rungs visited {visited}, last spp {adaptive.spp}, last noise "
+          f"{adaptive.noise:.4f}, {fps:.1f} fps (2 in flight, readback fence); sample spans "
+          f"{'contiguous and disjoint' if contiguous else 'OVERLAP'} over [0, {spans[-1][1]}) "
+          f"({card})", flush=True)
+    if len(visited) < 2:
+        fail(f"phase 6: the adaptive ladder never left its first rung ({visited})")
+    if not contiguous:
+        fail("phase 6: the adaptive renderer's sample offsets overlap")
+
+    # (d) demo 6 serving a frame; (e) validate_gpu config 11
+    frame, ctype, fps_line = run_demo6(card)
+    print(f"[chip_smoke] phase 6 demo6 --scene rtiow --denoise --serve 0: one /frame of "
+          f"{len(frame)} bytes ({ctype}) fetched while it ran ({card})", flush=True)
+    rc = validate_gpu.main(["--only", "config11"])
+    torch.cuda.synchronize()
+    counts = {"atrous[pass]": atrous.LAUNCHES_BY_MODE["pass"],
+              **{f"sphere_megakernel[{m}]": n for m, n in mk.LAUNCHES_BY_MODE.items()}}
+    print(f"[chip_smoke] phase 6 path took {time.perf_counter() - t0:.1f} s (phase "
+          f"{time.perf_counter() - t_phase:.1f} s); launches {counts}", flush=True)
+    if rc != 0:
+        fail("validate_gpu --only config11 failed")
+    idle = [k for k in ("atrous[pass]", "sphere_megakernel[grid]", "sphere_megakernel[brute-nee]")
+            if counts[k] == 0]
+    if idle:
+        fail(f"kernel modes never launched on the realtime and denoise path: {idle}")
+    source, replaces = KERNELS["atrous"]
+    return dict(name="atrous[pass]", route="cuda", source=source, replaces=replaces,
+                launches=counts["atrous[pass]"], **stats, library_ms=None)
 
 
 def main() -> None:
@@ -1531,6 +1840,7 @@ def main() -> None:
     def to_host(i, frame):
         return frame.cpu().numpy() if isinstance(frame, torch.Tensor) else frame
 
+    realtime_ms = {}  # label -> (host enqueue, drained) ms a frame
     for label, r in (
         ("rtiow", PathTraceRenderer(rtiow, rtiow_cam(1280 / 720),
                                     RenderConfig(width=1280, height=720, spp=2, lens=True),
@@ -1566,6 +1876,7 @@ def main() -> None:
         enqueue_ms = (time.perf_counter() - t_enqueue) * 1e3 / REALTIME_FRAMES
         torch.cuda.synchronize()
         drained_ms = (time.perf_counter() - t_enqueue) * 1e3 / REALTIME_FRAMES
+        realtime_ms[label] = (enqueue_ms, drained_ms)
         tr = bench.trace_frame(lambda i: r.draw_frame_async(0.5), dev)
         busy = "not measured" if tr["device_busy_ms"] is None else f"{tr['device_busy_ms']:.3f} ms"
         print(f"[chip_smoke] realtime {label} frame: host enqueue {enqueue_ms:.3f} ms, drained "
@@ -1631,6 +1942,9 @@ def main() -> None:
     # --- phase 5: the parallel path, counts from zero
     canary = phase5(card, result, mhz, dev)
 
+    # --- phase 6: the realtime and denoise path, counts from zero
+    atrous_entry = phase6(card, mhz, dev, realtime_ms["rtiow"])
+
     kernels = []
     for name in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",
                  "sphere_megakernel[grid-nee]", "sphere_megakernel[brute-nee]",
@@ -1673,6 +1987,7 @@ def main() -> None:
                                 bound_by=bound_by, library_ms=None,
                                 slope_ns=row["ns_per_iter"]))
     kernels.append(canary)
+    kernels.append(atrous_entry)
     # the benchmark frames' bounds, beside their median kernel-frame time
     for name, res, packed_ops in (
         ("rtiow", result, lambda r, fw, fh, fspp: sphere_ops(

@@ -17,7 +17,9 @@ Commands:
 
 ``render`` and ``gif`` run on the GPU (``--device cuda``, the default) and
 exit non-zero on a host without CUDA; ``--device cpu`` runs the kernels'
-plain torch versions. ``--denoise`` is not ported yet (ROADMAP A3).
+plain torch versions. ``--denoise`` filters the path-traced frame with
+the a-trous filter (``--denoise-iters`` passes) over the AOV G-buffer;
+milestone01, the reference shader's frame, is never filtered.
 """
 
 from __future__ import annotations
@@ -92,15 +94,16 @@ def _config(args, **extra):
     from .utils.config import RenderConfig
 
     return RenderConfig(width=args.width, height=args.height, spp=args.spp,
-                        max_bounces=args.bounces, seed=args.seed, denoise=args.denoise, **extra)
+                        max_bounces=args.bounces, seed=args.seed, denoise=args.denoise,
+                        denoise_iterations=args.denoise_iters, **extra)
 
 
 def _wololo(args, device):
     from .app import WololoRenderer
     from .utils.config import RenderConfig
 
-    return WololoRenderer(RenderConfig(width=args.width, height=args.height, spp=1, sky="wololo",
-                                       denoise=args.denoise), device=device)
+    return WololoRenderer(RenderConfig(width=args.width, height=args.height, spp=1, sky="wololo"),
+                          device=device)
 
 
 def cmd_render(args) -> None:
@@ -175,7 +178,10 @@ def _add_common(ap) -> None:
                     help="cuda (the kernels, the default) or cpu (the plain torch version)")
     ap.add_argument("--out", default="out.png")
     ap.add_argument("--denoise", action="store_true",
-                    help="a-trous denoise guided by the AOV G-buffer: not ported yet (ROADMAP A3)")
+                    help="a-trous/SVGF denoise over the AOV G-buffer (render/denoise.py): "
+                         "low-spp renders converge visually at a fraction of the sample cost")
+    ap.add_argument("--denoise-iters", type=int, default=4,
+                    help="a-trous passes (filter radius 2^iters pixels)")
 
 
 def main(argv=None) -> None:

@@ -10,8 +10,10 @@ the stats clock.
   torch ops on the renderer's device.
 - ``PathTraceRenderer``: a ``SphereScene``, ``CompiledTape`` or
   ``MeshScene`` through the port's kernels, with an optional per-frame
-  animation, progressive accumulation and render-to-noise (configs 2-5,
-  7 and the mesh milestone).
+  animation, progressive accumulation, render-to-noise (configs 2-5,
+  7 and the mesh milestone) and the a-trous denoise step
+  (``RenderConfig(denoise=True)``: the AOVs through the scene's plain hit
+  function, the filter through its kernel).
 
 ``device`` (default "cuda") decides what runs, as the kernel wrappers do:
 on "cuda" every frame launches the CUDA kernel of its scene type, and a
@@ -28,6 +30,7 @@ cluster tuple.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -36,6 +39,8 @@ import torch
 from ..io.checkpoint import Accumulator
 from ..kernels import megakernel, tape_kernel, trimesh_kernel
 from ..render import integrator
+from ..render.aov import render_aovs
+from ..render.denoise import atrous_denoise
 from ..render.integrator import SphereScene
 from ..render.lights import extract_tape_lights
 from ..render.tonemap import to_uint8, tonemap
@@ -215,9 +220,24 @@ class PathTraceRenderer:
         return self._tonemap(self.denoise_image(radiance, time_sec)), rays
 
     def denoise_image(self, linear: torch.Tensor, time_sec: float = 0.0) -> torch.Tensor:
-        """The configured denoise of a linear radiance image: a no-op, since
-        ``RenderConfig(denoise=True)`` is refused (ROADMAP A3)."""
-        return linear
+        """The configured denoise of a linear radiance image: with
+        ``config.denoise``, the AOVs of the frame's geometry (the scene
+        animated to ``time_sec``) through its plain hit function, then
+        ``config.denoise_iterations`` passes of the a-trous filter (its CUDA
+        kernel on the card); else the image as it is. Nothing here waits
+        for the device."""
+        cfg = self.config
+        if not cfg.denoise:
+            return linear
+        scene = self.scene if self._animate is None else self._animate(self.scene, time_sec)
+        face_chunk = row_chunk = None
+        if isinstance(scene, MeshScene) and scene.num_faces > 8192:
+            # bound the brute cast's [rays x faces] planes to 2^26 entries
+            face_chunk = 2048
+            row_chunk = max(1, (1 << 26) // (cfg.width * face_chunk))
+        aovs = render_aovs(hit_fn_for(scene, face_chunk=face_chunk), self.camera, cfg.width,
+                           cfg.height, sky=cfg.sky, row_chunk=row_chunk)
+        return atrous_denoise(linear, aovs, iterations=cfg.denoise_iterations)
 
     def render_to_noise(self, target: float = 1e-3, max_spp: int = 1 << 16,
                         time_sec: float = 0.0):
@@ -262,6 +282,17 @@ class PathTraceRenderer:
                 rays_traced=self.accumulator.rays_traced + merged.rays_traced,
             )
         return merged, noise, 2 * pairs * cfg.spp
+
+
+def hit_fn_for(scene, eps: float = 1e-3, face_chunk: int | None = None):
+    """The plain hit function ``(o, d) -> SurfaceHit`` of an unpacked scene."""
+    if isinstance(scene, SphereScene):
+        return functools.partial(SphereScene.nearest_hit, scene, eps=eps)
+    if isinstance(scene, CompiledTape):
+        return functools.partial(integrator.tape_hit_adapter, scene, eps=eps)
+    if isinstance(scene, MeshScene):
+        return functools.partial(MeshScene.nearest_hit, scene, eps=eps, face_chunk=face_chunk)
+    raise TypeError(f"unsupported scene type {type(scene).__name__}")
 
 
 def _pack(scene):

@@ -1,4 +1,6 @@
 from . import (
+    aov,
+    denoise,
     integrator,
     intersect,
     interval,
@@ -9,6 +11,8 @@ from . import (
     tonemap,
     trimesh,
 )
+from .aov import AOVs, render_aovs
+from .denoise import atrous_denoise, denoise_frame
 from .integrator import (
     SphereScene,
     SurfaceHit,
@@ -20,6 +24,8 @@ from .integrator import (
 )
 
 __all__ = [
+    "aov",
+    "denoise",
     "integrator",
     "intersect",
     "interval",
@@ -29,6 +35,10 @@ __all__ = [
     "tape_eval",
     "tonemap",
     "trimesh",
+    "AOVs",
+    "render_aovs",
+    "atrous_denoise",
+    "denoise_frame",
     "SphereScene",
     "SurfaceHit",
     "render_image",

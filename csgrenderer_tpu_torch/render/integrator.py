@@ -56,9 +56,9 @@ def sky_color(d: Tensor, mode: str = "rtiow") -> Tensor:
         return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32, device=d.device)
     else:
         raise ValueError(f"unknown sky mode {mode!r}")
-    white = torch.tensor(WHITE, dtype=torch.float32, device=d.device)
-    blue = torch.tensor(SKY_BLUE, dtype=torch.float32, device=d.device)
-    return vec.lerp(white, blue, t)
+    # vec.lerp's operations channel by channel, with the colours as Python
+    # floats: no host-to-device copy, so a frame on the card never waits
+    return torch.stack([(1.0 - t) * a + t * b for a, b in zip(WHITE, SKY_BLUE)], dim=-1)
 
 
 class SurfaceHit(NamedTuple):

@@ -26,7 +26,8 @@ against its golden; 2-9, ``validate_tpu.build_configs``' scenes, sizes and
 spp (8 and 9, JAX's stream and HBM meshes, run in grid mode, which serves
 them here); 10, the 245,762-face mesh: the noise certificate plus
 same-seed agreement between two grids of different voxel size (JAX
-compared two page schedules). Config 11 (the denoiser) is not ported.
+compared two page schedules); 11, the a-trous denoiser on the 2-spp RTIOW
+frame against a converged render (``validate_denoise``).
 
     python -m csgrenderer_tpu_torch.tools.validate_gpu [--only config2,config4] [--quick]
 
@@ -55,7 +56,8 @@ RMSE_TOL = 1e-3  # the BASELINE criterion
 SEEDS = (11, 1211)
 PLAIN_RAYS = 1 << 21  # rays the plain path traces per pass (sample_batch x pixels)
 GOLDENS = pathlib.Path(__file__).resolve().parents[2] / "tests" / "goldens"
-NOT_PORTED = ("config11_denoise2spp",)
+DENOISE_RATIO = 0.72  # config 11: the filter removes at least 28% of the 2-spp error...
+DENOISE_BUDGET = 0.08  # ...and lands within this RMSE of the converged frame
 
 
 def _tonemapped(radiance) -> np.ndarray:
@@ -276,6 +278,41 @@ def validate_mesh245k(device, subdiv: int = 6, size=(48, 28), spp0: int = 1024,
                 faces=m.num_faces)
 
 
+def validate_denoise(device, size=(128, 72), converged_spp: int = 4096,
+                     chunk: int = 2048) -> dict:
+    """Config 11 (``validate_tpu.validate_denoise``): the production 2-spp
+    frame of ``render --scene rtiow --spp 2 --denoise`` (the sphere kernel,
+    seed 11, lens) denoised against the AOV G-buffer of
+    ``SphereScene.nearest_hit``, judged on gamma-2 floats against a
+    converged render (seed 907, ``converged_spp`` in ``chunk``-spp calls):
+    rmse_den < 0.72 x rmse_raw and rmse_den <= 0.08."""
+    from ..kernels import megakernel as mk
+    from ..models import rtiow_final_scene
+    from ..render import atrous_denoise, render_aovs
+
+    w, h = size
+    scene = rtiow_final_scene(device=device)
+    cam = _look((13, 2, 3), (0, 0, 0), 20.0, w, h, device, aperture=0.1, focus_dist=10.0)
+    packed = mk.pack_scene(scene)
+
+    def kernel(seed, n, off=0):
+        return mk.render_image_kernel(packed, cam, w, h, spp=n, max_bounces=8, seed=seed,
+                                      lens=True, sample_offset=off)[0]
+
+    t0 = time.perf_counter()
+    raw_lin = kernel(SEEDS[0], 2)
+    aovs = render_aovs(scene.nearest_hit, cam, w, h, sky="rtiow")
+    den_lin = atrous_denoise(raw_lin, aovs)
+    conv = _tonemapped(_chunked(kernel, 907, converged_spp, chunk))
+    rmse_raw = _rmse(_tonemapped(raw_lin), conv)
+    rmse_den = _rmse(_tonemapped(den_lin), conv)
+    ok = rmse_den < DENOISE_RATIO * rmse_raw and rmse_den <= DENOISE_BUDGET
+    print(f"[csgr] config11_denoise2spp: rmse_raw={rmse_raw:.4f} rmse_denoised={rmse_den:.4f} "
+          f"(budget {DENOISE_BUDGET}, and < {DENOISE_RATIO}x raw; converged {converged_spp} spp; "
+          f"{time.perf_counter() - t0:.1f}s) {'OK' if ok else 'FAIL'}", flush=True)
+    return dict(name="config11_denoise2spp", ok=ok, rmse_raw=rmse_raw, rmse_den=rmse_den)
+
+
 def validate_goldens(device) -> bool:
     """Quick regression against the committed goldens through the port's
     renderers (low spp: bounded by flipped-path noise, not the fidelity
@@ -315,12 +352,10 @@ def run(device, only: str | None = None, quick: bool = False) -> tuple[bool, lis
         results.append(validate_converged(cfg))
     if selected("config10_mesh245k"):
         results.append(validate_mesh245k(device))
-    for name in NOT_PORTED:
-        if selected(name):
-            print(f"[csgr] {name}: not ported (the denoiser, ROADMAP A3); not counted as a pass",
-                  flush=True)
+    if selected("config11_denoise2spp"):
+        results.append(validate_denoise(device))
     if not results:
-        raise SystemExit(f"--only {only!r} selects no ported config")
+        raise SystemExit(f"--only {only!r} selects no config")
     return all(r["ok"] for r in results), results
 
 

@@ -9,9 +9,9 @@ check every frame's radiance (``check_finite``) and raise at the first NaN
 or Inf, and ``checked(fn)`` wraps one function the same way. Either check
 reads the frame back to the host, so it synchronises with the device.
 
-``denoise=True`` raises NotImplementedError: the AOV G-buffer and the
-a-trous filter it needs (``render/aov.py``, ``render/denoise.py``) are not
-ported (ROADMAP A3).
+``denoise=True`` has the renderers filter each frame with
+``denoise_iterations`` passes of the a-trous filter (``render/denoise.py``)
+over the AOV G-buffer (``render/aov.py``).
 """
 
 from __future__ import annotations
@@ -20,10 +20,6 @@ import functools
 from dataclasses import dataclass
 
 import torch
-
-DENOISE_NOT_PORTED = ("the denoise step (render/aov.py, render/denoise.py) is not ported yet "
-                      "(ROADMAP A3)")
-
 
 @dataclass(frozen=True)
 class RenderConfig:
@@ -38,7 +34,7 @@ class RenderConfig:
     lens: bool = False
     nee: bool = False  # next-event estimation toward the scene's lamps
     debug: bool = False  # every frame's radiance must be finite
-    denoise: bool = False  # not ported (ROADMAP A3): raises
+    denoise: bool = False  # a-trous filter on each frame, AOVs as edge stops
     denoise_iterations: int = 4
 
     def __post_init__(self):
@@ -50,8 +46,6 @@ class RenderConfig:
             raise ValueError(f"bad sky mode {self.sky!r}")
         if self.denoise_iterations < 1:
             raise ValueError("denoise_iterations must be >= 1")
-        if self.denoise:
-            raise NotImplementedError(DENOISE_NOT_PORTED)
 
     @property
     def aspect_ratio(self) -> float:

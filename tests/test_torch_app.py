@@ -75,8 +75,9 @@ def test_render_config_matches_jax_and_validates():
             RenderConfig(**bad)
         with pytest.raises(ValueError):
             JRenderConfig(**bad)
-    with pytest.raises(NotImplementedError, match="A3"):
-        RenderConfig(denoise=True)
+    dn = RenderConfig(denoise=True, denoise_iterations=2)
+    assert dn == RenderConfig(**{f.name: getattr(JRenderConfig(denoise=True, denoise_iterations=2),
+                                                 f.name) for f in dataclasses.fields(dn)})
 
 
 def test_debug_mode_raises_at_the_first_nan():

@@ -3,8 +3,9 @@ torch versions, on the card, without and with next-event estimation (NEE);
 their row slabs against the full frame; the micro-experiment kernels
 (kernel rows 6-8, ``csgrenderer_tpu_torch/tools/exp_*.py``) against their
 plain versions; the sharded render over a one-rank mesh against the
-kernels' frames; and the shard canary (kernel row 9) against its plain
-version.
+kernels' frames; the shard canary (kernel row 9) against its plain
+version; and the a-trous filter's kernel against its plain version, on
+its own and inside the renderer's denoise step.
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -24,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
+from csgrenderer_tpu_torch.app import PathTraceRenderer
 from csgrenderer_tpu_torch.camera import Camera
+from csgrenderer_tpu_torch.kernels import atrous
 from csgrenderer_tpu_torch.kernels import megakernel as mk
 from csgrenderer_tpu_torch.kernels import shard_canary as sc
 from csgrenderer_tpu_torch.kernels import tape_kernel as tk
@@ -41,9 +44,11 @@ from csgrenderer_tpu_torch.models import (
     two_spheres_scene,
 )
 from csgrenderer_tpu_torch.parallel import render_scene_sharded, single_device_mesh
+from csgrenderer_tpu_torch.render import denoise, render_aovs
 from csgrenderer_tpu_torch.render.trimesh import concat_meshes, icosphere, quad
 from csgrenderer_tpu_torch.scene import Material
 from csgrenderer_tpu_torch.tools import common, exp_dot_k, exp_gather, exp_slab
+from csgrenderer_tpu_torch.utils.config import RenderConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -583,3 +588,57 @@ def test_mesh_over_the_limit_reads_global_memory(cuda):
     assert tm.LAUNCHES_BY_TABLES == {"shared": before["shared"], "global": before["global"] + 1}
     ref, ref_rays = tm.render_image_mesh_plain(packed, cam, **MESH_KW)
     _assert_close(ref, ref_rays, img, rays)
+
+
+# --- the a-trous filter ------------------------------------------------------
+
+ATROUS_TOL = 1e-5  # max abs on the linear image: the same float operations on both sides
+
+
+@pytest.mark.parametrize("demodulate", [True, False])
+@pytest.mark.parametrize("iterations", [1, 2, 3, 4])
+def test_atrous_kernel_matches_plain(cuda, iterations, demodulate):
+    """The kernel's passes (steps 1 to 2^(iterations-1), up to 8) on a
+    2-spp RTIOW frame and its AOVs at 64x32, against the plain version on
+    the card: within ATROUS_TOL, each pass one launch."""
+    cam = _rtiow_camera(2.0, cuda)
+    scene = rtiow_final_scene(grid=4, device=cuda)
+    raw, _ = mk.render_image_kernel(mk.pack_scene(scene), cam, 64, 32, spp=2, max_bounces=8,
+                                    seed=3, lens=True)
+    aovs = render_aovs(scene.nearest_hit, cam, 64, 32)
+    before = atrous.LAUNCHES
+    got = denoise.atrous_denoise(raw, aovs, iterations=iterations, demodulate=demodulate)
+    torch.cuda.synchronize()
+    assert atrous.LAUNCHES == before + iterations
+    ref = denoise.atrous_denoise_plain(raw, aovs, iterations=iterations, demodulate=demodulate)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= ATROUS_TOL
+
+
+def _denoised_renderer(cuda):
+    cam = _rtiow_camera(2.0, cuda)
+    cfg = RenderConfig(width=64, height=32, spp=2, lens=True, denoise=True, denoise_iterations=3)
+    return PathTraceRenderer(rtiow_final_scene(grid=4, device=cuda), cam, cfg,
+                             advance_samples=True)
+
+
+def test_denoised_frame_launches_the_kernel_and_never_the_plain_filter(cuda, monkeypatch):
+    """A denoised frame on the card launches the a-trous kernel once per
+    pass and never enters the plain filter; the asynchronous frame waits
+    for nothing on the host (sync debug mode "error" raises on a wait)."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain filter ran on the card")
+
+    monkeypatch.setattr(denoise, "atrous_denoise_plain", refuse)
+    monkeypatch.setattr(denoise, "atrous_pass_plain", refuse)
+    r = _denoised_renderer(cuda)
+    before = atrous.LAUNCHES
+    img = r.draw_frame(0.0)
+    assert atrous.LAUNCHES == before + 3 and img.shape == (32, 64, 3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, rays = r.draw_frame_async(0.1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert atrous.LAUNCHES == before + 6 and int(rays) > 0

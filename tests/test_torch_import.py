@@ -29,6 +29,8 @@ MODULES = [
     "csgrenderer_tpu_torch.render.interval",
     "csgrenderer_tpu_torch.render.tape_eval",
     "csgrenderer_tpu_torch.render.trimesh",
+    "csgrenderer_tpu_torch.render.aov",
+    "csgrenderer_tpu_torch.render.denoise",
     "csgrenderer_tpu_torch.models",
     "csgrenderer_tpu_torch.kernels",
     "csgrenderer_tpu_torch.kernels.build",
@@ -36,6 +38,7 @@ MODULES = [
     "csgrenderer_tpu_torch.kernels.tri_worklist",
     "csgrenderer_tpu_torch.kernels.trimesh_kernel",
     "csgrenderer_tpu_torch.kernels.shard_canary",
+    "csgrenderer_tpu_torch.kernels.atrous",
     "csgrenderer_tpu_torch.io",
     "csgrenderer_tpu_torch.io.obj",
     "csgrenderer_tpu_torch.io.checkpoint",
@@ -51,6 +54,11 @@ MODULES = [
     "csgrenderer_tpu_torch.app.loop",
     "csgrenderer_tpu_torch.app.renderers",
     "csgrenderer_tpu_torch.app.goldens",
+    "csgrenderer_tpu_torch.app.adaptive",
+    "csgrenderer_tpu_torch.app.preview",
+    "csgrenderer_tpu_torch.app.controls",
+    "csgrenderer_tpu_torch.demos",
+    "csgrenderer_tpu_torch.demos.demo6_realtime",
     "csgrenderer_tpu_torch.convert",
     "csgrenderer_tpu_torch.bench",
     "csgrenderer_tpu_torch.__main__",

@@ -1,9 +1,10 @@
 """``tools/validate_gpu.py``, the converged-image protocol of the port, on
 the CPU at tiny sizes: the protocol end to end with the plain path on both
 sides, ``_chunked`` against one call, the mesh scenes of configs 6-10
-against demo 7's, and ``pack_tri_grid(cell=)``, which config 10's second
-grid uses. On the card the tool holds the CUDA kernels to the plain path
-(``chip_smoke.py`` runs configs 1 and 2; PERF.md has the others).
+against demo 7's, ``pack_tri_grid(cell=)``, which config 10's second grid
+uses, and config 11's denoise protocol at a small size. On the card the
+tool holds the CUDA kernels to the plain path (``chip_smoke.py`` runs
+configs 1, 2 and 11; PERF.md has the others).
 """
 
 import pathlib
@@ -52,20 +53,41 @@ def test_protocol_end_to_end_on_the_cpu(capsys):
     assert not res["ok"] and "FAIL" in out
 
 
-def test_main_runs_config1_and_refuses_cuda_without_it(capsys):
+def test_main_runs_config1_and_refuses_cuda_without_it(capsys, monkeypatch):
     """The entry point: config 1 (the milestone-01 frame, 320x240) against
-    its golden on the CPU; config 11 is named as not ported and not
-    counted; "config1" selects config 1 alone."""
-    assert vg.main(["--device", "cpu", "--only", "config1,config11"]) == 0
+    its golden on the CPU; "config1" selects config 1 alone; config 11 is
+    ported and selectable ("config11" alone; its protocol is stubbed here,
+    test_config11_protocol_on_the_cpu runs it small); a selector that
+    names no config exits."""
+    assert vg.main(["--device", "cpu", "--only", "config1"]) == 0
     out = capsys.readouterr().out
     assert "config1_milestone01: deterministic" in out and "OK" in out
-    assert "config11_denoise2spp: not ported" in out and "1 of 1 configs" in out
-    assert "config10" not in out
+    assert "1 of 1 configs" in out and "config10" not in out and "config11" not in out
+    assert not hasattr(vg, "NOT_PORTED")
+    ran = []
+    monkeypatch.setattr(vg, "validate_denoise", lambda device: ran.append(device) or dict(
+        name="config11_denoise2spp", ok=True))
+    assert vg.main(["--device", "cpu", "--only", "config11"]) == 0
+    assert ran == [torch.device("cpu")] and "1 of 1 configs" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="--device cpu"):
             vg.main(["--only", "config1"])
-    with pytest.raises(SystemExit, match="selects no ported config"):
-        vg.main(["--device", "cpu", "--only", "config11"])
+    with pytest.raises(SystemExit, match="selects no config"):
+        vg.main(["--device", "cpu", "--only", "config12"])
+
+
+def test_config11_protocol_on_the_cpu(capsys):
+    """Config 11's protocol at 32x18 with the plain version on the CPU (the
+    card runs it at 128x72 against 4,096 spp): the denoised frame is
+    closer to the converged one than the raw frame, and the verdict
+    applies the two bounds."""
+    res = vg.validate_denoise(torch.device("cpu"), size=(32, 18), converged_spp=128, chunk=64)
+    out = capsys.readouterr().out
+    assert "config11_denoise2spp: rmse_raw=" in out and "converged 128 spp" in out
+    assert res["name"] == "config11_denoise2spp"
+    assert 0 < res["rmse_den"] < res["rmse_raw"]
+    assert res["ok"] == (res["rmse_den"] < vg.DENOISE_RATIO * res["rmse_raw"]
+                         and res["rmse_den"] <= vg.DENOISE_BUDGET)
 
 
 def test_chunked_equals_one_call():
