@@ -139,20 +139,29 @@ Phases (the first that fails ends the run with a non-zero exit):
    compare, the stream lookup, a ctypes call without CUDA and the ctypes
    call that launches, beside the steps the launch path dropped); its bound
    is 8,192 bytes over 3.35 TB/s.
-6. The realtime and denoise path. First the a-trous kernel
+6. The realtime and denoise path. First, on the RTIOW final scene at
+   1280x720 and 1920x1080 and on a ragged 997x563 frame, the sphere
+   kernel's G-buffer mode (``megakernel.render_aovs_kernel``, kernel row
+   11) against its plain version (``render_aovs`` through the packed
+   grid's hit function): the share of pixels that differ (at most 0.2%)
+   and the max abs error where both hit (<= 1e-5), and its share against
+   the plain brute cast, each timed (CUDA events, 50 calls queued behind a
+   device sleep) beside the plain version, with its bound (one segment a
+   pixel, the walk counted, against 29 bytes a pixel written); then the
+   a-trous kernel
    (``kernels/csrc/atrous.cu``, one launch a pass) against its plain
-   version on the card: the RTIOW final scene's 2-spp lens frame and its
-   AOVs at 1280x720 and 1920x1080, 4 passes, max abs <= 1e-5 on the
-   linear image (the same float operations on both sides), each timed
-   (CUDA events) beside the eager plain filter. Then, counts from zero:
-   the denoised realtime frame (``PathTraceRenderer(rtiow_final_scene(),
-   advance_samples=True)`` at 1280x720, 2 spp, lens, ``denoise=True``):
-   host enqueue and drained ms a frame over 50 frames beside phase 3's
-   undenoised ones, with torch's sync debug mode raising on any host wait
-   inside a frame; the frame's split into the beauty kernel, the AOV cast
-   and the 4 filter passes (CUDA events behind a device sleep, so each
-   interval is device time) beside the eager plain filter; ``App.run``
-   over it. ``AdaptiveSppRenderer`` on night_scene() (NEE, 960x540,
+   version on the 2-spp lens frame and those AOVs, 4 passes (5 on the
+   ragged frame, so the step reaches 16), bit for bit, each timed beside
+   the eager plain filter. Then, counts from zero: the denoised realtime
+   frame (``PathTraceRenderer(rtiow_final_scene(), advance_samples=True)``
+   at 1280x720, 2 spp, lens, ``denoise=True``): host enqueue and drained
+   ms a frame over 50 frames beside phase 3's undenoised ones, with
+   torch's sync debug mode raising on any host wait inside a frame, and
+   at least one G-buffer launch a frame; the frame's split into the
+   beauty kernel, the renderer's AOV cast (the G-buffer mode over its
+   packed scene) and the 4 filter passes (CUDA events behind a device
+   sleep, so each interval is device time) beside the eager plain filter;
+   ``App.run`` over it. ``AdaptiveSppRenderer`` on night_scene() (NEE, 960x540,
    target 0.02) through ``App.run`` for 256 frames, two in flight: the
    spp rungs visited and frames per second; it fails if the ladder never
    leaves its first rung or a frame's samples overlap another's. The demo
@@ -161,11 +170,11 @@ Phases (the first that fails ends the run with a non-zero exit):
    ``/frame`` fetched from its preview server while it runs; it fails on a
    non-zero exit or an empty frame. ``tools.validate_gpu --only config11``
    (rmse_den < 0.72 x rmse_raw and rmse_den <= 0.08), which must pass.
-   The a-trous kernel, the sphere kernel's grid mode and its brute-nee
-   mode must have launched. The a-trous entry in the kernels line is a
-   quarter of the whole 4-pass filter at 1280x720 (its time with the
-   demodulation and remodulation, its bound from the operations the
-   filter needs, ``atrous_bound``, not those the kernel does).
+   The a-trous kernel, the sphere kernel's grid, brute-nee and gbuffer
+   modes must have launched. The a-trous entry in the kernels line is a
+   quarter of the whole 4-pass filter at 1280x720 (its bound from the
+   operations the filter needs, ``atrous_bound``, not those the kernel
+   does); the G-buffer entry is one cast at 1280x720.
 
 The last line of output is the device JSON; the line before it lists the
 kernels with their launch counts, errors, times and bounds. There is no
@@ -250,16 +259,21 @@ KERNELS = {
     "atrous": (f"{CSRC}/atrous.cu", "no Pallas kernel: the XLA fusion of "
                "csgrenderer_tpu/render/denoise.py:37 (atrous_denoise)"),
 }  # the NEE modes are the same pallas_call with lamps (n_lights > 0; nee_lamps)
+GBUFFER_REPLACES = ("no Pallas kernel: the jnp AOV cast of csgrenderer_tpu/render/aov.py:41 "
+                    "(render_aovs), which XLA fuses")
 EXP_N_ITER = 2000  # the tools' default --n-iter: each run is checked, timed and bounded there
 EXP_REPS = {"exp_gather": 1, "exp_slab": 3, "exp_dot_k": 1}  # timed calls per loop length
 SMS, LANES = 132, 128
 REALTIME_FRAMES = 200
 REALTIME_REPEATS = 3  # runs of each frames-in-flight / readback setting
 HBM_BYTES_PER_S = 3.35e12
-DENOISE_TOL = 1e-5  # max abs, a-trous kernel against its plain version, on the linear image
+GBUFFER_TOL = 1e-5  # max abs, G-buffer kernel against its plain version where both hit
 DENOISE_FRAMES = 50  # timed frames of the denoised realtime frame
 DENOISE_FRAME = (1280, 720)  # the realtime cell's frame
 DENOISE_CHECKS = (DENOISE_FRAME, (1920, 1080))  # frames the a-trous kernel is held at
+DENOISE_RAGGED = (997, 563)  # a frame no 16x16 block divides, at 5 passes (step 16)
+GBUFFER_SHARE = 2e-3  # most pixels the G-buffer kernel may differ on from its plain version
+GBUFFER_BYTES = 4 + 12 + 12 + 1  # written a pixel: depth, normal, albedo, hit
 ADAPTIVE_FRAMES = 256  # App.run frames of the adaptive night run
 ADAPTIVE_FRAME = (960, 540)  # the night benchmarks' frame
 DEMO6_ARGS = ("--scene", "rtiow", "--denoise", "--serve", "0", "--seconds", "3")
@@ -333,6 +347,25 @@ def timed(fn, reps):
     out = fn()  # warm-up
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / reps
+
+
+def timed_queued(fn, reps, mhz):
+    """(result of the last call, device ms per call) with CUDA events, the
+    ``reps`` calls queued behind a 20 ms device sleep: the host enqueues
+    them all before the device reaches the first, so a call whose host
+    side outlasts its kernel is timed by its kernel, not by the host."""
+    import torch
+
+    out = fn()  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(mhz * 2e4))
     start.record()
     for _ in range(reps):
         out = fn()
@@ -856,15 +889,18 @@ def phase5(card, bench_result, mhz, dev):
 def atrous_bound(aovs, iterations, mhz):
     """(bound_ms, bound_by, ops, bytes) of the demodulated a-trous filter
     (``render/denoise.py::atrous_denoise``) on these AOVs: the operations
-    the function needs, not the kernel's. FP32 operations, expf and powf
-    one each: once a pixel, the albedo clamp, divide and multiply (9) and
-    the depth's miss select (1); per pixel and pass the centre's luminance
-    (5) and the normalisation (max, 3 divides: 4); per tap 23 (luminance
-    difference 1, colour weight 3, depth difference 5 (no abs: it is
-    squared), depth weight 3, hit gate 1, the weight's product 3, the
-    accumulation 7) and, only where both pixels hit, 8 more (normal dot 5,
-    max, powf, the product). Bytes: colour, albedo, normal (12 each),
-    depth (4) and hit (1) read once, the image (12) written once."""
+    the function needs, not the kernel's. FP32 operations, expf one each:
+    once a pixel, the albedo clamp, divide and multiply (9) and the depth's
+    miss select (1); per pixel and pass the centre's luminance (5) and the
+    normalisation (max, 3 divides: 4); per tap 23 (luminance difference 1,
+    colour weight 3, depth difference 5 (no abs: it is squared), depth
+    weight 3, hit gate 1, the weight's product 3, the accumulation 7) and,
+    only where both pixels hit, 7 more and the squarings of the normal
+    weight (normal dot 5, max, the product; 5 squarings at sigma 32).
+    Bytes: colour, albedo, normal (12 each), depth (4) and hit (1) read
+    once, the image (12) written once."""
+    from csgrenderer_tpu_torch.render.denoise import normal_squarings
+
     import torch
 
     h, w = aovs.hit.shape
@@ -879,7 +915,7 @@ def atrous_bound(aovs, iterations, mhz):
             for dx in range(-2, 3):
                 xs = torch.clamp(cols + dx * step, 0, w - 1)
                 both += int((hit & hit[ys][:, xs]).sum())
-        ops += h * w * (5 + 4 + 25 * 23) + 8 * both
+        ops += h * w * (5 + 4 + 25 * 23) + (7 + normal_squarings(32.0)) * both
     nbytes = h * w * (12 + 12 + 12 + 4 + 1 + 12)
     ops_ms = ops / (SMS * LANES * mhz * 1e6) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -957,19 +993,48 @@ def run_demo6(card):
     return frame, ctype, fps_line
 
 
+def gbuffer_bound(packed, counts, width, height, sky, mhz):
+    """(bound_ms, bound_by, ops, bytes) of the G-buffer cast: one segment a
+    pixel as ``sphere_ops`` counts it (the walk from the plain walk's
+    ``counts``), against its tables read once and 29 bytes a pixel written."""
+    walk = {k: int(v) for k, v in counts.items()} if packed.grid is not None else None
+    ops = sphere_ops(packed.n_brute, width * height, width, height, 1, sky, walk=walk)
+    nb = packed.table_bytes + width * height * GBUFFER_BYTES
+    ops_ms = ops / (SMS * LANES * mhz * 1e6) * 1e3
+    bytes_ms = nb / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations", ops, nb) if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes", ops, nb)
+
+
+def aov_diff(got, ref):
+    """(share of pixels where any channel differs, max abs error over the
+    pixels both hit) of two AOVs."""
+    import torch
+
+    differ = got.hit != ref.hit
+    for a, b in zip(got[:3], ref[:3]):
+        d = a != b
+        differ |= d.reshape(d.shape[0], d.shape[1], -1).any(dim=-1)
+    both = got.hit & ref.hit
+    err = max(float((a - b)[both].abs().max()) if bool(both.any()) else 0.0
+              for a, b in zip(got[:3], ref[:3]))
+    return float(differ.float().mean()), err
+
+
 def phase6(card, mhz, dev, undenoised):
-    """Phase 6, the realtime and denoise path. (a) the a-trous kernel
-    against its plain version at 1280x720 and 1920x1080 (launches outside
-    the path's count); then, counts from zero, (b) the denoised realtime
-    frame, (c) the adaptive ladder on the night scene through App.run, (d)
-    demo 6 serving a frame, (e) validate_gpu config 11. ``undenoised``:
-    phase 3's (enqueue ms, drained ms) of the rtiow realtime frame.
-    Returns the a-trous kernel's kernels-line entry."""
+    """Phase 6, the realtime and denoise path. (a) the sphere kernel's
+    G-buffer mode against its plain version, and the a-trous kernel
+    against its plain version, at 1280x720 and 1920x1080, the a-trous
+    kernel also on a ragged frame at 5 passes (launches outside the path's
+    count); then, counts from zero, (b) the denoised realtime frame, (c)
+    the adaptive ladder on the night scene through App.run, (d) demo 6
+    serving a frame, (e) validate_gpu config 11. ``undenoised``: phase 3's
+    (enqueue ms, drained ms) of the rtiow realtime frame. Returns the
+    kernels-line entries of the a-trous kernel and the G-buffer mode."""
     import numpy as np
     import torch
 
     from csgrenderer_tpu_torch.app import AdaptiveSppRenderer, App, PathTraceRenderer, StatsClock
-    from csgrenderer_tpu_torch.app.renderers import hit_fn_for
     from csgrenderer_tpu_torch.camera import Camera
     from csgrenderer_tpu_torch.kernels import atrous
     from csgrenderer_tpu_torch.kernels import megakernel as mk
@@ -986,29 +1051,48 @@ def phase6(card, mhz, dev, undenoised):
         return Camera.look_at((13, 2, 3), (0, 0, 0), vfov_degrees=20.0, aspect_ratio=w / h,
                               aperture=0.1, focus_dist=10.0, device=dev)
 
-    # (a) the kernel against its plain version: the 2-spp beauty frame and its AOVs
-    stats = None
-    for fw, fh in DENOISE_CHECKS:
+    # (a) each kernel against its plain version: the G-buffer of the rtiow frame, then the
+    # 2-spp beauty frame filtered with it (4 passes; 5 on a ragged frame, so step 16 runs)
+    stats, gstats = None, None
+    for fw, fh, passes in (*((w, h, 4) for w, h in DENOISE_CHECKS), (*DENOISE_RAGGED, 5)):
         cam = rtiow_cam(fw, fh)
         raw, _ = mk.render_image_kernel(packed, cam, fw, fh, spp=2, max_bounces=8, seed=0,
                                         lens=True)
-        aovs = render_aovs(rtiow.nearest_hit, cam, fw, fh, sky="rtiow", row_chunk=180)
-        got, ms = timed(functools.partial(denoise.atrous_denoise, raw, aovs, 4), reps=50)
-        ref, plain_ms = timed(functools.partial(denoise.atrous_denoise_plain, raw, aovs, 4),
+        aovs, g_ms = timed_queued(functools.partial(mk.render_aovs_kernel, packed, cam, fw, fh),
+                                  50, mhz)
+        walk = {}  # the plain walk's work on these rays: the bound's operations
+        ref_aovs = mk.render_aovs_plain(packed, cam, fw, fh, counts=walk)
+        _, g_plain_ms = timed(functools.partial(mk.render_aovs_plain, packed, cam, fw, fh), reps=1)
+        brute = render_aovs(rtiow.nearest_hit, cam, fw, fh, sky="rtiow", row_chunk=180)
+        share, g_err = aov_diff(aovs, ref_aovs)
+        brute_share, _ = aov_diff(aovs, brute)
+        g_bound, g_by, g_ops, g_nb = gbuffer_bound(packed, walk, fw, fh, "rtiow", mhz)
+        print(f"[chip_smoke] phase 6 sphere G-buffer {fw}x{fh} rtiow ({packed.mode}): "
+              f"{share:.4%} of pixels differ from its plain version (max abs {g_err:.3e} where "
+              f"both hit; bound {GBUFFER_SHARE:.2%}), {brute_share:.4%} from the plain brute cast; "
+              f"kernel {g_ms:.4f} ms, plain (grid walk, torch ops) {g_plain_ms:.3f} ms; bound "
+              f"{g_bound:.4f} ms ({g_by}: {g_ops} FP32 ops, {g_nb} bytes) ({card})", flush=True)
+        if share > GBUFFER_SHARE or g_err > GBUFFER_TOL:
+            fail(f"phase 6: the G-buffer kernel is off its plain version at {fw}x{fh}")
+        got, ms = timed_queued(functools.partial(denoise.atrous_denoise, raw, aovs, passes), 50,
+                               mhz)
+        ref, plain_ms = timed(functools.partial(denoise.atrous_denoise_plain, raw, aovs, passes),
                               reps=3)
         err = float((got - ref).abs().max())
         same = bool(torch.equal(got, ref))
-        bound_ms, bound_by, ops, nb = atrous_bound(aovs, 4, mhz)
-        print(f"[chip_smoke] phase 6 atrous 4 passes {fw}x{fh} on the rtiow 2-spp frame: max abs "
-              f"{err:.3e} against the plain version ({'equal bit for bit' if same else 'not equal'}"
-              f"; tolerance {DENOISE_TOL}); kernel {ms:.4f} ms, plain (eager torch) "
-              f"{plain_ms:.3f} ms for the 4 passes; bound {bound_ms:.4f} ms ({bound_by}: {ops} FP32 "
-              f"ops, {nb} bytes) ({card})", flush=True)
-        if not bool(torch.isfinite(got).all()) or err > DENOISE_TOL:
+        bound_ms, bound_by, ops, nb = atrous_bound(aovs, passes, mhz)
+        verdict = "equal bit for bit" if same else "NOT EQUAL"
+        print(f"[chip_smoke] phase 6 atrous {passes} passes {fw}x{fh} on the rtiow 2-spp frame: "
+              f"max abs {err:.3e} against the plain version ({verdict}); kernel {ms:.4f} ms, "
+              f"plain (eager torch) {plain_ms:.3f} ms for the {passes} passes; bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {ops} FP32 ops, {nb} bytes) ({card})", flush=True)
+        if not same:
             fail(f"phase 6: the a-trous kernel is {err:.3e} off its plain version at {fw}x{fh}")
-        if (fw, fh) == DENOISE_FRAME:  # the realtime frame's filter: the kernels line's entry
-            stats = dict(max_abs_err=err, ms=ms / 4, plain_ms=plain_ms / 4,
-                         bound_ms=bound_ms / 4, bound_by=bound_by)
+        if (fw, fh) == DENOISE_FRAME:  # the realtime frame's: the kernels line's entries
+            stats = dict(max_abs_err=err, ms=ms / passes, plain_ms=plain_ms / passes,
+                         bound_ms=bound_ms / passes, bound_by=bound_by)
+            gstats = dict(max_abs_err=g_err, ms=g_ms, plain_ms=g_plain_ms, bound_ms=g_bound,
+                          bound_by=g_by, pixel_share=share, brute_pixel_share=brute_share)
 
     for mod in (mk, atrous):
         mod.LAUNCHES = 0
@@ -1039,9 +1123,13 @@ def phase6(card, mhz, dev, undenoised):
           f"{enqueue_ms:.3f} ms ({first_ms:.3f} over the first 5), drained {drained_ms:.3f} ms per "
           f"frame ({DENOISE_FRAMES} frames, no host wait inside a frame); undenoised (phase 3): "
           f"enqueue {undenoised[0]:.3f} ms, drained {undenoised[1]:.3f} ms ({card})", flush=True)
-    # the frame's split, CUDA events: beauty kernel, AOV cast, 4 filter passes, tonemap;
-    # a 10 ms device sleep first lets the host enqueue the whole frame before the
-    # device reaches it, so each interval is device time, not the host's launches
+    frame_casts = mk.LAUNCHES_BY_MODE["gbuffer"]  # the timed frames' and the warm-up's
+    if frame_casts < DENOISE_FRAMES + 1:
+        fail(f"phase 6: {DENOISE_FRAMES + 1} denoised frames launched {frame_casts} G-buffer casts")
+    # the frame's split, CUDA events: beauty kernel, the renderer's AOV cast (the G-buffer
+    # mode over its packed scene), 4 filter passes, tonemap; a 10 ms device sleep first
+    # lets the host enqueue the whole frame before the device reaches it, so each interval
+    # is device time, not the host's launches
     splits = []
     for i in range(10):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -1049,7 +1137,7 @@ def phase6(card, mhz, dev, undenoised):
         ev[0].record()
         radiance, _ = r._render(i / 60.0)
         ev[1].record()
-        aovs = render_aovs(hit_fn_for(r.scene), r.camera, fw, fh, sky=r.config.sky)
+        aovs = mk.render_aovs_kernel(r._sphere_pack(i / 60.0), r.camera, fw, fh, sky=r.config.sky)
         ev[2].record()
         den = denoise.atrous_denoise(radiance, aovs, 4)
         ev[3].record()
@@ -1061,8 +1149,8 @@ def phase6(card, mhz, dev, undenoised):
     _, plain_filter_ms = timed(functools.partial(denoise.atrous_denoise_plain, radiance, aovs, 4),
                                reps=3)
     print(f"[chip_smoke] phase 6 denoised frame split (CUDA events, median of 10): beauty kernel "
-          f"{beauty:.3f} ms, AOV cast (torch ops, brute over {rtiow.num_spheres} spheres) "
-          f"{aov_ms:.3f} ms, a-trous kernel 4 passes {filt:.4f} ms, tonemap {tone:.3f} ms; the "
+          f"{beauty:.3f} ms, AOV cast (the sphere kernel's G-buffer mode, {r._packed.mode}) "
+          f"{aov_ms:.4f} ms, a-trous kernel 4 passes {filt:.4f} ms, tonemap {tone:.3f} ms; the "
           f"eager plain filter {plain_filter_ms:.3f} ms ({card})", flush=True)
     app = App(width=fw, height=fh, stats=StatsClock(emit=None), frame_sink=None)
     app.swap_scene(r)
@@ -1117,13 +1205,18 @@ def phase6(card, mhz, dev, undenoised):
           f"{time.perf_counter() - t_phase:.1f} s); launches {counts}", flush=True)
     if rc != 0:
         fail("validate_gpu --only config11 failed")
-    idle = [k for k in ("atrous[pass]", "sphere_megakernel[grid]", "sphere_megakernel[brute-nee]")
-            if counts[k] == 0]
+    idle = [k for k in ("atrous[pass]", "sphere_megakernel[grid]", "sphere_megakernel[brute-nee]",
+                        "sphere_megakernel[gbuffer]") if counts[k] == 0]
     if idle:
         fail(f"kernel modes never launched on the realtime and denoise path: {idle}")
     source, replaces = KERNELS["atrous"]
-    return dict(name="atrous[pass]", route="cuda", source=source, replaces=replaces,
-                launches=counts["atrous[pass]"], **stats, library_ms=None)
+    entries = [dict(name="atrous[pass]", route="cuda", source=source, replaces=replaces,
+                    launches=counts["atrous[pass]"], **stats, library_ms=None)]
+    source, _ = KERNELS["sphere_megakernel"]
+    entries.append(dict(name="sphere_megakernel[gbuffer]", route="cuda", source=source,
+                        replaces=GBUFFER_REPLACES, launches=counts["sphere_megakernel[gbuffer]"],
+                        **gstats, library_ms=None))
+    return entries
 
 
 def main() -> None:
@@ -1943,7 +2036,7 @@ def main() -> None:
     canary = phase5(card, result, mhz, dev)
 
     # --- phase 6: the realtime and denoise path, counts from zero
-    atrous_entry = phase6(card, mhz, dev, realtime_ms["rtiow"])
+    denoise_entries = phase6(card, mhz, dev, realtime_ms["rtiow"])
 
     kernels = []
     for name in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",
@@ -1987,7 +2080,7 @@ def main() -> None:
                                 bound_by=bound_by, library_ms=None,
                                 slope_ns=row["ns_per_iter"]))
     kernels.append(canary)
-    kernels.append(atrous_entry)
+    kernels.extend(denoise_entries)
     # the benchmark frames' bounds, beside their median kernel-frame time
     for name, res, packed_ops in (
         ("rtiow", result, lambda r, fw, fh, fspp: sphere_ops(

@@ -12,8 +12,10 @@ the stats clock.
   ``MeshScene`` through the port's kernels, with an optional per-frame
   animation, progressive accumulation, render-to-noise (configs 2-5,
   7 and the mesh milestone) and the a-trous denoise step
-  (``RenderConfig(denoise=True)``: the AOVs through the scene's plain hit
-  function, the filter through its kernel).
+  (``RenderConfig(denoise=True)``: on the card a sphere scene's AOVs
+  through the sphere kernel's G-buffer mode, over the beauty frame's
+  packed tables, and a tape's or mesh's through its plain hit function,
+  as on the CPU; the filter through its kernel).
 
 ``device`` (default "cuda") decides what runs, as the kernel wrappers do:
 on "cuda" every frame launches the CUDA kernel of its scene type, and a
@@ -150,6 +152,7 @@ class PathTraceRenderer:
         # static scenes are packed once (lamp tables included); animated
         # ones every frame
         self._packed = None if animate is not None else _pack(self.scene)
+        self._frame_pack = None  # (time, PackedScene) of an animated sphere scene's last frame
         if config.nee and not _has_lamps(self.scene, self._packed):
             raise ValueError("RenderConfig.nee but the scene has no emissive lamps")
         # animated tapes recluster per frame on a CPU copy, so no readback
@@ -164,6 +167,9 @@ class PathTraceRenderer:
             scene = self._packed
         else:
             scene = self._animate(self.scene, time_sec)
+            if isinstance(scene, SphereScene):  # packed once: the denoise step casts over it
+                scene = megakernel.pack_scene(scene)
+                self._frame_pack = (time_sec, scene)
             if self._cpu_twin is not None and partition is None:
                 partition = self._recluster(time_sec)
         radiance, rays = _render_kernel(scene, self.camera, self.config, self._sample_offset,
@@ -222,13 +228,20 @@ class PathTraceRenderer:
     def denoise_image(self, linear: torch.Tensor, time_sec: float = 0.0) -> torch.Tensor:
         """The configured denoise of a linear radiance image: with
         ``config.denoise``, the AOVs of the frame's geometry (the scene
-        animated to ``time_sec``) through its plain hit function, then
-        ``config.denoise_iterations`` passes of the a-trous filter (its CUDA
-        kernel on the card); else the image as it is. Nothing here waits
-        for the device."""
+        animated to ``time_sec``), then ``config.denoise_iterations`` passes
+        of the a-trous filter (its CUDA kernel on the card); else the image
+        as it is. A sphere scene on the card casts its AOVs through the
+        sphere kernel's G-buffer mode over the tables its beauty frame read
+        (packed once: when static, or by that frame's ``_render``); every
+        other scene type, and every scene on the CPU, through its plain hit
+        function. Nothing here waits for the device."""
         cfg = self.config
         if not cfg.denoise:
             return linear
+        if isinstance(self.scene, SphereScene) and self.device.type == "cuda":
+            aovs = megakernel.render_aovs_kernel(self._sphere_pack(time_sec), self.camera,
+                                                 cfg.width, cfg.height, sky=cfg.sky)
+            return atrous_denoise(linear, aovs, iterations=cfg.denoise_iterations)
         scene = self.scene if self._animate is None else self._animate(self.scene, time_sec)
         face_chunk = row_chunk = None
         if isinstance(scene, MeshScene) and scene.num_faces > 8192:
@@ -238,6 +251,16 @@ class PathTraceRenderer:
         aovs = render_aovs(hit_fn_for(scene, face_chunk=face_chunk), self.camera, cfg.width,
                            cfg.height, sky=cfg.sky, row_chunk=row_chunk)
         return atrous_denoise(linear, aovs, iterations=cfg.denoise_iterations)
+
+    def _sphere_pack(self, time_sec: float):
+        """The packed sphere scene of the frame at ``time_sec``: the static
+        pack, or the animated frame's from ``_render`` (packed here only for
+        a time no frame was rendered at)."""
+        if self._packed is not None:
+            return self._packed
+        if self._frame_pack is not None and self._frame_pack[0] == time_sec:
+            return self._frame_pack[1]
+        return megakernel.pack_scene(self._animate(self.scene, time_sec))
 
     def render_to_noise(self, target: float = 1e-3, max_spp: int = 1 << 16,
                         time_sec: float = 0.0):

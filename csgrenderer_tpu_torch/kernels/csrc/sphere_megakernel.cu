@@ -52,6 +52,15 @@
 //     loop) was measured slower here; it mixes camera rays, whose walks are
 //     long and coherent, with bounce rays in one warp.
 //
+// The G-buffer mode (sphere_gbuffer, csgr_sphere_gbuffer) replaces no
+// Pallas kernel: it is the port's kernel for the JAX package's jnp AOV cast
+// (csgrenderer_tpu/render/aov.py::render_aovs, which XLA fuses). One
+// centred primary ray a pixel, no RNG and no lens, through the render
+// modes' brute pass and grid walk over the same staged tables; it writes
+// depth, the face-forwarded normal, the albedo (the sky colour on a miss)
+// and the hit byte: 29 bytes a pixel, so it is bound by the walk's
+// operations, as the render modes are.
+//
 // Numerics: the kernel repeats, operation for operation and in the same
 // order, the float arithmetic of its plain torch version (the reference's
 // expanded quadratic, materials, camera), and is built with -fmad=false and
@@ -414,6 +423,119 @@ cudaError_t launch_mode(const Params& p, bool grid, bool nee, cudaStream_t st) {
   return nee ? launch<false, true, kShared>(p, st) : launch<false, false, kShared>(p, st);
 }
 
+// The G-buffer mode's outputs, beside the scene (p.width x p.height pixels).
+struct GbufferParams {
+  Params p;
+  float* depth;    // [H, W]: t * |d|, +inf on a miss
+  float* normal;   // [H, W, 3]: face-forwarded unit normal, 0 on a miss
+  float* albedo;   // [H, W, 3]: the sphere's albedo, the sky colour on a miss
+  uint8_t* hit;    // [H, W]: 1 on a hit
+};
+
+// One pixel of render/aov.py::render_aovs through the packed scene's plain
+// hit function: the centred st of render_aovs, Camera.rays without a lens
+// (its zero offset added and subtracted as there), the nearest hit, then
+// SphereScene.surface_hit's normal and integrator.sky_color's albedo. The
+// st divide by the frame's size is a product with its rounded reciprocal:
+// that is what torch's CUDA division by a Python number computes (one ulp
+// from the quotient for a fifth of the pixels), so the kernel takes the
+// plain version's bits on the card.
+template <bool kGrid, bool kShared>
+__device__ __forceinline__ void gbuffer_pixel(const GbufferParams& g, const float* cam, int x,
+                                              int y) {
+  const Params& p = g.p;
+  const float st_x = (static_cast<float>(x) + 0.5f) * (1.0f / static_cast<float>(p.width));
+  const float st_y =
+      1.0f - (static_cast<float>(y) + 0.5f) * (1.0f / static_cast<float>(p.height));
+  const float ox = cam[0] + 0.0f, oy = cam[1] + 0.0f, oz = cam[2] + 0.0f;
+  const float dx = cam[3] + st_x * cam[6] + st_y * cam[9] - cam[0] - 0.0f;
+  const float dy = cam[4] + st_x * cam[7] + st_y * cam[10] - cam[1] - 0.0f;
+  const float dz = cam[5] + st_x * cam[8] + st_y * cam[11] - cam[2] - 0.0f;
+  const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
+  float t_best = kBig;
+  int id_best = 0;
+  for (int i = 0; i < p.n_brute; ++i) {
+    const float t = sphere_t<kShared>(p, ray, i);
+    if (t < t_best) {
+      t_best = t;
+      id_best = i;
+    }
+  }
+  if (kGrid) grid_walk<kShared, true>(p, ray, t_best, id_best);
+
+  const size_t pix = static_cast<size_t>(y) * p.width + x;
+  float* n = g.normal + 3 * pix;
+  float* a = g.albedo + 3 * pix;
+  if (!(t_best < kBigCut)) {  // a miss: no depth, no normal, the sky's colour
+    g.depth[pix] = __int_as_float(0x7f800000);
+    n[0] = 0.0f; n[1] = 0.0f; n[2] = 0.0f;
+    // vec.normalized(d, eps=1e-20) as torch forms it on the card: rsqrt
+    const float udy = dy * rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-20f));
+    const float t = p.sky == 0 ? 0.5f * (udy + 1.0f) : udy;
+    const bool black = p.sky == 2;
+    a[0] = black ? 0.0f : (1.0f - t) + t * 0.5f;
+    a[1] = black ? 0.0f : (1.0f - t) + t * 0.7f;
+    a[2] = black ? 0.0f : (1.0f - t) + t * 1.0f;
+    g.hit[pix] = 0;
+    return;
+  }
+  const float4 g0 = geo_load<kShared>(p, 2 * id_best);
+  const float4 g1 = geo_load<kShared>(p, 2 * id_best + 1);
+  const float4 g2 = __ldg(p.sph + 3 * id_best + 2);
+  const float rad = g1.y;
+  const float hx = ox + t_best * dx, hy = oy + t_best * dy, hz = oz + t_best * dz;
+  const float onx = (hx - g0.x) / rad, ony = (hy - g0.y) / rad, onz = (hz - g0.z) / rad;
+  const float sgn = dx * onx + dy * ony + dz * onz < 0.0f ? 1.0f : -1.0f;
+  g.depth[pix] = t_best * sqrtf(dx * dx + dy * dy + dz * dz);
+  n[0] = onx * sgn; n[1] = ony * sgn; n[2] = onz * sgn;
+  a[0] = g2.x; a[1] = g2.y; a[2] = g2.z;
+  g.hit[pix] = 1;
+}
+
+// Persistent CTAs over the frame, as sphere_megakernel's.
+template <bool kGrid, bool kShared>
+__global__ void __launch_bounds__(kThreads, kMinCtas) sphere_gbuffer(const GbufferParams g) {
+  const Params& p = g.p;
+  if constexpr (kShared) csgr::stage_tables<2>({p.geo, p.cell_ids}, {p.geo_bytes, p.cell_bytes});
+  float cam[csgr::kCamFloats];
+#pragma unroll
+  for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
+  csgr::for_each_pixel(p.work, p.width, p.height, [&](int x, int y) {
+    gbuffer_pixel<kGrid, kShared>(g, cam, x, y);
+  });
+}
+
+template <bool kGrid, bool kShared>
+cudaError_t launch_gbuffer(const GbufferParams& g, cudaStream_t st) {
+  const int smem = kShared ? g.p.geo_bytes + g.p.cell_bytes : 0;
+  return csgr::launch_persistent(sphere_gbuffer<kGrid, kShared>, g, kThreads, smem, g.p.width,
+                                 g.p.height, g.p.work, st);
+}
+
+// The scene half of Params, as both entry points take it; a CUDA error
+// code (invalid value or misaligned address) when the tables are unusable.
+cudaError_t scene_params(Params& p, const void* cam, const void* spheres, const void* geometry,
+                         int n_spheres, int n_brute, const void* cell_ids, int cx, int cz, int m,
+                         int max_steps, float x0, float z0, float x1, float z1, float y_lo,
+                         float y_hi, float cell, float inv_cell) {
+  if (n_brute > n_spheres || (cell_ids != nullptr && m != kSlots)) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(geometry) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(cell_ids) % 16 != 0) {
+    return cudaErrorMisalignedAddress;  // the bulk copies and int4 loads
+  }
+  p.cam = static_cast<const float*>(cam);
+  p.sph = static_cast<const float4*>(spheres);
+  p.geo = static_cast<const float4*>(geometry);
+  p.n_brute = n_brute;
+  p.cell_ids = static_cast<const int*>(cell_ids);
+  p.geo_bytes = n_spheres * 8 * 4;
+  p.cell_bytes = cell_ids != nullptr ? cx * cz * kSlots * 4 : 0;
+  p.cx = cx; p.cz = cz; p.max_steps = max_steps;
+  p.x0 = x0; p.z0 = z0; p.x1 = x1; p.z1 = z1;
+  p.y_lo = y_lo; p.y_hi = y_hi; p.cell = cell; p.inv_cell = inv_cell;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // The most table bytes (geometry and cell lists) a CTA can stage on
@@ -434,25 +556,14 @@ extern "C" int csgr_sphere_render(
     int width, int height, int rows, int row_offset,
     int spp, int max_bounces, unsigned int seed, unsigned int sample_offset,
     int lens, int sky, int shared_tables, void* out_rgb, void* out_rays, void* stream) {
-  if (rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
-      n_brute > n_spheres || (cell_ids != nullptr && m != kSlots)) {
+  if (rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (reinterpret_cast<uintptr_t>(geometry) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(cell_ids) % 16 != 0) {
-    return static_cast<int>(cudaErrorMisalignedAddress);  // the bulk copies and int4 loads
-  }
   Params p;
-  p.cam = static_cast<const float*>(cam);
-  p.sph = static_cast<const float4*>(spheres);
-  p.geo = static_cast<const float4*>(geometry);
-  p.n_brute = n_brute;
-  p.cell_ids = static_cast<const int*>(cell_ids);
-  p.geo_bytes = n_spheres * 8 * 4;
-  p.cell_bytes = cell_ids != nullptr ? cx * cz * kSlots * 4 : 0;
-  p.cx = cx; p.cz = cz; p.max_steps = max_steps;
-  p.x0 = x0; p.z0 = z0; p.x1 = x1; p.z1 = z1;
-  p.y_lo = y_lo; p.y_hi = y_hi; p.cell = cell; p.inv_cell = inv_cell;
+  const cudaError_t bad = scene_params(p, cam, spheres, geometry, n_spheres, n_brute, cell_ids,
+                                       cx, cz, m, max_steps, x0, z0, x1, z1, y_lo, y_hi, cell,
+                                       inv_cell);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
   p.lamps = static_cast<const float4*>(lamps);
   p.n_lamps = n_lamps;
   p.width = width; p.height = height; p.spp = spp; p.max_bounces = max_bounces;
@@ -467,6 +578,36 @@ extern "C" int csgr_sphere_render(
   const bool grid = cell_ids != nullptr, nee = n_lamps > 0;
   const cudaError_t e = shared_tables ? launch_mode<true>(p, grid, nee, st)
                                       : launch_mode<false>(p, grid, nee, st);
+  return static_cast<int>(e);
+}
+
+// The G-buffer mode over the whole width x height frame: the scene
+// arguments as csgr_sphere_render's; depth [H, W] f32, normal and albedo
+// [H, W, 3] f32, hit [H, W] u8; work is one int32, the launch's work
+// counter, which the launch zeroes.
+extern "C" int csgr_sphere_gbuffer(
+    const void* cam, const void* spheres, const void* geometry, int n_spheres, int n_brute,
+    const void* cell_ids, int cx, int cz, int m, int max_steps, float x0, float z0, float x1,
+    float z1, float y_lo, float y_hi, float cell, float inv_cell, int width, int height, int sky,
+    int shared_tables, void* depth, void* normal, void* albedo, void* hit, void* work,
+    void* stream) {
+  if (width < 1 || height < 1) return static_cast<int>(cudaErrorInvalidValue);
+  GbufferParams g = {};
+  const cudaError_t bad = scene_params(g.p, cam, spheres, geometry, n_spheres, n_brute, cell_ids,
+                                       cx, cz, m, max_steps, x0, z0, x1, z1, y_lo, y_hi, cell,
+                                       inv_cell);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  g.p.width = width; g.p.height = height; g.p.sky = sky;
+  g.p.work = static_cast<int*>(work);
+  g.depth = static_cast<float*>(depth);
+  g.normal = static_cast<float*>(normal);
+  g.albedo = static_cast<float*>(albedo);
+  g.hit = static_cast<uint8_t*>(hit);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool grid = cell_ids != nullptr;
+  cudaError_t e;
+  if (shared_tables) e = grid ? launch_gbuffer<true, true>(g, st) : launch_gbuffer<false, true>(g, st);
+  else e = grid ? launch_gbuffer<true, false>(g, st) : launch_gbuffer<false, false>(g, st);
   return static_cast<int>(e);
 }
 

@@ -17,8 +17,14 @@ Where the tensors lie decides what runs:
 
 ``nee=True`` adds next-event estimation toward the scene's emissive
 spheres (``render/lights.py``): the kernel's NEE variant, or the plain
-version with ``lights=``. ``LAUNCHES`` counts kernel launches
-(``LAUNCHES_BY_MODE`` per mode: grid, brute, grid-nee, brute-nee;
+version with ``lights=``.
+
+``render_aovs_kernel`` is the kernel's G-buffer mode: the AOV cast of
+``render/aov.py::render_aovs`` (one centred primary ray a pixel, the
+denoiser's edge stops) over the same packed tables, CUDA tensors only; its
+plain version ``render_aovs_plain`` is ``render_aovs`` through the packed
+scene's plain hit function. ``LAUNCHES`` counts kernel launches
+(``LAUNCHES_BY_MODE`` per mode: grid, brute, grid-nee, brute-nee, gbuffer;
 ``LAUNCHES_BY_TABLES`` by where the launch read its scene tables: staged in
 shared memory, or global memory when ``PackedScene.table_bytes`` exceeds
 ``table_limit``); only the launch site adds to them.
@@ -34,6 +40,7 @@ from torch import Tensor
 
 from ..math import vec
 from ..render import integrator
+from ..render.aov import AOVs, render_aovs
 from ..render.integrator import SKY_MODES, SphereScene, SurfaceHit
 from ..render.lights import SphereLights, extract_lights
 from . import build
@@ -47,7 +54,7 @@ CAM_SIZE = 24
 KERNEL_SOURCE = "sphere_megakernel"
 
 LAUNCHES = 0
-LAUNCHES_BY_MODE = {"grid": 0, "brute": 0, "grid-nee": 0, "brute-nee": 0}
+LAUNCHES_BY_MODE = {"grid": 0, "brute": 0, "grid-nee": 0, "brute-nee": 0, "gbuffer": 0}
 # where a launch read the geometry and cell tables: staged in each CTA's
 # shared memory, or from global memory (tables over the device's limit)
 LAUNCHES_BY_TABLES = {"shared": 0, "global": 0}
@@ -167,7 +174,14 @@ def pack_camera(camera) -> Tensor:
     return torch.cat([vals, vals.new_zeros(CAM_SIZE - vals.numel())])
 
 
-def _grid_hit_fn(packed: PackedScene, counts: dict | None = None):
+def plain_hit_fn(packed: PackedScene, counts: dict | None = None):
+    """The packed scene's plain hit function, the one its kernel mode
+    repeats: brute force over every sphere, or in grid mode the globals
+    and ``worklist.grid_nearest_hit``'s walk (whose work is added to
+    ``counts``)."""
+    if packed.grid is None:
+        return packed.scene.nearest_hit
+
     def hit_fn(o: Tensor, d: Tensor) -> SurfaceHit:
         batch = o.shape[:-1]
         flat_o, flat_d = o.reshape(-1, 3), d.reshape(-1, 3)
@@ -204,9 +218,8 @@ def render_image_plain(
     ``integrator.render_image``."""
     if nee and packed.lamps is None:
         raise ValueError(_NO_LAMPS)
-    hit_fn = packed.scene.nearest_hit if packed.grid is None else _grid_hit_fn(packed, counts)
     return integrator.render_image(
-        hit_fn, camera, width, height, spp=spp, max_bounces=max_bounces,
+        plain_hit_fn(packed, counts), camera, width, height, spp=spp, max_bounces=max_bounces,
         seed=seed, sky=sky, jitter=jitter, lens=lens, sample_offset=sample_offset,
         lights=packed.lights if nee else None, counts=counts, rows=rows, row_offset=row_offset,
         sample_batch=sample_batch,
@@ -214,9 +227,11 @@ def render_image_plain(
 
 
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-_ARGTYPES = ((_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I) + (_F,) * 8 + (_VP, _I) + (_I,) * 6
-             + (_U, _U, _I, _I, _I, _VP, _VP))
-_KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_sphere_render", _ARGTYPES, "sphere")
+_SCENE_ARGTYPES = (_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I) + (_F,) * 8
+_KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_sphere_render", _SCENE_ARGTYPES + (_VP, _I)
+                       + (_I,) * 6 + (_U, _U, _I, _I, _I, _VP, _VP), "sphere")
+_GBUFFER = build.Kernel(KERNEL_SOURCE, "csgr_sphere_gbuffer", _SCENE_ARGTYPES + (_I,) * 4
+                        + (_VP,) * 5, "sphere G-buffer")
 _TABLE_LIMIT: dict[int, int] = {}  # device index -> the most table bytes a CTA can stage
 
 
@@ -237,15 +252,10 @@ def table_limit(index: int) -> int:
     return limit
 
 
-def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
-            nee, rows=None, row_offset=0, force_global=False):
-    """Launch the kernel. Its tables are staged in shared memory when
-    ``packed.table_bytes`` fits the device's limit, else read from global
-    memory; ``force_global`` (tests only) reads them from global memory."""
-    global LAUNCHES
-    rows = height if rows is None else rows
-    dev = packed.device
-    _KERNEL.require_cuda(dev)
+def _scene_args(packed: PackedScene, cam_row: Tensor, dev) -> list:
+    """The checked scene arguments both C entry points begin with: the
+    camera, the sphere and geometry tables, and the grid's cell lists and
+    parameters (null and zeros in brute mode)."""
     s = packed.scene.num_spheres
     build.check_tensor(packed.spheres, "spheres", torch.float32, (s, SPHERE_WORDS), dev)
     build.check_tensor(packed.geometry, "geometry", torch.float32, (s, GEOMETRY_WORDS), dev)
@@ -258,6 +268,20 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
         grid_args = [packed.grid.cell_ids.data_ptr(), gs.cx, gs.cz, gs.m, gs.max_steps] + [
             float(f[k]) for k in ("x0", "z0", "x1", "z1", "y_lo", "y_hi", "cell", "inv_cell")
         ]
+    return [cam_row.data_ptr(), packed.spheres.data_ptr(), packed.geometry.data_ptr(), s,
+            packed.n_brute, *grid_args]
+
+
+def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
+            nee, rows=None, row_offset=0, force_global=False):
+    """Launch the kernel. Its tables are staged in shared memory when
+    ``packed.table_bytes`` fits the device's limit, else read from global
+    memory; ``force_global`` (tests only) reads them from global memory."""
+    global LAUNCHES
+    rows = height if rows is None else rows
+    dev = packed.device
+    _KERNEL.require_cuda(dev)
+    scene_args = _scene_args(packed, cam_row, dev)
     lamp_args = [None, 0]
     if nee:
         n_lights = packed.lamps.shape[0]
@@ -268,8 +292,7 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     out_rays = torch.empty(rows * width + 1, dtype=torch.int32, device=dev)  # + the work counter
     shared = not force_global and packed.table_bytes <= table_limit(dev.index)
     _KERNEL(
-        dev, cam_row.data_ptr(), packed.spheres.data_ptr(), packed.geometry.data_ptr(), s,
-        packed.n_brute, *grid_args, *lamp_args, width, height, rows, row_offset, spp,
+        dev, *scene_args, *lamp_args, width, height, rows, row_offset, spp,
         max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens),
         SKY_MODES.index(sky), int(shared), out_rgb.data_ptr(), out_rays.data_ptr(),
     )
@@ -340,3 +363,41 @@ def render_image_kernel(
         int(sample_offset), lens, sky, nee, rows, int(row_offset),
     )
 
+
+def render_aovs_plain(packed: PackedScene, camera, width: int, height: int, sky: str = "rtiow",
+                      counts: dict | None = None) -> AOVs:
+    """The G-buffer mode's plain version, on any device: ``render_aovs``
+    through ``plain_hit_fn(packed, counts)``."""
+    return render_aovs(plain_hit_fn(packed, counts), camera, width, height, sky=sky)
+
+
+def render_aovs_kernel(packed: PackedScene, camera, width: int, height: int,
+                       sky: str = "rtiow") -> AOVs:
+    """The AOVs of ``render/aov.py::render_aovs`` for a packed sphere scene
+    through the kernel's G-buffer mode: one launch, one centred primary ray
+    a pixel, over the tables the beauty frame reads (staged in shared
+    memory when they fit, as ``_launch`` decides). ``packed`` and
+    ``camera`` must lie on a CUDA device (ValueError otherwise): the CPU's
+    cast is ``render_aovs_plain`` or ``render_aovs``, which the caller
+    chooses."""
+    global LAUNCHES
+    if sky not in SKY_MODES:
+        raise ValueError(f"unknown sky mode {sky!r}")
+    if width < 1 or height < 1:
+        raise ValueError(f"bad frame {width}x{height}")
+    dev = packed.device
+    _GBUFFER.require_cuda(dev)
+    scene_args = _scene_args(packed, pack_camera(camera).contiguous(), dev)
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    normal = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    albedo = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    hit = torch.empty((height, width), dtype=torch.bool, device=dev)  # written as 0 or 1
+    work = torch.empty(1, dtype=torch.int32, device=dev)  # the launch's work counter
+    shared = packed.table_bytes <= table_limit(dev.index)
+    _GBUFFER(dev, *scene_args, width, height, SKY_MODES.index(sky), int(shared),
+             depth.data_ptr(), normal.data_ptr(), albedo.data_ptr(), hit.data_ptr(),
+             work.data_ptr())
+    LAUNCHES += 1
+    LAUNCHES_BY_MODE["gbuffer"] += 1
+    LAUNCHES_BY_TABLES["shared" if shared else "global"] += 1
+    return AOVs(depth, normal, albedo, hit)

@@ -9,11 +9,13 @@ from .vec import (
     normalized_ref_bugcompat,
     reflect,
     refract,
+    vec3,
 )
 
 __all__ = [
     "quaternion",
     "vec",
+    "vec3",
     "dot",
     "cross",
     "length",

@@ -14,6 +14,14 @@ import torch
 from torch import Tensor
 
 
+def vec3(x, y, z, dtype=torch.float32) -> Tensor:
+    """Build a [..., 3] vector by stacking the broadcast components along
+    the last axis, on the device of the first tensor given (else the CPU)."""
+    device = next((c.device for c in (x, y, z) if isinstance(c, Tensor)), None)
+    parts = (torch.as_tensor(c, dtype=dtype, device=device) for c in (x, y, z))
+    return torch.stack(torch.broadcast_tensors(*parts), dim=-1)
+
+
 def dot(v: Tensor, w: Tensor) -> Tensor:
     """Dot product over the trailing axis; returns [...].
 

@@ -9,10 +9,12 @@ AOVs of render/aov.py. Albedo demodulation (filter colour / albedo,
 remodulate after) keeps texture out of the filter.
 
 ``atrous_denoise`` runs the CUDA kernel of ``kernels/atrous.py`` (one
-launch a pass, between the demodulation and remodulation done here as two
-elementwise ops) for CUDA tensors, and ``atrous_denoise_plain``, the same
-arithmetic in torch ops, for CPU tensors; nothing goes from one to the
-other.
+launch a pass; the first demodulates, the last remodulates) for CUDA
+tensors, and ``atrous_denoise_plain``, the same arithmetic in torch ops,
+for CPU tensors; nothing goes from one to the other. One operation differs
+from the JAX package's in the last bits: the normal weight
+max(n.n', 0)^sigma is a chain of squarings where sigma is a power of two
+(JAX: a pow).
 """
 
 from __future__ import annotations
@@ -43,6 +45,15 @@ def pass_constants(iterations: int, sigma_color: float, sigma_depth: float,
     return out
 
 
+def normal_squarings(sigma_normal: float) -> int:
+    """k where ``sigma_normal`` is 2^k (1, 2, 4, ...), so that
+    max(n.n', 0)^sigma is k squarings; -1 for any other exponent (a pow)."""
+    s = float(sigma_normal)
+    if s >= 1.0 and s.is_integer() and int(s) & (int(s) - 1) == 0:
+        return int(s).bit_length() - 1
+    return -1
+
+
 def filter_inputs(aovs: AOVs) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """(albedo clamped at 1e-4, normal, depth with misses at 0, hit as
     float32): the filter's inputs. A miss carries depth +inf; at 0 sky
@@ -59,6 +70,7 @@ def atrous_pass_plain(work: Tensor, normal: Tensor, depth: Tensor, hit: Tensor, 
     the kernel's pass. Taps outside the image take the edge pixel (clamped
     coordinates, ``jnp.pad(mode="edge")``)."""
     h, w = depth.shape
+    squarings = normal_squarings(sigma_normal)
     lum_c = luminance(work)
     acc = torch.zeros_like(work)
     wsum = torch.zeros_like(depth)
@@ -71,12 +83,16 @@ def atrous_pass_plain(work: Tensor, normal: Tensor, depth: Tensor, hit: Tensor, 
             c_t, n_t, z_t, h_t = (x[ys][:, xs] for x in (work, normal, depth, hit))
             n_dot = normal[..., 0] * n_t[..., 0] + normal[..., 1] * n_t[..., 1] \
                 + normal[..., 2] * n_t[..., 2]
-            w_n = torch.clamp(n_dot, min=0.0) ** sigma_normal
+            w_n = torch.clamp(n_dot, min=0.0)
+            if squarings < 0:
+                w_n = w_n ** sigma_normal
+            for _ in range(squarings):
+                w_n = w_n * w_n
             # sky pixels (normal 0) zero w_n; the hit gate decides for them
             w_n = torch.where(hit * h_t > 0.0, w_n, 1.0)
             dz = torch.abs(depth - z_t) / (0.5 * (depth + z_t) + 1e-3)
-            w_z = torch.exp(-dz * dz * inv_sig_z2)
             dl = lum_c - luminance(c_t)
+            w_z = torch.exp(-dz * dz * inv_sig_z2)
             w_c = torch.exp(-dl * dl * inv_sig_c2)
             w_h = torch.where(hit == h_t, 1.0, 0.0)
             wt = (ky * kx) * w_n * w_z * w_c * w_h
@@ -130,12 +146,9 @@ def atrous_denoise(color: Tensor, aovs: AOVs, iterations: int = 4, sigma_color: 
 
     if iterations < 1:
         return color
-    albedo = torch.clamp(aovs.albedo.float(), min=1e-4)
-    work = color.float() / albedo if demodulate else color.float()
-    work = atrous_passes(work, aovs.normal, aovs.depth, aovs.hit,
+    return atrous_passes(color, aovs.normal, aovs.depth, aovs.hit,
                          pass_constants(iterations, sigma_color, sigma_depth, color_sigma_decay),
-                         sigma_normal)
-    return work * albedo if demodulate else work
+                         sigma_normal, albedo=aovs.albedo if demodulate else None)
 
 
 def denoise_frame(color: Tensor, hit_fn, camera, sky: str = "rtiow",

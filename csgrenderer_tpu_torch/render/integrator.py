@@ -174,6 +174,7 @@ def trace_paths(
     seed: int,
     max_bounces: int,
     sky: str = "rtiow",
+    eps: float = 1e-3,
     lights=None,
     counts: dict | None = None,
     shadow_hit_fn: HitFn | None = None,
@@ -200,6 +201,9 @@ def trace_paths(
     ``shadow_hit_fn``: the hit function of NEE's shadow rays, where it is
     not ``hit_fn`` (the tape kernel's audit mode traces its path segments
     through interval lists and its shadow rays by event flip).
+
+    ``eps`` is accepted and ignored, as in the JAX package: the hit
+    function carries its own t_min.
     """
     throughput = torch.ones_like(o)
     radiance = torch.zeros_like(o)

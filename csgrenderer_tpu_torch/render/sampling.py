@@ -83,3 +83,9 @@ def sample_in_unit_disk(u1: Tensor, u2: Tensor) -> Tensor:
     r = torch.sqrt(u1)
     phi = (2.0 * math.pi) * u2
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def sample_cosine_hemisphere(n: Tensor, u1: Tensor, u2: Tensor) -> Tensor:
+    """Cosine-weighted direction about unit normal n, as n + a unit vector
+    (RTIOW's Lambertian scatter); near-zero sums are the caller's to catch."""
+    return n + sample_unit_vector(u1, u2)

@@ -3,10 +3,11 @@ frames (kernel rows 1-3), the RTIOW bench frame, the realtime loop and the
 shard canary's launch path (kernel row 9); the tape kernel's frames (rows
 4a-4c) and the deepcsg, csgnight and manyobjects bench frames; the mesh
 kernel's frames (row 5, its four modes) and the mesh and meshnight bench
-frames; and the mesh face-count ladder.
+frames; the mesh face-count ladder; and the denoise path (kernel row 10,
+the renderer's denoise step and the denoised realtime loop).
 
     python -m csgrenderer_tpu_torch.tools.tree_timing --trees parent=DIR,change=DIR [--out DIR]
-        [--groups sphere,tape,mesh,ladder]
+        [--groups sphere,tape,mesh,ladder,denoise]
     PYTHONPATH=DIR python csgrenderer_tpu_torch/tools/tree_timing.py --label NAME [--json FILE]
 
 ``--trees`` takes ``label=directory`` pairs, each directory the root of a
@@ -35,6 +36,12 @@ Measured per tree, CUDA events unless named otherwise, for the groups
 - ladder: chip_smoke.py's face-count ladder (mesh_demo_scene at subdiv 2-6,
   962 to 245,762 faces) at 1280x720, 16 spp, 6 bounces (``LADDER_REPS``
   launches each);
+- denoise: the a-trous filter (``render/denoise.atrous_denoise``) on the
+  RTIOW final scene's 2-spp lens frame and its AOVs (the plain brute cast,
+  the same inputs in every tree) at 1280x720 and 1920x1080, 4 passes, and
+  at 997x563, 5 passes; and the renderer's denoise step
+  (``PathTraceRenderer.denoise_image``: the AOV cast and the 4 passes) at
+  1280x720;
 
 each frame: the median ms of ``REPS`` back-to-back launches after a
 warm-up, and the sha256 of the last frame's f32 bytes with its ray count
@@ -48,7 +55,8 @@ other bit for bit;
   advance_samples=True)`` at 1280x720, 2 spp, lens): the host's time to
   enqueue a frame and the time per frame drained (host clock, 200 frames),
   and ``App.run``'s frames/s with two frames in flight and every frame
-  read back (three runs);
+  read back (three runs); with the denoise group, the same loop with
+  ``denoise=True`` (50 frames a run: enqueue and drained ms);
 - the canary wrapper and ``torch.mul(x, 2.0)`` on one [8, 128] f32 tensor,
   in turns (kernel, mul, kernel, mul, ...; 5 rounds of 1,000 calls each):
   per-call time by CUDA events over each loop (the last two: sphere group).
@@ -72,10 +80,11 @@ REPS = 15  # timed launches per kernel frame
 LADDER_REPS = 5  # timed launches per ladder rung
 CANARY_CALLS, CANARY_ROUNDS = 1000, 5
 REALTIME_FRAMES, REALTIME_RUNS = 200, 3
-GROUPS = ("sphere", "tape", "mesh", "ladder")
-KERNEL_SOURCES = ("sphere_megakernel", "shard_canary", "tape_kernel", "trimesh_kernel")
+DENOISED_FRAMES = 50  # frames a run of the denoised realtime loop
+GROUPS = ("sphere", "tape", "mesh", "ladder", "denoise")
+KERNEL_SOURCES = ("sphere_megakernel", "shard_canary", "tape_kernel", "trimesh_kernel", "atrous")
 BENCH_SCENES = {"sphere": ("rtiow",), "tape": ("deepcsg", "csgnight", "manyobjects"),
-                "mesh": ("mesh", "meshnight"), "ladder": ()}
+                "mesh": ("mesh", "meshnight"), "ladder": (), "denoise": ()}
 LADDER = ((2, 3), (3, 3), (4, 3), (5, 3), (5, 5), (6, 3))  # (subdiv, spheres) of mesh_demo_scene
 
 
@@ -159,11 +168,40 @@ def _frames(dev, groups):
                 tm.pack_mesh(mesh_night_scene(device=dev)),
                 cam((0, 1.8, 2.4), (0.0, 0.7, -2.6), 45.0, 960 / 540), **night),
         })
+    if "denoise" in groups:
+        frames.update(_denoise_frames(dev, cam))
     if "ladder" in groups:
         for sub, spheres in LADDER:
             packed = tm.pack_mesh(mesh_demo_scene(sub, spheres, device=dev))
             frames[f"ladder {packed.mesh.num_faces} faces 1280x720 spp16 b6"] = mesh(
                 packed, cam_m, LADDER_REPS, **{**kwm, "spp": 16})
+    return frames
+
+
+def _denoise_frames(dev, cam):
+    """The denoise group's frames: each a function of no arguments returning
+    (image,)."""
+    from csgrenderer_tpu_torch.app import PathTraceRenderer
+    from csgrenderer_tpu_torch.kernels import megakernel as mk
+    from csgrenderer_tpu_torch.models import rtiow_final_scene
+    from csgrenderer_tpu_torch.render import denoise, render_aovs
+    from csgrenderer_tpu_torch.utils.config import RenderConfig
+
+    scene = rtiow_final_scene(device=dev)
+    packed = mk.pack_scene(scene)
+    frames = {}
+    for w, h, passes in ((1280, 720, 4), (1920, 1080, 4), (997, 563, 5)):
+        c = cam((13, 2, 3), (0, 0, 0), 20.0, w / h, aperture=0.1, focus_dist=10.0)
+        raw, _ = mk.render_image_kernel(packed, c, w, h, spp=2, max_bounces=8, seed=0, lens=True)
+        aovs = render_aovs(scene.nearest_hit, c, w, h, row_chunk=180)
+        frames[f"10 atrous {passes} passes rtiow {w}x{h}"] = (
+            lambda raw=raw, aovs=aovs, n=passes: (denoise.atrous_denoise(raw, aovs, n),), REPS)
+    c = cam((13, 2, 3), (0, 0, 0), 20.0, 1280 / 720, aperture=0.1, focus_dist=10.0)
+    r = PathTraceRenderer(scene, c, RenderConfig(width=1280, height=720, spp=2, lens=True,
+                                                 denoise=True), advance_samples=True)
+    raw, _ = r._render(0.0)
+    frames["denoise_image rtiow 1280x720 (AOV cast, 4 passes)"] = (
+        lambda: (r.denoise_image(raw, 0.0),), REPS)
     return frames
 
 
@@ -230,6 +268,23 @@ def measure(label: str, groups=GROUPS) -> dict:
         result, _ = bench.run_bench(scene=scene, quick=False, frames=5, device="cuda")
         out["bench"][scene] = dict(mrays_s=result["value"], frame_times_s=result["frame_times_s"],
                                    p50_16spp_ms=result.get("p50_frame_ms_16spp"))
+    if "denoise" in groups:
+        cam = Camera.look_at((13, 2, 3), (0, 0, 0), vfov_degrees=20.0, aspect_ratio=1280 / 720,
+                             aperture=0.1, focus_dist=10.0, device=dev)
+        r = PathTraceRenderer(rtiow_final_scene(device=dev), cam,
+                              RenderConfig(width=1280, height=720, spp=2, lens=True, denoise=True),
+                              advance_samples=True)
+        r.draw_frame(0.0)  # warm-up
+        enqueue, drained = [], []
+        for _ in range(REALTIME_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(DENOISED_FRAMES):
+                r.draw_frame_async(i / 60.0)
+            enqueue.append((time.perf_counter() - t0) * 1e3 / DENOISED_FRAMES)
+            torch.cuda.synchronize()
+            drained.append((time.perf_counter() - t0) * 1e3 / DENOISED_FRAMES)
+        out["realtime_denoised_720p"] = dict(enqueue_ms=enqueue, drained_ms=drained)
     if "sphere" not in groups:
         return out
 
@@ -321,6 +376,11 @@ def _run_trees(trees: list[tuple[str, Path]], out_dir: Path, groups) -> int:
                 print(f"[tree_timing] {label} bench {scene}: {b['mrays_s']:.1f} Mrays/s "
                       f"({base_label} {join(base_mrays, '.1f')}; frames "
                       f"{join([t * 1e3 for t in b['frame_times_s']], '.3f')} ms)", flush=True)
+            if "realtime_denoised_720p" in run:
+                rt = run["realtime_denoised_720p"]
+                print(f"[tree_timing] {label} realtime denoised 720p spp2 4 passes: enqueue "
+                      f"{join(rt['enqueue_ms'], '.4f')} ms, drained "
+                      f"{join(rt['drained_ms'], '.4f')} ms per frame", flush=True)
             if "canary" not in run:
                 continue
             rt, c = run["realtime_rtiow_720p"], run["canary"]

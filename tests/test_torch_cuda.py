@@ -4,8 +4,10 @@ their row slabs against the full frame; the micro-experiment kernels
 (kernel rows 6-8, ``csgrenderer_tpu_torch/tools/exp_*.py``) against their
 plain versions; the sharded render over a one-rank mesh against the
 kernels' frames; the shard canary (kernel row 9) against its plain
-version; and the a-trous filter's kernel against its plain version, on
-its own and inside the renderer's denoise step.
+version; the a-trous filter's kernel against its plain version, on its
+own (a ragged frame at 5 passes among them) and inside the renderer's
+denoise step; and the sphere kernel's G-buffer mode against its plain
+version, on its own and as the denoised sphere frame's AOV cast.
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -642,3 +644,66 @@ def test_denoised_frame_launches_the_kernel_and_never_the_plain_filter(cuda, mon
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert atrous.LAUNCHES == before + 6 and int(rays) > 0
+
+
+def test_atrous_ragged_frame_matches_plain_bitwise(cuda):
+    """A 97x55 frame (no 16x16 block divides it) at 5 passes, so the last
+    pass's step, 16, exceeds a block and every sub-lattice is ragged: the
+    kernel equals the plain version bit for bit, with and without
+    demodulation."""
+    cam = _rtiow_camera(97 / 55, cuda)
+    scene = rtiow_final_scene(grid=4, device=cuda)
+    raw, _ = mk.render_image_kernel(mk.pack_scene(scene), cam, 97, 55, spp=2, max_bounces=8,
+                                    seed=5, lens=True)
+    aovs = render_aovs(scene.nearest_hit, cam, 97, 55)
+    for demodulate in (True, False):
+        got = denoise.atrous_denoise(raw, aovs, iterations=5, demodulate=demodulate)
+        ref = denoise.atrous_denoise_plain(raw, aovs, iterations=5, demodulate=demodulate)
+        assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+# --- the sphere kernel's G-buffer mode ----------------------------------------
+
+GBUFFER_CASES = {  # name -> (scene, camera eye, look-at, vfov, lens kwargs, expected mode)
+    "grid-rtiow": (lambda dev: rtiow_final_scene(device=dev), (13, 2, 3), (0, 0, 0), 20.0,
+                   dict(aperture=0.1, focus_dist=10.0), "grid"),
+    "brute-two_spheres": (lambda dev: two_spheres_scene(device=dev), (0, 0, 0), (0, 0, -1), 90.0,
+                          {}, "brute"),
+}
+
+
+@pytest.mark.parametrize("sky", ["rtiow", "wololo", "black"])
+@pytest.mark.parametrize("case", sorted(GBUFFER_CASES))
+def test_gbuffer_kernel_matches_plain(cuda, case, sky):
+    """The G-buffer mode at 160x90 equals its plain version on the card
+    (``render_aovs`` through the packed scene's plain hit function) bit
+    for bit, in one launch."""
+    make, eye, at, vfov, lens, mode = GBUFFER_CASES[case]
+    packed = mk.pack_scene(make(cuda))
+    assert packed.mode == mode
+    cam = Camera.look_at(eye, at, vfov_degrees=vfov, aspect_ratio=16 / 9, device=cuda, **lens)
+    before = mk.LAUNCHES_BY_MODE["gbuffer"]
+    got = mk.render_aovs_kernel(packed, cam, 160, 90, sky=sky)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES_BY_MODE["gbuffer"] == before + 1
+    ref = mk.render_aovs_plain(packed, cam, 160, 90, sky=sky)
+    assert got.hit.dtype == torch.bool and bool(got.hit.any()) and not bool(got.hit.all())
+    for name, a, b in zip(("depth", "normal", "albedo", "hit"), got, ref):
+        assert torch.equal(a, b), name
+
+
+def test_denoised_sphere_frame_casts_through_the_gbuffer_kernel(cuda, monkeypatch):
+    """A denoised sphere frame on the card launches the G-buffer mode once
+    a frame over the renderer's packed scene and never the plain cast."""
+    from csgrenderer_tpu_torch.app import renderers
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain AOV cast ran on the card")
+
+    monkeypatch.setattr(renderers, "render_aovs", refuse)
+    r = _denoised_renderer(cuda)
+    before = mk.LAUNCHES_BY_MODE["gbuffer"]
+    r.draw_frame(0.0)
+    r.draw_frame_async(0.1)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES_BY_MODE["gbuffer"] == before + 2

@@ -109,3 +109,25 @@ def test_no_forbidden_import_statement(path):
 
 def test_chip_smoke_imports_no_jax():
     assert not _FORBIDDEN.findall((REPO / "chip_smoke.py").read_text())
+
+
+# JAX-only or TPU-only names that the port leaves out (ROADMAP, "Not to port")
+NOT_TO_PORT = {
+    "kernels": {"render_image_pallas", "render_image_tape_pallas", "render_image_mesh_pallas"},
+    "utils": {"enable_debug_mode", "disable_debug_mode"},
+}
+SUBPACKAGES = ("app", "camera", "io", "kernels", "math", "models", "parallel", "render", "scene",
+               "utils")
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_exports_every_jax_name(sub):
+    """Each sub-package's ``__all__`` holds every name of the JAX package's
+    (minus those not to port), and each name resolves."""
+    import importlib
+
+    ref = importlib.import_module(f"csgrenderer_tpu.{sub}")
+    got = importlib.import_module(f"csgrenderer_tpu_torch.{sub}")
+    missing = set(ref.__all__) - set(got.__all__) - NOT_TO_PORT.get(sub, set())
+    assert not missing, sorted(missing)
+    assert all(hasattr(got, name) for name in got.__all__)

@@ -217,3 +217,59 @@ def test_scenes_byte_identical(name):
         a, b = getattr(ts, f).numpy(), np.asarray(getattr(js, f))
         assert a.dtype == b.dtype and a.shape == b.shape, f
         assert a.tobytes() == b.tobytes(), f
+
+
+@pytest.mark.parametrize("shapes", [((), (), ()), ((4, 1), (5,), ()), ((2, 3), (2, 3), (1, 3))],
+                         ids=["scalars", "row-by-column", "mixed"])
+def test_vec3_matches_jax(shapes):
+    """``vec3`` stacks its broadcast components as JAX's does, float32 by
+    default and in the dtype asked for."""
+    rng = np.random.default_rng(7)
+    parts = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    ref = jvec.vec3(*(jnp.asarray(p) for p in parts))
+    got = tvec.vec3(*(_t(p) for p in parts))
+    assert got.dtype == torch.float32 and tuple(got.shape) == tuple(ref.shape)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    from_floats = tvec.vec3(*(float(np.ravel(p)[0]) for p in parts), dtype=torch.float64)
+    assert from_floats.dtype == torch.float64 and tuple(from_floats.shape) == (3,)
+
+
+def test_sample_cosine_hemisphere_matches_jax():
+    from csgrenderer_tpu.render import sampling as jsamp
+    from csgrenderer_tpu_torch.render import sampling as tsamp
+
+    rng = np.random.default_rng(8)
+    n = rng.normal(size=(300, 3))
+    n = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+    u1, u2 = rng.random((2, 300)).astype(np.float32)
+    ref = jsamp.sample_cosine_hemisphere(jnp.asarray(n), jnp.asarray(u1), jnp.asarray(u2))
+    got = tsamp.sample_cosine_hemisphere(_t(n), _t(u1), _t(u2))
+    _close(got, ref)
+
+
+def test_trace_paths_accepts_and_ignores_eps():
+    """``eps`` (JAX's parameter, which it ignores) changes nothing: the hit
+    function carries its own t_min."""
+    from csgrenderer_tpu_torch.render.integrator import trace_paths
+
+    scene = two_spheres_scene()
+    cam = Camera.look_at((0.0, 0.0, 0.0), (0.0, 0.0, -1.0), vfov_degrees=90.0, aspect_ratio=2.0)
+    rng = np.random.default_rng(9)
+    st = rng.random((2, 8, 16)).astype(np.float32)
+    o, d = cam.rays(_t(st[0]), _t(st[1]))
+    pixel_id = torch.arange(8 * 16, dtype=torch.int64).reshape(8, 16)
+    base = trace_paths(scene.nearest_hit, o, d, pixel_id, 0, 5, 4)
+    for eps in (1e-3, 0.5):
+        got = trace_paths(scene.nearest_hit, o, d, pixel_id, 0, 5, 4, "rtiow", eps)
+        assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+
+
+def test_render_exports_are_the_module_functions():
+    """The six names the JAX package's ``render`` exports beside its
+    modules are the port's own functions, re-exported."""
+    from csgrenderer_tpu_torch import render
+    from csgrenderer_tpu_torch.render import integrator, trimesh
+
+    for name in ("MeshScene", "concat_meshes", "icosphere", "make_mesh", "quad"):
+        assert getattr(render, name) is getattr(trimesh, name)
+    assert render.render_wololo_frame is integrator.render_wololo_frame
