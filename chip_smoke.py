@@ -152,7 +152,13 @@ Phases (the first that fails ends the run with a non-zero exit):
    (``kernels/csrc/atrous.cu``, one launch a pass) against its plain
    version on the 2-spp lens frame and those AOVs, 4 passes (5 on the
    ragged frame, so the step reaches 16), bit for bit, each timed beside
-   the eager plain filter. Then, counts from zero: the denoised realtime
+   the eager plain filter. The G-buffer cast's table paths at 1280x720:
+   on the RTIOW scene staged in shared memory and forced to global memory
+   (``force_global=True``), bit for bit; on rtiow_final_scene(grid=40)
+   (6,402 spheres, its tables over the shared-memory limit) from global
+   memory by the launcher's choice, against its plain version (pixel
+   share and max abs as above); each printed with the memory it read.
+   Then, counts from zero: the denoised realtime
    frame (``PathTraceRenderer(rtiow_final_scene(), advance_samples=True)``
    at 1280x720, 2 spp, lens, ``denoise=True``): host enqueue and drained
    ms a frame over 50 frames beside phase 3's undenoised ones, with
@@ -175,6 +181,29 @@ Phases (the first that fails ends the run with a non-zero exit):
    quarter of the whole 4-pass filter at 1280x720 (its bound from the
    operations the filter needs, ``atrous_bound``, not those the kernel
    does); the G-buffer entry is one cast at 1280x720.
+7. The demos (``csgrenderer_tpu_torch/demos/demoN_*.py``), counts from
+   zero, each through its ``main(argv)`` in this process with ``--device
+   cuda``, at its JAX twin's default frame unless noted: demo 1 (the
+   milestone-01 frame: torch ops, no kernel); demo 2 (800x450, 16 spp:
+   sphere brute); demo 3 (512x512, 16 spp) from the Python graph and with
+   ``--native`` (the C++ scene core; the two tapes compared field by field
+   and the two images bit for bit, else within the compare bounds with the
+   differing share printed; tape kernel); demo 4 (1920x1080, 64 spp, 8
+   bounces, lens, 3 frames: sphere grid; its Mrays/s printed beside phase
+   3's bench rtiow, the same scene and frame); demo 5 at 3840x2160, 2 spp,
+   5 bounces: 4 frames with ``--checkpoint``, then ``--resume`` for 2 more,
+   held bit for bit (the accumulator, the sample count and the traced
+   rays) to 6 uninterrupted frames, then ``--orbit`` for 2 frames and
+   ``--target-noise 1e-2`` at 512x512 (tape kernel); demo 7 (640x360, 32
+   spp) as it is (mesh grid), ``--worklist off`` (mesh brute), ``--nee``
+   (mesh grid-nee), ``--subdiv 4`` (15,362 faces) and ``--obj`` of
+   mesh_demo_scene(1) written with ``io.obj.write_obj``; demos 8 and 9
+   (960x540, 64 spp) with ``--nee`` (sphere brute-nee, tape clustered-nee)
+   and ``--no-nee``. It fails on a non-zero exit, a missing or constant
+   PNG, a kernel mode of a run that did not launch in it, demo 3's native
+   image off the Python graph's, or demo 5's resumed accumulation off the
+   uninterrupted one. The demos' files go to chiprun_out/chip_smoke/demos;
+   those over 4 MB (the 4K frames, the checkpoints) are deleted at the end.
 
 The last line of output is the device JSON; the line before it lists the
 kernels with their launch counts, errors, times and bounds. There is no
@@ -274,6 +303,7 @@ DENOISE_CHECKS = (DENOISE_FRAME, (1920, 1080))  # frames the a-trous kernel is h
 DENOISE_RAGGED = (997, 563)  # a frame no 16x16 block divides, at 5 passes (step 16)
 GBUFFER_SHARE = 2e-3  # most pixels the G-buffer kernel may differ on from its plain version
 GBUFFER_BYTES = 4 + 12 + 12 + 1  # written a pixel: depth, normal, albedo, hit
+GBUFFER_BIG_GRID = 40  # rtiow_final_scene(grid=40): 6,402 spheres, tables over the smem limit
 ADAPTIVE_FRAMES = 256  # App.run frames of the adaptive night run
 ADAPTIVE_FRAME = (960, 540)  # the night benchmarks' frame
 DEMO6_ARGS = ("--scene", "rtiow", "--denoise", "--serve", "0", "--seconds", "3")
@@ -1094,6 +1124,38 @@ def phase6(card, mhz, dev, undenoised):
             gstats = dict(max_abs_err=g_err, ms=g_ms, plain_ms=g_plain_ms, bound_ms=g_bound,
                           bound_by=g_by, pixel_share=share, brute_pixel_share=brute_share)
 
+    # the G-buffer cast's two table paths at the realtime frame: on rtiow, staged in shared
+    # memory (the size rule's choice) and forced to global memory, bit for bit; on a scene
+    # over the shared-memory limit, global memory by the launcher's own choice, against
+    # its plain version
+    fw, fh = DENOISE_FRAME
+    cam = rtiow_cam(fw, fh)
+    big = mk.pack_scene(rtiow_final_scene(grid=GBUFFER_BIG_GRID, device=dev))
+    casts = {}
+    for label, scene_pack, force in (("staged", packed, False), ("forced global", packed, True),
+                                     ("over the limit", big, False)):
+        before = dict(mk.LAUNCHES_BY_TABLES)
+        aovs = mk.render_aovs_kernel(scene_pack, cam, fw, fh, force_global=force)
+        torch.cuda.synchronize()
+        read = [k for k, n in mk.LAUNCHES_BY_TABLES.items() if n != before[k]]
+        casts[label] = (aovs, read)
+        print(f"[chip_smoke] phase 6 G-buffer {fw}x{fh} {label}: {scene_pack.scene.num_spheres} "
+              f"spheres, {scene_pack.table_bytes} table bytes (limit "
+              f"{mk.table_limit(dev.index or 0)}), the cast read {read} memory", flush=True)
+    same = all(torch.equal(a, b) for a, b in zip(casts["staged"][0], casts["forced global"][0]))
+    big_share, big_err = aov_diff(casts["over the limit"][0],
+                                  mk.render_aovs_plain(big, cam, fw, fh))
+    print(f"[chip_smoke] phase 6 G-buffer rtiow global vs staged: "
+          f"{'equal bit for bit' if same else 'NOT EQUAL'}; over the limit: {big_share:.4%} of "
+          f"pixels differ from its plain version (max abs {big_err:.3e} where both hit)",
+          flush=True)
+    if [r for _, r in casts.values()] != [["shared"], ["global"], ["global"]]:
+        fail(f"phase 6: the G-buffer casts read {[r for _, r in casts.values()]} memory")
+    if not same:
+        fail("phase 6: the G-buffer cast from global memory differs from the staged one")
+    if big_share > GBUFFER_SHARE or big_err > GBUFFER_TOL:
+        fail("phase 6: the G-buffer cast over the limit is off its plain version")
+
     for mod in (mk, atrous):
         mod.LAUNCHES = 0
         for k in mod.LAUNCHES_BY_MODE:
@@ -1217,6 +1279,194 @@ def phase6(card, mhz, dev, undenoised):
                         replaces=GBUFFER_REPLACES, launches=counts["sphere_megakernel[gbuffer]"],
                         **gstats, library_ms=None))
     return entries
+
+
+def run_demo_main(name, argv):
+    """``csgrenderer_tpu_torch.demos.<name>.main(argv)`` in this process;
+    returns its stdout lines (each printed with the demo's name, but the
+    per-file "wrote" lines). Fails on a non-zero exit."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"csgrenderer_tpu_torch.demos.{name}")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(list(argv))
+    except SystemExit as e:
+        rc = e.code
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if "[csgr] wrote " not in line:
+            print(f"[chip_smoke] {name}: {line}", flush=True)
+    if rc not in (None, 0):
+        fail(f"phase 7: {name} {' '.join(argv)} exited {rc}")
+    return lines
+
+
+def check_png(path):
+    """The PNG at ``path`` as a uint8 array; fails if it is missing or
+    constant."""
+    from csgrenderer_tpu_torch.io import read_png
+
+    if not os.path.isfile(path):
+        fail(f"phase 7: no PNG at {path}")
+    img = read_png(path)
+    if int(img.max()) == int(img.min()):
+        fail(f"phase 7: {path} is constant")
+    return img
+
+
+def phase7(card, dev, bench_rtiow):
+    """Phase 7: the demos on the card through their ``main(argv)``, counts
+    from zero; see the module docstring. ``bench_rtiow`` is phase 3's
+    sphere benchmark result, the same scene and frame as demo 4's."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from csgrenderer_tpu_torch.demos.demo3_csg_boolean import native_tape
+    from csgrenderer_tpu_torch.io import write_obj
+    from csgrenderer_tpu_torch.kernels import megakernel as mk
+    from csgrenderer_tpu_torch.kernels import tape_kernel as tk
+    from csgrenderer_tpu_torch.kernels import trimesh_kernel as tm
+    from csgrenderer_tpu_torch.models import config3_csg_scene, mesh_demo_scene
+
+    work = os.path.join(OUT_DIR, "demos")
+    os.makedirs(work, exist_ok=True)
+    mods = {"sphere_megakernel": mk, "tape_kernel": tk, "trimesh_kernel": tm}
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+        for k in mod.LAUNCHES_BY_MODE:
+            mod.LAUNCHES_BY_MODE[k] = 0
+
+    def modes():
+        return {f"{name}[{m}]": n for name, mod in mods.items()
+                for m, n in mod.LAUNCHES_BY_MODE.items()}
+
+    def run(name, label, argv, must_launch=()):
+        """One demo run; the kernel modes it launched (those in
+        ``must_launch`` must be among them) and its stdout lines."""
+        before = modes()
+        t_run = time.perf_counter()
+        lines = run_demo_main(name, [*argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in modes().items() if n != before[k]}
+        print(f"[chip_smoke] phase 7 {label}: {time.perf_counter() - t_run:.1f} s, launches "
+              f"{launched or 'none'}", flush=True)
+        idle = [m for m in must_launch if not launched.get(m)]
+        if idle:
+            fail(f"phase 7: {label} never launched {idle}")
+        return lines
+
+    def out(label):
+        return os.path.join(work, label)
+
+    t0 = time.perf_counter()
+    # demo 1: the reference shader's frame, torch ops (no kernel; fault C-6)
+    run("demo1_sphere_normals", "demo1", ["--out", out("d1")])
+    check_png(os.path.join(out("d1"), "milestone01_0000.png"))
+    # demo 2: 800x450, 16 spp, two spheres: sphere brute
+    run("demo2_diffuse_spheres", "demo2", ["--out", out("d2")], ["sphere_megakernel[brute]"])
+    check_png(os.path.join(out("d2"), "diffuse_0000.png"))
+    # demo 3: 512x512, 16 spp, from the Python graph and through the native scene core
+    tape_modes = [f"tape_kernel[{tk.pack_program(config3_csg_scene().compile(device=dev)).mode}]"]
+    run("demo3_csg_boolean", "demo3", ["--out", out("d3")], tape_modes)
+    run("demo3_csg_boolean", "demo3 --native", ["--native", "--out", out("d3n")], tape_modes)
+    py_img = check_png(os.path.join(out("d3"), "csg_0000.png"))
+    nat_img = check_png(os.path.join(out("d3n"), "csg_0000.png"))
+    py_tape, nat_tape = config3_csg_scene().compile(), native_tape()
+    tapes_equal = all(
+        torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        for a, b in ((getattr(py_tape, f), getattr(nat_tape, f))
+                     for f in py_tape.__dataclass_fields__))
+    differ = float((py_img != nat_img).any(axis=-1).mean())
+    image = "equal bit for bit" if differ == 0 else f"{differ:.4%} of pixels differ"
+    print(f"[chip_smoke] phase 7 demo3 --native: tapes {'equal' if tapes_equal else 'NOT equal'} "
+          f"field by field; image {image} to the Python graph's", flush=True)
+    if differ:
+        if tapes_equal:
+            fail("phase 7: demo 3's native image differs from the Python graph's on equal tapes")
+        compare("phase 7 demo3 --native vs the Python graph (uint8 / 255)",
+                torch.from_numpy(py_img / 255.0), 0, torch.from_numpy(nat_img / 255.0), 0)
+    # demo 4: the main path's frame, 1920x1080, 64 spp, 8 bounces, 3 frames: sphere grid
+    lines = run("demo4_rtiow_final", "demo4", ["--frames", "3", "--out", out("d4")],
+                ["sphere_megakernel[grid]"])
+    for i in range(3):
+        check_png(os.path.join(out("d4"), f"rtiow_{i:04d}.png"))
+    stats = next((l for l in lines if "[Stats]" in l), "")
+    m = re.search(r"([\d.]+) Mrays/s", stats)
+    if m is None:
+        fail(f"phase 7: demo 4 printed no Mrays/s: {stats!r}")
+    print(f"[chip_smoke] phase 7 demo4 rtiow 1920x1080 spp64: {float(m.group(1)):.1f} Mrays/s "
+          f"(mean over 3 frames, render only) beside phase 3's bench rtiow "
+          f"{bench_rtiow['value']:.1f} Mrays/s (median of {bench_rtiow['frames']} frames) ({card})",
+          flush=True)
+    # demo 5: 4K, 2 spp, 5 bounces: 4 frames and a checkpoint, 2 more resumed, against 6
+    # uninterrupted; the orbit; render-to-noise at 512x512
+    ck = {k: os.path.join(work, f"demo5_{k}.npz") for k in ("four", "resumed", "six")}
+    tape5 = ["tape_kernel[clustered]"]
+    run("demo5_animated_csg", "demo5 4 frames", ["--checkpoint", ck["four"], "--out", out("d5")],
+        tape5)
+    run("demo5_animated_csg", "demo5 --resume 2 frames",
+        ["--frames", "2", "--resume", ck["four"], "--checkpoint", ck["resumed"],
+         "--out", out("d5r")], tape5)
+    run("demo5_animated_csg", "demo5 6 frames",
+        ["--frames", "6", "--checkpoint", ck["six"], "--out", out("d5s")], tape5)
+    check_png(os.path.join(out("d5r"), "deepcsg_0001.png"))
+    with np.load(ck["resumed"]) as a, np.load(ck["six"]) as b:
+        same = {k: a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes() for k in b.files}
+        counts = (int(a["sample_count"]), int(a["rays_traced"]), int(b["sample_count"]),
+                  int(b["rays_traced"]))
+    print(f"[chip_smoke] phase 7 demo5 4K: 4 + 2 resumed frames against 6 uninterrupted: "
+          f"{same} (spp {counts[0]} vs {counts[2]}, rays {counts[1]} vs {counts[3]})", flush=True)
+    if not all(same.values()):
+        fail("phase 7: demo 5's resumed accumulation differs from the uninterrupted one")
+    run("demo5_animated_csg", "demo5 --orbit", ["--frames", "2", "--orbit", "--out", out("d5o")],
+        ["tape_kernel[global]"])
+    check_png(os.path.join(out("d5o"), "deepcsg_0001.png"))
+    run("demo5_animated_csg", "demo5 --target-noise 1e-2 512x512",
+        ["--width", "512", "--height", "512", "--target-noise", "1e-2", "--out", out("d5t")],
+        tape5)
+    check_png(os.path.join(out("d5t"), "deepcsg_0000.png"))
+    # demo 7: the mesh kernel's grid, brute and grid-nee modes, a larger mesh and an OBJ
+    for label, argv, must in (
+        ("demo7", [], ["trimesh_kernel[grid]"]),
+        ("demo7 --worklist off", ["--worklist", "off"], ["trimesh_kernel[brute]"]),
+        ("demo7 --nee", ["--nee"], ["trimesh_kernel[grid-nee]"]),
+        ("demo7 --subdiv 4", ["--subdiv", "4"], ["trimesh_kernel[grid]"]),
+    ):
+        png = out(label.replace(" ", "").replace("--", "_") + ".png")
+        run("demo7_mesh", label, [*argv, "--out", png], must)
+        check_png(png)
+    obj = os.path.join(work, "mesh.obj")
+    m1 = mesh_demo_scene(1)  # 242 faces as a triangle soup: the mesh kernel's grid mode
+    write_obj(obj, torch.cat([m1.v0, m1.v0 + m1.e1, m1.v0 + m1.e2]).numpy(),
+              np.arange(3 * m1.num_faces).reshape(3, -1).T)
+    png = out("demo7_obj.png")
+    run("demo7_mesh", "demo7 --obj", ["--obj", obj, "--out", png], ["trimesh_kernel[grid]"])
+    check_png(png)
+    # demos 8 and 9: the night scenes with and without NEE
+    for name, label, argv, must in (
+        ("demo8_night", "demo8 --nee", ["--nee"], ["sphere_megakernel[brute-nee]"]),
+        ("demo8_night", "demo8 --no-nee", ["--no-nee"], ["sphere_megakernel[brute]"]),
+        ("demo9_csg_night", "demo9 --nee", ["--nee"], ["tape_kernel[clustered-nee]"]),
+        ("demo9_csg_night", "demo9 --no-nee", ["--no-nee"], ["tape_kernel[clustered]"]),
+    ):
+        png = out(label.replace(" ", "").replace("--", "_") + ".png")
+        run(name, label, [*argv, "--out", png], must)
+        check_png(png)
+    counts = modes()
+    print(f"[chip_smoke] phase 7 took {time.perf_counter() - t0:.1f} s; launches {counts} ({card})",
+          flush=True)
+    # the frames stay small enough to bring back; the 4K ones and the checkpoints do not
+    for root, _, files in os.walk(work):
+        for f in files:
+            path = os.path.join(root, f)
+            if os.path.getsize(path) > (4 << 20):
+                os.remove(path)
 
 
 def main() -> None:
@@ -2037,6 +2287,9 @@ def main() -> None:
 
     # --- phase 6: the realtime and denoise path, counts from zero
     denoise_entries = phase6(card, mhz, dev, realtime_ms["rtiow"])
+
+    # --- phase 7: the demos, counts from zero
+    phase7(card, dev, result)
 
     kernels = []
     for name in ("sphere_megakernel[grid]", "sphere_megakernel[brute]",

@@ -165,7 +165,12 @@ def cmd_info(args) -> None:
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     built = sorted(p.name for p in build.BUILD_DIR.glob("*.so")) if build.BUILD_DIR.is_dir() else []
     print(f"kernels: {', '.join(sources)} (csrc); built: {', '.join(built) or 'none yet'}")
-    print("native scene core: not ported (scene/native.py, ROADMAP A5)")
+    try:
+        from .scene.native import ensure_built
+
+        print(f"native scene core: {ensure_built()}")
+    except (OSError, RuntimeError) as e:  # no compiler, or the build failed
+        print(f"native scene core: unavailable ({e})")
 
 
 def _add_common(ap) -> None:

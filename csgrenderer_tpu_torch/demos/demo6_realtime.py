@@ -33,6 +33,8 @@ import time
 import numpy as np
 import torch
 
+from ._common import add_device, device_of
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -66,13 +68,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serve", type=int, default=None, metavar="PORT",
                     help="live MJPEG preview at http://127.0.0.1:PORT/ (app/preview.py, the "
                     "headless analog of the reference's window; 0 picks a free port)")
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="cuda (the kernels, the default) or cpu (the plain versions)")
+    add_device(ap)
     args = ap.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda but CUDA is not available (--device cpu runs the plain "
-                         "versions)")
-    device = torch.device(args.device)
+    device = device_of(args)
 
     from ..app import App, PathTraceRenderer, WololoRenderer
     from ..utils.config import RenderConfig

@@ -7,6 +7,8 @@ sources include) and the flags: a changed source or header builds anew,
 an unchanged one loads the library already there. Nothing includes PyTorch's
 headers, so a build takes seconds. This module imports nothing from CUDA
 at import time; ``nvcc`` is looked up only when a build is needed.
+``compile_into`` (a compiler run into a temporary file, then renamed)
+also builds the native scene core (``scene/native.py``).
 
 ``Kernel`` is every wrapper's launch path: it binds its C launch function
 at the first launch and keeps it, and each launch then costs a device
@@ -44,7 +46,7 @@ NVCC_FLAGS = (
 class Build:
     path: Path
     seconds: float  # 0.0 when an existing library was reused
-    log: str  # nvcc's output (ptxas register and spill report)
+    log: str  # the compiler's output (nvcc's: the ptxas register and spill report)
 
 
 def find_nvcc() -> str:
@@ -69,17 +71,22 @@ def build(name: str) -> Build:
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return Build(out, 0.0, "")
+    return compile_into(out, [find_nvcc(), *NVCC_FLAGS], src)
+
+
+def compile_into(out: Path, compiler: list, src: Path) -> Build:
+    """Run ``[*compiler, "-o", <temp file>, src]`` and move the result to
+    ``out`` (in ``BUILD_DIR``); raises RuntimeError with the compiler's
+    output if it fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True, text=True,
-        )
+        proc = subprocess.run([*compiler, "-o", tmp, str(src)], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
+            raise RuntimeError(f"{Path(compiler[0]).name} failed on {src.name}:\n{proc.stdout}\n"
+                               f"{proc.stderr}")
         os.replace(tmp, out)  # atomic: concurrent builders never see a half file
     finally:
         if os.path.exists(tmp):

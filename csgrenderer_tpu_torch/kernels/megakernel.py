@@ -372,14 +372,14 @@ def render_aovs_plain(packed: PackedScene, camera, width: int, height: int, sky:
 
 
 def render_aovs_kernel(packed: PackedScene, camera, width: int, height: int,
-                       sky: str = "rtiow") -> AOVs:
+                       sky: str = "rtiow", force_global: bool = False) -> AOVs:
     """The AOVs of ``render/aov.py::render_aovs`` for a packed sphere scene
     through the kernel's G-buffer mode: one launch, one centred primary ray
     a pixel, over the tables the beauty frame reads (staged in shared
-    memory when they fit, as ``_launch`` decides). ``packed`` and
-    ``camera`` must lie on a CUDA device (ValueError otherwise): the CPU's
-    cast is ``render_aovs_plain`` or ``render_aovs``, which the caller
-    chooses."""
+    memory when they fit, as ``_launch`` decides; ``force_global``, tests
+    only, reads them from global memory). ``packed`` and ``camera`` must
+    lie on a CUDA device (ValueError otherwise): the CPU's cast is
+    ``render_aovs_plain`` or ``render_aovs``, which the caller chooses."""
     global LAUNCHES
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")
@@ -393,7 +393,7 @@ def render_aovs_kernel(packed: PackedScene, camera, width: int, height: int,
     albedo = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     hit = torch.empty((height, width), dtype=torch.bool, device=dev)  # written as 0 or 1
     work = torch.empty(1, dtype=torch.int32, device=dev)  # the launch's work counter
-    shared = packed.table_bytes <= table_limit(dev.index)
+    shared = not force_global and packed.table_bytes <= table_limit(dev.index)
     _GBUFFER(dev, *scene_args, width, height, SKY_MODES.index(sky), int(shared),
              depth.data_ptr(), normal.data_ptr(), albedo.data_ptr(), hit.data_ptr(),
              work.data_ptr())

@@ -2,8 +2,8 @@
 
 A copy of ``csgrenderer_tpu/scene/graph.py`` (numpy only), kept here so
 that this package runs without the JAX package; ``compile`` calls this
-package's ``scene/tape.py::compile_tape``. The C++ arena twin
-(``scene/native.py``) is not ported yet.
+package's ``scene/tape.py::compile_tape``. The C++ arena twin is
+``scene/native.py`` (``NativeSceneGraph``).
 
 Mirrors the reference's renderer scene API (``src/wololo/renderer/
 renderer.h:22-33``, impl ``renderer.c:2220-2313``): arena-style node tables,

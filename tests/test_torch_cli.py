@@ -103,8 +103,11 @@ def test_info_names_device_scenes_and_kernels():
     proc = _run("csgrenderer_tpu_torch", "info")
     assert proc.returncode == 0, proc.stderr[-2000:]
     for word in ("device:", "milestone01", "meshnight", "tape_kernel", "trimesh_kernel",
-                 "native scene core: not ported"):
+                 "native scene core: "):
         assert word in proc.stdout, word
+    # the port's own build of native/scene_core.cpp, or why there is none
+    core = next(l for l in proc.stdout.splitlines() if l.startswith("native scene core: "))
+    assert "kernels/_build/libcsgr_scene-" in core or "unavailable (" in core, core
 
 
 def test_bench_quick_prints_one_json_line():

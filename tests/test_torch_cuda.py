@@ -6,8 +6,10 @@ plain versions; the sharded render over a one-rank mesh against the
 kernels' frames; the shard canary (kernel row 9) against its plain
 version; the a-trous filter's kernel against its plain version, on its
 own (a ragged frame at 5 passes among them) and inside the renderer's
-denoise step; and the sphere kernel's G-buffer mode against its plain
-version, on its own and as the denoised sphere frame's AOV cast.
+denoise step; the sphere kernel's G-buffer mode against its plain
+version, on its own, with its tables in global memory and as the denoised
+sphere frame's AOV cast; and the random CSG trees of
+tests/test_torch_tape_fuzz.py through the tape kernel.
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -51,6 +53,8 @@ from csgrenderer_tpu_torch.render.trimesh import concat_meshes, icosphere, quad
 from csgrenderer_tpu_torch.scene import Material
 from csgrenderer_tpu_torch.tools import common, exp_dot_k, exp_gather, exp_slab
 from csgrenderer_tpu_torch.utils.config import RenderConfig
+from test_torch_tape_fuzz import SEEDS as FUZZ_SEEDS
+from test_torch_tape_fuzz import port_tree as fuzz_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -161,6 +165,24 @@ def test_tape_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert tk.LAUNCHES_BY_MODE[mode] == before[mode] + 1
     assert rays.dtype == torch.int64
+    ref, ref_rays = tk.render_image_tape_plain(packed, cam, **kw)
+    _assert_close(ref, ref_rays, img, rays)
+
+
+@pytest.mark.parametrize("seed", FUZZ_SEEDS)
+def test_tape_kernel_matches_plain_on_random_trees(cuda, seed):
+    """The random CSG trees of tests/test_torch_tape_fuzz.py (random
+    primitives under random rigid edges and random ops, normal-map
+    materials) through the tape kernel at 64x64 against its plain version."""
+    _, tape, _, _, _ = fuzz_tree(seed)
+    packed = tk.pack_program(tape.to(cuda))
+    cam = Camera.look_at((6.0, 4.0, 8.0), (0, 0, 0), vfov_degrees=50.0, aspect_ratio=1.0,
+                         device=cuda)
+    kw = dict(width=64, height=64, spp=4, max_bounces=4, seed=seed)
+    before = tk.LAUNCHES
+    img, rays = tk.render_image_tape_kernel(packed, cam, **kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 1
     ref, ref_rays = tk.render_image_tape_plain(packed, cam, **kw)
     _assert_close(ref, ref_rays, img, rays)
 
@@ -688,6 +710,40 @@ def test_gbuffer_kernel_matches_plain(cuda, case, sky):
     assert mk.LAUNCHES_BY_MODE["gbuffer"] == before + 1
     ref = mk.render_aovs_plain(packed, cam, 160, 90, sky=sky)
     assert got.hit.dtype == torch.bool and bool(got.hit.any()) and not bool(got.hit.all())
+    for name, a, b in zip(("depth", "normal", "albedo", "hit"), got, ref):
+        assert torch.equal(a, b), name
+
+
+def test_gbuffer_global_tables_equal_the_staged_cast(cuda):
+    """The G-buffer cast with its tables read from global memory (forced
+    through the test-only argument) equals the staged cast bit for bit on
+    the RTIOW scene, whose tables the size rule stages."""
+    packed = mk.pack_scene(rtiow_final_scene(device=cuda))
+    assert packed.table_bytes <= mk.table_limit(cuda.index or 0)
+    cam = _rtiow_camera(16 / 9, cuda)
+    before = dict(mk.LAUNCHES_BY_TABLES)
+    staged = mk.render_aovs_kernel(packed, cam, 160, 90)
+    global_ = mk.render_aovs_kernel(packed, cam, 160, 90, force_global=True)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES_BY_TABLES == {"shared": before["shared"] + 1,
+                                     "global": before["global"] + 1}
+    assert bool(staged.hit.any())
+    for name, a, b in zip(("depth", "normal", "albedo", "hit"), staged, global_):
+        assert torch.equal(a, b), name
+
+
+def test_gbuffer_over_the_limit_reads_global_memory(cuda):
+    """rtiow_final_scene(grid=40)'s tables exceed a block's shared memory:
+    the G-buffer launcher reads them from global memory by size, and the
+    cast equals its plain version bit for bit."""
+    packed = mk.pack_scene(rtiow_final_scene(grid=40, device=cuda))
+    assert packed.table_bytes > mk.table_limit(cuda.index or 0)
+    cam = _rtiow_camera(16 / 9, cuda)
+    before = dict(mk.LAUNCHES_BY_TABLES)
+    got = mk.render_aovs_kernel(packed, cam, 160, 90)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES_BY_TABLES == {"shared": before["shared"], "global": before["global"] + 1}
+    ref = mk.render_aovs_plain(packed, cam, 160, 90)
     for name, a, b in zip(("depth", "normal", "albedo", "hit"), got, ref):
         assert torch.equal(a, b), name
 

@@ -25,6 +25,7 @@ MODULES = [
     "csgrenderer_tpu_torch.scene.graph",
     "csgrenderer_tpu_torch.scene.tape",
     "csgrenderer_tpu_torch.scene.partition",
+    "csgrenderer_tpu_torch.scene.native",
     "csgrenderer_tpu_torch.render",
     "csgrenderer_tpu_torch.render.interval",
     "csgrenderer_tpu_torch.render.tape_eval",
@@ -58,7 +59,16 @@ MODULES = [
     "csgrenderer_tpu_torch.app.preview",
     "csgrenderer_tpu_torch.app.controls",
     "csgrenderer_tpu_torch.demos",
+    "csgrenderer_tpu_torch.demos._common",
+    "csgrenderer_tpu_torch.demos.demo1_sphere_normals",
+    "csgrenderer_tpu_torch.demos.demo2_diffuse_spheres",
+    "csgrenderer_tpu_torch.demos.demo3_csg_boolean",
+    "csgrenderer_tpu_torch.demos.demo4_rtiow_final",
+    "csgrenderer_tpu_torch.demos.demo5_animated_csg",
     "csgrenderer_tpu_torch.demos.demo6_realtime",
+    "csgrenderer_tpu_torch.demos.demo7_mesh",
+    "csgrenderer_tpu_torch.demos.demo8_night",
+    "csgrenderer_tpu_torch.demos.demo9_csg_night",
     "csgrenderer_tpu_torch.convert",
     "csgrenderer_tpu_torch.bench",
     "csgrenderer_tpu_torch.__main__",
