@@ -1,0 +1,4 @@
+"""The tape kernel's share of its roofline in the traced window of the
+offline CSG cell (``roofline.tape_frame``, published H100 peaks)."""
+
+from benchmark.readers import tape_share as read  # noqa: F401
