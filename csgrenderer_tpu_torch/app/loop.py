@@ -24,6 +24,9 @@ headless accelerator world:
 
 A "scene renderer" is anything with ``draw_frame(time_sec) -> image`` —
 see demos/ for concrete ones; ``wo_app_swap_scene`` becomes ``swap_scene``.
+
+Each iteration reads whether spans record (``utils/profiling.poll``), and
+the readback that blocks on a consumed frame is the span ``app.readback``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .stats import StatsClock
 
 
@@ -127,14 +131,16 @@ class App:
 
             fence_frame = idx % max(fence_stride, 1) == 0
             if readback == "full":
-                out = host(image)  # blocks until the frame is ready
+                with profiling.span("app.readback"):
+                    out = host(image)  # blocks until the frame is ready
             else:  # "fence": ONE scalar sync every fence_stride frames —
                 # the rays counter is a dependent output of the same frame,
                 # so reading it IS the fence
                 if fence_frame and not isinstance(rays, int):
                     pass  # synced via int(rays) below
                 elif fence_frame:
-                    host(image[0, 0])
+                    with profiling.span("app.readback"):
+                        host(image[0, 0])
                 out = image  # device tensor: sink samples/keeps references
             if self.frame_sink is not None:
                 self.frame_sink(idx, out)
@@ -142,8 +148,11 @@ class App:
             # when we already synced
             if isinstance(rays, int):
                 n_rays = rays
-            elif readback == "full" or fence_frame:
+            elif readback == "full":
                 n_rays = int(rays)
+            elif fence_frame:
+                with profiling.span("app.readback"):
+                    n_rays = int(rays)
             else:
                 n_rays = 0
             now2 = time_fn()
@@ -152,6 +161,7 @@ class App:
 
         try:
             while self._running:
+                profiling.poll()
                 now = time_fn()
                 elapsed, prev = now - prev, now
                 lag += elapsed

@@ -28,6 +28,12 @@ the camera row is built and the kernel launched, so ``draw_frame_async``
 never waits for the device. Animated CSG tapes are reclustered every frame
 on a CPU copy of the tape (``scene/partition.py``) and packed with that
 cluster tuple.
+
+Each frame records spans (``utils/profiling.py``) while recording is on:
+``render.frame`` around ``draw_frame`` and ``draw_frame_async``, and
+inside it ``render.animate``, ``render.recluster``, ``render.launch``
+(with ``scene.pack`` for an animated tape), ``render.fence``,
+``render.accumulate``, ``render.denoise`` and ``render.tonemap``.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from ..render.tonemap import to_uint8, tonemap
 from ..render.trimesh import MeshScene
 from ..scene.partition import partition_tape
 from ..scene.tape import CompiledTape
+from ..utils import profiling
 from ..utils.config import RenderConfig, check_finite
 
 
@@ -166,21 +173,24 @@ class PathTraceRenderer:
         if self._animate is None:
             scene = self._packed
         else:
-            scene = self._animate(self.scene, time_sec)
-            if isinstance(scene, SphereScene):  # packed once: the denoise step casts over it
-                scene = megakernel.pack_scene(scene)
-                self._frame_pack = (time_sec, scene)
+            with profiling.span("render.animate"):
+                scene = self._animate(self.scene, time_sec)
+                if isinstance(scene, SphereScene):  # packed once: the denoise step casts over it
+                    scene = megakernel.pack_scene(scene)
+                    self._frame_pack = (time_sec, scene)
             if self._cpu_twin is not None and partition is None:
                 partition = self._recluster(time_sec)
-        radiance, rays = _render_kernel(scene, self.camera, self.config, self._sample_offset,
-                                        animated=self._animate is not None,
-                                        partition=partition)
+        with profiling.span("render.launch"):
+            radiance, rays = _render_kernel(scene, self.camera, self.config, self._sample_offset,
+                                            animated=self._animate is not None,
+                                            partition=partition)
         if self.config.debug:
             check_finite(radiance, "the frame's radiance")
         return radiance, rays
 
     def _tonemap(self, linear: torch.Tensor) -> torch.Tensor:
-        return to_uint8(tonemap(linear, gamma=self.config.gamma))
+        with profiling.span("render.tonemap"):
+            return to_uint8(tonemap(linear, gamma=self.config.gamma))
 
     def reset_accumulation(self) -> None:
         self.accumulator = Accumulator.zeros(self.config.height, self.config.width, self.device)
@@ -195,20 +205,25 @@ class PathTraceRenderer:
         """Clusters of the animated tape at ``time_sec``, computed on the
         CPU copy. Returns ``partition_tape``'s tuple, or () when nothing
         splits (the global evaluation)."""
-        clusters = partition_tape(self._animate(self._cpu_twin, time_sec))
+        with profiling.span("render.recluster"):
+            clusters = partition_tape(self._animate(self._cpu_twin, time_sec))
         return clusters if clusters is not None else ()
 
     def draw_frame(self, time_sec: float) -> torch.Tensor:
-        radiance, rays = self._render(time_sec)
-        self.last_frame_rays = int(rays)
-        if self.progressive:
-            self.accumulator = self.accumulator.add(radiance * self.config.spp, self.config.spp,
-                                                    rays)
-            self._sample_offset += self.config.spp
-            return self._tonemap(self.denoise_image(self.accumulator.image(), time_sec))
-        if self.advance_samples:
-            self._sample_offset += self.config.spp
-        return self._tonemap(self.denoise_image(radiance, time_sec))
+        with profiling.frame("render.frame"):
+            radiance, rays = self._render(time_sec)
+            with profiling.span("render.fence"):
+                self.last_frame_rays = int(rays)
+            if self.progressive:
+                with profiling.span("render.accumulate"):
+                    self.accumulator = self.accumulator.add(radiance * self.config.spp,
+                                                            self.config.spp, rays)
+                    self._sample_offset += self.config.spp
+                    linear = self.accumulator.image()
+                return self._tonemap(self.denoise_image(linear, time_sec))
+            if self.advance_samples:
+                self._sample_offset += self.config.spp
+            return self._tonemap(self.denoise_image(radiance, time_sec))
 
     def draw_frame_async(self, time_sec: float):
         """Launch a frame without waiting for the device.
@@ -220,10 +235,11 @@ class PathTraceRenderer:
         """
         if self.progressive:
             raise ValueError("progressive accumulation is synchronous")
-        radiance, rays = self._render(time_sec)
-        if self.advance_samples:
-            self._sample_offset += self.config.spp
-        return self._tonemap(self.denoise_image(radiance, time_sec)), rays
+        with profiling.frame("render.frame"):
+            radiance, rays = self._render(time_sec)
+            if self.advance_samples:
+                self._sample_offset += self.config.spp
+            return self._tonemap(self.denoise_image(radiance, time_sec)), rays
 
     def denoise_image(self, linear: torch.Tensor, time_sec: float = 0.0) -> torch.Tensor:
         """The configured denoise of a linear radiance image: with
@@ -238,6 +254,11 @@ class PathTraceRenderer:
         cfg = self.config
         if not cfg.denoise:
             return linear
+        with profiling.span("render.denoise"):
+            return self._denoise(linear, time_sec)
+
+    def _denoise(self, linear: torch.Tensor, time_sec: float) -> torch.Tensor:
+        cfg = self.config
         if isinstance(self.scene, SphereScene) and self.device.type == "cuda":
             aovs = megakernel.render_aovs_kernel(self._sphere_pack(time_sec), self.camera,
                                                  cfg.width, cfg.height, sky=cfg.sky)

@@ -56,6 +56,7 @@ from ..render.lights import SphereLights, extract_tape_lights
 from ..scene.graph import NodeType
 from ..scene.partition import partition_tape
 from ..scene.tape import OP_INTERSECT, OP_PUSH, OP_UNION, CompiledTape, stack_depth
+from ..utils import profiling
 from . import build
 from .megakernel import CAM_SIZE, JITTER_ON_CPU_ONLY, pack_camera
 
@@ -222,47 +223,48 @@ def pack_program(tape: CompiledTape, partition: bool | str | tuple = "auto") -> 
         raise ValueError(f"tape has {tape.n_leaves} leaves; the kernel takes at most {MAX_LEAVES}")
     if tape.stack_depth > MAX_STACK:
         raise ValueError(f"tape stack depth {tape.stack_depth} exceeds the kernel's {MAX_STACK}")
-    if isinstance(partition, tuple):
-        clusters = partition or None
-    elif partition in ("auto", True):
-        clusters = partition_tape(tape)
-        if partition is True and clusters is None:
-            raise ValueError("partition=True but the tape has no disjoint union operands to cluster")
-    elif partition is False:
-        clusters = None
-    else:
-        raise ValueError(f"partition must be 'auto', True, False or a tuple, got {partition!r}")
-    if clusters is None:
-        clusters = ((tape.ops, tuple(range(tape.n_leaves))),)
+    with profiling.span("scene.pack"):
+        if isinstance(partition, tuple):
+            clusters = partition or None
+        elif partition in ("auto", True):
+            clusters = partition_tape(tape)
+            if partition is True and clusters is None:
+                raise ValueError("partition=True but the tape has no disjoint union operands to cluster")
+        elif partition is False:
+            clusters = None
+        else:
+            raise ValueError(f"partition must be 'auto', True, False or a tuple, got {partition!r}")
+        if clusters is None:
+            clusters = ((tape.ops, tuple(range(tape.n_leaves))),)
 
-    ops, table, ids = [], [], []
-    for c_ops, c_leaves in clusters:
-        if stack_depth(c_ops) > MAX_STACK:
-            raise ValueError(f"tape stack depth {stack_depth(c_ops)} exceeds the kernel's {MAX_STACK}")
-        slot = {leaf: j for j, leaf in enumerate(c_leaves)}
-        table.append((len(ops), len(c_ops), len(ids), len(c_leaves)))
-        ops += [opc | (slot[arg] << 2) if opc == OP_PUSH else opc for opc, arg in c_ops]
-        ids += list(c_leaves)
+        ops, table, ids = [], [], []
+        for c_ops, c_leaves in clusters:
+            if stack_depth(c_ops) > MAX_STACK:
+                raise ValueError(f"tape stack depth {stack_depth(c_ops)} exceeds the kernel's {MAX_STACK}")
+            slot = {leaf: j for j, leaf in enumerate(c_leaves)}
+            table.append((len(ops), len(c_ops), len(ids), len(c_leaves)))
+            ops += [opc | (slot[arg] << 2) if opc == OP_PUSH else opc for opc, arg in c_ops]
+            ids += list(c_leaves)
 
-    dev = tape.device
+        dev = tape.device
 
-    def i32(x):
-        return torch.tensor(x, dtype=torch.int32, device=dev)
+        def i32(x):
+            return torch.tensor(x, dtype=torch.int32, device=dev)
 
-    _, lamp_ids = extract_tape_lights(tape, return_ids=True)
-    packed = PackedTape(
-        tape=tape,
-        clusters=tuple((tuple(o), tuple(ls)) for o, ls in clusters),
-        leaf_table=_leaf_table(tape),
-        leaf_types=i32(list(tape.leaf_types)),
-        ops=i32(ops),
-        cluster_table=i32(table).reshape(len(table), 4),
-        leaf_ids=i32(ids),
-        lamp_ids=i32(lamp_ids.tolist()) if lamp_ids.size else None,
-        list_ops=i32([opc | (arg << 2) if opc == OP_PUSH else opc for opc, arg in tape.ops]),
-        tables=torch.zeros(0, dtype=torch.float32, device=dev),
-    )
-    return dataclasses.replace(packed, tables=_tables(packed))
+        _, lamp_ids = extract_tape_lights(tape, return_ids=True)
+        packed = PackedTape(
+            tape=tape,
+            clusters=tuple((tuple(o), tuple(ls)) for o, ls in clusters),
+            leaf_table=_leaf_table(tape),
+            leaf_types=i32(list(tape.leaf_types)),
+            ops=i32(ops),
+            cluster_table=i32(table).reshape(len(table), 4),
+            leaf_ids=i32(ids),
+            lamp_ids=i32(lamp_ids.tolist()) if lamp_ids.size else None,
+            list_ops=i32([opc | (arg << 2) if opc == OP_PUSH else opc for opc, arg in tape.ops]),
+            tables=torch.zeros(0, dtype=torch.float32, device=dev),
+        )
+        return dataclasses.replace(packed, tables=_tables(packed))
 
 
 # ---------------------------------------------------------------------------

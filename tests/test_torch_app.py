@@ -382,15 +382,28 @@ def test_renderers_through_the_app_loop():
 
 
 def test_time_fn_and_trace(tmp_path):
+    """``profiling.trace`` writes the profiler's events and, on a thread of
+    their own and the same time base, the program's spans of its block."""
+    import json
+
     from csgrenderer_tpu_torch.utils import profiling
 
     r = PathTraceRenderer(two_spheres_scene(), _cam(), RenderConfig(width=16, height=8, spp=1,
                                                                     max_bounces=2), device="cpu")
-    timing = profiling.time_fn(r.draw_frame_async, 0.0, calls=2, rays_index=1)
-    assert timing.calls == 2 and timing.run_sec > 0 and timing.compile_sec > 0
     r.draw_frame(0.0)
-    assert r.last_frame_rays == timing.rays > 0
-    assert timing.mrays_per_sec > 0
     with profiling.trace(str(tmp_path / "trace")):
         r.draw_frame(0.0)
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    doc = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    events = doc["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert [e["name"] for e in spans] == ["render.frame", "render.launch", "render.fence",
+                                          "render.tonemap"]
+    assert {e["tid"] for e in spans} == {profiling.SPAN_TID}
+    assert {"ph": "M", "name": "thread_name", "pid": spans[0]["pid"], "tid": profiling.SPAN_TID,
+            "args": {"name": profiling.SPAN_THREAD}} in events
+    frame, launch = spans[0], spans[1]
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") != "program_span"
+           and launch["ts"] <= e["ts"] and e["ts"] + e["dur"] <= launch["ts"] + launch["dur"]]
+    assert ops  # the profiler's operations of the launch lie inside its span
+    assert all(frame["ts"] <= e["ts"] <= frame["ts"] + frame["dur"] for e in spans)
+    assert profiling.spans() and profiling.span("render.launch") is profiling.OFF
