@@ -8,7 +8,9 @@ independent pair at the current spp: their rms difference on the displayed
 floats estimates sqrt(2) x the per-frame noise, with no extra render.
 Monte-Carlo noise scales as 1/sqrt(spp), so the controller steps the spp
 ladder toward ``spp * (noise / target)^2``, one power of two at a time.
-Each rung is its own ``PathTraceRenderer``, kept once made.
+Each rung is its own ``PathTraceRenderer``, kept once made; on the card
+each rung replays its own frame graph (``app/frame_graph.py``) from its
+second frame on, and takes a new camera when it is next drawn.
 
 A probe counts only when the camera and the spp did not change between the
 pair's two frames (an orbit drag, app/controls.py, or a rung switch breaks
@@ -71,6 +73,7 @@ class AdaptiveSppRenderer:
         self.min_spp = int(min_spp)
         self.max_spp = int(max_spp)
         self._rungs: dict[int, PathTraceRenderer] = {}
+        self._stale: set[int] = set()  # rungs that hold an older camera
         self._offset = 0
         self._frame_idx = 0
         self._prev = None  # (host float image / 255, spp, camera id)
@@ -85,7 +88,9 @@ class AdaptiveSppRenderer:
             r = PathTraceRenderer(self._scene, self._camera, cfg, advance_samples=True,
                                   **self._kwargs)
             self._rungs[spp] = r
-        r.set_camera(self._camera)
+        elif spp in self._stale:
+            r.set_camera(self._camera)
+            self._stale.discard(spp)
         r._sample_offset = self._offset
         return r
 
@@ -94,9 +99,9 @@ class AdaptiveSppRenderer:
         return dataclasses.replace(self._base_cfg, spp=self.spp)
 
     def set_camera(self, camera) -> None:
-        # moved to the device once here, so that handing it to a rung each
-        # frame copies nothing
+        # moved to the device once here; each rung takes it when next drawn
         self._camera = camera.to(self._device)
+        self._stale = set(self._rungs)
 
     def reset_accumulation(self) -> None:  # the orbit controller's hook
         pass

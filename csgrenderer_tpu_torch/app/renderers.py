@@ -29,11 +29,19 @@ never waits for the device. Animated CSG tapes are reclustered every frame
 on a CPU copy of the tape (``scene/partition.py``) and packed with that
 cluster tuple.
 
+On the card, a non-progressive frame of a static sphere scene is replayed
+from a CUDA graph (``app/frame_graph.py``): the first such frame of a
+config is enqueued eagerly, the next is captured, and later frames replay
+it until a new config object or a new pack drops it; ``set_camera``
+rewrites the view the graph reads.
+
 Each frame records spans (``utils/profiling.py``) while recording is on:
 ``render.frame`` around ``draw_frame`` and ``draw_frame_async``, and
 inside it ``render.animate``, ``render.recluster``, ``render.launch``
 (with ``scene.pack`` for an animated tape), ``render.fence``,
-``render.accumulate``, ``render.denoise`` and ``render.tonemap``.
+``render.accumulate``, ``render.denoise`` and ``render.tonemap``; a
+replayed frame records ``render.replay`` (the replay and the copy of its
+outputs) in place of the last three.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from ..scene.partition import partition_tape
 from ..scene.tape import CompiledTape
 from ..utils import profiling
 from ..utils.config import RenderConfig, check_finite
+from . import frame_graph
 
 
 def resolve_device(device) -> torch.device:
@@ -166,6 +175,8 @@ class PathTraceRenderer:
         # from the card is needed to choose the clusters
         self._cpu_twin = (self.scene.to("cpu")
                           if isinstance(scene, CompiledTape) and animate is not None else None)
+        self._graph = None  # the FrameGraph replayed by eligible frames
+        self._warmed = None  # (config, pack) of the last eager eligible frame
 
     def _render(self, time_sec: float, partition=None):
         """One frame's (radiance [H, W, 3], rays int64 tensor) at the
@@ -198,8 +209,56 @@ class PathTraceRenderer:
 
     def set_camera(self, camera) -> None:
         """Swap the view for subsequent frames. Progressive accumulations of
-        the old view are the caller's to reset."""
+        the old view are the caller's to reset. A captured frame graph
+        reads the view from device memory, where the new one is written."""
         self.camera = camera.to(self.device)
+        if self._graph is not None:
+            self._graph.set_camera(self.camera)
+
+    def _frame_graph(self):
+        """The frame graph this frame replays, captured now if it is due;
+        None for an eagerly enqueued frame. A graph whose config or pack the
+        renderer no longer holds is dropped. An eligible frame
+        (``frame_graph.eligible``) is captured once an eager frame of the
+        same config and pack has run, which bound every kernel library and
+        set every kernel attribute."""
+        g = self._graph
+        if g is not None and not g.holds(self.config, self._packed):
+            g = self._graph = None
+        if g is not None or not frame_graph.eligible(self):
+            return g
+        key = (self.config, self._packed)
+        if self._warmed is None or any(a is not b for a, b in zip(self._warmed, key)):
+            self._warmed = key
+            return None
+        self._graph = frame_graph.FrameGraph(self._captured_frame, self.device, *key,
+                                             self.camera)
+        return self._graph
+
+    def _captured_frame(self, offset, camera, image):
+        """The frame a graph captures: beauty, denoise and tonemap into
+        ``image``; the kernels read the sample offset from ``offset`` and
+        the view from the packed row ``camera``. Returns the rays."""
+        cfg = self.config
+        radiance, rays = _render_kernel(self._packed, camera, cfg, 0, offset_buffer=offset)
+        linear = self._denoise(radiance, 0.0, camera) if cfg.denoise else radiance
+        to_uint8(tonemap(linear, gamma=cfg.gamma), out=image)
+        return rays
+
+    def _enqueue(self, time_sec: float):
+        """Enqueue a non-progressive frame, replayed from the frame graph
+        when there is one, and advance the sample offset as configured:
+        (uint8 image, rays int64 tensor), both still being computed."""
+        graph = self._frame_graph()
+        if graph is not None:
+            with profiling.span("render.replay"):
+                image, rays = graph.replay(self._sample_offset)
+        else:
+            radiance, rays = self._render(time_sec)
+            image = self._tonemap(self.denoise_image(radiance, time_sec))
+        if self.advance_samples:
+            self._sample_offset += self.config.spp
+        return image, rays
 
     def _recluster(self, time_sec: float) -> tuple:
         """Clusters of the animated tape at ``time_sec``, computed on the
@@ -211,19 +270,20 @@ class PathTraceRenderer:
 
     def draw_frame(self, time_sec: float) -> torch.Tensor:
         with profiling.frame("render.frame"):
+            if not self.progressive:
+                image, rays = self._enqueue(time_sec)
+                with profiling.span("render.fence"):
+                    self.last_frame_rays = int(rays)
+                return image
             radiance, rays = self._render(time_sec)
             with profiling.span("render.fence"):
                 self.last_frame_rays = int(rays)
-            if self.progressive:
-                with profiling.span("render.accumulate"):
-                    self.accumulator = self.accumulator.add(radiance * self.config.spp,
-                                                            self.config.spp, rays)
-                    self._sample_offset += self.config.spp
-                    linear = self.accumulator.image()
-                return self._tonemap(self.denoise_image(linear, time_sec))
-            if self.advance_samples:
+            with profiling.span("render.accumulate"):
+                self.accumulator = self.accumulator.add(radiance * self.config.spp,
+                                                        self.config.spp, rays)
                 self._sample_offset += self.config.spp
-            return self._tonemap(self.denoise_image(radiance, time_sec))
+                linear = self.accumulator.image()
+            return self._tonemap(self.denoise_image(linear, time_sec))
 
     def draw_frame_async(self, time_sec: float):
         """Launch a frame without waiting for the device.
@@ -236,10 +296,7 @@ class PathTraceRenderer:
         if self.progressive:
             raise ValueError("progressive accumulation is synchronous")
         with profiling.frame("render.frame"):
-            radiance, rays = self._render(time_sec)
-            if self.advance_samples:
-                self._sample_offset += self.config.spp
-            return self._tonemap(self.denoise_image(radiance, time_sec)), rays
+            return self._enqueue(time_sec)
 
     def denoise_image(self, linear: torch.Tensor, time_sec: float = 0.0) -> torch.Tensor:
         """The configured denoise of a linear radiance image: with
@@ -255,12 +312,14 @@ class PathTraceRenderer:
         if not cfg.denoise:
             return linear
         with profiling.span("render.denoise"):
-            return self._denoise(linear, time_sec)
+            return self._denoise(linear, time_sec, self.camera)
 
-    def _denoise(self, linear: torch.Tensor, time_sec: float) -> torch.Tensor:
+    def _denoise(self, linear: torch.Tensor, time_sec: float, camera) -> torch.Tensor:
+        """``denoise_image``'s work, the sphere kernel's cast taking the view
+        ``camera`` (or its packed row)."""
         cfg = self.config
         if isinstance(self.scene, SphereScene) and self.device.type == "cuda":
-            aovs = megakernel.render_aovs_kernel(self._sphere_pack(time_sec), self.camera,
+            aovs = megakernel.render_aovs_kernel(self._sphere_pack(time_sec), camera,
                                                  cfg.width, cfg.height, sky=cfg.sky)
             return atrous_denoise(linear, aovs, iterations=cfg.denoise_iterations)
         scene = self.scene if self._animate is None else self._animate(self.scene, time_sec)
@@ -269,7 +328,7 @@ class PathTraceRenderer:
             # bound the brute cast's [rays x faces] planes to 2^26 entries
             face_chunk = 2048
             row_chunk = max(1, (1 << 26) // (cfg.width * face_chunk))
-        aovs = render_aovs(hit_fn_for(scene, face_chunk=face_chunk), self.camera, cfg.width,
+        aovs = render_aovs(hit_fn_for(scene, face_chunk=face_chunk), camera, cfg.width,
                            cfg.height, sky=cfg.sky, row_chunk=row_chunk)
         return atrous_denoise(linear, aovs, iterations=cfg.denoise_iterations)
 
@@ -354,7 +413,7 @@ def _has_lamps(scene, packed) -> bool:
 
 
 def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated: bool = False,
-                   partition=None):
+                   partition=None, offset_buffer=None):
     """One frame through the kernel wrapper of the scene's type (the twin of
     the JAX package's ``_render_pallas``): (radiance, rays int64 tensor).
 
@@ -365,7 +424,8 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
     kw = dict(spp=cfg.spp, max_bounces=cfg.max_bounces, seed=cfg.seed, sky=cfg.sky, lens=cfg.lens,
               sample_offset=sample_base, nee=cfg.nee, jitter=cfg.jitter)
     if isinstance(scene, (SphereScene, megakernel.PackedScene)):
-        return megakernel.render_image_kernel(scene, camera, cfg.width, cfg.height, **kw)
+        return megakernel.render_image_kernel(scene, camera, cfg.width, cfg.height,
+                                              offset_buffer=offset_buffer, **kw)
     if isinstance(scene, (CompiledTape, tape_kernel.PackedTape)):
         if isinstance(scene, CompiledTape):
             kw["partition"] = partition if partition is not None else (

@@ -4,8 +4,9 @@ the a-trous filter's pass, and their build.
 
 Launch counts live on the modules (``megakernel.LAUNCHES``,
 ``tape_kernel.LAUNCHES``, ``trimesh_kernel.LAUNCHES``,
-``shard_canary.LAUNCHES``, ``atrous.LAUNCHES``): read them there, since a
-name imported from them would be a copy.
+``shard_canary.LAUNCHES``, ``atrous.LAUNCHES``), each module's counters
+registered in ``build.LAUNCH_COUNTERS``: read them there, since a name
+imported from them would be a copy.
 """
 
 from . import atrous, megakernel, shard_canary, tape_kernel, tri_worklist, trimesh_kernel, worklist

@@ -29,6 +29,7 @@ KERNEL_SOURCE = "atrous"
 
 LAUNCHES = 0
 LAUNCHES_BY_MODE = {"pass": 0}
+build.count_launches(__name__, "LAUNCHES", "LAUNCHES_BY_MODE")
 
 _KERNEL = build.Kernel(
     KERNEL_SOURCE, "csgr_atrous_pass",

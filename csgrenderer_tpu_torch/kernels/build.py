@@ -14,6 +14,11 @@ also builds the native scene core (``scene/native.py``).
 at the first launch and keeps it, and each launch then costs a device
 compare, a stream lookup and the ctypes call. ``check_tensor`` is what
 every wrapper checks before it passes a pointer.
+
+Each kernel module registers its launch counters (``count_launches``);
+``launch_counts`` reads them all at once and ``add_launch_counts`` adds
+the difference of two readings back, as a frame replayed from a CUDA
+graph does with the launches its capture counted.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from dataclasses import dataclass
@@ -40,6 +46,41 @@ NVCC_FLAGS = (
     "-fmad=false",  # no contracted multiply-adds: the plain torch version has none
     "-Xptxas", "-v",  # registers / spills per kernel, kept in the build log
 )
+
+
+# every kernel module's launch counters, (module, name): an int, or a dict
+# of ints by mode
+LAUNCH_COUNTERS: list = []
+
+
+def count_launches(module_name: str, *names: str) -> None:
+    """Register the counters ``names`` of the module ``module_name`` (which
+    calls this as it is imported)."""
+    module = sys.modules[module_name]
+    LAUNCH_COUNTERS.extend((module, name) for name in names)
+
+
+def launch_counts() -> dict:
+    """Every registered counter now: {(module, name, key): n}, with key None
+    for an int counter and the mode for a dict's entry."""
+    out = {}
+    for module, name in LAUNCH_COUNTERS:
+        value = getattr(module, name)
+        if isinstance(value, dict):
+            out.update(((module, name, k), n) for k, n in value.items())
+        else:
+            out[(module, name, None)] = value
+    return out
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` ({(module, name, key): n}, as ``launch_counts`` keys
+    them) to the counters."""
+    for (module, name, key), n in delta.items():
+        if key is None:
+            setattr(module, name, getattr(module, name) + n)
+        else:
+            getattr(module, name)[key] += n
 
 
 @dataclass(frozen=True)

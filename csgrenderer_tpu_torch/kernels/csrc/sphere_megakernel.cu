@@ -107,6 +107,9 @@ struct Params {
   int width, height, spp, max_bounces;
   int rows, row_offset;  // the slab rendered: rows [row_offset, row_offset + rows)
   uint32_t seed, sample_offset;
+  // one device word read in place of sample_offset when not null: a
+  // launch captured in a CUDA graph takes each replay's offset from it
+  const uint32_t* sample_offset_at;
   int lens, sky;         // sky: 0 rtiow, 1 wololo, 2 black
   float* out_rgb;        // [rows, W, 3]
   int* out_rays;         // [rows, W]
@@ -367,7 +370,8 @@ __device__ __forceinline__ bool trace_segment(const Params& p, csgr::Path& path,
 // One pixel's spp paths, one after another, each up to max_bounces
 // segments; the radiance is summed in sample order.
 template <bool kGrid, bool kNee, bool kShared>
-__device__ __forceinline__ void render_pixel(const Params& p, const float* cam, int x, int row) {
+__device__ __forceinline__ void render_pixel(const Params& p, const float* cam,
+                                             uint32_t sample_offset, int x, int row) {
   const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
   const size_t out_pix = static_cast<size_t>(row) * p.width + x;
@@ -375,7 +379,7 @@ __device__ __forceinline__ void render_pixel(const Params& p, const float* cam, 
   int rays = 0;
   csgr::Path path;
   for (int k = 0; k < p.spp; ++k) {
-    const uint32_t s = static_cast<uint32_t>(k) + p.sample_offset;
+    const uint32_t s = static_cast<uint32_t>(k) + sample_offset;
     csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
     path.sr = 0.0f; path.sg = 0.0f; path.sb = 0.0f;
     float prev_pdf = 0.0f;  // NEE: pdf of the scatter that made this ray, 0 on camera rays
@@ -405,8 +409,10 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) sphere_megakernel(const Pa
   float cam[csgr::kCamFloats];
 #pragma unroll
   for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
+  const uint32_t sample_offset =
+      p.sample_offset_at != nullptr ? __ldg(p.sample_offset_at) : p.sample_offset;
   csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
-    render_pixel<kGrid, kNee, kShared>(p, cam, x, row);
+    render_pixel<kGrid, kNee, kShared>(p, cam, sample_offset, x, row);
   });
 }
 
@@ -547,15 +553,18 @@ extern "C" int csgr_sphere_table_limit(int device) {
 
 // shared_tables: 1 stages the geometry and cell tables in shared memory
 // (the caller has checked that they fit csgr_sphere_table_limit), 0 reads
-// them from global memory. out_rays holds rows x width int32 segment counts
-// and one int32 more: the launch's work counter.
+// them from global memory. sample_offset_at: null, or one device uint32
+// that each thread reads in place of sample_offset when the launch runs.
+// out_rays holds rows x width int32 segment counts and one int32 more: the
+// launch's work counter.
 extern "C" int csgr_sphere_render(
     const void* cam, const void* spheres, const void* geometry, int n_spheres, int n_brute,
     const void* cell_ids, int cx, int cz, int m, int max_steps, float x0, float z0, float x1,
     float z1, float y_lo, float y_hi, float cell, float inv_cell, const void* lamps, int n_lamps,
     int width, int height, int rows, int row_offset,
     int spp, int max_bounces, unsigned int seed, unsigned int sample_offset,
-    int lens, int sky, int shared_tables, void* out_rgb, void* out_rays, void* stream) {
+    const void* sample_offset_at, int lens, int sky, int shared_tables, void* out_rgb,
+    void* out_rays, void* stream) {
   if (rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -569,6 +578,7 @@ extern "C" int csgr_sphere_render(
   p.width = width; p.height = height; p.spp = spp; p.max_bounces = max_bounces;
   p.rows = rows; p.row_offset = row_offset;
   p.seed = seed; p.sample_offset = sample_offset;
+  p.sample_offset_at = static_cast<const uint32_t*>(sample_offset_at);
   p.lens = lens; p.sky = sky;
   p.out_rgb = static_cast<float*>(out_rgb);
   p.out_rays = static_cast<int*>(out_rays);

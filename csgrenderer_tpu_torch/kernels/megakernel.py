@@ -58,6 +58,7 @@ LAUNCHES_BY_MODE = {"grid": 0, "brute": 0, "grid-nee": 0, "brute-nee": 0, "gbuff
 # where a launch read the geometry and cell tables: staged in each CTA's
 # shared memory, or from global memory (tables over the device's limit)
 LAUNCHES_BY_TABLES = {"shared": 0, "global": 0}
+build.count_launches(__name__, "LAUNCHES", "LAUNCHES_BY_MODE", "LAUNCHES_BY_TABLES")
 _NO_LAMPS = "nee=True but the scene has no emissive spheres"
 JITTER_ON_CPU_ONLY = ("a CUDA kernel always jitters: jitter=False (pixel centres) renders only on "
                       "the CPU, through the plain versions")
@@ -174,6 +175,13 @@ def pack_camera(camera) -> Tensor:
     return torch.cat([vals, vals.new_zeros(CAM_SIZE - vals.numel())])
 
 
+def camera_row(camera) -> Tensor:
+    """The row a launch reads: a ``Camera`` packed now, or a row that
+    ``pack_camera`` made before (a frame graph's, rewritten in place for
+    each new view) as it is."""
+    return camera if isinstance(camera, Tensor) else pack_camera(camera).contiguous()
+
+
 def plain_hit_fn(packed: PackedScene, counts: dict | None = None):
     """The packed scene's plain hit function, the one its kernel mode
     repeats: brute force over every sphere, or in grid mode the globals
@@ -229,7 +237,7 @@ def render_image_plain(
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _SCENE_ARGTYPES = (_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I) + (_F,) * 8
 _KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_sphere_render", _SCENE_ARGTYPES + (_VP, _I)
-                       + (_I,) * 6 + (_U, _U, _I, _I, _I, _VP, _VP), "sphere")
+                       + (_I,) * 6 + (_U, _U, _VP, _I, _I, _I, _VP, _VP), "sphere")
 _GBUFFER = build.Kernel(KERNEL_SOURCE, "csgr_sphere_gbuffer", _SCENE_ARGTYPES + (_I,) * 4
                         + (_VP,) * 5, "sphere G-buffer")
 _TABLE_LIMIT: dict[int, int] = {}  # device index -> the most table bytes a CTA can stage
@@ -273,10 +281,14 @@ def _scene_args(packed: PackedScene, cam_row: Tensor, dev) -> list:
 
 
 def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
-            nee, rows=None, row_offset=0, force_global=False):
+            nee, rows=None, row_offset=0, force_global=False, offset_buffer=None):
     """Launch the kernel. Its tables are staged in shared memory when
     ``packed.table_bytes`` fits the device's limit, else read from global
-    memory; ``force_global`` (tests only) reads them from global memory."""
+    memory; ``force_global`` (tests only) reads them from global memory.
+    ``offset_buffer``, a one-element int32 CUDA tensor, is read by the
+    kernel in place of ``sample_offset`` (its bits as uint32) when the
+    launch runs: a launch captured in a CUDA graph takes each replay's
+    offset from it."""
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
@@ -287,13 +299,17 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
         n_lights = packed.lamps.shape[0]
         build.check_tensor(packed.lamps, "lamps", torch.float32, (n_lights, LAMP_WORDS), dev)
         lamp_args = [packed.lamps.data_ptr(), n_lights]
+    offset_at = None
+    if offset_buffer is not None:
+        build.check_tensor(offset_buffer, "offset_buffer", torch.int32, (1,), dev)
+        offset_at = offset_buffer.data_ptr()
 
     out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
     out_rays = torch.empty(rows * width + 1, dtype=torch.int32, device=dev)  # + the work counter
     shared = not force_global and packed.table_bytes <= table_limit(dev.index)
     _KERNEL(
         dev, *scene_args, *lamp_args, width, height, rows, row_offset, spp,
-        max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens),
+        max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, offset_at, int(lens),
         SKY_MODES.index(sky), int(shared), out_rgb.data_ptr(), out_rays.data_ptr(),
     )
     LAUNCHES += 1
@@ -320,6 +336,7 @@ def render_image_kernel(
     rows: int | None = None,
     row_offset: int = 0,
     jitter: bool = True,
+    offset_buffer: Tensor | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Drop-in for ``integrator.render_image`` on sphere scenes.
 
@@ -335,7 +352,9 @@ def render_image_kernel(
     camera tensors on a CUDA device launch the kernel; on the CPU they run
     the plain version; there is no fallback between the two. ``nee``
     samples the scene's emissive spheres at every Lambertian and glossy
-    hit (ValueError if it has none).
+    hit (ValueError if it has none). On the card, ``camera`` may also be
+    a packed row (``camera_row``), and ``offset_buffer`` (see ``_launch``)
+    holds the sample offset the kernel reads when it runs.
     """
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")
@@ -351,6 +370,8 @@ def render_image_kernel(
         raise ValueError(_NO_LAMPS)
     rows = integrator.slab_rows(height, rows, row_offset)
     if packed.device.type == "cpu":
+        if offset_buffer is not None or isinstance(camera, Tensor):
+            raise ValueError("a camera row and offset_buffer are read by the CUDA kernel only")
         return render_image_plain(
             packed, camera, width, height, spp=spp, max_bounces=max_bounces,
             seed=seed, sky=sky, lens=lens, sample_offset=sample_offset, nee=nee,
@@ -359,8 +380,8 @@ def render_image_kernel(
     if not jitter:
         raise NotImplementedError(JITTER_ON_CPU_ONLY)
     return _launch(
-        packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces, int(seed),
-        int(sample_offset), lens, sky, nee, rows, int(row_offset),
+        packed, camera_row(camera), width, height, spp, max_bounces, int(seed),
+        int(sample_offset), lens, sky, nee, rows, int(row_offset), offset_buffer=offset_buffer,
     )
 
 
@@ -377,8 +398,9 @@ def render_aovs_kernel(packed: PackedScene, camera, width: int, height: int,
     through the kernel's G-buffer mode: one launch, one centred primary ray
     a pixel, over the tables the beauty frame reads (staged in shared
     memory when they fit, as ``_launch`` decides; ``force_global``, tests
-    only, reads them from global memory). ``packed`` and ``camera`` must
-    lie on a CUDA device (ValueError otherwise): the CPU's cast is
+    only, reads them from global memory). ``packed`` and ``camera`` (or its
+    packed row, ``camera_row``) must lie on a CUDA device (ValueError
+    otherwise): the CPU's cast is
     ``render_aovs_plain`` or ``render_aovs``, which the caller chooses."""
     global LAUNCHES
     if sky not in SKY_MODES:
@@ -387,7 +409,10 @@ def render_aovs_kernel(packed: PackedScene, camera, width: int, height: int,
         raise ValueError(f"bad frame {width}x{height}")
     dev = packed.device
     _GBUFFER.require_cuda(dev)
-    scene_args = _scene_args(packed, pack_camera(camera).contiguous(), dev)
+    # held to the launch: a camera row freed here could be handed to the
+    # work counter below, which the launch zeroes before the kernel reads it
+    cam_row = camera_row(camera)
+    scene_args = _scene_args(packed, cam_row, dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     normal = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     albedo = torch.empty((height, width, 3), dtype=torch.float32, device=dev)

@@ -24,6 +24,7 @@ KERNEL_SOURCE = "shard_canary"
 
 LAUNCHES = 0
 LAUNCHES_BY_MODE = {"scale2": 0}
+build.count_launches(__name__, "LAUNCHES", "LAUNCHES_BY_MODE")
 
 
 def scale2_plain(x: Tensor) -> Tensor:

@@ -73,6 +73,7 @@ _PLAIN_CHUNK = 1 << 26
 LAUNCHES = 0
 LAUNCHES_BY_MODE = {"global": 0, "clustered": 0, "global-nee": 0, "clustered-nee": 0,
                     "audit": 0, "audit-nee": 0}
+build.count_launches(__name__, "LAUNCHES", "LAUNCHES_BY_MODE")
 
 _NO_LAMPS = "nee=True but the tape has no emissive sphere leaves"
 

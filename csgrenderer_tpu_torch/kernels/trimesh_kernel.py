@@ -55,6 +55,7 @@ LAUNCHES_BY_MODE = {"brute": 0, "grid": 0, "brute-nee": 0, "grid-nee": 0}
 # where a launch read the MT table and the grid's lists: staged in each
 # CTA's shared memory, or from global memory (tables over the device's limit)
 LAUNCHES_BY_TABLES = {"shared": 0, "global": 0}
+build.count_launches(__name__, "LAUNCHES", "LAUNCHES_BY_MODE", "LAUNCHES_BY_TABLES")
 _NO_LAMPS = "nee=True but the mesh has no emissive faces"
 
 

@@ -20,5 +20,8 @@ def tonemap(linear: Tensor, gamma: float = 2.0, exposure: float = 1.0) -> Tensor
     return x ** (1.0 / gamma)
 
 
-def to_uint8(img01: Tensor) -> Tensor:
-    return torch.clamp(img01 * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+def to_uint8(img01: Tensor, out: Tensor | None = None) -> Tensor:
+    """The image quantised to uint8; written into ``out`` (uint8, of the
+    image's shape) when given."""
+    q = torch.clamp(img01 * 255.0 + 0.5, 0.0, 255.0)
+    return q.to(torch.uint8) if out is None else out.copy_(q)

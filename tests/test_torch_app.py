@@ -396,8 +396,8 @@ def test_time_fn_and_trace(tmp_path):
     doc = json.loads((tmp_path / "trace" / "trace.json").read_text())
     events = doc["traceEvents"]
     spans = [e for e in events if e.get("cat") == "program_span"]
-    assert [e["name"] for e in spans] == ["render.frame", "render.launch", "render.fence",
-                                          "render.tonemap"]
+    assert [e["name"] for e in spans] == ["render.frame", "render.launch", "render.tonemap",
+                                          "render.fence"]
     assert {e["tid"] for e in spans} == {profiling.SPAN_TID}
     assert {"ph": "M", "name": "thread_name", "pid": spans[0]["pid"], "tid": profiling.SPAN_TID,
             "args": {"name": profiling.SPAN_THREAD}} in events

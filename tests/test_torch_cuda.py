@@ -8,8 +8,10 @@ version; the a-trous filter's kernel against its plain version, on its
 own (a ragged frame at 5 passes among them) and inside the renderer's
 denoise step; the sphere kernel's G-buffer mode against its plain
 version, on its own, with its tables in global memory and as the denoised
-sphere frame's AOV cast; and the random CSG trees of
-tests/test_torch_tape_fuzz.py through the tape kernel.
+sphere frame's AOV cast; the random CSG trees of
+tests/test_torch_tape_fuzz.py through the tape kernel; and the live
+denoised frame replayed from a CUDA graph against the same frame enqueued
+eagerly.
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -29,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from csgrenderer_tpu_torch.app import PathTraceRenderer
+from csgrenderer_tpu_torch.app import App, PathTraceRenderer, StatsClock, frame_graph
 from csgrenderer_tpu_torch.camera import Camera
 from csgrenderer_tpu_torch.kernels import atrous
 from csgrenderer_tpu_torch.kernels import megakernel as mk
@@ -748,6 +750,30 @@ def test_gbuffer_over_the_limit_reads_global_memory(cuda):
         assert torch.equal(a, b), name
 
 
+def test_gbuffer_cast_replayed_from_a_cuda_graph_equals_the_eager_cast(cuda):
+    """The G-buffer cast captured alone in a CUDA graph, where the caching
+    allocator hands out a fresh pool, equals the eager cast on every
+    replay: the camera row the launch reads lives until the launch."""
+    packed = mk.pack_scene(rtiow_final_scene(device=cuda))
+    cam = _rtiow_camera(16 / 9, cuda)
+    ref = mk.render_aovs_kernel(packed, cam, 320, 180)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            got = mk.render_aovs_kernel(packed, cam, 320, 180)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, a, b in zip(("depth", "normal", "albedo", "hit"), got, ref):
+            assert torch.equal(a, b), name
+
+
 def test_denoised_sphere_frame_casts_through_the_gbuffer_kernel(cuda, monkeypatch):
     """A denoised sphere frame on the card launches the G-buffer mode once
     a frame over the renderer's packed scene and never the plain cast."""
@@ -763,3 +789,105 @@ def test_denoised_sphere_frame_casts_through_the_gbuffer_kernel(cuda, monkeypatc
     r.draw_frame_async(0.1)
     torch.cuda.synchronize()
     assert mk.LAUNCHES_BY_MODE["gbuffer"] == before + 2
+
+
+# --- the live frame replayed from a CUDA graph ---------------------------------
+
+LIVE = RenderConfig(width=1280, height=720, spp=2, lens=True, denoise=True, denoise_iterations=4)
+
+
+def _live_renderer(cuda, camera=None):
+    """The live denoised RTIOW frame: 1280x720, 2 spp, 4 a-trous passes,
+    fresh noise every frame."""
+    cam = _rtiow_camera(16 / 9, cuda) if camera is None else camera
+    return PathTraceRenderer(rtiow_final_scene(device=cuda), cam, LIVE, advance_samples=True)
+
+
+def _eager_frames(cuda, monkeypatch, cameras, offsets):
+    """The live frames at ``offsets``, each at its view of ``cameras`` (or
+    all at one camera), each enqueued launch by launch."""
+    cameras = cameras if isinstance(cameras, list) else [cameras] * len(offsets)
+    with monkeypatch.context() as m:
+        m.setattr(frame_graph, "eligible", lambda r: False)
+        r = _live_renderer(cuda, cameras[0])
+        frames = []
+        for camera, offset in zip(cameras, offsets, strict=True):
+            r.set_camera(camera)
+            r._sample_offset = offset
+            frames.append(r.draw_frame_async(0.0))
+        torch.cuda.synchronize()
+    assert r._graph is None
+    return frames
+
+
+def _assert_frames_equal(got, ref):
+    for k, ((img, rays), (ref_img, ref_rays)) in enumerate(zip(got, ref, strict=True)):
+        assert img.dtype == torch.uint8 and torch.equal(img, ref_img), k
+        assert int(rays) == int(ref_rays), k
+
+
+def test_replayed_frames_equal_eager_frames(cuda, monkeypatch):
+    """The first eligible frame runs eagerly, the second is captured and
+    replayed, and eight more replay: each equals the eager frame at its
+    offset bit for bit (image and segment count); no returned image is the
+    graph's own buffer, so the first frames are unchanged after the later
+    replays; each replay counts two sphere kernel launches (the beauty
+    frame and the G-buffer cast) and four a-trous passes."""
+    r = _live_renderer(cuda)
+    captures, replays = frame_graph.CAPTURES, frame_graph.REPLAYS
+    frames = [r.draw_frame_async(0.0), r.draw_frame_async(0.0)]
+    torch.cuda.synchronize()
+    kept = [img.clone() for img, _ in frames]
+    assert frame_graph.CAPTURES == captures + 1 and frame_graph.REPLAYS == replays + 1
+    before = (mk.LAUNCHES, mk.LAUNCHES_BY_MODE["gbuffer"], atrous.LAUNCHES)
+    frames += [r.draw_frame_async(0.0) for _ in range(8)]
+    torch.cuda.synchronize()
+    assert (mk.LAUNCHES, mk.LAUNCHES_BY_MODE["gbuffer"], atrous.LAUNCHES) == (
+        before[0] + 16, before[1] + 8, before[2] + 32)
+    assert frame_graph.CAPTURES == captures + 1 and frame_graph.REPLAYS == replays + 9
+    out = r._graph.out
+    static = range(out.data_ptr(), out.data_ptr() + out.numel())
+    assert not any(t.data_ptr() in static for frame in frames for t in frame)
+    for (img, _), first in zip(frames, kept):
+        assert torch.equal(img, first)
+    _assert_frames_equal(frames, _eager_frames(cuda, monkeypatch, r.camera,
+                                               [k * LIVE.spp for k in range(10)]))
+
+
+def test_set_camera_keeps_the_graph_and_reset_restarts_the_offset(cuda, monkeypatch):
+    """An orbit drag: ``set_camera`` before each of four frames, enqueued
+    with no wait between them, keeps the graph, and each replayed frame
+    equals the eager frame of its view; after ``reset_accumulation`` the
+    replayed frame is the one at offset 0."""
+    first = _rtiow_camera(16 / 9, cuda)
+    r = _live_renderer(cuda, first)
+    for _ in range(3):
+        r.draw_frame_async(0.0)
+    captures = frame_graph.CAPTURES
+    views = [Camera.look_at((12 - k, 2.5, 4 + k), (0, 0, 0), vfov_degrees=20.0,
+                            aspect_ratio=16 / 9, aperture=0.1, focus_dist=10.0, device=cuda)
+             for k in range(4)]
+    moved = []
+    for view in views:
+        r.set_camera(view)
+        moved.append(r.draw_frame_async(0.0))
+    r.reset_accumulation()
+    restarted = r.draw_frame_async(0.0)
+    torch.cuda.synchronize()
+    assert frame_graph.CAPTURES == captures and r._sample_offset == LIVE.spp
+    _assert_frames_equal(moved + [restarted], _eager_frames(
+        cuda, monkeypatch, views + [views[-1]], [k * LIVE.spp for k in range(3, 7)] + [0]))
+    assert not torch.equal(moved[0][0], moved[1][0])
+
+
+def test_one_capture_over_a_100_frame_app_run(cuda):
+    """``App.run`` with two frames in flight and the fence readback, as the
+    live benchmark cell drives it: one eager frame, one capture, 99
+    replays."""
+    r = _live_renderer(cuda)
+    captures, replays = frame_graph.CAPTURES, frame_graph.REPLAYS
+    app = App(width=LIVE.width, height=LIVE.height, stats=StatsClock(emit=None))
+    app.swap_scene(r)
+    assert app.run(max_frames=100, frames_in_flight=2, readback="fence")
+    torch.cuda.synchronize()
+    assert frame_graph.CAPTURES == captures + 1 and frame_graph.REPLAYS == replays + 99

@@ -54,6 +54,7 @@ MODULES = [
     "csgrenderer_tpu_torch.app.stats",
     "csgrenderer_tpu_torch.app.loop",
     "csgrenderer_tpu_torch.app.renderers",
+    "csgrenderer_tpu_torch.app.frame_graph",
     "csgrenderer_tpu_torch.app.goldens",
     "csgrenderer_tpu_torch.app.adaptive",
     "csgrenderer_tpu_torch.app.preview",

@@ -107,7 +107,7 @@ def test_an_animated_tape_frame_records_animate_recluster_and_pack():
         r.draw_frame(0.5)
     recorded = profiling.spans()
     assert _children(recorded, 0) == ["render.animate", "render.recluster", "render.launch",
-                                      "render.fence", "render.tonemap"]
+                                      "render.tonemap", "render.fence"]
     launch = next(i for i, s in enumerate(recorded) if s.name == "render.launch")
     assert _children(recorded, launch) == ["scene.pack"]
     _nested(recorded)
