@@ -27,7 +27,9 @@ Phases (the first that fails ends the run with a non-zero exit):
    estimation toward the emissive spheres) at the night benchmarks' frame
    960x540 with 2 spp, 6 bounces: night_scene() in brute-nee mode,
    night_scene(grid=11) in grid-nee mode (each also timed in the other
-   sphere mode and its kernel image compared), csg_night_scene() in
+   sphere mode and its kernel image compared; the kernel's shadow-ray
+   count printed beside the plain version's and held to it as the segments
+   are), csg_night_scene() in
    clustered-nee mode and in global-nee mode (the two kernel images
    compared); and the blocker scene of tests/test_nee.py in grid-nee mode,
    whose umbra must be darker than a quarter of the open case. The mesh
@@ -1732,6 +1734,16 @@ def main() -> None:
         stats[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                            tables=tables_used(f"{mode}-nee {label}", packed, tables0))
         c = plain_counts(mk.render_image_plain, packed, night_cam)
+        # the kernel's own shadow-ray count, held to the plain version's as
+        # compare() holds the segments
+        kc = {}
+        mk.render_image_kernel(packed, night_cam, counts=kc, **kwn)
+        k_shadow = int(kc["shadow_rays"])
+        print(f"[chip_smoke] {mode}-nee {label} {wn}x{hn} spp2 b{bn}: kernel {k_shadow} shadow "
+              f"rays, plain {c['shadow_rays']} ({card})", flush=True)
+        if abs(k_shadow - c["shadow_rays"]) > max(2e-3 * c["shadow_rays"], 8):
+            fail(f"{mode}-nee {label}: the kernel counts {k_shadow} shadow rays, the plain "
+                 f"version {c['shadow_rays']}")
         n_brute = packed.n_brute
         walk = sphere_walk_counts(packed, night_cam, kwn) if mode == "grid" else None
         frames[name] = (
@@ -1740,7 +1752,8 @@ def main() -> None:
                 OPS["partner"]),
             nbytes(packed.spheres, packed.lamps)
             + (0 if packed.grid is None else nbytes(packed.grid.cell_ids)),
-            wn, hn, f"; {c['shadow_rays']} shadow rays ({c['shadow_clear']} reach the lamp)"
+            wn, hn, f"; {c['shadow_rays']} shadow rays, kernel {k_shadow} "
+            f"({c['shadow_clear']} reach the lamp)"
             + ("" if walk is None else f"; walk {walk}"),
         )
     # each night scene in the other sphere mode: brute-nee vs grid-nee on one scene

@@ -4,7 +4,8 @@ Twin of ``csgrenderer_tpu/app/renderers.py``. A renderer owns a scene, a
 camera and a ``RenderConfig`` and exposes ``draw_frame(time_sec) -> image``
 (uint8 [H, W, 3] tensor on its device), the analog of
 ``wo_renderer_draw_frame`` (renderer.h:20), plus ``last_frame_rays`` for
-the stats clock.
+the stats clock (and, on a ``PathTraceRenderer``,
+``last_frame_shadow_rays``: NEE's shadow rays, read at the same fence).
 
 - ``WololoRenderer``: the milestone-01 animated frame (config 1), plain
   torch ops on the renderer's device.
@@ -156,6 +157,9 @@ class PathTraceRenderer:
         self.advance_samples = advance_samples
         self.accumulator = Accumulator.zeros(config.height, config.width, self.device)
         self.last_frame_rays = 0
+        # NEE's shadow rays of the last fenced frame: 0 without NEE, None
+        # where its kernel counts none (tape, mesh, a replayed frame)
+        self.last_frame_shadow_rays = 0
         self._sample_offset = sample_offset
         self._animate = animate
 
@@ -178,9 +182,10 @@ class PathTraceRenderer:
         self._graph = None  # the FrameGraph replayed by eligible frames
         self._warmed = None  # (config, pack) of the last eager eligible frame
 
-    def _render(self, time_sec: float, partition=None):
+    def _render(self, time_sec: float, partition=None, counts: dict | None = None):
         """One frame's (radiance [H, W, 3], rays int64 tensor) at the
-        current sample offset."""
+        current sample offset. With NEE, the frame's shadow rays are added
+        to ``counts`` (``_render_kernel``)."""
         if self._animate is None:
             scene = self._packed
         else:
@@ -194,7 +199,8 @@ class PathTraceRenderer:
         with profiling.span("render.launch"):
             radiance, rays = _render_kernel(scene, self.camera, self.config, self._sample_offset,
                                             animated=self._animate is not None,
-                                            partition=partition)
+                                            partition=partition,
+                                            counts=counts if self.config.nee else None)
         if self.config.debug:
             check_finite(radiance, "the frame's radiance")
         return radiance, rays
@@ -245,16 +251,17 @@ class PathTraceRenderer:
         to_uint8(tonemap(linear, gamma=cfg.gamma), out=image)
         return rays
 
-    def _enqueue(self, time_sec: float):
+    def _enqueue(self, time_sec: float, counts: dict | None = None):
         """Enqueue a non-progressive frame, replayed from the frame graph
         when there is one, and advance the sample offset as configured:
-        (uint8 image, rays int64 tensor), both still being computed."""
+        (uint8 image, rays int64 tensor), both still being computed. An
+        eager NEE frame adds its shadow rays to ``counts``."""
         graph = self._frame_graph()
         if graph is not None:
             with profiling.span("render.replay"):
                 image, rays = graph.replay(self._sample_offset)
         else:
-            radiance, rays = self._render(time_sec)
+            radiance, rays = self._render(time_sec, counts=counts)
             image = self._tonemap(self.denoise_image(radiance, time_sec))
         if self.advance_samples:
             self._sample_offset += self.config.spp
@@ -268,16 +275,28 @@ class PathTraceRenderer:
             clusters = partition_tape(self._animate(self._cpu_twin, time_sec))
         return clusters if clusters is not None else ()
 
+    def _read_counts(self, rays, counts: dict) -> None:
+        """The fence: the frame's segments into ``last_frame_rays`` and its
+        shadow rays into ``last_frame_shadow_rays``, both read from the
+        device in one transfer."""
+        shadow = counts.get("shadow_rays")
+        if shadow is None:
+            self.last_frame_rays = int(rays)
+            self.last_frame_shadow_rays = None if self.config.nee else 0
+        else:
+            self.last_frame_rays, self.last_frame_shadow_rays = torch.stack((rays, shadow)).tolist()
+
     def draw_frame(self, time_sec: float) -> torch.Tensor:
+        counts = {}
         with profiling.frame("render.frame"):
             if not self.progressive:
-                image, rays = self._enqueue(time_sec)
+                image, rays = self._enqueue(time_sec, counts)
                 with profiling.span("render.fence"):
-                    self.last_frame_rays = int(rays)
+                    self._read_counts(rays, counts)
                 return image
-            radiance, rays = self._render(time_sec)
+            radiance, rays = self._render(time_sec, counts=counts)
             with profiling.span("render.fence"):
-                self.last_frame_rays = int(rays)
+                self._read_counts(rays, counts)
             with profiling.span("render.accumulate"):
                 self.accumulator = self.accumulator.add(radiance * self.config.spp,
                                                         self.config.spp, rays)
@@ -413,19 +432,21 @@ def _has_lamps(scene, packed) -> bool:
 
 
 def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated: bool = False,
-                   partition=None, offset_buffer=None):
+                   partition=None, offset_buffer=None, counts=None):
     """One frame through the kernel wrapper of the scene's type (the twin of
     the JAX package's ``_render_pallas``): (radiance, rays int64 tensor).
 
     ``scene`` may be packed. ``partition`` is an animated tape's cluster
     tuple; an animated tape without one takes the global evaluation rather
-    than clustering on device tensors.
+    than clustering on device tensors. ``counts``: a dict to which a sphere
+    frame's NEE work is added (``megakernel.render_image_kernel``); the
+    tape and mesh wrappers count none.
     """
     kw = dict(spp=cfg.spp, max_bounces=cfg.max_bounces, seed=cfg.seed, sky=cfg.sky, lens=cfg.lens,
               sample_offset=sample_base, nee=cfg.nee, jitter=cfg.jitter)
     if isinstance(scene, (SphereScene, megakernel.PackedScene)):
         return megakernel.render_image_kernel(scene, camera, cfg.width, cfg.height,
-                                              offset_buffer=offset_buffer, **kw)
+                                              offset_buffer=offset_buffer, counts=counts, **kw)
     if isinstance(scene, (CompiledTape, tape_kernel.PackedTape)):
         if isinstance(scene, CompiledTape):
             kw["partition"] = partition if partition is not None else (

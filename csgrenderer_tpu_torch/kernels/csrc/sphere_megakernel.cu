@@ -14,11 +14,10 @@
 //     by such a vertex's scatter carries the partner weight.
 // It computes what the TPU kernel computes (RTIOW materials, PCG4D counters
 // keyed by (pixel, sample, bounce, seed), per-pixel radiance over spp,
-// traced-segment counts; shadow rays are not counted), not its block
-// structure: one thread per pixel, looping over samples and bounces, and a
-// shadow ray is a function call inside the bounce loop (the Pallas grid
-// path's shadow segments woven into the wavefront were a TPU occupancy
-// device).
+// traced-segment counts), not its block structure: one thread per pixel,
+// looping over samples and bounces, and a shadow ray is a function call
+// inside the bounce loop (the Pallas grid path's shadow segments woven into
+// the wavefront were a TPU occupancy device).
 //
 // Shadow rays: built as a Ray and tested with the same sphere_t as the path
 // rays (not the Pallas unit-direction occlusion shortcut), against every
@@ -29,7 +28,16 @@
 // stops at the first such hit, which gives the same answer. The Pallas grid
 // path also excluded the lamp's own hit by sphere id, to absorb the drift
 // of its bf16 tables; these tables are exact f32, so the id is not read
-// (the lamp table keeps it, column 7, for the packer's layout).
+// (the lamp table keeps it, column 7, for the packer's layout). The NEE
+// instantiations count the shadow rays they trace, by the plain version's
+// rule (a lamp sample that nee_sample keeps, occluded or not: lights.
+// nee_contribution's ``traced``): each warp adds the lanes that trace one
+// to a CTA counter in shared memory where they trace it (a counter held in
+// a register through the bounce loop cost the NEE instantiations 8-16
+// bytes more of spills), and the CTA adds its count once, at its end, to a
+// 64-bit word (out_shadow) that the launcher zeroes. Shadow rays stay out
+// of the per-pixel segment counts (out_rays), as the plain version keeps
+// them out of ``rays``.
 //
 // What bounds it on an H100: divergent FP32 ALU work (threads of a warp
 // take different materials, bounce counts and DDA walk lengths; with NEE,
@@ -114,6 +122,7 @@ struct Params {
   float* out_rgb;        // [rows, W, 3]
   int* out_rays;         // [rows, W]
   int* work;             // the work-unit counter, zeroed before each launch
+  unsigned long long* out_shadow;  // NEE: the launch's shadow rays, zeroed before it
 };
 
 struct Ray {
@@ -288,6 +297,22 @@ __device__ __forceinline__ bool occluded(const Params& p, float ox, float oy, fl
   return t_best < t_max;
 }
 
+// The shadow rays the CTA has traced, in its shared memory (only the NEE
+// instantiations, which call this, hold the word).
+__device__ __forceinline__ unsigned int& cta_shadow_rays() {
+  __shared__ unsigned int count;
+  return count;
+}
+
+// Counts one shadow ray for each lane of the warp that calls this together:
+// the lowest of them adds their number to the CTA's counter.
+__device__ __forceinline__ void count_shadow_ray() {
+  const unsigned lanes = __activemask();
+  if (static_cast<int>(threadIdx.x & 31) == __ffs(lanes) - 1) {
+    atomicAdd(&cta_shadow_rays(), static_cast<unsigned int>(__popc(lanes)));
+  }
+}
+
 // One path segment of pixel ``pix``, sample ``s``, at ``bounce``: the
 // nearest hit, then the sky (a miss) or the hit's emission, NEE sample and
 // scatter. Returns false when the path ends here. ``prev_pdf`` (NEE) is the
@@ -351,11 +376,14 @@ __device__ __forceinline__ bool trace_segment(const Params& p, csgr::Path& path,
     csgr::LampSample ls;
     if (csgr::nee_sample(hx, hy, hz, nx, ny, nz, lambertian, g1.w, udx, udy, udz, g2.x, g2.y,
                          g2.z, l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, p.n_lamps, u1, u2,
-                         ls) &&
-        !occluded<kGrid, kShared>(p, hx, hy, hz, ls.dx, ls.dy, ls.dz, ls.tl * csgr::kShadowScale)) {
-      path.sr += path.tr * ls.wr;
-      path.sg += path.tg * ls.wg;
-      path.sb += path.tb * ls.wb;
+                         ls)) {
+      count_shadow_ray();
+      if (!occluded<kGrid, kShared>(p, hx, hy, hz, ls.dx, ls.dy, ls.dz,
+                                    ls.tl * csgr::kShadowScale)) {
+        path.sr += path.tr * ls.wr;
+        path.sg += path.tg * ls.wg;
+        path.sb += path.tb * ls.wb;
+      }
     }
   }
   if (!csgr::shade<true>(path, hx, hy, hz, nx, ny, nz, front, kind, g1.w, g2.x, g2.y, g2.z,
@@ -402,9 +430,14 @@ __device__ __forceinline__ void render_pixel(const Params& p, const float* cam,
 // Persistent CTAs of four warps (persistent.cuh): a CTA stages the tables
 // once (kShared), then each warp takes 16x2-pixel work units from the
 // launch's counter until the slab is done (16x8 tiles per CTA measured 6%
-// slower on the grid frame).
+// slower on the grid frame). The NEE instantiations count the CTA's shadow
+// rays in shared memory and add them to out_shadow at the end.
 template <bool kGrid, bool kNee, bool kShared>
 __global__ void __launch_bounds__(kThreads, kMinCtas) sphere_megakernel(const Params p) {
+  if constexpr (kNee) {
+    if (threadIdx.x == 0) cta_shadow_rays() = 0;
+    __syncthreads();
+  }
   if constexpr (kShared) csgr::stage_tables<2>({p.geo, p.cell_ids}, {p.geo_bytes, p.cell_bytes});
   float cam[csgr::kCamFloats];
 #pragma unroll
@@ -414,6 +447,12 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) sphere_megakernel(const Pa
   csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
     render_pixel<kGrid, kNee, kShared>(p, cam, sample_offset, x, row);
   });
+  if constexpr (kNee) {
+    __syncthreads();
+    if (threadIdx.x == 0 && cta_shadow_rays() != 0) {
+      atomicAdd(p.out_shadow, static_cast<unsigned long long>(cta_shadow_rays()));
+    }
+  }
 }
 
 template <bool kGrid, bool kNee, bool kShared>
@@ -556,7 +595,9 @@ extern "C" int csgr_sphere_table_limit(int device) {
 // them from global memory. sample_offset_at: null, or one device uint32
 // that each thread reads in place of sample_offset when the launch runs.
 // out_rays holds rows x width int32 segment counts and one int32 more: the
-// launch's work counter.
+// launch's work counter. out_shadow (NEE: n_lamps > 0) is one uint64 that
+// the launch zeroes, then sets to the shadow rays it traces; null
+// otherwise, when it is not read.
 extern "C" int csgr_sphere_render(
     const void* cam, const void* spheres, const void* geometry, int n_spheres, int n_brute,
     const void* cell_ids, int cx, int cz, int m, int max_steps, float x0, float z0, float x1,
@@ -564,8 +605,10 @@ extern "C" int csgr_sphere_render(
     int width, int height, int rows, int row_offset,
     int spp, int max_bounces, unsigned int seed, unsigned int sample_offset,
     const void* sample_offset_at, int lens, int sky, int shared_tables, void* out_rgb,
-    void* out_rays, void* stream) {
-  if (rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0) {
+    void* out_rays, void* out_shadow, void* stream) {
+  const bool nee = n_lamps > 0;
+  if (rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
+      (nee && out_shadow == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -583,9 +626,14 @@ extern "C" int csgr_sphere_render(
   p.out_rgb = static_cast<float*>(out_rgb);
   p.out_rays = static_cast<int*>(out_rays);
   p.work = p.out_rays + static_cast<size_t>(rows) * width;
+  p.out_shadow = static_cast<unsigned long long*>(out_shadow);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool grid = cell_ids != nullptr, nee = n_lamps > 0;
+  if (nee) {  // in stream order, before the launch
+    const cudaError_t z = cudaMemsetAsync(out_shadow, 0, sizeof(unsigned long long), st);
+    if (z != cudaSuccess) return static_cast<int>(z);
+  }
+  const bool grid = cell_ids != nullptr;
   const cudaError_t e = shared_tables ? launch_mode<true>(p, grid, nee, st)
                                       : launch_mode<false>(p, grid, nee, st);
   return static_cast<int>(e);

@@ -17,7 +17,10 @@ Where the tensors lie decides what runs:
 
 ``nee=True`` adds next-event estimation toward the scene's emissive
 spheres (``render/lights.py``): the kernel's NEE variant, or the plain
-version with ``lights=``.
+version with ``lights=``. Both count the shadow rays they trace, by the
+same rule, and keep them out of the segment count ``rays``: the kernel
+into a device word of its own, which ``counts`` hands back as a tensor
+without waiting for the device (see ``render_image_kernel``).
 
 ``render_aovs_kernel`` is the kernel's G-buffer mode: the AOV cast of
 ``render/aov.py::render_aovs`` (one centred primary ray a pixel, the
@@ -237,7 +240,7 @@ def render_image_plain(
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _SCENE_ARGTYPES = (_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I) + (_F,) * 8
 _KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_sphere_render", _SCENE_ARGTYPES + (_VP, _I)
-                       + (_I,) * 6 + (_U, _U, _VP, _I, _I, _I, _VP, _VP), "sphere")
+                       + (_I,) * 6 + (_U, _U, _VP, _I, _I, _I, _VP, _VP, _VP), "sphere")
 _GBUFFER = build.Kernel(KERNEL_SOURCE, "csgr_sphere_gbuffer", _SCENE_ARGTYPES + (_I,) * 4
                         + (_VP,) * 5, "sphere G-buffer")
 _TABLE_LIMIT: dict[int, int] = {}  # device index -> the most table bytes a CTA can stage
@@ -281,14 +284,16 @@ def _scene_args(packed: PackedScene, cam_row: Tensor, dev) -> list:
 
 
 def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
-            nee, rows=None, row_offset=0, force_global=False, offset_buffer=None):
+            nee, rows=None, row_offset=0, force_global=False, offset_buffer=None, counts=None):
     """Launch the kernel. Its tables are staged in shared memory when
     ``packed.table_bytes`` fits the device's limit, else read from global
     memory; ``force_global`` (tests only) reads them from global memory.
     ``offset_buffer``, a one-element int32 CUDA tensor, is read by the
     kernel in place of ``sample_offset`` (its bits as uint32) when the
     launch runs: a launch captured in a CUDA graph takes each replay's
-    offset from it."""
+    offset from it. With ``nee`` the launch counts its shadow rays into a
+    device word, which ``counts`` (a dict) takes under ``"shadow_rays"``,
+    added to what it holds there."""
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
@@ -306,15 +311,22 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
 
     out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
     out_rays = torch.empty(rows * width + 1, dtype=torch.int32, device=dev)  # + the work counter
+    # the launch zeroes it, then counts its shadow rays into it (int64: the
+    # kernel's uint64 word, far from its sign bit)
+    shadow = torch.empty((), dtype=torch.int64, device=dev) if nee else None
     shared = not force_global and packed.table_bytes <= table_limit(dev.index)
     _KERNEL(
         dev, *scene_args, *lamp_args, width, height, rows, row_offset, spp,
         max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, offset_at, int(lens),
         SKY_MODES.index(sky), int(shared), out_rgb.data_ptr(), out_rays.data_ptr(),
+        None if shadow is None else shadow.data_ptr(),
     )
     LAUNCHES += 1
     LAUNCHES_BY_MODE[packed.mode + ("-nee" if nee else "")] += 1
     LAUNCHES_BY_TABLES["shared" if shared else "global"] += 1
+    if shadow is not None and counts is not None:
+        counts["shadow_rays"] = shadow if "shadow_rays" not in counts else (
+            counts["shadow_rays"] + shadow)
     # int64 sum: one call can pass 2**31 segments (a 1080p/64-spp frame
     # traces ~3.4e8; 4K at a few hundred spp overflows int32)
     return out_rgb, out_rays[:-1].sum(dtype=torch.int64)
@@ -337,6 +349,7 @@ def render_image_kernel(
     row_offset: int = 0,
     jitter: bool = True,
     offset_buffer: Tensor | None = None,
+    counts: dict | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Drop-in for ``integrator.render_image`` on sphere scenes.
 
@@ -354,7 +367,12 @@ def render_image_kernel(
     samples the scene's emissive spheres at every Lambertian and glossy
     hit (ValueError if it has none). On the card, ``camera`` may also be
     a packed row (``camera_row``), and ``offset_buffer`` (see ``_launch``)
-    holds the sample offset the kernel reads when it runs.
+    holds the sample offset the kernel reads when it runs. ``counts``: a
+    dict to which the frame's NEE work is added as int64 tensors, by the
+    plain version's rule: on the card the shadow rays traced
+    (``"shadow_rays"``, in a device word the launch fills: nothing waits),
+    on the CPU every key of ``integrator.trace_paths`` and the grid walk's
+    (``render_image_plain``). Shadow rays are never part of ``rays``.
     """
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")
@@ -375,13 +393,14 @@ def render_image_kernel(
         return render_image_plain(
             packed, camera, width, height, spp=spp, max_bounces=max_bounces,
             seed=seed, sky=sky, lens=lens, sample_offset=sample_offset, nee=nee,
-            rows=rows, row_offset=row_offset, jitter=jitter,
+            counts=counts, rows=rows, row_offset=row_offset, jitter=jitter,
         )
     if not jitter:
         raise NotImplementedError(JITTER_ON_CPU_ONLY)
     return _launch(
         packed, camera_row(camera), width, height, spp, max_bounces, int(seed),
         int(sample_offset), lens, sky, nee, rows, int(row_offset), offset_buffer=offset_buffer,
+        counts=counts,
     )
 
 

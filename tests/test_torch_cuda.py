@@ -6,7 +6,9 @@ plain versions; the sharded render over a one-rank mesh against the
 kernels' frames; the shard canary (kernel row 9) against its plain
 version; the a-trous filter's kernel against its plain version, on its
 own (a ragged frame at 5 passes among them) and inside the renderer's
-denoise step; the sphere kernel's G-buffer mode against its plain
+denoise step; the sphere kernel's NEE shadow-ray count against its plain
+version's, and read by the renderer at its fence; the sphere kernel's
+G-buffer mode against its plain
 version, on its own, with its tables in global memory and as the denoised
 sphere frame's AOV cast; the random CSG trees of
 tests/test_torch_tape_fuzz.py through the tape kernel; and the live
@@ -578,6 +580,54 @@ def test_grid_nee_matches_plain_with_equal_rays(cuda):
     ref, ref_rays = mk.render_image_plain(packed, cam, **NEE_KW)
     _assert_close(ref, ref_rays, img, rays)
     assert int(rays) == int(ref_rays)
+
+
+@pytest.mark.parametrize("mode", ["brute-nee", "grid-nee"])
+def test_nee_kernel_counts_the_plain_versions_shadow_rays(cuda, mode):
+    """The NEE kernel's shadow rays, handed back in a device word without a
+    wait, are the plain version's count on a small frame, within the bound
+    ``_assert_close`` holds the segments to, and stay out of the segments;
+    a launch without NEE counts none. The bound, not equality: kernel and
+    plain version on the card take a lamp sample through the same
+    operations, but not every one of them rounds alike (the kernel's
+    ``1 / sqrtf``, ``cosf`` and ``sinf`` against torch's CUDA functions), so
+    a sample on the edge of its lobe or its lamp can go either way: 3,040
+    against 3,038 shadow rays on this grid-NEE frame, whose segments agree
+    exactly, and 775,862 against 775,804 at 960x540."""
+    make_packed, make_cam, _ = NEE_CASES[mode]
+    packed, cam = make_packed(cuda), make_cam(cuda)
+    mk.render_image_kernel(packed, cam, **NEE_KW)  # built and bound: the next launch only enqueues
+    counts, plain = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, rays = mk.render_image_kernel(packed, cam, counts=counts, **NEE_KW)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _, plain_rays = mk.render_image_plain(packed, cam, counts=plain, **NEE_KW)
+    shadow, want = counts["shadow_rays"], int(plain["shadow_rays"])
+    assert shadow.dtype == torch.int64 and shadow.device.type == "cuda"
+    assert want > 0 and abs(int(shadow) - want) <= max(want * 2e-3, 8)
+    assert int(rays) == int(plain_rays)
+    none = {}
+    mk.render_image_kernel(packed, cam, counts=none, **{**NEE_KW, "nee": False})
+    assert none == {}
+
+
+def test_the_renderer_reads_the_shadow_rays_at_its_fence(cuda):
+    """``PathTraceRenderer.last_frame_shadow_rays`` of a progressive NEE
+    frame is the kernel's count of that frame, read at the fence with its
+    segments; 0 without NEE."""
+    scene, cam = night_scene(grid=11, device=cuda), _night_cam(cuda)
+    frame = {k: v for k, v in NEE_KW.items() if k != "nee"}
+    for nee in (True, False):
+        r = PathTraceRenderer(scene, cam, RenderConfig(**frame, nee=nee), progressive=True,
+                              device=cuda)
+        r.draw_frame(0.0)
+        counts = {}
+        _, rays = mk.render_image_kernel(r._packed, cam, counts=counts, **frame, nee=nee)
+        assert r.last_frame_rays == int(rays)
+        assert r.last_frame_shadow_rays == (int(counts["shadow_rays"]) if nee else 0)
 
 
 @pytest.mark.parametrize("mode", ["grid-nee", "brute"])
