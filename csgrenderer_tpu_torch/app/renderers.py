@@ -36,13 +36,24 @@ config is enqueued eagerly, the next is captured, and later frames replay
 it until a new config object or a new pack drops it; ``set_camera``
 rewrites the view the graph reads.
 
+On the card, a progressive frame of a static scene keeps the next frame
+queued behind it (``prelaunch_eligible``): a ``draw_frame`` that follows
+the frame before it back to back (the same sample offset, config object,
+pack and camera) enqueues frame k's accumulate and tonemap, copies its
+counts without a wait into pinned host memory behind an event
+(``_CountFence``), enqueues frame k+1's kernel and only then waits, on
+that event alone. The next call adopts the frame in flight, or drops it
+when the renderer's state moved, so the card always has a kernel queued
+while the host finishes a frame. A one-shot render enqueues one kernel.
+
 Each frame records spans (``utils/profiling.py``) while recording is on:
 ``render.frame`` around ``draw_frame`` and ``draw_frame_async``, and
 inside it ``render.animate``, ``render.recluster``, ``render.launch``
 (with ``scene.pack`` for an animated tape), ``render.fence``,
 ``render.accumulate``, ``render.denoise`` and ``render.tonemap``; a
 replayed frame records ``render.replay`` (the replay and the copy of its
-outputs) in place of the last three.
+outputs) in place of the last three, and a frame that queues the next one
+``render.prelaunch`` (the next frame's ``render.launch`` inside it).
 """
 
 from __future__ import annotations
@@ -79,6 +90,47 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("device='cuda' but CUDA is not available "
                            "(device='cpu' runs the kernels' plain versions)")
     return dev
+
+
+def prelaunch_eligible(renderer) -> bool:
+    """Whether ``renderer``'s progressive frames may keep the next frame
+    queued behind the current one: a static scene (packed once) on the
+    card, without debug checks, which read each frame back. Every other
+    frame is rendered and fenced on its own."""
+    return (renderer.device.type == "cuda" and renderer.progressive
+            and renderer._packed is not None and not renderer.config.debug)
+
+
+def _same_key(a: tuple, b: tuple) -> bool:
+    """Whether two frame keys (sample offset, config, pack, camera) name
+    the same frame: an equal offset and the same three objects."""
+    return a[0] == b[0] and all(x is y for x, y in zip(a[1:], b[1:]))
+
+
+class _CountFence:
+    """A frame's counts on their way to the host: copied without a wait
+    into pinned memory, then an event recorded behind the copy. ``wait``
+    blocks on that event alone, so whatever was enqueued after it keeps
+    the card busy."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.host = torch.empty(2, dtype=torch.int64, pin_memory=True)
+        self.event = torch.cuda.Event()
+        self.n = 0
+
+    def stage(self, rays: torch.Tensor, shadow: torch.Tensor | None) -> None:
+        """Copy the frame's segments (and NEE's shadow rays) and mark the
+        stream behind the copy."""
+        src = rays.reshape(1) if shadow is None else torch.stack((rays, shadow))
+        self.n = src.numel()
+        self.host[:self.n].copy_(src, non_blocking=True)
+        self.event.record(torch.cuda.current_stream(self.device))
+
+    def wait(self) -> list[int]:
+        """The staged counts, once the event has passed."""
+        self.event.synchronize()
+        return self.host[:self.n].tolist()
 
 
 class WololoRenderer:
@@ -181,6 +233,12 @@ class PathTraceRenderer:
                           if isinstance(scene, CompiledTape) and animate is not None else None)
         self._graph = None  # the FrameGraph replayed by eligible frames
         self._warmed = None  # (config, pack) of the last eager eligible frame
+        # a progressive frame queued behind the last one (``_draw_queued``):
+        # the key a frame drawn next, back to back, has; that frame's
+        # (radiance, rays, counts) when already enqueued; the counts' fence
+        self._next = None
+        self._ahead = None
+        self._fence = None
 
     def _render(self, time_sec: float, partition=None, counts: dict | None = None):
         """One frame's (radiance [H, W, 3], rays int64 tensor) at the
@@ -212,11 +270,14 @@ class PathTraceRenderer:
     def reset_accumulation(self) -> None:
         self.accumulator = Accumulator.zeros(self.config.height, self.config.width, self.device)
         self._sample_offset = 0
+        self._next = self._ahead = None  # a frame in flight is dropped
 
     def set_camera(self, camera) -> None:
         """Swap the view for subsequent frames. Progressive accumulations of
-        the old view are the caller's to reset. A captured frame graph
-        reads the view from device memory, where the new one is written."""
+        the old view are the caller's to reset; a progressive frame queued
+        for the old view is dropped at the next ``draw_frame`` (its key
+        names the camera object). A captured frame graph reads the view
+        from device memory, where the new one is written."""
         self.camera = camera.to(self.device)
         if self._graph is not None:
             self._graph.set_camera(self.camera)
@@ -280,11 +341,17 @@ class PathTraceRenderer:
         shadow rays into ``last_frame_shadow_rays``, both read from the
         device in one transfer."""
         shadow = counts.get("shadow_rays")
-        if shadow is None:
-            self.last_frame_rays = int(rays)
-            self.last_frame_shadow_rays = None if self.config.nee else 0
-        else:
-            self.last_frame_rays, self.last_frame_shadow_rays = torch.stack((rays, shadow)).tolist()
+        self._set_counts(*([int(rays)] if shadow is None else torch.stack((rays, shadow)).tolist()))
+
+    def _set_counts(self, rays: int, shadow: int | None = None) -> None:
+        """A fenced frame's counts: NEE's shadow rays 0 without NEE, None
+        where the kernel counts none."""
+        self.last_frame_rays = rays
+        self.last_frame_shadow_rays = (shadow if shadow is not None
+                                       else None if self.config.nee else 0)
+
+    def _frame_key(self) -> tuple:
+        return (self._sample_offset, self.config, self._packed, self.camera)
 
     def draw_frame(self, time_sec: float) -> torch.Tensor:
         counts = {}
@@ -294,15 +361,52 @@ class PathTraceRenderer:
                 with profiling.span("render.fence"):
                     self._read_counts(rays, counts)
                 return image
+            if prelaunch_eligible(self):
+                return self._draw_queued(time_sec)
             radiance, rays = self._render(time_sec, counts=counts)
             with profiling.span("render.fence"):
                 self._read_counts(rays, counts)
             with profiling.span("render.accumulate"):
                 self.accumulator = self.accumulator.add(radiance * self.config.spp,
-                                                        self.config.spp, rays)
+                                                        self.config.spp, self.last_frame_rays)
                 self._sample_offset += self.config.spp
                 linear = self.accumulator.image()
             return self._tonemap(self.denoise_image(linear, time_sec))
+
+    def _draw_queued(self, time_sec: float) -> torch.Tensor:
+        """A progressive frame k with frame k+1 queued behind it, in this
+        order on the stream: frame k's kernel (adopted from the call before
+        when its key is this frame's, else enqueued now); its accumulate,
+        denoise and tonemap, the same ops as ``draw_frame``'s; its counts,
+        staged in ``_CountFence``; frame k+1's kernel at offset (k+1) spp,
+        when the call before drew frame k-1 under the same key. Then the one
+        wait, on frame k's event. Returns frame k's image."""
+        cfg = self.config
+        follows = self._next is not None and _same_key(self._next, self._frame_key())
+        ahead = self._ahead if follows else None
+        self._next = self._ahead = None  # a frame in flight that does not match is dropped
+        if ahead is not None:
+            radiance, rays, counts = ahead
+        else:
+            counts = {}
+            radiance, rays = self._render(time_sec, counts=counts)
+        with profiling.span("render.accumulate"):
+            summed = self.accumulator.add(radiance * cfg.spp, cfg.spp, 0)  # rays at the fence
+            self._sample_offset += cfg.spp
+            linear = summed.image()
+        image = self._tonemap(self.denoise_image(linear, time_sec))
+        if self._fence is None:
+            self._fence = _CountFence(self.device)
+        self._fence.stage(rays, counts.get("shadow_rays"))
+        if follows:
+            with profiling.span("render.prelaunch"):
+                queued = {}
+                self._ahead = (*self._render(time_sec, counts=queued), queued)
+        self._next = self._frame_key()
+        with profiling.span("render.fence"):
+            self._set_counts(*self._fence.wait())
+        self.accumulator = summed._replace(rays_traced=summed.rays_traced + self.last_frame_rays)
+        return image
 
     def draw_frame_async(self, time_sec: float):
         """Launch a frame without waiting for the device.

@@ -23,9 +23,9 @@ class Accumulator(NamedTuple):
 
     radiance_sum: Tensor  # [H, W, 3] f32, linear, on the frame's device
     sample_count: Tensor  # [] int32, on the same device
-    # A Python int: a frame's ray count is an int64 tensor, and the
-    # running total is read on the host (add() reads it, a sync the
-    # accumulator's consumer pays anyway when it reads the image)
+    # A Python int: add() takes a frame's ray count as the int the
+    # renderer read at its fence, or as an int64 tensor, which it reads
+    # back (a sync)
     rays_traced: int
 
     @staticmethod

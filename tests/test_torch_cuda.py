@@ -13,7 +13,8 @@ version, on its own, with its tables in global memory and as the denoised
 sphere frame's AOV cast; the random CSG trees of
 tests/test_torch_tape_fuzz.py through the tape kernel; and the live
 denoised frame replayed from a CUDA graph against the same frame enqueued
-eagerly.
+eagerly; and progressive frames with the next frame queued behind each
+against the same frames rendered one at a time.
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -33,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from csgrenderer_tpu_torch.app import App, PathTraceRenderer, StatsClock, frame_graph
+from csgrenderer_tpu_torch.app import App, PathTraceRenderer, StatsClock, frame_graph, renderers
 from csgrenderer_tpu_torch.camera import Camera
 from csgrenderer_tpu_torch.kernels import atrous
 from csgrenderer_tpu_torch.kernels import megakernel as mk
@@ -941,3 +942,117 @@ def test_one_capture_over_a_100_frame_app_run(cuda):
     assert app.run(max_frames=100, frames_in_flight=2, readback="fence")
     torch.cuda.synchronize()
     assert frame_graph.CAPTURES == captures + 1 and frame_graph.REPLAYS == replays + 99
+
+
+# --- the next progressive frame queued behind the current one -------------
+
+QUEUED_CASES = {
+    "rtiow-grid-lens": (lambda dev: rtiow_final_scene(device=dev),
+                        lambda dev: _rtiow_camera(2.0, dev),
+                        RenderConfig(width=64, height=32, spp=2, max_bounces=8, seed=3, lens=True)),
+    "night-grid-nee": (lambda dev: night_scene(grid=11, device=dev), _night_cam,
+                       RenderConfig(**NEE_KW)),
+    "deepcsg-tape": (_deepcsg,
+                     lambda dev: Camera.look_at((0, 2.0, 7.0), (0.5, 0, 0), vfov_degrees=40.0,
+                                                aspect_ratio=2.0, device=dev),
+                     RenderConfig(width=64, height=32, spp=2, max_bounces=5, seed=5)),
+}
+QUEUE_STEPS = {
+    "reset_accumulation": lambda r: r.reset_accumulation(),
+    "set_camera": lambda r: r.set_camera(Camera.look_at(
+        (12, 2.5, 4), (0, 0, 0), vfov_degrees=20.0, aspect_ratio=2.0, aperture=0.1,
+        focus_dist=10.0, device=r.device)),
+    "render_to_noise": lambda r: r.render_to_noise(target=1e-9, max_spp=4 * r.config.spp),
+}
+
+
+def _progressive_frames(cuda, monkeypatch, case, steps, queue=True):
+    """A progressive renderer of ``case`` through ``steps`` (None: a
+    ``draw_frame``; else a call on the renderer): (the renderer, each
+    frame's image, accumulator and counts). ``queue=False`` makes the
+    renderer eager by its eligibility predicate."""
+    make_scene, make_cam, cfg = QUEUED_CASES[case]
+    with monkeypatch.context() as m:
+        if not queue:
+            m.setattr(renderers, "prelaunch_eligible", lambda r: False)
+        r = PathTraceRenderer(make_scene(cuda), make_cam(cuda), cfg, progressive=True)
+        frames = []
+        for step in steps:
+            if step is not None:
+                step(r)
+                continue
+            image = r.draw_frame(0.0)
+            acc = r.accumulator
+            frames.append((image, acc.radiance_sum, acc.sample_count, acc.rays_traced,
+                           r.last_frame_rays, r.last_frame_shadow_rays))
+        torch.cuda.synchronize()
+    return r, frames
+
+
+def _assert_progressive_equal(got, ref):
+    assert len(got) == len(ref)
+    for k, (a, b) in enumerate(zip(got, ref, strict=True)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), k
+        assert int(a[2]) == int(b[2]) and a[3:] == b[3:], k
+
+
+@pytest.mark.parametrize("case", sorted(QUEUED_CASES))
+def test_queued_progressive_frames_equal_eager_frames(cuda, monkeypatch, case):
+    """Six progressive frames back to back, the later ones each adopting
+    the frame the call before queued: images, accumulators, segments and
+    shadow rays equal bit for bit those of a renderer that never queues."""
+    r, got = _progressive_frames(cuda, monkeypatch, case, [None] * 6)
+    assert r._ahead is not None
+    _, ref = _progressive_frames(cuda, monkeypatch, case, [None] * 6, queue=False)
+    _assert_progressive_equal(got, ref)
+    assert all(f[4] > 0 for f in got)
+    assert all((f[5] > 0) if r.config.nee else f[5] == 0 for f in got)
+
+
+@pytest.mark.parametrize("step", sorted(QUEUE_STEPS))
+def test_a_state_change_between_queued_frames_gives_the_eager_frames(cuda, monkeypatch, step):
+    """``reset_accumulation``, ``set_camera`` or ``render_to_noise`` between
+    queued frames: every frame after it equals an eager renderer's through
+    the same steps, so the frame queued before the change is never used."""
+    steps = [None] * 3 + [QUEUE_STEPS[step]] + [None] * 3
+    _, got = _progressive_frames(cuda, monkeypatch, "rtiow-grid-lens", steps)
+    _, ref = _progressive_frames(cuda, monkeypatch, "rtiow-grid-lens", steps, queue=False)
+    _assert_progressive_equal(got, ref)
+
+
+def test_one_draw_frame_enqueues_one_render_kernel(cuda, monkeypatch):
+    """A one-shot progressive frame launches one sphere kernel and queues
+    nothing; the second back-to-back frame launches its own and queues the
+    third."""
+    renders = []
+    render = PathTraceRenderer._render
+    monkeypatch.setattr(PathTraceRenderer, "_render",
+                        lambda self, *a, **kw: (renders.append(self._sample_offset),
+                                                render(self, *a, **kw))[1])
+    make_scene, make_cam, cfg = QUEUED_CASES["rtiow-grid-lens"]
+    r = PathTraceRenderer(make_scene(cuda), make_cam(cuda), cfg, progressive=True)
+    before = mk.LAUNCHES
+    r.draw_frame(0.0)
+    torch.cuda.synchronize()
+    assert renders == [0] and mk.LAUNCHES == before + 1 and r._ahead is None
+    r.draw_frame(0.0)
+    torch.cuda.synchronize()
+    assert renders == [0, cfg.spp, 2 * cfg.spp] and mk.LAUNCHES == before + 3
+
+
+def test_an_adopted_frame_waits_on_its_event_alone(cuda, monkeypatch):
+    """Once the queue runs, a progressive frame synchronises no stream: its
+    one wait is the event behind its counts (``set_sync_debug_mode`` raises
+    at any synchronising call)."""
+    make_scene, make_cam, cfg = QUEUED_CASES["night-grid-nee"]
+    r = PathTraceRenderer(make_scene(cuda), make_cam(cuda), cfg, progressive=True)
+    r.draw_frame(0.0)
+    r.draw_frame(0.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            r.draw_frame(0.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert r.last_frame_rays > 0 and r.last_frame_shadow_rays > 0
