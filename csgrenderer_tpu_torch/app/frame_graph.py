@@ -4,17 +4,16 @@ An eager non-progressive frame of a sphere scene on the card enqueues
 about seventeen launches from Python: the beauty kernel and its segment
 sum, the G-buffer cast, the a-trous passes with their planes, the tonemap.
 That enqueue takes the host longer than the card takes to run them, so
-the card waits on it. ``PathTraceRenderer`` captures such a frame once
-into a ``torch.cuda.CUDAGraph`` (``FrameGraph``) and replays it each
-frame: one launch from the host.
+the card waits on it. A ``FrameGraph`` captures such a frame once into a
+``torch.cuda.CUDAGraph`` and replays it each frame: one launch from the
+host.
 
-What the graph bakes in decides when it is made again. Its kernels read
-the renderer's packed scene and its config's numbers, so a new config
-object or a new pack drops it. What changes from frame to frame is read
-from device memory that the graph owns: the sample offset from a one-word
-buffer (``offset``), which the graph advances by the config's spp after
-the beauty launch and the host rewrites only when the renderer asks for
-another offset, and the camera from a packed row (``camera``), which
+The graph bakes in the body's packed scene and numbers, which its owner
+holds fixed for the graph's life. What changes from frame to frame is
+read from device memory that the graph owns: the sample offset from a
+one-word buffer (``offset``), which the graph advances by ``spp`` after
+the beauty launch and the host rewrites only when asked for another
+offset, and the camera from a packed row (``camera``), which
 ``set_camera`` rewrites. Both writes are stream-ordered, so they are safe
 with frames in flight. The frame's image and segment count land in one
 buffer (``out``), which each replay copies once, so no returned tensor is
@@ -39,15 +38,6 @@ CAPTURES = 0
 REPLAYS = 0
 
 
-def eligible(renderer) -> bool:
-    """Whether ``renderer``'s non-progressive frames may replay a graph: a
-    static sphere scene (packed once) on the card, without debug checks,
-    which read the frame back. Every other frame is enqueued eagerly."""
-    return (renderer.device.type == "cuda"
-            and isinstance(renderer._packed, megakernel.PackedScene)
-            and not renderer.progressive and not renderer.config.debug)
-
-
 def _as_int32(offset: int) -> int:
     """The low 32 bits of ``offset`` as a signed int32 (the kernel reads the
     word as uint32)."""
@@ -56,24 +46,25 @@ def _as_int32(offset: int) -> int:
 
 
 class FrameGraph:
-    """One frame captured on ``device`` for ``config`` and ``packed`` at the
-    view ``camera``. ``body(offset, camera, image)`` enqueues the frame:
-    its kernels read the sample offset from the int32 tensor ``offset`` and
-    the view from the packed row ``camera``; it writes the uint8 frame into
-    ``image`` and returns the rays int64 tensor.
+    """One frame of ``spp`` samples a pixel and ``size`` (height, width)
+    pixels, captured on ``device`` at the view ``camera``.
+    ``body(offset, camera, image)`` enqueues the frame: its kernels read
+    the sample offset from the int32 tensor ``offset`` and the view from
+    the packed row ``camera``; it writes the uint8 frame into ``image`` and
+    returns the rays int64 tensor.
 
     The capture runs on a stream of its own and waits for nothing on the
-    host; the first eager frame of the same config has already bound every
-    library and set every kernel attribute."""
+    host; an eager frame of the same body has already bound every library
+    and set every kernel attribute."""
 
     def __init__(self, body: Callable[[Tensor, Tensor, Tensor], Tensor], device: torch.device,
-                 config, packed, camera):
+                 spp: int, size: tuple[int, int], camera):
         global CAPTURES
-        self.config, self.packed = config, packed
+        self.spp = spp
         self.offset = torch.zeros(1, dtype=torch.int32, device=device)
         self._word = 0  # what ``offset`` holds when the next replay runs
         self.camera = megakernel.pack_camera(camera)
-        h, w = config.height, config.width
+        h, w = size
         n = h * w * 3
         # the image's bytes, padded to a word, then the rays: one copy a replay
         self.out = torch.empty(-(-n // 8) * 8 + 8, dtype=torch.uint8, device=device)
@@ -88,7 +79,7 @@ class FrameGraph:
             try:
                 rays = body(self.offset, self.camera, self.out.as_strided(*self._image))
                 self.out.view(torch.int64)[-1:].copy_(rays.reshape(1))
-                self.offset.add_(config.spp)
+                self.offset.add_(spp)
             finally:
                 self.graph.capture_end()
         current.wait_stream(stream)
@@ -98,10 +89,6 @@ class FrameGraph:
                          if n != before.get(k, 0)}
         build.add_launch_counts({k: -n for k, n in self.launches.items()})
         CAPTURES += 1
-
-    def holds(self, config, packed) -> bool:
-        """Whether the graph was captured for this config and pack."""
-        return self.config is config and self.packed is packed
 
     def set_camera(self, camera) -> None:
         """Point the frames replayed from now on at ``camera``."""
@@ -114,7 +101,7 @@ class FrameGraph:
         word = _as_int32(sample_offset)
         if word != self._word:
             self.offset.fill_(word)
-        self._word = _as_int32(sample_offset + self.config.spp)
+        self._word = _as_int32(sample_offset + self.spp)
         self.graph.replay()
         build.add_launch_counts(self.launches)
         REPLAYS += 1

@@ -28,23 +28,27 @@ Static scenes are packed once, when the renderer is made; per frame only
 the camera row is built and the kernel launched, so ``draw_frame_async``
 never waits for the device. Animated CSG tapes are reclustered every frame
 on a CPU copy of the tape (``scene/partition.py``) and packed with that
-cluster tuple.
+cluster tuple. A renderer's config and pack are fixed for its life;
+another config takes another renderer.
 
-On the card, a non-progressive frame of a static sphere scene is replayed
-from a CUDA graph (``app/frame_graph.py``): the first such frame of a
-config is enqueued eagerly, the next is captured, and later frames replay
-it until a new config object or a new pack drops it; ``set_camera``
-rewrites the view the graph reads.
-
-On the card, a progressive frame of a static scene keeps the next frame
-queued behind it (``prelaunch_eligible``): a ``draw_frame`` that follows
-the frame before it back to back (the same sample offset, config object,
-pack and camera) enqueues frame k's accumulate and tonemap, copies its
-counts without a wait into pinned host memory behind an event
-(``_CountFence``), enqueues frame k+1's kernel and only then waits, on
-that event alone. The next call adopts the frame in flight, or drops it
-when the renderer's state moved, so the card always has a kernel queued
-while the host finishes a frame. A one-shot render enqueues one kernel.
+How frames run is decided once, when the renderer is made
+(``frame_schedule``), from its device, scene type, animation, mode and
+``config.debug``. On the card, without debug checks, a static sphere
+scene's non-progressive frames are replayed from a CUDA graph
+(``app/frame_graph.py``): the first is enqueued eagerly, the second is
+captured, and later frames replay it. A static scene's progressive frames
+each queue the next: a ``draw_frame`` that follows the one before it back
+to back (at the sample offset that call ended at) enqueues frame k's
+accumulate, denoise and tonemap, copies its counts without a wait into
+pinned host memory behind an event (``_CountFence``), enqueues frame
+k+1's kernel and only then waits, on that event alone; the next call
+adopts the frame in flight while the sample offset still names it. A one-
+shot render enqueues one kernel. Every other frame is eager. All
+progressive frames run those steps in that order, eager ones without the
+next kernel; all fenced frames read their counts through ``_CountFence``,
+which on the CPU reads them at once. ``set_camera`` (or assigning
+``camera``) rewrites the view a graph reads and, with
+``reset_accumulation``, drops a queued frame.
 
 Each frame records spans (``utils/profiling.py``) while recording is on:
 ``render.frame`` around ``draw_frame`` and ``draw_frame_async``, and
@@ -92,44 +96,47 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def prelaunch_eligible(renderer) -> bool:
-    """Whether ``renderer``'s progressive frames may keep the next frame
-    queued behind the current one: a static scene (packed once) on the
-    card, without debug checks, which read each frame back. Every other
-    frame is rendered and fenced on its own."""
-    return (renderer.device.type == "cuda" and renderer.progressive
-            and renderer._packed is not None and not renderer.config.debug)
-
-
-def _same_key(a: tuple, b: tuple) -> bool:
-    """Whether two frame keys (sample offset, config, pack, camera) name
-    the same frame: an equal offset and the same three objects."""
-    return a[0] == b[0] and all(x is y for x, y in zip(a[1:], b[1:]))
+def frame_schedule(device: torch.device, scene, animated: bool, progressive: bool,
+                   debug: bool) -> str:
+    """How a ``PathTraceRenderer``'s frames run, from what it holds when made:
+    "replay" (a static sphere scene's non-progressive frames, replayed from
+    a frame graph), "queue" (a static scene's progressive frames, each
+    queuing the next behind it) or "eager" (every other frame, enqueued and
+    fenced on its own). Only the card replays or queues, and never under
+    debug checks, which read each frame back."""
+    if device.type != "cuda" or animated or debug:
+        return "eager"
+    if progressive:
+        return "queue"
+    return "replay" if isinstance(scene, SphereScene) else "eager"
 
 
 class _CountFence:
-    """A frame's counts on their way to the host: copied without a wait
-    into pinned memory, then an event recorded behind the copy. ``wait``
-    blocks on that event alone, so whatever was enqueued after it keeps
-    the card busy."""
+    """A frame's counts on their way to the host. On the card they are
+    copied without a wait into pinned memory, then an event is recorded
+    behind the copy, and ``wait`` blocks on that event alone, so whatever
+    was enqueued after it keeps the card busy; on the CPU they are read at
+    once."""
 
     def __init__(self, device: torch.device):
-        self.device = device
-        self.host = torch.empty(2, dtype=torch.int64, pin_memory=True)
-        self.event = torch.cuda.Event()
+        self.card = device.type == "cuda"
+        self.host = torch.empty(2, dtype=torch.int64, pin_memory=self.card)
+        self.event = torch.cuda.Event() if self.card else None
         self.n = 0
 
     def stage(self, rays: torch.Tensor, shadow: torch.Tensor | None) -> None:
-        """Copy the frame's segments (and NEE's shadow rays) and mark the
-        stream behind the copy."""
+        """Copy the frame's segments (and NEE's shadow rays) and, on the
+        card, mark the stream behind the copy."""
         src = rays.reshape(1) if shadow is None else torch.stack((rays, shadow))
         self.n = src.numel()
-        self.host[:self.n].copy_(src, non_blocking=True)
-        self.event.record(torch.cuda.current_stream(self.device))
+        self.host[:self.n].copy_(src, non_blocking=self.card)
+        if self.card:
+            self.event.record(torch.cuda.current_stream(src.device))
 
     def wait(self) -> list[int]:
         """The staged counts, once the event has passed."""
-        self.event.synchronize()
+        if self.card:
+            self.event.synchronize()
         return self.host[:self.n].tolist()
 
 
@@ -203,8 +210,8 @@ class PathTraceRenderer:
                 "jitter, as the JAX package's kernels do; device='cpu' renders pixel centres "
                 "through the plain versions")
         self.scene = scene.to(self.device)
-        self.camera = camera.to(self.device)
-        self.config = config
+        self._camera = camera.to(self.device)
+        self._config = config
         self.progressive = progressive
         self.advance_samples = advance_samples
         self.accumulator = Accumulator.zeros(config.height, config.width, self.device)
@@ -231,14 +238,45 @@ class PathTraceRenderer:
         # from the card is needed to choose the clusters
         self._cpu_twin = (self.scene.to("cpu")
                           if isinstance(scene, CompiledTape) and animate is not None else None)
-        self._graph = None  # the FrameGraph replayed by eligible frames
-        self._warmed = None  # (config, pack) of the last eager eligible frame
-        # a progressive frame queued behind the last one (``_draw_queued``):
-        # the key a frame drawn next, back to back, has; that frame's
-        # (radiance, rays, counts) when already enqueued; the counts' fence
-        self._next = None
+        self._schedule = frame_schedule(self.device, self.scene, animate is not None,
+                                        progressive, config.debug)
+        self._fence = _CountFence(self.device)
+        self._graph = None  # the FrameGraph that "replay" frames replay
+        self._warm = False  # whether an eager frame has run (and bound the kernels)
+        # the progressive frame queued behind the last one, (radiance, rays,
+        # counts), and the sample offset that draw ended at, which that
+        # frame was rendered at; both dropped when the state moves
         self._ahead = None
-        self._fence = None
+        self._ended = None
+
+    @property
+    def config(self) -> RenderConfig:
+        """The render config, fixed for the renderer's life: the pack, a
+        frame graph and a queued frame are made for it."""
+        return self._config
+
+    @config.setter
+    def config(self, _):
+        raise AttributeError("a PathTraceRenderer's config is fixed for its life: make a new "
+                             "renderer for another config, as AdaptiveSppRenderer's rungs do")
+
+    def set_camera(self, camera) -> None:
+        """Swap the view for subsequent frames (``r.camera = ...`` does the
+        same). Progressive accumulations of the old view are the caller's
+        to reset; a progressive frame queued for the old view is dropped. A
+        captured frame graph reads the view from device memory, where the
+        new one is written."""
+        self._camera = camera.to(self.device)
+        if self._graph is not None:
+            self._graph.set_camera(self._camera)
+        self._ahead = self._ended = None
+
+    camera = property(lambda self: self._camera, set_camera)
+
+    def reset_accumulation(self) -> None:
+        self.accumulator = Accumulator.zeros(self.config.height, self.config.width, self.device)
+        self._sample_offset = 0
+        self._ahead = self._ended = None  # a frame in flight is dropped
 
     def _render(self, time_sec: float, partition=None, counts: dict | None = None):
         """One frame's (radiance [H, W, 3], rays int64 tensor) at the
@@ -267,41 +305,6 @@ class PathTraceRenderer:
         with profiling.span("render.tonemap"):
             return to_uint8(tonemap(linear, gamma=self.config.gamma))
 
-    def reset_accumulation(self) -> None:
-        self.accumulator = Accumulator.zeros(self.config.height, self.config.width, self.device)
-        self._sample_offset = 0
-        self._next = self._ahead = None  # a frame in flight is dropped
-
-    def set_camera(self, camera) -> None:
-        """Swap the view for subsequent frames. Progressive accumulations of
-        the old view are the caller's to reset; a progressive frame queued
-        for the old view is dropped at the next ``draw_frame`` (its key
-        names the camera object). A captured frame graph reads the view
-        from device memory, where the new one is written."""
-        self.camera = camera.to(self.device)
-        if self._graph is not None:
-            self._graph.set_camera(self.camera)
-
-    def _frame_graph(self):
-        """The frame graph this frame replays, captured now if it is due;
-        None for an eagerly enqueued frame. A graph whose config or pack the
-        renderer no longer holds is dropped. An eligible frame
-        (``frame_graph.eligible``) is captured once an eager frame of the
-        same config and pack has run, which bound every kernel library and
-        set every kernel attribute."""
-        g = self._graph
-        if g is not None and not g.holds(self.config, self._packed):
-            g = self._graph = None
-        if g is not None or not frame_graph.eligible(self):
-            return g
-        key = (self.config, self._packed)
-        if self._warmed is None or any(a is not b for a, b in zip(self._warmed, key)):
-            self._warmed = key
-            return None
-        self._graph = frame_graph.FrameGraph(self._captured_frame, self.device, *key,
-                                             self.camera)
-        return self._graph
-
     def _captured_frame(self, offset, camera, image):
         """The frame a graph captures: beauty, denoise and tonemap into
         ``image``; the kernels read the sample offset from ``offset`` and
@@ -313,19 +316,25 @@ class PathTraceRenderer:
         return rays
 
     def _enqueue(self, time_sec: float, counts: dict | None = None):
-        """Enqueue a non-progressive frame, replayed from the frame graph
-        when there is one, and advance the sample offset as configured:
-        (uint8 image, rays int64 tensor), both still being computed. An
-        eager NEE frame adds its shadow rays to ``counts``."""
-        graph = self._frame_graph()
-        if graph is not None:
+        """Enqueue a non-progressive frame and advance the sample offset as
+        configured: (uint8 image, rays int64 tensor), both still being
+        computed. Under "replay" the first frame is enqueued eagerly, which
+        binds every kernel library and sets every kernel attribute; the
+        second is captured into the frame graph, and every later one
+        replays it. An eager NEE frame adds its shadow rays to ``counts``."""
+        cfg = self.config
+        if self._graph is None and self._warm and self._schedule == "replay":
+            self._graph = frame_graph.FrameGraph(self._captured_frame, self.device, cfg.spp,
+                                                 (cfg.height, cfg.width), self.camera)
+        if self._graph is not None:
             with profiling.span("render.replay"):
-                image, rays = graph.replay(self._sample_offset)
+                image, rays = self._graph.replay(self._sample_offset)
         else:
             radiance, rays = self._render(time_sec, counts=counts)
             image = self._tonemap(self.denoise_image(radiance, time_sec))
+            self._warm = True
         if self.advance_samples:
-            self._sample_offset += self.config.spp
+            self._sample_offset += cfg.spp
         return image, rays
 
     def _recluster(self, time_sec: float) -> tuple:
@@ -336,55 +345,40 @@ class PathTraceRenderer:
             clusters = partition_tape(self._animate(self._cpu_twin, time_sec))
         return clusters if clusters is not None else ()
 
-    def _read_counts(self, rays, counts: dict) -> None:
-        """The fence: the frame's segments into ``last_frame_rays`` and its
-        shadow rays into ``last_frame_shadow_rays``, both read from the
-        device in one transfer."""
-        shadow = counts.get("shadow_rays")
-        self._set_counts(*([int(rays)] if shadow is None else torch.stack((rays, shadow)).tolist()))
-
-    def _set_counts(self, rays: int, shadow: int | None = None) -> None:
-        """A fenced frame's counts: NEE's shadow rays 0 without NEE, None
-        where the kernel counts none."""
-        self.last_frame_rays = rays
-        self.last_frame_shadow_rays = (shadow if shadow is not None
-                                       else None if self.config.nee else 0)
-
-    def _frame_key(self) -> tuple:
-        return (self._sample_offset, self.config, self._packed, self.camera)
+    def _read_fence(self) -> None:
+        """The frame's one wait, on its staged counts: its segments into
+        ``last_frame_rays``, and its shadow rays into
+        ``last_frame_shadow_rays`` (0 without NEE, None where the kernel
+        counts none)."""
+        with profiling.span("render.fence"):
+            rays, *shadow = self._fence.wait()
+            self.last_frame_rays = rays
+            self.last_frame_shadow_rays = (shadow[0] if shadow
+                                           else None if self.config.nee else 0)
 
     def draw_frame(self, time_sec: float) -> torch.Tensor:
-        counts = {}
         with profiling.frame("render.frame"):
-            if not self.progressive:
-                image, rays = self._enqueue(time_sec, counts)
-                with profiling.span("render.fence"):
-                    self._read_counts(rays, counts)
-                return image
-            if prelaunch_eligible(self):
-                return self._draw_queued(time_sec)
-            radiance, rays = self._render(time_sec, counts=counts)
-            with profiling.span("render.fence"):
-                self._read_counts(rays, counts)
-            with profiling.span("render.accumulate"):
-                self.accumulator = self.accumulator.add(radiance * self.config.spp,
-                                                        self.config.spp, self.last_frame_rays)
-                self._sample_offset += self.config.spp
-                linear = self.accumulator.image()
-            return self._tonemap(self.denoise_image(linear, time_sec))
+            if self.progressive:
+                return self._draw_progressive(time_sec)
+            counts = {}
+            image, rays = self._enqueue(time_sec, counts)
+            self._fence.stage(rays, counts.get("shadow_rays"))
+            self._read_fence()
+            return image
 
-    def _draw_queued(self, time_sec: float) -> torch.Tensor:
-        """A progressive frame k with frame k+1 queued behind it, in this
-        order on the stream: frame k's kernel (adopted from the call before
-        when its key is this frame's, else enqueued now); its accumulate,
-        denoise and tonemap, the same ops as ``draw_frame``'s; its counts,
-        staged in ``_CountFence``; frame k+1's kernel at offset (k+1) spp,
-        when the call before drew frame k-1 under the same key. Then the one
-        wait, on frame k's event. Returns frame k's image."""
+    def _draw_progressive(self, time_sec: float) -> torch.Tensor:
+        """A progressive frame k, in this order on the stream: its kernel
+        (adopted from the call before when that call queued it at this
+        sample offset, else enqueued now); its accumulate, denoise and
+        tonemap; its counts, staged in the fence; under "queue", frame
+        k+1's kernel at offset (k+1) spp, when this call follows the one
+        before back to back (so a one-shot render enqueues one kernel).
+        Then the one wait, on frame k's counts, which the accumulator's ray
+        count takes. Returns frame k's image."""
         cfg = self.config
-        follows = self._next is not None and _same_key(self._next, self._frame_key())
+        follows = self._ended == self._sample_offset
         ahead = self._ahead if follows else None
-        self._next = self._ahead = None  # a frame in flight that does not match is dropped
+        self._ahead = None
         if ahead is not None:
             radiance, rays, counts = ahead
         else:
@@ -395,16 +389,13 @@ class PathTraceRenderer:
             self._sample_offset += cfg.spp
             linear = summed.image()
         image = self._tonemap(self.denoise_image(linear, time_sec))
-        if self._fence is None:
-            self._fence = _CountFence(self.device)
         self._fence.stage(rays, counts.get("shadow_rays"))
-        if follows:
+        if follows and self._schedule == "queue":
             with profiling.span("render.prelaunch"):
                 queued = {}
                 self._ahead = (*self._render(time_sec, counts=queued), queued)
-        self._next = self._frame_key()
-        with profiling.span("render.fence"):
-            self._set_counts(*self._fence.wait())
+        self._ended = self._sample_offset
+        self._read_fence()
         self.accumulator = summed._replace(rays_traced=summed.rays_traced + self.last_frame_rays)
         return image
 

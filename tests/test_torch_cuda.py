@@ -859,7 +859,7 @@ def _eager_frames(cuda, monkeypatch, cameras, offsets):
     all at one camera), each enqueued launch by launch."""
     cameras = cameras if isinstance(cameras, list) else [cameras] * len(offsets)
     with monkeypatch.context() as m:
-        m.setattr(frame_graph, "eligible", lambda r: False)
+        m.setattr(renderers, "frame_schedule", lambda *a: "eager")
         r = _live_renderer(cuda, cameras[0])
         frames = []
         for camera, offset in zip(cameras, offsets, strict=True):
@@ -878,7 +878,7 @@ def _assert_frames_equal(got, ref):
 
 
 def test_replayed_frames_equal_eager_frames(cuda, monkeypatch):
-    """The first eligible frame runs eagerly, the second is captured and
+    """The first frame runs eagerly, the second is captured and
     replayed, and eight more replay: each equals the eager frame at its
     offset bit for bit (image and segment count); no returned image is the
     graph's own buffer, so the first frames are unchanged after the later
@@ -957,12 +957,16 @@ QUEUED_CASES = {
                                                 aspect_ratio=2.0, device=dev),
                      RenderConfig(width=64, height=32, spp=2, max_bounces=5, seed=5)),
 }
+def _other_view(r):
+    return Camera.look_at((12, 2.5, 4), (0, 0, 0), vfov_degrees=20.0, aspect_ratio=2.0,
+                          aperture=0.1, focus_dist=10.0, device=r.device)
+
+
 QUEUE_STEPS = {
     "reset_accumulation": lambda r: r.reset_accumulation(),
-    "set_camera": lambda r: r.set_camera(Camera.look_at(
-        (12, 2.5, 4), (0, 0, 0), vfov_degrees=20.0, aspect_ratio=2.0, aperture=0.1,
-        focus_dist=10.0, device=r.device)),
+    "set_camera": lambda r: r.set_camera(_other_view(r)),
     "render_to_noise": lambda r: r.render_to_noise(target=1e-9, max_spp=4 * r.config.spp),
+    "camera assigned": lambda r: setattr(r, "camera", _other_view(r)),
 }
 
 
@@ -970,11 +974,11 @@ def _progressive_frames(cuda, monkeypatch, case, steps, queue=True):
     """A progressive renderer of ``case`` through ``steps`` (None: a
     ``draw_frame``; else a call on the renderer): (the renderer, each
     frame's image, accumulator and counts). ``queue=False`` makes the
-    renderer eager by its eligibility predicate."""
+    renderer eager by the one decision (``renderers.frame_schedule``)."""
     make_scene, make_cam, cfg = QUEUED_CASES[case]
     with monkeypatch.context() as m:
         if not queue:
-            m.setattr(renderers, "prelaunch_eligible", lambda r: False)
+            m.setattr(renderers, "frame_schedule", lambda *a: "eager")
         r = PathTraceRenderer(make_scene(cuda), make_cam(cuda), cfg, progressive=True)
         frames = []
         for step in steps:
@@ -1011,9 +1015,10 @@ def test_queued_progressive_frames_equal_eager_frames(cuda, monkeypatch, case):
 
 @pytest.mark.parametrize("step", sorted(QUEUE_STEPS))
 def test_a_state_change_between_queued_frames_gives_the_eager_frames(cuda, monkeypatch, step):
-    """``reset_accumulation``, ``set_camera`` or ``render_to_noise`` between
-    queued frames: every frame after it equals an eager renderer's through
-    the same steps, so the frame queued before the change is never used."""
+    """``reset_accumulation``, ``set_camera``, ``render_to_noise`` or an
+    assigned camera between queued frames: every frame after it equals an
+    eager renderer's through the same steps, so the frame queued before
+    the change is never used."""
     steps = [None] * 3 + [QUEUE_STEPS[step]] + [None] * 3
     _, got = _progressive_frames(cuda, monkeypatch, "rtiow-grid-lens", steps)
     _, ref = _progressive_frames(cuda, monkeypatch, "rtiow-grid-lens", steps, queue=False)
@@ -1040,19 +1045,46 @@ def test_one_draw_frame_enqueues_one_render_kernel(cuda, monkeypatch):
     assert renders == [0, cfg.spp, 2 * cfg.spp] and mk.LAUNCHES == before + 3
 
 
-def test_an_adopted_frame_waits_on_its_event_alone(cuda, monkeypatch):
-    """Once the queue runs, a progressive frame synchronises no stream: its
-    one wait is the event behind its counts (``set_sync_debug_mode`` raises
-    at any synchronising call)."""
-    make_scene, make_cam, cfg = QUEUED_CASES["night-grid-nee"]
-    r = PathTraceRenderer(make_scene(cuda), make_cam(cuda), cfg, progressive=True)
-    r.draw_frame(0.0)
-    r.draw_frame(0.0)
+def _frames_without_a_sync(r, draw, warm, n):
+    """``warm`` draws, then ``n`` more under ``set_sync_debug_mode("error")``
+    (which raises at any synchronising call): each draw's result with the
+    counts its fence read."""
+    frames = [draw(r) for _ in range(warm)]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for _ in range(3):
-            r.draw_frame(0.0)
+        frames += [draw(r) for _ in range(n)]
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert r.last_frame_rays > 0 and r.last_frame_shadow_rays > 0
+    torch.cuda.synchronize()
+    return frames
+
+
+def test_an_adopted_frame_waits_on_its_event_alone(cuda, monkeypatch):
+    """Once the queue runs, a progressive frame synchronises no stream: its
+    one wait is the event behind its counts; its image, accumulator and
+    counts equal the eager renderer's bit for bit."""
+    make_scene, make_cam, cfg = QUEUED_CASES["night-grid-nee"]
+    r = PathTraceRenderer(make_scene(cuda), make_cam(cuda), cfg, progressive=True)
+
+    def draw(r):
+        image = r.draw_frame(0.0)
+        acc = r.accumulator
+        return (image, acc.radiance_sum, acc.sample_count, acc.rays_traced, r.last_frame_rays,
+                r.last_frame_shadow_rays)
+
+    got = _frames_without_a_sync(r, draw, 2, 3)
+    assert r._schedule == "queue" and r.last_frame_rays > 0 and r.last_frame_shadow_rays > 0
+    _, ref = _progressive_frames(cuda, monkeypatch, "night-grid-nee", [None] * 5, queue=False)
+    _assert_progressive_equal(got, ref)
+
+
+def test_a_replayed_draw_frame_waits_on_its_event_alone(cuda, monkeypatch):
+    """A synchronous ``draw_frame`` of the live frame, once replayed from
+    its graph, synchronises no stream: its one wait is the event behind its
+    count; each frame equals the eager frame at its offset bit for bit."""
+    r = _live_renderer(cuda)
+    got = _frames_without_a_sync(r, lambda r: (r.draw_frame(0.0), r.last_frame_rays), 2, 3)
+    assert r._schedule == "replay" and r._graph is not None
+    _assert_frames_equal(got, _eager_frames(cuda, monkeypatch, r.camera,
+                                            [k * LIVE.spp for k in range(5)]))

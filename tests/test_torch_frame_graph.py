@@ -1,10 +1,11 @@
 """When ``PathTraceRenderer`` replays a frame from a CUDA graph, on the CPU:
-which renderers may (``frame_graph.eligible``), when a graph is captured,
-kept and dropped, the sample offsets each frame renders at, the view a
-graph is given, the offset word a replay writes and the launch counters a
-replay adds to. The graph itself needs the card (tests/test_torch_cuda.py);
-here ``FrameGraph`` is stood in for by objects that record what the
-renderer asks of them, or that replay nothing."""
+when a graph is captured and kept, that the config it bakes in is fixed
+for the renderer's life, the sample offsets each frame renders at, the
+view a graph is given, the offset word a replay writes and the launch
+counters a replay adds to. Which renderers replay is the one decision
+tested in tests/test_torch_prelaunch.py. The graph itself needs the card
+(tests/test_torch_cuda.py); here ``FrameGraph`` is stood in for by objects
+that record what the renderer asks of them, or that replay nothing."""
 
 import dataclasses
 from types import SimpleNamespace
@@ -12,12 +13,12 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from csgrenderer_tpu_torch.app import AdaptiveSppRenderer, PathTraceRenderer, frame_graph
+from csgrenderer_tpu_torch.app import (AdaptiveSppRenderer, PathTraceRenderer, frame_graph,
+                                       renderers)
 from csgrenderer_tpu_torch.camera import Camera
 from csgrenderer_tpu_torch.kernels import atrous, build, shard_canary, tape_kernel, trimesh_kernel
 from csgrenderer_tpu_torch.kernels import megakernel as mk
 from csgrenderer_tpu_torch.models import two_spheres_scene
-from csgrenderer_tpu_torch.render.trimesh import icosphere
 from csgrenderer_tpu_torch.scene import Material, NodeArgument as NA, SceneGraph
 from csgrenderer_tpu_torch.utils.config import RenderConfig
 
@@ -50,23 +51,15 @@ def _renderer(scene=None, cfg=CFG, **kw):
                              device="cpu", **kw)
 
 
-def _on_card(r):
-    """What ``eligible`` reads of ``r``, as if its tensors lay on the card."""
-    return SimpleNamespace(device=CARD, _packed=r._packed, progressive=r.progressive,
-                           config=r.config)
-
-
 class FakeGraph:
     """Stands in for ``FrameGraph``: records the offsets it replays at and
     the views it is given, and returns a frame that names its offset."""
 
     made = []
 
-    def __init__(self, body, device, config, packed, camera):
-        self.config, self.packed, self.offsets, self.views = config, packed, [], [camera]
+    def __init__(self, body, device, spp, size, camera):
+        self.spp, self.size, self.offsets, self.views = spp, size, [], [camera]
         FakeGraph.made.append(self)
-
-    holds = frame_graph.FrameGraph.holds
 
     def set_camera(self, camera):
         self.views.append(camera)
@@ -78,24 +71,13 @@ class FakeGraph:
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """Every renderer eligible, graphs captured as ``FakeGraph``s."""
+    """Renderers made from here on decide how their frames run as if on the
+    card; graphs are captured as ``FakeGraph``s."""
     FakeGraph.made = []
-    monkeypatch.setattr(frame_graph, "eligible", lambda r: True)
+    schedule = renderers.frame_schedule
+    monkeypatch.setattr(renderers, "frame_schedule", lambda device, *a: schedule(CARD, *a))
     monkeypatch.setattr(frame_graph, "FrameGraph", FakeGraph)
     return FakeGraph.made
-
-
-def test_only_a_static_sphere_scene_on_the_card_without_debug_is_eligible():
-    static = _renderer()
-    assert not frame_graph.eligible(static)  # the CPU
-    assert frame_graph.eligible(_on_card(static))
-    animated = _renderer(animate=lambda s, t: s)
-    progressive = _renderer(progressive=True)
-    debug = _renderer(cfg=dataclasses.replace(CFG, debug=True))
-    tape = _renderer(_tape())
-    mesh = _renderer(icosphere((0, 0, -3), 1.0, Material.lambertian((0.6, 0.3, 0.3)), 0))
-    for r in (animated, progressive, debug, tape, mesh):
-        assert not frame_graph.eligible(r) and not frame_graph.eligible(_on_card(r))
 
 
 def test_cpu_frames_never_capture():
@@ -128,6 +110,7 @@ def test_capture_follows_one_eager_frame_and_replays_at_each_offset(fake_card):
     assert not fake_card and r._sample_offset == CFG.spp
     outs = [r.draw_frame_async(0.1 * i) for i in range(4)]
     assert len(fake_card) == 1 and r._graph is fake_card[0]
+    assert fake_card[0].spp == CFG.spp and fake_card[0].size == (CFG.height, CFG.width)
     assert fake_card[0].offsets == [CFG.spp * k for k in range(1, 5)]
     assert [int(img[0, 0, 0]) for img, _ in outs] == [1, 2, 3, 4]
     assert eager.dtype == torch.uint8 and int(outs[0][1]) == 7
@@ -154,9 +137,8 @@ def test_progressive_draw_frame_never_asks_for_a_graph(fake_card):
 
 def _captured(r):
     """``r`` holding a captured graph (a ``FrameGraph`` with nothing on the
-    card) for its config and pack, its camera row on the CPU."""
+    card), its camera row on the CPU."""
     g = object.__new__(frame_graph.FrameGraph)
-    g.config, g.packed = r.config, r._packed
     g.camera = mk.pack_camera(r.camera)
     r._graph = g
     return g
@@ -174,15 +156,15 @@ def test_set_camera_writes_the_new_view_into_the_graph():
     assert not torch.equal(row, mk.pack_camera(_cam()))
 
 
-def test_a_new_config_or_pack_drops_the_graph():
+def test_config_is_fixed_for_the_renderers_life():
+    """The pack and a captured graph bake the config in: assigning another
+    raises, and leaves the config, the pack and the graph as they were."""
     r = _renderer()
     g = _captured(r)
-    assert r._frame_graph() is g
-    r.config = dataclasses.replace(r.config)  # equal, but another object
-    assert r._frame_graph() is None and r._graph is None
-    _captured(r)
-    r._packed = mk.pack_scene(two_spheres_scene())
-    assert r._frame_graph() is None and r._graph is None
+    config, packed = r.config, r._packed
+    with pytest.raises(AttributeError, match="make a new renderer"):
+        r.config = dataclasses.replace(r.config, spp=4)
+    assert r.config is config and r._packed is packed and r._graph is g
 
 
 def test_set_camera_keeps_the_graph_and_a_config_swap_runs_an_eager_frame_first(fake_card):
@@ -194,13 +176,10 @@ def test_set_camera_keeps_the_graph_and_a_config_swap_runs_an_eager_frame_first(
     r.draw_frame_async(0.0)  # the same graph, at the new view
     assert len(fake_card) == 1 and fake_card[0].views[-1] is r.camera
     assert fake_card[0].offsets[-1] == 3 * CFG.spp
-    r.config = dataclasses.replace(r.config)
-    r.draw_frame_async(0.0)  # one eager frame of the new config first
-    assert len(fake_card) == 1 and r._graph is None
-    r.set_camera(_cam(1.0))  # no graph to tell
+    r.camera = _cam(1.0)  # as set_camera
     r.draw_frame_async(0.0)
-    assert len(fake_card) == 2 and fake_card[1].config is r.config
-    assert fake_card[1].views == [r.camera] and fake_card[1].offsets == [5 * CFG.spp]
+    assert len(fake_card) == 1 and fake_card[0].views[-1] is r.camera
+    assert fake_card[0].offsets[-1] == 4 * CFG.spp
 
 
 def test_an_adaptive_rung_takes_a_new_camera_when_next_drawn(monkeypatch):
@@ -267,7 +246,7 @@ def _replaying(h=4, w=8, spp=2, rays=7):
     graph does to the offset word (it adds spp) and records the word it
     read; its frame holds the bytes 0, 1, 2, ... and ``rays``."""
     g = object.__new__(frame_graph.FrameGraph)
-    g.config = dataclasses.replace(CFG, width=w, height=h, spp=spp)
+    g.spp = spp
     g.offset, g._word, g.launches, g.read = _Word(), 0, {}, []
 
     def run():

@@ -1,15 +1,13 @@
-"""When ``PathTraceRenderer.draw_frame`` keeps the next progressive frame
-queued behind the current one, on the CPU: which renderers may
-(``renderers.prelaunch_eligible``), that the CPU's progressive frames and
-spans stay as they were, that ``Accumulator.add`` takes an int count as
-it takes a tensor, and the queue's logic itself: which frame each call
-renders, adopts or drops, and that its frames, accumulators and counts
-equal the eager renderer's. The fence's pinned copy and event need the
-card (tests/test_torch_cuda.py); here the queue runs on CPU tensors
-with ``HostFence`` standing in for ``_CountFence``."""
+"""How ``PathTraceRenderer``'s frames run, on the CPU: the one decision
+(``renderers.frame_schedule``) that picks replay, queue or eager frames,
+the CPU's progressive frames and spans, that ``Accumulator.add`` takes an
+int count as it takes a tensor, and the queue's logic itself: which frame
+each call renders, adopts or drops, and that its frames, accumulators and
+counts equal the eager renderer's. The fence's pinned copy and event need
+the card (tests/test_torch_cuda.py); here the queue runs on CPU tensors,
+decided as if on the card, through the fence's CPU form."""
 
 import dataclasses
-from types import SimpleNamespace
 
 import pytest
 import torch
@@ -52,6 +50,10 @@ def _night():
     return night_scene(grid=2)
 
 
+def _mesh():
+    return icosphere((0, 0, -3), 1.0, Material.lambertian((0.6, 0.3, 0.3)), 0)
+
+
 SCENES = {
     "spheres": (two_spheres_scene, CFG),
     "tape": (_tape, CFG),
@@ -64,32 +66,17 @@ def _renderer(scene=None, cfg=CFG, **kw):
                              device="cpu", **kw)
 
 
-def _on_card(r):
-    """What ``prelaunch_eligible`` reads of ``r``, as if its tensors lay on
-    the card."""
-    return SimpleNamespace(device=CARD, _packed=r._packed, progressive=r.progressive,
-                           config=r.config)
-
-
-class HostFence:
-    """Stands in for ``_CountFence`` on CPU tensors: reads the counts when
-    staged, and counts its waits."""
-
-    def __init__(self, device):
-        self.values, self.waits = [], 0
-
-    def stage(self, rays, shadow):
-        self.values = [int(rays)] if shadow is None else [int(rays), int(shadow)]
-
-    def wait(self):
-        self.waits += 1
-        return self.values
+def _as_on_card(monkeypatch):
+    """Renderers made from here on decide how their frames run as if they
+    lay on the card."""
+    schedule = renderers.frame_schedule
+    monkeypatch.setattr(renderers, "frame_schedule", lambda device, *a: schedule(CARD, *a))
 
 
 @pytest.fixture
 def queued(monkeypatch):
-    """Every progressive renderer queues its next frame, fenced by a
-    ``HostFence``; returns the sample offsets each ``_render`` call took."""
+    """Every static progressive renderer queues its next frame; returns the
+    sample offsets each ``_render`` call took."""
     offsets = []
     render = PathTraceRenderer._render
 
@@ -97,8 +84,7 @@ def queued(monkeypatch):
         offsets.append(self._sample_offset)
         return render(self, time_sec, partition, counts)
 
-    monkeypatch.setattr(renderers, "prelaunch_eligible", lambda r: True)
-    monkeypatch.setattr(renderers, "_CountFence", HostFence)
+    _as_on_card(monkeypatch)
     monkeypatch.setattr(PathTraceRenderer, "_render", counted)
     return offsets
 
@@ -107,7 +93,7 @@ def _eager(make, cfg, monkeypatch, steps):
     """Fresh renderers' frames for ``steps`` with nothing queued: each
     step a ``draw_frame`` (None) or a call on the renderer."""
     with monkeypatch.context() as m:
-        m.setattr(renderers, "prelaunch_eligible", lambda r: False)
+        m.setattr(renderers, "frame_schedule", lambda *a: "eager")
         return _drawn(_renderer(make(), cfg, progressive=True), steps)
 
 
@@ -130,25 +116,51 @@ def _assert_same(got, want):
         assert a[2:] == b[2:], k
 
 
-def test_only_a_static_progressive_frame_on_the_card_without_debug_may_prelaunch():
-    static = _renderer(progressive=True)
-    assert not renderers.prelaunch_eligible(static)  # the CPU
-    assert renderers.prelaunch_eligible(_on_card(static))
-    for scene in (_tape(), icosphere((0, 0, -3), 1.0, Material.lambertian((0.6, 0.3, 0.3)), 0)):
-        assert renderers.prelaunch_eligible(_on_card(_renderer(scene, progressive=True)))
-    animated = _renderer(animate=lambda s, t: s, progressive=True)
-    debug = _renderer(cfg=dataclasses.replace(CFG, debug=True), progressive=True)
-    eager = _renderer()
-    live = _renderer(advance_samples=True)
-    for r in (animated, debug, eager, live):
-        assert not renderers.prelaunch_eligible(r)
-        assert not renderers.prelaunch_eligible(_on_card(r))
+def _still(scene, time_sec):
+    return scene
+
+
+PROGRESSIVE, ADVANCING = dict(progressive=True), dict(advance_samples=True)
+SCHEDULES = {  # scene, on the card, the renderer's arguments, debug: how its frames run
+    "spheres-card-one-shot": (two_spheres_scene, True, {}, False, "replay"),
+    "spheres-card-advancing": (two_spheres_scene, True, ADVANCING, False, "replay"),
+    "spheres-card-progressive": (two_spheres_scene, True, PROGRESSIVE, False, "queue"),
+    "tape-card-progressive": (_tape, True, PROGRESSIVE, False, "queue"),
+    "mesh-card-progressive": (_mesh, True, PROGRESSIVE, False, "queue"),
+    "tape-card-advancing": (_tape, True, ADVANCING, False, "eager"),
+    "mesh-card-one-shot": (_mesh, True, {}, False, "eager"),
+    "spheres-card-animated-advancing": (two_spheres_scene, True,
+                                        dict(ADVANCING, animate=_still), False, "eager"),
+    "spheres-card-animated-progressive": (two_spheres_scene, True,
+                                          dict(PROGRESSIVE, animate=_still), False, "eager"),
+    "tape-card-animated-progressive": (_tape, True, dict(PROGRESSIVE, animate=_still), False,
+                                       "eager"),
+    "spheres-card-debug-advancing": (two_spheres_scene, True, ADVANCING, True, "eager"),
+    "spheres-card-debug-progressive": (two_spheres_scene, True, PROGRESSIVE, True, "eager"),
+    "spheres-cpu-advancing": (two_spheres_scene, False, ADVANCING, False, "eager"),
+    "spheres-cpu-progressive": (two_spheres_scene, False, PROGRESSIVE, False, "eager"),
+    "tape-cpu-progressive": (_tape, False, PROGRESSIVE, False, "eager"),
+    "mesh-cpu-one-shot": (_mesh, False, {}, False, "eager"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULES))
+def test_one_decision_sets_how_frames_run(monkeypatch, case):
+    """Only a static scene on the card without debug checks replays (a
+    sphere scene's non-progressive frames) or queues (any scene's
+    progressive frames); the renderer takes the decision once, when made,
+    from its device, scene, animation, mode and config."""
+    make, card, kw, debug, schedule = SCHEDULES[case]
+    if card:
+        _as_on_card(monkeypatch)
+    r = _renderer(make(), dataclasses.replace(CFG, debug=debug), **kw)
+    assert r._schedule == schedule
 
 
 def test_cpu_progressive_frames_and_spans_are_unchanged():
     """On the CPU each progressive frame renders its own kernel at offset
-    k spp, fenced before its accumulate, and records no prelaunch; its
-    images are the accumulation of those frames, tonemapped."""
+    k spp, fenced after its tonemap, and records no prelaunch; its images
+    are the accumulation of those frames, tonemapped."""
     r = _renderer(progressive=True)
     profiling.clear()
     try:
@@ -157,9 +169,9 @@ def test_cpu_progressive_frames_and_spans_are_unchanged():
         names = [s.name for s in profiling.spans()]
     finally:
         profiling.clear()
-    assert names == ["render.frame", "render.launch", "render.fence", "render.accumulate",
-                     "render.tonemap"] * 3
-    assert r._ahead is None and r._fence is None
+    assert names == ["render.frame", "render.launch", "render.accumulate", "render.tonemap",
+                     "render.fence"] * 3
+    assert r._schedule == "eager" and r._ahead is None
     acc, rays = Accumulator.zeros(CFG.height, CFG.width), []
     for k, image in enumerate(images):
         radiance, n = renderers._render_kernel(r._packed, r.camera, CFG, k * CFG.spp)
@@ -192,7 +204,7 @@ def test_queued_frames_equal_the_eager_frames(queued, monkeypatch, name):
     got = _drawn(r, [None] * 5)
     spp = cfg.spp
     assert queued == [0, spp, 2 * spp, 3 * spp, 4 * spp, 5 * spp]
-    assert r._fence.waits == 5 and r._sample_offset == 5 * spp
+    assert r._ahead is not None and r._sample_offset == 5 * spp
     _assert_same(got, _eager(make, cfg, monkeypatch, [None] * 5))
     if cfg.nee:
         assert all(frame[5] > 0 for frame in got)
@@ -231,8 +243,7 @@ def test_the_queued_frame_records_a_prelaunch_span(queued):
 STEPS = {  # a change of state, and the offsets (in spp) of every frame rendered around it
     "reset_accumulation": (lambda r: r.reset_accumulation(), [0, 1, 2, 3, 0, 1, 2, 3]),
     "set_camera": (lambda r: r.set_camera(_cam(0.25)), [0, 1, 2, 3, 3, 4, 5, 6]),
-    "new config": (lambda r: setattr(r, "config", dataclasses.replace(r.config)),
-                   [0, 1, 2, 3, 3, 4, 5, 6]),
+    "camera assigned": (lambda r: setattr(r, "camera", _cam(0.25)), [0, 1, 2, 3, 3, 4, 5, 6]),
     "render_to_noise": (lambda r: r.render_to_noise(target=1e-9, max_spp=2 * CFG.spp),
                         [0, 1, 2, 3, 3, 4, 5, 6, 7, 8]),
 }
@@ -258,4 +269,4 @@ def test_a_reset_drops_the_queued_frame_at_once(queued):
         r.draw_frame(0.0)
     assert r._ahead is not None
     r.reset_accumulation()
-    assert r._ahead is None and r._next is None and r._sample_offset == 0
+    assert r._ahead is None and r._ended is None and r._sample_offset == 0

@@ -82,8 +82,8 @@ def test_a_progressive_frame_records_its_spans_inside_render_frame():
     assert len(frames) == 2
     for number, i in enumerate(frames, start=1):
         assert recorded[i].parent is None and recorded[i].frame == number
-        assert _children(recorded, i) == ["render.launch", "render.fence", "render.accumulate",
-                                          "render.tonemap"]
+        assert _children(recorded, i) == ["render.launch", "render.accumulate", "render.tonemap",
+                                          "render.fence"]
     _nested(recorded)
     assert {s.frame for s in recorded} == {1, 2}
     assert profiling.span("render.launch") is profiling.OFF  # off again after the block
