@@ -15,24 +15,29 @@
 // It computes what the TPU kernel computes (RTIOW materials, PCG4D counters
 // keyed by (pixel, sample, bounce, seed), per-pixel radiance over spp,
 // traced-segment counts), not its block structure: one thread per pixel,
-// looping over samples and bounces, and a shadow ray is a function call
-// inside the bounce loop (the Pallas grid path's shadow segments woven into
-// the wavefront were a TPU occupancy device).
+// looping over samples and bounces; with NEE a sample is one query loop
+// whose every turn traces one ray, a path segment or a shadow ray (the
+// Pallas grid path's shadow segments woven into the wavefront were a TPU
+// occupancy device).
 //
 // Shadow rays: built as a Ray and tested with the same sphere_t as the path
-// rays (not the Pallas unit-direction occlusion shortcut), against every
-// sphere in brute mode, against the globals and then the grid walk, whose
-// t_best starts at the lamp distance so its exit clamps there, in grid
-// mode. The visibility rule is the plain version's identity-free one: the
-// lamp is occluded iff some hit lies below tl * (1 - 1e-4); the search
-// stops at the first such hit, which gives the same answer. The Pallas grid
-// path also excluded the lamp's own hit by sphere id, to absorb the drift
-// of its bf16 tables; these tables are exact f32, so the id is not read
-// (the lamp table keeps it, column 7, for the packer's layout). The NEE
+// rays (not the Pallas unit-direction occlusion shortcut), through the same
+// brute pass and grid walk: against every sphere in brute mode, against
+// the globals and then the grid walk, whose t_best starts at the lamp
+// distance so its exit clamps there, in grid mode. The visibility rule is
+// the plain version's identity-free one: the lamp is occluded iff some hit
+// lies below tl * (1 - 1e-4); in grid mode the search stops at the first
+// such hit among the globals and skips the walk, which gives the same
+// answer (in brute mode the pass runs to its end: a loop with one exit
+// measured about 20% faster there than one stopping at the first hit).
+// The Pallas grid path also excluded the lamp's own hit by sphere id, to
+// absorb the drift of its bf16 tables; these tables are exact f32, so the
+// id is not read (the lamp table keeps it, column 7, for the packer's
+// layout). The NEE
 // instantiations count the shadow rays they trace, by the plain version's
 // rule (a lamp sample that nee_sample keeps, occluded or not: lights.
-// nee_contribution's ``traced``): each warp adds the lanes that trace one
-// to a CTA counter in shared memory where they trace it (a counter held in
+// nee_contribution's ``traced``): each warp adds the lanes that keep one
+// to a CTA counter in shared memory where they keep it (a counter held in
 // a register through the bounce loop cost the NEE instantiations 8-16
 // bytes more of spills), and the CTA adds its count once, at its end, to a
 // 64-bit word (out_shadow) that the launcher zeroes. Shadow rays stay out
@@ -41,20 +46,32 @@
 //
 // What bounds it on an H100: divergent FP32 ALU work (threads of a warp
 // take different materials, bounce counts and DDA walk lengths; with NEE,
-// some take a shadow ray and others not) and the dependent loads of each
-// DDA step (cell list, then each listed sphere). What the design does:
+// some hold a shadow ray and others a segment) and the dependent loads of
+// each DDA step (cell list, then each listed sphere). What the design does:
 //   - the tables a sphere test reads (the [S, 8] geometry table and the
 //     cell lists: 19,456 bytes for RTIOW) are staged once per CTA in shared
 //     memory by two bulk (TMA 1D) copies on an mbarrier; a cell's eight
 //     slots are two int4 loads. Tables over the device's opt-in limit run
 //     the same code reading them from global memory (kShared = false): the
 //     launcher chooses by size;
-//   - persistent CTAs (the occupancy the 64-register budget allows: eight
-//     per SM, up to 1,056 on an H100) take 16x2-pixel work units from a
-//     per-launch counter, so the tables are staged 1,056 times a frame, not
-//     8,100, and the tail of a frame (sky rows against lattice rows) is
-//     balanced. 64 registers a thread measured best for the main path
-//     among budgets of 48-80 (and none);
+//   - persistent CTAs (the occupancy the register budget allows: eight per
+//     SM at 64 registers, up to 1,056 on an H100) take 16x2-pixel work
+//     units from a per-launch counter, so the tables are staged 1,056 times
+//     a frame, not 8,100, and the tail of a frame (sky rows against lattice
+//     rows) is balanced. 64 registers a thread measured best for the main
+//     path among budgets of 48-80 (and none); the grid-NEE query loop runs
+//     best at 72 (seven CTAs per SM: 3-4% faster than 64 or 80), brute NEE
+//     at 64;
+//   - with NEE, one query loop a sample (trace_nee_sample): a vertex keeps
+//     its lamp sample as its lane's pending shadow query, and the next turn
+//     traces that query, or the path's next segment where none is pending,
+//     through the one brute pass and the one walk, so a warp's lanes walk
+//     together whatever query each holds (56-80% of a warp's lanes active
+//     in a walk on the night488 frames). A shadow ray traced inside the
+//     segment that made it walks as a phase of its own with the other
+//     lanes masked off (48-62% active) and takes a second walk site, which
+//     wants the rolled slot loop: 17.9-18.1 ms for night488 at 960x540 and
+//     64 spp on an H100, against 14.0-14.2 ms for the query loop;
 //   - paths stay one sample at a time per thread: regenerating a lane's
 //     next sample as soon as its path ends (Aila and Laine's persistent
 //     loop) was measured slower here; it mixes camera rays, whose walks are
@@ -99,7 +116,12 @@ constexpr float kTFar = 1e9f;   // farthest valid hit
 
 constexpr int kSlots = 8;  // cell list slots (worklist.M_SLOTS): two int4 per cell
 constexpr int kThreads = 128;             // a CTA: four warps
-constexpr int kMinCtas = 8;               // per SM: at most 64 registers a thread
+// CTAs per SM the register budget allows (measured, PERF.md): 64 registers
+// a thread, but 72 for the grid-NEE query loop
+constexpr int kMinCtas = 8, kGridNeeMinCtas = 7;
+
+template <bool kGrid, bool kNee>
+constexpr int kCtasPerSm = kGrid && kNee ? kGridNeeMinCtas : kMinCtas;
 
 struct Params {
   const float* cam;      // [24]: origin, lower_left, horizontal, vertical, u, v, lens_radius
@@ -215,12 +237,12 @@ __device__ __forceinline__ void slot_test(const Params& p, const Ray& r, int id,
 
 // 2D xz-grid DDA over the cell lists (worklist.grid_setup + grid_step),
 // refining (t_best, id_best) found by the globals. A cell's list is read
-// as two int4, both loaded before the first test. kUnrolled unrolls the
-// eight slot tests: 13% faster on the grid frame where the kernel has one
-// walk, 14% slower in the NEE kernels, which hold two (the path's and the
-// shadow ray's) at the same registers and stack: their code outgrows what
-// the unrolled walk saves.
-template <bool kShared, bool kUnrolled>
+// as two int4, both loaded before the first test, and its eight slot
+// tests are unrolled: 13% faster than a rolled loop on the grid frame,
+// and 15-24% in the NEE query loop. Every kernel calls the walk from one
+// site (the NEE instantiations from their query loop, for path and shadow
+// rays alike).
+template <bool kShared>
 __device__ void grid_walk(const Params& p, const Ray& r, float& t_best, int& id_best) {
   const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
   const float inv_dx = 1.0f / dx, inv_dy = 1.0f / dy, inv_dz = 1.0f / dz;
@@ -252,22 +274,11 @@ __device__ void grid_walk(const Params& p, const Ray& r, float& t_best, int& id_
   for (int step = 0; step < p.max_steps; ++step) {
     const int q = (ix * p.cz + iz) * (kSlots / 4);  // the cell's list: two int4, both loaded
     const int4 a = cell_quad<kShared>(p, q), b = cell_quad<kShared>(p, q + 1);
-    if constexpr (kUnrolled) {
-      const int ids[kSlots] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const int ids[kSlots] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int j = 0; j < kSlots; ++j) {
-        if (ids[j] < 0) break;  // lists are packed from slot 0
-        slot_test<kShared>(p, r, ids[j], t_best, id_best);
-      }
-    } else {
-#pragma unroll 1
-      for (int j = 0; j < kSlots; ++j) {
-        const int4 v = j < 4 ? a : b;
-        const int c = j & 3;
-        const int id = c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-        if (id < 0) break;  // lists are packed from slot 0
-        slot_test<kShared>(p, r, id, t_best, id_best);
-      }
+    for (int j = 0; j < kSlots; ++j) {
+      if (ids[j] < 0) break;  // lists are packed from slot 0
+      slot_test<kShared>(p, r, ids[j], t_best, id_best);
     }
     const float t_next = fminf(tmaxx, tmaxz);
     const bool go_x = tmaxx <= tmaxz;
@@ -279,22 +290,6 @@ __device__ void grid_walk(const Params& p, const Ray& r, float& t_best, int& id_
     ix = ix2;
     iz = iz2;
   }
-}
-
-// A shadow ray from (ox, oy, oz) along (dx, dy, dz): true iff a sphere is
-// hit below t_max (the plain version's nearest hit, compared with t_max).
-template <bool kGrid, bool kShared>
-__device__ __forceinline__ bool occluded(const Params& p, float ox, float oy, float oz, float dx,
-                                         float dy, float dz, float t_max) {
-  const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
-  for (int i = 0; i < p.n_brute; ++i) {
-    if (sphere_t<kShared>(p, ray, i) < t_max) return true;
-  }
-  if (!kGrid) return false;
-  float t_best = t_max;
-  int id_best = 0;
-  grid_walk<kShared, false>(p, ray, t_best, id_best);
-  return t_best < t_max;
 }
 
 // The shadow rays the CTA has traced, in its shared memory (only the NEE
@@ -313,30 +308,29 @@ __device__ __forceinline__ void count_shadow_ray() {
   }
 }
 
-// One path segment of pixel ``pix``, sample ``s``, at ``bounce``: the
-// nearest hit, then the sky (a miss) or the hit's emission, NEE sample and
-// scatter. Returns false when the path ends here. ``prev_pdf`` (NEE) is the
-// pdf of the scatter that made this ray, 0 on camera rays; it is updated
-// for the next segment.
-template <bool kGrid, bool kNee, bool kShared>
-__device__ __forceinline__ bool trace_segment(const Params& p, csgr::Path& path, uint32_t pix,
-                                              uint32_t s, int bounce, float& prev_pdf) {
+// The shadow query a NEE vertex leaves for its lane's next turn of the
+// query loop: a ray from the path's origin (the vertex) along d, and the
+// contribution c = throughput * w that it adds when no hit lies below
+// t_max. t_max is kBig when no query is pending.
+struct ShadowQuery {
+  float dx, dy, dz, t_max, cr, cg, cb;
+};
+
+// The path vertex at the nearest hit (t_best, id_best) of the path's ray,
+// at ``bounce``: the sky (a miss), or the hit's emission and scatter.
+// Returns false when the path ends here. With NEE, lamp emission carries
+// its partner weight, and a Lambertian or glossy hit keeps its lamp sample
+// as the pending shadow query ``sq``, with the throughput before the
+// scatter; where the path ends, its origin is the vertex all the same,
+// where a pending shadow query starts. ``prev_pdf`` (NEE) is the pdf of
+// the scatter that made the ray, 0 on camera rays; it is updated for the
+// next segment.
+template <bool kNee, bool kShared>
+__device__ __forceinline__ bool shade_vertex(const Params& p, csgr::Path& path, float t_best,
+                                             int id_best, uint32_t pix, uint32_t s, int bounce,
+                                             float& prev_pdf, ShadowQuery& sq) {
   const float ox = path.ox, oy = path.oy, oz = path.oz;
   const float dx = path.dx, dy = path.dy, dz = path.dz;
-  const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
-
-  // nearest hit: brute pass (all spheres, or the globals), then the walk
-  float t_best = kBig;
-  int id_best = 0;
-  for (int i = 0; i < p.n_brute; ++i) {
-    const float t = sphere_t<kShared>(p, ray, i);
-    if (t < t_best) {
-      t_best = t;
-      id_best = i;
-    }
-  }
-  if (kGrid) grid_walk<kShared, !kNee>(p, ray, t_best, id_best);
-
   const float inv_len = csgr::inv_length(path);
   const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
   if (!(t_best < kBigCut)) {  // miss: sky, path ends
@@ -378,21 +372,94 @@ __device__ __forceinline__ bool trace_segment(const Params& p, csgr::Path& path,
                          g2.z, l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, p.n_lamps, u1, u2,
                          ls)) {
       count_shadow_ray();
-      if (!occluded<kGrid, kShared>(p, hx, hy, hz, ls.dx, ls.dy, ls.dz,
-                                    ls.tl * csgr::kShadowScale)) {
-        path.sr += path.tr * ls.wr;
-        path.sg += path.tg * ls.wg;
-        path.sb += path.tb * ls.wb;
-      }
+      sq.dx = ls.dx; sq.dy = ls.dy; sq.dz = ls.dz;
+      sq.t_max = ls.tl * csgr::kShadowScale;
+      sq.cr = path.tr * ls.wr;
+      sq.cg = path.tg * ls.wg;
+      sq.cb = path.tb * ls.wb;
     }
   }
   if (!csgr::shade<true>(path, hx, hy, hz, nx, ny, nz, front, kind, g1.w, g2.x, g2.y, g2.z,
                          udx, udy, udz, pix, s, static_cast<uint32_t>(bounce), p.seed,
                          emit_scale)) {
+    path.ox = hx; path.oy = hy; path.oz = hz;  // a metal's absorbed scatter leaves it unset
     return false;
   }
   prev_pdf = csgr::carried_pdf(path, lambertian, glossy, nx, ny, nz, g1.w, udx, udy, udz);
   return true;
+}
+
+// One path segment of pixel ``pix``, sample ``s``, at ``bounce`` (the
+// instantiations without NEE): the nearest hit, then its vertex. Returns
+// false when the path ends here.
+template <bool kGrid, bool kShared>
+__device__ __forceinline__ bool trace_segment(const Params& p, csgr::Path& path, uint32_t pix,
+                                              uint32_t s, int bounce) {
+  const Ray ray = make_ray(path.ox, path.oy, path.oz, path.dx, path.dy, path.dz);
+
+  // nearest hit: brute pass (all spheres, or the globals), then the walk
+  float t_best = kBig;
+  int id_best = 0;
+  for (int i = 0; i < p.n_brute; ++i) {
+    const float t = sphere_t<kShared>(p, ray, i);
+    if (t < t_best) {
+      t_best = t;
+      id_best = i;
+    }
+  }
+  if (kGrid) grid_walk<kShared>(p, ray, t_best, id_best);
+  float prev_pdf;  // NEE state, not read without NEE
+  ShadowQuery sq;
+  return shade_vertex<false, kShared>(p, path, t_best, id_best, pix, s, bounce, prev_pdf, sq);
+}
+
+// One NEE sample of pixel ``pix`` (sample ``s``): one query loop over the
+// path's segments and its vertices' shadow rays. Each turn traces one ray
+// through one brute pass and one grid walk: the lane's pending shadow
+// query if it holds one, else its path's next segment, so a warp's lanes
+// walk together whatever query each holds. A shadow query is resolved
+// before the path's next segment; a Lambertian or glossy vertex's scatter
+// adds no radiance, so its contribution lands where it would if it were
+// traced at the vertex, and the sum keeps its order. Adds the segments
+// traced to ``rays``.
+template <bool kGrid, bool kShared>
+__device__ __forceinline__ void trace_nee_sample(const Params& p, csgr::Path& path, uint32_t pix,
+                                                 uint32_t s, int& rays) {
+  float prev_pdf = 0.0f;  // pdf of the scatter that made the path's ray, 0 on camera rays
+  ShadowQuery sq;
+  sq.t_max = kBig;
+  int bounce = 0;
+  bool live = p.max_bounces > 0;
+  while (live || sq.t_max < kBigCut) {
+    const bool shadow = sq.t_max < kBigCut;
+    const Ray ray = make_ray(path.ox, path.oy, path.oz, shadow ? sq.dx : path.dx,
+                             shadow ? sq.dy : path.dy, shadow ? sq.dz : path.dz);
+    float t_best = sq.t_max;  // kBig for a segment
+    int id_best = 0;
+    for (int i = 0; i < p.n_brute; ++i) {
+      const float t = sphere_t<kShared>(p, ray, i);
+      if (t < t_best) {
+        t_best = t;
+        id_best = i;
+        if (kGrid && shadow) break;  // occluded
+      }
+    }
+    if (kGrid && !(shadow && t_best < sq.t_max)) {
+      grid_walk<kShared>(p, ray, t_best, id_best);
+    }
+    if (shadow) {
+      if (!(t_best < sq.t_max)) {
+        path.sr += sq.cr;
+        path.sg += sq.cg;
+        path.sb += sq.cb;
+      }
+      sq.t_max = kBig;
+      continue;
+    }
+    ++rays;
+    live = shade_vertex<true, kShared>(p, path, t_best, id_best, pix, s, bounce, prev_pdf, sq);
+    live = live && ++bounce < p.max_bounces;
+  }
 }
 
 // One pixel's spp paths, one after another, each up to max_bounces
@@ -410,10 +477,13 @@ __device__ __forceinline__ void render_pixel(const Params& p, const float* cam,
     const uint32_t s = static_cast<uint32_t>(k) + sample_offset;
     csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
     path.sr = 0.0f; path.sg = 0.0f; path.sb = 0.0f;
-    float prev_pdf = 0.0f;  // NEE: pdf of the scatter that made this ray, 0 on camera rays
-    for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
-      ++rays;
-      if (!trace_segment<kGrid, kNee, kShared>(p, path, pix, s, bounce, prev_pdf)) break;
+    if constexpr (kNee) {
+      trace_nee_sample<kGrid, kShared>(p, path, pix, s, rays);
+    } else {
+      for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
+        ++rays;
+        if (!trace_segment<kGrid, kShared>(p, path, pix, s, bounce)) break;
+      }
     }
     acc_r += path.sr;
     acc_g += path.sg;
@@ -433,7 +503,8 @@ __device__ __forceinline__ void render_pixel(const Params& p, const float* cam,
 // slower on the grid frame). The NEE instantiations count the CTA's shadow
 // rays in shared memory and add them to out_shadow at the end.
 template <bool kGrid, bool kNee, bool kShared>
-__global__ void __launch_bounds__(kThreads, kMinCtas) sphere_megakernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, (kCtasPerSm<kGrid, kNee>))
+    sphere_megakernel(const Params p) {
   if constexpr (kNee) {
     if (threadIdx.x == 0) cta_shadow_rays() = 0;
     __syncthreads();
@@ -506,7 +577,7 @@ __device__ __forceinline__ void gbuffer_pixel(const GbufferParams& g, const floa
       id_best = i;
     }
   }
-  if (kGrid) grid_walk<kShared, true>(p, ray, t_best, id_best);
+  if (kGrid) grid_walk<kShared>(p, ray, t_best, id_best);
 
   const size_t pix = static_cast<size_t>(y) * p.width + x;
   float* n = g.normal + 3 * pix;

@@ -1,13 +1,15 @@
 """Compare trees of the port on one card in one run: the sphere kernel's
-frames (kernel rows 1-3), the RTIOW bench frame, the realtime loop and the
-shard canary's launch path (kernel row 9); the tape kernel's frames (rows
+frames (kernel rows 1-2), the RTIOW bench frame, the realtime loop and the
+shard canary's launch path (kernel row 9); its NEE frames (row 3), the
+night488 frame at 64 spp, the same frames without NEE as a bound, and the
+night488 bench frame; the tape kernel's frames (rows
 4a-4c) and the deepcsg, csgnight and manyobjects bench frames; the mesh
 kernel's frames (row 5, its four modes) and the mesh and meshnight bench
 frames; the mesh face-count ladder; and the denoise path (kernel row 10,
 the renderer's denoise step and the denoised realtime loop).
 
     python -m csgrenderer_tpu_torch.tools.tree_timing --trees parent=DIR,change=DIR [--out DIR]
-        [--groups sphere,tape,mesh,ladder,denoise]
+        [--groups sphere,nee,tape,mesh,ladder,denoise]
     PYTHONPATH=DIR python csgrenderer_tpu_torch/tools/tree_timing.py --label NAME [--json FILE]
 
 ``--trees`` takes ``label=directory`` pairs, each directory the root of a
@@ -20,12 +22,16 @@ measurement beside the first tree's. ``--label`` measures the package found
 on ``sys.path`` and writes one JSON file; ``--trees`` runs it so.
 
 Measured per tree, CUDA events unless named otherwise, for the groups
-``--groups`` names (all four by default):
+``--groups`` names (all of them by default):
 
-- sphere: kernel rows 1-3 at the frames of PERF.md's kernel table (grid:
+- sphere: kernel rows 1-2 at the frames of PERF.md's kernel table (grid:
   the RTIOW final scene at 1920x1080, 2 spp, 8 bounces, lens; brute: the
-  two-sphere scene at 1920x1080, 4 spp, 8 bounces; brute-nee and grid-nee:
-  night and night488 at 960x540, 2 spp, 6 bounces, black sky);
+  two-sphere scene at 1920x1080, 4 spp, 8 bounces);
+- nee: kernel row 3 (brute-nee and grid-nee: night and night488 at
+  960x540, 2 spp, 6 bounces, black sky), night488 at 64 spp (the
+  night-nee-540p64 cell's frame), and the grid-nee frames rendered with
+  ``nee=False`` (another image, with one walk a segment: a bound on what
+  the NEE kernel's walks could come to);
 - tape: rows 4a-4c (config5 at t = 1.0, 1920x1080, 2 spp, 5 bounces,
   clustered, global and the audit at k = 4; csgnight at 960x540, 2 spp, 6
   bounces, black sky, clustered-nee, global-nee and audit-nee);
@@ -45,11 +51,12 @@ Measured per tree, CUDA events unless named otherwise, for the groups
 
 each frame: the median ms of ``REPS`` back-to-back launches after a
 warm-up, and the sha256 of the last frame's f32 bytes with its ray count
-(and the audit's dropped spans), so the trees' images are held to each
-other bit for bit;
+(and the audit's dropped spans, or the NEE frames' shadow rays), so the
+trees' images are held to each other bit for bit;
 
 - the bench frames (``bench.run_bench``, 5 frames each): rtiow (sphere
-  group; 1920x1080, 64 spp, 8 bounces), deepcsg, csgnight and manyobjects
+  group; 1920x1080, 64 spp, 8 bounces), night488 (nee group; 960x540, 64
+  spp, 6 bounces), deepcsg, csgnight and manyobjects
   (tape), mesh and meshnight (mesh): Mrays/s and frame times;
 - the realtime loop (``PathTraceRenderer(rtiow_final_scene(),
   advance_samples=True)`` at 1280x720, 2 spp, lens): the host's time to
@@ -81,16 +88,18 @@ LADDER_REPS = 5  # timed launches per ladder rung
 CANARY_CALLS, CANARY_ROUNDS = 1000, 5
 REALTIME_FRAMES, REALTIME_RUNS = 200, 3
 DENOISED_FRAMES = 50  # frames a run of the denoised realtime loop
-GROUPS = ("sphere", "tape", "mesh", "ladder", "denoise")
+GROUPS = ("sphere", "nee", "tape", "mesh", "ladder", "denoise")
 KERNEL_SOURCES = ("sphere_megakernel", "shard_canary", "tape_kernel", "trimesh_kernel", "atrous")
-BENCH_SCENES = {"sphere": ("rtiow",), "tape": ("deepcsg", "csgnight", "manyobjects"),
-                "mesh": ("mesh", "meshnight"), "ladder": (), "denoise": ()}
+BENCH_SCENES = {"sphere": ("rtiow",), "nee": ("night488",),
+                "tape": ("deepcsg", "csgnight", "manyobjects"), "mesh": ("mesh", "meshnight"),
+                "ladder": (), "denoise": ()}
 LADDER = ((2, 3), (3, 3), (4, 3), (5, 3), (5, 5), (6, 3))  # (subdiv, spheres) of mesh_demo_scene
 
 
 def _frames(dev, groups):
     """label -> (render, reps): the kernel table's frames of ``groups``,
-    each a function of no arguments returning (image, rays[, dropped])."""
+    each a function of no arguments returning (image, rays[, dropped or
+    shadow rays])."""
     from csgrenderer_tpu_torch.camera import Camera
     from csgrenderer_tpu_torch.kernels import megakernel as mk
     from csgrenderer_tpu_torch.kernels import tape_kernel as tk
@@ -109,9 +118,8 @@ def _frames(dev, groups):
 
     frames = {}
     night = dict(width=960, height=540, spp=2, max_bounces=6, seed=0, sky="black", nee=True)
+    sphere = functools.partial(frame, mk.render_image_kernel)
     if "sphere" in groups:
-        sphere = functools.partial(frame, mk.render_image_kernel)
-        night_cam = cam((6.5, 2.2, 6.5), (0.0, 0.6, 0.0), 32.0, 960 / 540)
         frames.update({
             "grid rtiow 1920x1080 spp2 b8 lens": sphere(
                 mk.pack_scene(rtiow_final_scene(device=dev)),
@@ -121,10 +129,28 @@ def _frames(dev, groups):
                 mk.pack_scene(two_spheres_scene(device=dev)),
                 cam((0, 0, 0), (0, 0, -1), 90.0, 1920 / 1080),
                 width=1920, height=1080, spp=4, max_bounces=8, seed=0),
-            "brute-nee night 960x540 spp2 b6": sphere(mk.pack_scene(night_scene(device=dev)),
-                                                      night_cam, **night),
-            "grid-nee night488 960x540 spp2 b6": sphere(
-                mk.pack_scene(night_scene(grid=11, device=dev)), night_cam, **night),
+        })
+    if "nee" in groups:
+        def nee(packed, camera, **kw):  # (image, rays, shadow rays)
+            def run():
+                counts = {}
+                img, rays = mk.render_image_kernel(packed, camera, counts=counts, **kw)
+                return img, rays, counts["shadow_rays"]
+            return run, REPS
+
+        night_cam = cam((6.5, 2.2, 6.5), (0.0, 0.6, 0.0), 32.0, 960 / 540)
+        night488 = mk.pack_scene(night_scene(grid=11, device=dev))
+        no_nee = {**night, "nee": False}
+        frames.update({
+            "brute-nee night 960x540 spp2 b6": nee(mk.pack_scene(night_scene(device=dev)),
+                                                   night_cam, **night),
+            "grid-nee night488 960x540 spp2 b6": nee(night488, night_cam, **night),
+            "grid-nee night488 960x540 spp64 b6": nee(night488, night_cam,
+                                                      **{**night, "spp": 64}),
+            "bound: grid night488 nee=False 960x540 spp2 b6": sphere(night488, night_cam,
+                                                                     **no_nee),
+            "bound: grid night488 nee=False 960x540 spp64 b6": sphere(
+                night488, night_cam, **{**no_nee, "spp": 64}),
         })
     if "tape" in groups:
         tape = functools.partial(frame, tk.render_image_tape_kernel)

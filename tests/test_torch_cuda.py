@@ -8,6 +8,7 @@ version; the a-trous filter's kernel against its plain version, on its
 own (a ragged frame at 5 passes among them) and inside the renderer's
 denoise step; the sphere kernel's NEE shadow-ray count against its plain
 version's, and read by the renderer at its fence; the sphere kernel's
+NEE frames pinned to their images, rays and shadow rays; its
 G-buffer mode against its plain
 version, on its own, with its tables in global memory and as the denoised
 sphere frame's AOV cast; the random CSG trees of
@@ -265,6 +266,26 @@ def test_non_nee_frames_unchanged(cuda, mode):
     torch.cuda.synchronize()
     digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
     assert (digest, int(rays)) == PINNED_FRAMES[mode]
+
+
+# sha256 of the float32 image bytes, the ray count and the shadow-ray count
+# of NEE_CASES' sphere frames, as the NEE kernels that traced a shadow ray
+# inside the segment that made it rendered them on an H100: the query loop
+# that traces both kinds of ray through one walk must keep giving these
+PINNED_NEE_FRAMES = {
+    "brute-nee": ("86105de6d4754db1fdf50bcebf31f7c0a0f18a89afdff10239b97ae2b84e77ac", 8484, 3049),
+    "grid-nee": ("e4023dade312cb4c608a541d25b69cbc46b17823b183401e1f8b1e96076955c8", 8745, 3040),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(PINNED_NEE_FRAMES))
+def test_nee_frames_unchanged(cuda, mode):
+    make_packed, make_cam, _ = NEE_CASES[mode]
+    counts = {}
+    img, rays = mk.render_image_kernel(make_packed(cuda), make_cam(cuda), counts=counts, **NEE_KW)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+    assert (digest, int(rays), int(counts["shadow_rays"])) == PINNED_NEE_FRAMES[mode]
 
 
 # sha256 of the float32 image bytes, the ray count and (audit) the
