@@ -5,7 +5,8 @@ camera and a ``RenderConfig`` and exposes ``draw_frame(time_sec) -> image``
 (uint8 [H, W, 3] tensor on its device), the analog of
 ``wo_renderer_draw_frame`` (renderer.h:20), plus ``last_frame_rays`` for
 the stats clock (and, on a ``PathTraceRenderer``,
-``last_frame_shadow_rays``: NEE's shadow rays, read at the same fence).
+``last_frame_shadow_rays``: NEE's shadow rays, and ``last_frame_tri_tests``:
+a mesh frame's triangle tests, both read at the same fence).
 
 - ``WololoRenderer``: the milestone-01 animated frame (config 1), plain
   torch ops on the renderer's device.
@@ -53,7 +54,8 @@ which on the CPU reads them at once. ``set_camera`` (or assigning
 Each frame records spans (``utils/profiling.py``) while recording is on:
 ``render.frame`` around ``draw_frame`` and ``draw_frame_async``, and
 inside it ``render.animate``, ``render.recluster``, ``render.launch``
-(with ``scene.pack`` for an animated tape), ``render.fence``,
+(with ``scene.pack`` for an animated tape; a static tape's or mesh's
+pack records ``scene.pack`` when the renderer is made), ``render.fence``,
 ``render.accumulate``, ``render.denoise`` and ``render.tonemap``; a
 replayed frame records ``render.replay`` (the replay and the copy of its
 outputs) in place of the last three, and a frame that queues the next one
@@ -118,26 +120,31 @@ class _CountFence:
     was enqueued after it keeps the card busy; on the CPU they are read at
     once."""
 
+    COUNTS = ("shadow_rays", "tri_tests")  # what a frame's counts may hold beside its segments
+
     def __init__(self, device: torch.device):
         self.card = device.type == "cuda"
-        self.host = torch.empty(2, dtype=torch.int64, pin_memory=self.card)
+        self.host = torch.empty(1 + len(self.COUNTS), dtype=torch.int64, pin_memory=self.card)
         self.event = torch.cuda.Event() if self.card else None
-        self.n = 0
+        self.keys = ()
 
-    def stage(self, rays: torch.Tensor, shadow: torch.Tensor | None) -> None:
-        """Copy the frame's segments (and NEE's shadow rays) and, on the
-        card, mark the stream behind the copy."""
-        src = rays.reshape(1) if shadow is None else torch.stack((rays, shadow))
-        self.n = src.numel()
-        self.host[:self.n].copy_(src, non_blocking=self.card)
+    def stage(self, rays: torch.Tensor, counts: dict) -> None:
+        """Copy the frame's segments and the counts of ``COUNTS`` that
+        ``counts`` holds (NEE's shadow rays, a mesh's triangle tests) and,
+        on the card, mark the stream behind the copy."""
+        self.keys = tuple(k for k in self.COUNTS if k in counts)
+        src = (torch.stack((rays, *(counts[k] for k in self.keys))) if self.keys
+               else rays.reshape(1))
+        self.host[:src.numel()].copy_(src, non_blocking=self.card)
         if self.card:
             self.event.record(torch.cuda.current_stream(src.device))
 
-    def wait(self) -> list[int]:
-        """The staged counts, once the event has passed."""
+    def wait(self) -> dict[str, int]:
+        """The staged counts, once the event has passed: ``"rays"`` and
+        each staged key."""
         if self.card:
             self.event.synchronize()
-        return self.host[:self.n].tolist()
+        return dict(zip(("rays",) + self.keys, self.host[:1 + len(self.keys)].tolist()))
 
 
 class WololoRenderer:
@@ -219,6 +226,9 @@ class PathTraceRenderer:
         # NEE's shadow rays of the last fenced frame: 0 without NEE, None
         # where its kernel counts none (tape, mesh, a replayed frame)
         self.last_frame_shadow_rays = 0
+        # the triangle tests of the last fenced frame's path segments: None
+        # where it has no such count (a sphere or tape frame)
+        self.last_frame_tri_tests = None
         self._sample_offset = sample_offset
         self._animate = animate
 
@@ -280,8 +290,9 @@ class PathTraceRenderer:
 
     def _render(self, time_sec: float, partition=None, counts: dict | None = None):
         """One frame's (radiance [H, W, 3], rays int64 tensor) at the
-        current sample offset. With NEE, the frame's shadow rays are added
-        to ``counts`` (``_render_kernel``)."""
+        current sample offset. The frame's NEE shadow rays and triangle
+        tests, where its kernel counts them, are added to ``counts``
+        (``_render_kernel``)."""
         if self._animate is None:
             scene = self._packed
         else:
@@ -295,8 +306,7 @@ class PathTraceRenderer:
         with profiling.span("render.launch"):
             radiance, rays = _render_kernel(scene, self.camera, self.config, self._sample_offset,
                                             animated=self._animate is not None,
-                                            partition=partition,
-                                            counts=counts if self.config.nee else None)
+                                            partition=partition, counts=counts)
         if self.config.debug:
             check_finite(radiance, "the frame's radiance")
         return radiance, rays
@@ -321,7 +331,7 @@ class PathTraceRenderer:
         computed. Under "replay" the first frame is enqueued eagerly, which
         binds every kernel library and sets every kernel attribute; the
         second is captured into the frame graph, and every later one
-        replays it. An eager NEE frame adds its shadow rays to ``counts``."""
+        replays it. An eager frame adds its counts to ``counts`` (``_render``)."""
         cfg = self.config
         if self._graph is None and self._warm and self._schedule == "replay":
             self._graph = frame_graph.FrameGraph(self._captured_frame, self.device, cfg.spp,
@@ -347,14 +357,16 @@ class PathTraceRenderer:
 
     def _read_fence(self) -> None:
         """The frame's one wait, on its staged counts: its segments into
-        ``last_frame_rays``, and its shadow rays into
+        ``last_frame_rays``, its shadow rays into
         ``last_frame_shadow_rays`` (0 without NEE, None where the kernel
-        counts none)."""
+        counts none) and its triangle tests into ``last_frame_tri_tests``
+        (None where the kernel counts none)."""
         with profiling.span("render.fence"):
-            rays, *shadow = self._fence.wait()
-            self.last_frame_rays = rays
-            self.last_frame_shadow_rays = (shadow[0] if shadow
-                                           else None if self.config.nee else 0)
+            got = self._fence.wait()
+            self.last_frame_rays = got["rays"]
+            self.last_frame_shadow_rays = got.get("shadow_rays",
+                                                  None if self.config.nee else 0)
+            self.last_frame_tri_tests = got.get("tri_tests")
 
     def draw_frame(self, time_sec: float) -> torch.Tensor:
         with profiling.frame("render.frame"):
@@ -362,7 +374,7 @@ class PathTraceRenderer:
                 return self._draw_progressive(time_sec)
             counts = {}
             image, rays = self._enqueue(time_sec, counts)
-            self._fence.stage(rays, counts.get("shadow_rays"))
+            self._fence.stage(rays, counts)
             self._read_fence()
             return image
 
@@ -389,7 +401,7 @@ class PathTraceRenderer:
             self._sample_offset += cfg.spp
             linear = summed.image()
         image = self._tonemap(self.denoise_image(linear, time_sec))
-        self._fence.stage(rays, counts.get("shadow_rays"))
+        self._fence.stage(rays, counts)
         if follows and self._schedule == "queue":
             with profiling.span("render.prelaunch"):
                 queued = {}
@@ -534,19 +546,28 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
     ``scene`` may be packed. ``partition`` is an animated tape's cluster
     tuple; an animated tape without one takes the global evaluation rather
     than clustering on device tensors. ``counts``: a dict to which a sphere
-    frame's NEE work is added (``megakernel.render_image_kernel``); the
-    tape and mesh wrappers count none.
+    frame's NEE work (``megakernel.render_image_kernel``) and a mesh
+    frame's triangle tests (``trimesh_kernel.render_image_mesh_kernel``)
+    are added; the tape wrapper counts none.
     """
     kw = dict(spp=cfg.spp, max_bounces=cfg.max_bounces, seed=cfg.seed, sky=cfg.sky, lens=cfg.lens,
               sample_offset=sample_base, nee=cfg.nee, jitter=cfg.jitter)
     if isinstance(scene, (SphereScene, megakernel.PackedScene)):
         return megakernel.render_image_kernel(scene, camera, cfg.width, cfg.height,
-                                              offset_buffer=offset_buffer, counts=counts, **kw)
+                                              offset_buffer=offset_buffer,
+                                              counts=counts if cfg.nee else None, **kw)
     if isinstance(scene, (CompiledTape, tape_kernel.PackedTape)):
         if isinstance(scene, CompiledTape):
             kw["partition"] = partition if partition is not None else (
                 False if animated else "auto")
         return tape_kernel.render_image_tape_kernel(scene, camera, cfg.width, cfg.height, **kw)
     if isinstance(scene, (MeshScene, trimesh_kernel.PackedMesh)):
-        return trimesh_kernel.render_image_mesh_kernel(scene, camera, cfg.width, cfg.height, **kw)
+        # the triangle tests alone: the plain version counts shadow rays
+        # too, which the kernel does not, and a frame reads alike on both
+        mesh_counts = None if counts is None else {}
+        out = trimesh_kernel.render_image_mesh_kernel(scene, camera, cfg.width, cfg.height,
+                                                      counts=mesh_counts, **kw)
+        if counts is not None:
+            counts["tri_tests"] = mesh_counts["tri_tests"]
+        return out
     raise TypeError(f"unsupported scene type {type(scene).__name__}")

@@ -41,8 +41,10 @@
 //     65 KB for the 966-face meshnight scene) are staged once per CTA in
 //     shared memory by one bulk (TMA 1D) copy on an mbarrier whenever they
 //     fit a block's opt-in shared memory; larger meshes (the 15,362-face
-//     bench mesh: 1.6 MB) run the same code reading them from global
-//     memory and L2 (kShared = false): the launcher chooses by size;
+//     bench mesh: 1,251,952 bytes; the 102,402-face mesh of
+//     mesh_demo_scene(5, 5): 19,925,808 bytes, which fit the H100's 50 MB
+//     L2) run the same code reading them from global memory and L2
+//     (kShared = false): the launcher chooses by size;
 //   - persistent CTAs (persistent.cuh) take 16x2-pixel work units per warp
 //     from a per-launch counter, so the tables are staged once per CTA and
 //     the tail of a frame is balanced. CTAs that stage are larger (kStagedThreads),
@@ -51,6 +53,13 @@
 //   - the walk keeps its per-axis state (voxel, next crossing, step) in
 //     scalars, not in arrays indexed by the axis it advances, so nothing of
 //     it lives in the local-memory stack frame.
+//
+// Every launch counts the Möller-Trumbore tests of its path segments (the
+// globals or every face, then the faces the walk lists: what the plain
+// version's counts call global_tests + face_tests) into one int64 word:
+// each pixel's count in a register, reduced over the warp's lanes at the
+// end of each work unit, added by one atomic. Shadow rays' tests are not
+// counted, as shadow rays are not counted in the segments.
 //
 // Numerics: the kernel repeats, operation for operation and in the same
 // order, the float arithmetic of its plain torch version
@@ -120,6 +129,7 @@ struct Params {
   float* out_rgb;         // [rows, W, 3]
   int* out_rays;          // [rows, W]
   int* work;              // the work-unit counter, zeroed before each launch
+  unsigned long long* out_tests;  // the launch's path-segment triangle tests, zeroed before it
 };
 
 struct Ray {
@@ -185,12 +195,13 @@ __device__ __forceinline__ bool list_test(const Params& p, const Ray& r, int k, 
 
 // 3D DDA over the voxel lists (tri_worklist._walk), refining (t_best,
 // id_best) found by the globals. kAny: stop at the first t below t_best
-// (a shadow ray whose t_best starts at its bound) and return true then.
-// kRolled runs each voxel's list as a rolled loop (the compiler unrolls it
-// otherwise).
+// (a shadow ray whose t_best starts at its bound) and return true then;
+// else every listed face of a visited voxel is tested, and their number
+// is added to ``tests``. kRolled runs each voxel's list as a rolled loop
+// (the compiler unrolls it otherwise).
 template <bool kAny, bool kShared, bool kRolled>
 __device__ __forceinline__ bool grid_walk(const Params& p, const Ray& r, float& t_best,
-                                          int& id_best) {
+                                          int& id_best, unsigned& tests) {
   const int dims[3] = {p.nx, p.ny, p.nz};
   float t_in = kTMin, t_out = kBig;
 #pragma unroll
@@ -238,6 +249,7 @@ __device__ __forceinline__ bool grid_walk(const Params& p, const Ray& r, float& 
     const int vox = (ix * p.ny + iy) * p.nz + iz;
     const int k1 = int_load<kShared>(p, p.off_at, vox + 1);
     const int k0 = int_load<kShared>(p, p.off_at, vox);
+    if constexpr (!kAny) tests += static_cast<unsigned>(k1 - k0);
     if constexpr (kRolled) {
 #pragma unroll 1
       for (int k = k0; k < k1; ++k) {
@@ -267,13 +279,15 @@ __device__ __forceinline__ bool grid_walk(const Params& p, const Ray& r, float& 
   return false;
 }
 
-// The nearest hit: every face (brute), or the globals then the walk (grid).
+// The nearest hit: every face (brute), or the globals then the walk (grid);
+// the faces tested are added to ``tests``.
 template <bool kGrid, bool kNee, bool kShared>
 __device__ __forceinline__ void nearest(const Params& p, const Ray& r, float& t_best,
-                                        int& id_best) {
+                                        int& id_best, unsigned& tests) {
   t_best = kMiss;
   id_best = 0;
   const int n = kGrid ? p.n_glob : p.n_faces;
+  tests += static_cast<unsigned>(n);
   for (int i = 0; i < n; ++i) {
     const int id = kGrid ? int_load<kShared>(p, p.glob_at, i) : i;
     const float t = face_t<kShared>(p, r, id);
@@ -282,7 +296,7 @@ __device__ __forceinline__ void nearest(const Params& p, const Ray& r, float& t_
       id_best = id;
     }
   }
-  if (kGrid) grid_walk<false, kShared, kNee>(p, r, t_best, id_best);
+  if (kGrid) grid_walk<false, kShared, kNee>(p, r, t_best, id_best, tests);
 }
 
 // The shadow rays' walk, kept out of line (ROADMAP C-7). Inlined into the
@@ -302,7 +316,8 @@ __device__ __forceinline__ void nearest(const Params& p, const Ray& r, float& t_
 template <bool kShared>
 __device__ __noinline__ bool shadow_walk(const Params& p, const Ray& r, float& t_best,
                                          int& id_best) {
-  return grid_walk<true, kShared, true>(p, r, t_best, id_best);
+  unsigned uncounted = 0;
+  return grid_walk<true, kShared, true>(p, r, t_best, id_best, uncounted);
 }
 
 // A shadow ray: true iff some face is hit below t_max.
@@ -321,9 +336,11 @@ __device__ __forceinline__ bool occluded(const Params& p, const Ray& r, float t_
 }
 
 // One pixel's spp paths, one after another, each up to max_bounces
-// segments; the radiance is summed in sample order.
+// segments; the radiance is summed in sample order. Returns the triangle
+// tests of the pixel's path segments.
 template <bool kGrid, bool kNee, bool kShared>
-__device__ __forceinline__ void render_pixel(const Params& p, const float* cam, int x, int row) {
+__device__ __forceinline__ unsigned render_pixel(const Params& p, const float* cam, int x,
+                                                 int row) {
   const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
   const size_t out_pix = static_cast<size_t>(row) * p.width + x;
@@ -331,6 +348,7 @@ __device__ __forceinline__ void render_pixel(const Params& p, const float* cam, 
   csgr::Path path;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   int rays = 0;
+  unsigned tests = 0;
   for (int k = 0; k < p.spp; ++k) {
     const uint32_t s = static_cast<uint32_t>(k) + p.sample_offset;
     csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
@@ -343,7 +361,7 @@ __device__ __forceinline__ void render_pixel(const Params& p, const float* cam, 
       const Ray ray = {{ox, oy, oz}, {dx, dy, dz}};
       float t_best;
       int id_best;
-      nearest<kGrid, kNee, kShared>(p, ray, t_best, id_best);
+      nearest<kGrid, kNee, kShared>(p, ray, t_best, id_best, tests);
 
       const float inv_len = csgr::inv_length(path);
       const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
@@ -407,10 +425,22 @@ __device__ __forceinline__ void render_pixel(const Params& p, const float* cam, 
   out[1] = acc_g / spp;
   out[2] = acc_b / spp;
   p.out_rays[out_pix] = rays;
+  return tests;
+}
+
+// Adds the triangle tests of the lanes that call this together to the
+// launch's word: their sum over the warp, added by the lowest of them.
+__device__ __forceinline__ void add_tests(unsigned long long* out, unsigned tests) {
+  const unsigned lanes = __activemask();
+  const unsigned sum = __reduce_add_sync(lanes, tests);
+  if (static_cast<int>(threadIdx.x & 31) == __ffs(lanes) - 1) {
+    atomicAdd(out, static_cast<unsigned long long>(sum));
+  }
 }
 
 // Persistent CTAs (persistent.cuh): a CTA stages the tables once (kShared),
-// then each warp takes 16x2-pixel work units from the launch's counter.
+// then each warp takes 16x2-pixel work units from the launch's counter and
+// adds the unit's triangle tests to the launch's word.
 template <bool kGrid, bool kNee, bool kShared>
 __global__ void __launch_bounds__(kThreads<kShared, kNee>, kMinCtas<kShared, kNee>)
     trimesh_kernel(const Params p) {
@@ -419,7 +449,7 @@ __global__ void __launch_bounds__(kThreads<kShared, kNee>, kMinCtas<kShared, kNe
 #pragma unroll
   for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
   csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
-    render_pixel<kGrid, kNee, kShared>(p, cam, x, row);
+    add_tests(p.out_tests, render_pixel<kGrid, kNee, kShared>(p, cam, x, row));
   });
 }
 
@@ -450,16 +480,17 @@ extern "C" int csgr_mesh_table_limit(int device) {
 // shared_tables: 1 stages them in shared memory (the caller has checked
 // that they fit csgr_mesh_table_limit), 0 reads them from global memory.
 // out_rays holds rows x width int32 segment counts and one int32 more: the
-// launch's work counter.
+// launch's work counter. out_tests is one uint64, which the launch zeroes
+// and then fills with its path segments' triangle tests.
 extern "C" int csgr_mesh_render(
     const void* cam, const void* faces, const void* tables, int table_bytes, int n_faces,
     int n_glob, int glob_at, int off_at, int ids_at, int nx, int ny, int nz, float x0, float y0,
     float z0, float x1, float y1, float z1, float cell, float inv_cell, const void* lamps,
     int n_lamps, int width, int height, int rows, int row_offset, int spp, int max_bounces,
     unsigned int seed, unsigned int sample_offset, int lens, int sky, int shared_tables,
-    void* out_rgb, void* out_rays, void* stream) {
+    void* out_rgb, void* out_rays, void* out_tests, void* stream) {
   if (rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
-      table_bytes % 16 != 0 || table_bytes < n_faces * kMtF4 * 16) {
+      table_bytes % 16 != 0 || table_bytes < n_faces * kMtF4 * 16 || out_tests == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reinterpret_cast<uintptr_t>(tables) % 16 != 0) {
@@ -486,8 +517,12 @@ extern "C" int csgr_mesh_render(
   p.out_rgb = static_cast<float*>(out_rgb);
   p.out_rays = static_cast<int*>(out_rays);
   p.work = p.out_rays + static_cast<size_t>(rows) * width;
+  p.out_tests = static_cast<unsigned long long*>(out_tests);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // in stream order, before the launch
+  const cudaError_t z = cudaMemsetAsync(out_tests, 0, sizeof(unsigned long long), st);
+  if (z != cudaSuccess) return static_cast<int>(z);
   const bool grid = off_at >= 0, nee = n_lamps > 0;
   const cudaError_t e = shared_tables ? launch_mode<true>(p, grid, nee, st)
                                       : launch_mode<false>(p, grid, nee, st);

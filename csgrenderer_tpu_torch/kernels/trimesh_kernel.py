@@ -20,11 +20,17 @@ Where the tensors lie decides what runs:
 
 ``nee=True`` adds next-event estimation toward the mesh's emissive faces
 (``render/lights.py``, ``TriLights``): the kernel's NEE variant, or the
-plain version with ``lights=``. ``LAUNCHES`` counts kernel launches
-(``LAUNCHES_BY_MODE`` per mode: brute, grid, brute-nee, grid-nee;
-``LAUNCHES_BY_TABLES`` by where the launch read the tables a walk reads:
-staged in shared memory, or global memory when ``PackedMesh.table_bytes``
-exceeds ``table_limit``); only the launch site adds to them.
+plain version with ``lights=``. Both count the Möller-Trumbore tests of
+their path segments (the globals or every face, then the faces the walk
+lists; shadow rays' tests are not counted), which ``counts`` takes under
+``"tri_tests"``: the kernel adds them into a device word of its own, the
+plain version takes them from its walk's counts (``global_tests +
+face_tests``) or, in brute mode, as faces x segments. ``LAUNCHES`` counts
+kernel launches (``LAUNCHES_BY_MODE`` per mode: brute, grid, brute-nee,
+grid-nee; ``LAUNCHES_BY_TABLES`` by where the launch read the tables a walk
+reads: staged in shared memory, or global memory when
+``PackedMesh.table_bytes`` exceeds ``table_limit``); only the launch site
+adds to them.
 """
 
 from __future__ import annotations
@@ -41,9 +47,11 @@ from ..render import integrator
 from ..render.integrator import SKY_MODES, SurfaceHit
 from ..render.lights import TriLights, extract_mesh_lights
 from ..render.trimesh import MeshScene
+from ..utils import profiling
 from . import build
 from .megakernel import CAM_SIZE, JITTER_ON_CPU_ONLY, pack_camera
 from .tri_worklist import TriGridPack, pack_tri_grid, tri_grid_nearest_hit
+from .worklist import add_count
 
 FACE_WORDS = 20  # floats per face record: v0, e1, e2, unit normal, kind, param, albedo, pad
 MT_WORDS = 12  # floats per MT record: v0, e1, e2, pad, as (v0, e1x) (e1yz, e2xy) (e2z, pad)
@@ -210,14 +218,15 @@ def pack_mesh(mesh: MeshScene, worklist: bool | str = "auto", cell: float | None
                          "so use 'auto' or True")
     if worklist not in ("auto", True, False):
         raise ValueError(f"worklist must be 'auto', True or False, got {worklist!r}")
-    grid = None
-    if worklist in (True, "auto"):
-        grid = pack_tri_grid(mesh, cell)
-        if grid is None and worklist is True:
-            raise ValueError("worklist=True but the mesh is not griddable "
-                             "(under 192 faces to grid)")
-    faces = _face_table(mesh)
-    return PackedMesh(mesh, faces, grid, _lamp_table(mesh), _tables(mesh, faces, grid))
+    with profiling.span("scene.pack"):
+        grid = None
+        if worklist in (True, "auto"):
+            grid = pack_tri_grid(mesh, cell)
+            if grid is None and worklist is True:
+                raise ValueError("worklist=True but the mesh is not griddable "
+                                 "(under 192 faces to grid)")
+        faces = _face_table(mesh)
+        return PackedMesh(mesh, faces, grid, _lamp_table(mesh), _tables(mesh, faces, grid))
 
 
 def _grid_hit_fn(packed: PackedMesh, counts: dict | None):
@@ -252,26 +261,42 @@ def render_image_mesh_plain(
     """The plain torch version of the kernel, on any device. With ``nee``
     it renders with the packed lamp table as ``lights=``; ``counts`` as in
     ``integrator.trace_paths``, plus, in grid mode, the walk's work
-    (``tri_worklist.tri_grid_nearest_hit``, shadow rays included);
-    ``rows``, ``row_offset``, ``jitter`` and ``sample_batch`` as in
-    ``integrator.render_image``."""
+    (``tri_worklist.tri_grid_nearest_hit``, shadow rays included), plus
+    the path segments' triangle tests (``"tri_tests"``: ``global_tests +
+    face_tests`` of the path segments' walks, or faces x segments in brute
+    mode; shadow rays not included); ``rows``, ``row_offset``, ``jitter``
+    and ``sample_batch`` as in ``integrator.render_image``."""
     if nee and packed.lamps is None:
         raise ValueError(_NO_LAMPS)
+    # the path segments' walks are counted apart from the shadow rays'
+    path_work = {} if counts is not None and packed.grid is not None else None
+    shadow_hit_fn = None
     if packed.grid is None:
         hit_fn = functools.partial(packed.mesh.nearest_hit, normals=packed.normals)
     else:
-        hit_fn = _grid_hit_fn(packed, counts)
-    return integrator.render_image(
+        hit_fn = _grid_hit_fn(packed, path_work)
+        shadow_hit_fn = _grid_hit_fn(packed, counts) if nee else None
+    image, rays = integrator.render_image(
         hit_fn, camera, width, height, spp=spp, max_bounces=max_bounces,
         seed=seed, sky=sky, jitter=jitter, lens=lens, sample_offset=sample_offset,
         lights=packed.lights if nee else None, counts=counts, rows=rows, row_offset=row_offset,
-        sample_batch=sample_batch,
+        sample_batch=sample_batch, shadow_hit_fn=shadow_hit_fn,
     )
+    if counts is not None:
+        if path_work is None:
+            tests = rays * packed.mesh.num_faces
+        else:
+            for key, value in path_work.items():
+                add_count(counts, key, value)
+            tests = path_work.get("global_tests", 0) + path_work.get("face_tests", 0)
+        add_count(counts, "tri_tests", torch.as_tensor(tests, dtype=torch.int64,
+                                                       device=rays.device))
+    return image, rays
 
 
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _ARGTYPES = ((_VP, _VP, _VP) + (_I,) * 9 + (_F,) * 8 + (_VP,) + (_I,) * 7 + (_U, _U)
-             + (_I,) * 3 + (_VP, _VP))
+             + (_I,) * 3 + (_VP, _VP, _VP))
 _KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_mesh_render", _ARGTYPES, "mesh")
 _TABLE_LIMIT: dict[int, int] = {}  # device index -> the most table bytes a CTA can stage
 
@@ -294,9 +319,10 @@ def table_limit(index: int) -> int:
 
 
 def launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounces, seed,
-                sample_offset, lens, sky, nee, shared, out_rgb, out_rays) -> tuple:
+                sample_offset, lens, sky, nee, shared, out_rgb, out_rays, out_tests) -> tuple:
     """The arguments of ``csgr_mesh_render`` but the stream, after checking
-    every tensor it passes (``out_rays``: rows x width + 1 int32)."""
+    every tensor it passes (``out_rays``: rows x width + 1 int32;
+    ``out_tests``: one int64, which the launch zeroes and fills)."""
     dev = packed.device
     f = packed.mesh.num_faces
     lay = packed.layout
@@ -305,6 +331,7 @@ def launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounc
     build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
     build.check_tensor(out_rgb, "out_rgb", torch.float32, (rows, width, 3), dev)
     build.check_tensor(out_rays, "out_rays", torch.int32, (rows * width + 1,), dev)
+    build.check_tensor(out_tests, "out_tests", torch.int64, (), dev)
     grid_args = [0, -1, -1, -1, 0, 0, 0] + [0.0] * 8
     if packed.grid is not None:
         gs = packed.grid.static
@@ -319,27 +346,36 @@ def launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounc
     return (cam_row.data_ptr(), packed.faces.data_ptr(), packed.tables.data_ptr(),
             lay.nbytes, f, *grid_args, *lamp_args, width, height, rows, row_offset, spp,
             max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens),
-            SKY_MODES.index(sky), int(shared), out_rgb.data_ptr(), out_rays.data_ptr())
+            SKY_MODES.index(sky), int(shared), out_rgb.data_ptr(), out_rays.data_ptr(),
+            out_tests.data_ptr())
 
 
 def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
-            nee, rows=None, row_offset=0, force_global=False):
+            nee, rows=None, row_offset=0, force_global=False, counts=None):
     """Launch the kernel. Its tables are staged in shared memory when
     ``packed.table_bytes`` fits the device's limit, else read from global
-    memory; ``force_global`` (tests only) reads them from global memory."""
+    memory; ``force_global`` (tests only) reads them from global memory.
+    The launch counts its path segments' triangle tests into a device
+    word, which ``counts`` (a dict) takes under ``"tri_tests"``, added to
+    what it holds there."""
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
     _KERNEL.require_cuda(dev)
     out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
     out_rays = torch.empty(rows * width + 1, dtype=torch.int32, device=dev)  # + the work counter
+    # the launch zeroes it, then counts into it (int64: the kernel's uint64
+    # word, far from its sign bit)
+    tests = torch.empty((), dtype=torch.int64, device=dev)
     shared = not force_global and packed.table_bytes <= table_limit(dev.index)
     _KERNEL(dev, *launch_args(packed, cam_row, width, height, rows, row_offset, spp,
                               max_bounces, seed, sample_offset, lens, sky, nee, shared, out_rgb,
-                              out_rays))
+                              out_rays, tests))
     LAUNCHES += 1
     LAUNCHES_BY_MODE[packed.mode + ("-nee" if nee else "")] += 1
     LAUNCHES_BY_TABLES["shared" if shared else "global"] += 1
+    if counts is not None:
+        add_count(counts, "tri_tests", tests)
     return out_rgb, out_rays[:-1].sum(dtype=torch.int64)  # int32 per pixel, summed in int64
 
 
@@ -359,6 +395,7 @@ def render_image_mesh_kernel(
     rows: int | None = None,
     row_offset: int = 0,
     jitter: bool = True,
+    counts: dict | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Drop-in for ``integrator.render_image`` on triangle meshes.
 
@@ -370,7 +407,12 @@ def render_image_mesh_kernel(
     the mesh's emissive faces at every Lambertian and glossy hit
     (ValueError if it has none). ``rows``/``row_offset`` and ``jitter`` as
     in ``megakernel.render_image_kernel``: a full-width slab of the frame,
-    and pixel centres on the CPU only.
+    and pixel centres on the CPU only. ``counts``: a dict to which the
+    frame's path-segment triangle tests are added under ``"tri_tests"``
+    as an int64 tensor (on the card a device word the launch fills:
+    nothing waits), and on the CPU every key of
+    ``render_image_mesh_plain``'s counts. Shadow rays' tests are never
+    part of ``"tri_tests"``.
     """
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")
@@ -389,11 +431,11 @@ def render_image_mesh_kernel(
         return render_image_mesh_plain(
             packed, camera, width, height, spp=spp, max_bounces=max_bounces,
             seed=seed, sky=sky, lens=lens, sample_offset=sample_offset, nee=nee,
-            rows=rows, row_offset=row_offset, jitter=jitter,
+            counts=counts, rows=rows, row_offset=row_offset, jitter=jitter,
         )
     if not jitter:
         raise NotImplementedError(JITTER_ON_CPU_ONLY)
     return _launch(
         packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces, int(seed),
-        int(sample_offset), lens, sky, nee, rows, int(row_offset),
+        int(sample_offset), lens, sky, nee, rows, int(row_offset), counts=counts,
     )

@@ -15,7 +15,10 @@ sphere frame's AOV cast; the random CSG trees of
 tests/test_torch_tape_fuzz.py through the tape kernel; and the live
 denoised frame replayed from a CUDA graph against the same frame enqueued
 eagerly; and progressive frames with the next frame queued behind each
-against the same frames rendered one at a time.
+against the same frames rendered one at a time; the mesh kernel's
+triangle-test count against its plain version's, read by the renderer at
+its fence, and the mesh-720p16 cell's 102,402-face mesh through the
+renderer from global memory.
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -686,6 +689,90 @@ def test_mesh_over_the_limit_reads_global_memory(cuda):
     assert tm.LAUNCHES_BY_TABLES == {"shared": before["shared"], "global": before["global"] + 1}
     ref, ref_rays = tm.render_image_mesh_plain(packed, cam, **MESH_KW)
     _assert_close(ref, ref_rays, img, rays)
+
+
+@pytest.mark.parametrize("mode", sorted(MESH_CASES))
+def test_mesh_kernel_counts_the_plain_versions_triangle_tests(cuda, mode):
+    """The mesh kernel's triangle tests of its path segments, handed back
+    in a device word without a wait, are the plain version's on a small
+    frame (its walk's ``global_tests + face_tests`` of the path segments,
+    or faces x segments in brute mode; shadow rays' tests in neither), and
+    counting leaves the frame's image and segments bit for bit the pinned
+    ones, made before the kernel counted."""
+    make_packed, eye, extra = MESH_CASES[mode]
+    packed, cam = make_packed(cuda), _mesh_cam(eye, cuda)
+    tm.render_image_mesh_kernel(packed, cam, **MESH_KW, **extra)  # built and bound
+    counts, plain = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, rays = tm.render_image_mesh_kernel(packed, cam, counts=counts, **MESH_KW, **extra)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tests = counts["tri_tests"]
+    assert tests.dtype == torch.int64 and tests.device.type == "cuda"
+    _, plain_rays = tm.render_image_mesh_plain(packed, cam, counts=plain, **MESH_KW, **extra)
+    assert int(rays) == int(plain_rays)
+    assert int(tests) == int(plain["tri_tests"]) > 0
+    if packed.mode == "brute":
+        assert int(tests) == int(rays) * packed.mesh.num_faces
+    else:
+        path = int(plain["tri_tests"])
+        walked = int(plain["global_tests"]) + int(plain["face_tests"])
+        assert path == walked if not extra else path < walked
+    digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+    assert (digest, int(rays)) == PINNED_MESH_TAPE_FRAMES["mesh-" + mode]
+
+
+def test_the_renderer_reads_the_triangle_tests_at_its_fence(cuda):
+    """``PathTraceRenderer.last_frame_tri_tests`` of a progressive mesh
+    frame, queued behind the one before, is the kernel's count of that
+    frame, read at the fence with its segments; a sphere frame has none."""
+    scene = mesh_demo_scene(3, device=cuda)
+    cam = _mesh_cam((0.0, 1.6, 2.2), cuda)
+    frame = dict(width=64, height=32, spp=2, max_bounces=6, seed=2)
+    r = PathTraceRenderer(scene, cam, RenderConfig(**frame), progressive=True, device=cuda)
+    assert r._schedule == "queue"
+    for k in range(3):
+        r.draw_frame(0.0)
+        counts = {}
+        _, rays = tm.render_image_mesh_kernel(r._packed, cam, counts=counts,
+                                              sample_offset=k * frame["spp"], **frame)
+        assert r.last_frame_rays == int(rays)
+        assert r.last_frame_tri_tests == int(counts["tri_tests"]) > 2 * int(rays)
+    s = PathTraceRenderer(two_spheres_scene(device=cuda), cam, RenderConfig(**frame),
+                          progressive=True, device=cuda)
+    s.draw_frame(0.0)
+    assert s.last_frame_tri_tests is None and s.last_frame_shadow_rays == 0
+
+
+def test_the_102k_face_mesh_renders_through_the_renderer_from_global_tables(cuda):
+    """mesh_demo_scene(5, 5), the mesh-720p16 cell's 102,402 faces: its
+    19,925,808 bytes of tables (a 257 x 67 x 193 grid, two global faces) go
+    to global memory, and the renderer's progressive frames (queued) match
+    the plain version's at a small frame."""
+    scene = mesh_demo_scene(5, spheres=5, device=cuda)
+    cam = _mesh_cam((0.0, 1.6, 2.2), cuda)
+    frame = dict(width=128, height=64, spp=2, max_bounces=6, seed=2**31 + 11)
+    r = PathTraceRenderer(scene, cam, RenderConfig(**frame), progressive=True, device=cuda)
+    packed = r._packed
+    assert scene.num_faces == 102402 and packed.table_bytes == 19925808
+    assert packed.grid.static.dims == (257, 67, 193) and packed.grid.n_globals == 2
+    before = dict(tm.LAUNCHES_BY_TABLES)
+    r.draw_frame(0.0)
+    r.draw_frame(0.0)
+    torch.cuda.synchronize()
+    assert tm.LAUNCHES_BY_TABLES["shared"] == before["shared"]
+    assert tm.LAUNCHES_BY_TABLES["global"] == before["global"] + 3  # the third is queued
+    counts, plain = {}, {}
+    img, rays = tm.render_image_mesh_kernel(packed, cam, sample_offset=2, counts=counts, **frame)
+    assert r.last_frame_rays == int(rays)
+    assert r.last_frame_tri_tests == int(counts["tri_tests"])
+    ref, ref_rays = tm.render_image_mesh_plain(packed, cam, counts=plain, sample_offset=2,
+                                               **frame)
+    _assert_close(ref, ref_rays, img, rays)
+    want = int(plain["tri_tests"])
+    assert abs(int(counts["tri_tests"]) - want) <= want * 2e-3
 
 
 # --- the a-trous filter ------------------------------------------------------
