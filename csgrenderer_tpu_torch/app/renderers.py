@@ -5,8 +5,10 @@ camera and a ``RenderConfig`` and exposes ``draw_frame(time_sec) -> image``
 (uint8 [H, W, 3] tensor on its device), the analog of
 ``wo_renderer_draw_frame`` (renderer.h:20), plus ``last_frame_rays`` for
 the stats clock (and, on a ``PathTraceRenderer``,
-``last_frame_shadow_rays``: NEE's shadow rays, and ``last_frame_tri_tests``:
-a mesh frame's triangle tests, both read at the same fence).
+``last_frame_shadow_rays``: NEE's shadow rays, ``last_frame_tri_tests``:
+a mesh frame's triangle tests, and ``last_frame_masked_visits``: the voxel
+visits its walk answered from the grid's occupancy mask, all read at the
+same fence).
 
 - ``WololoRenderer``: the milestone-01 animated frame (config 1), plain
   torch ops on the renderer's device.
@@ -120,7 +122,8 @@ class _CountFence:
     was enqueued after it keeps the card busy; on the CPU they are read at
     once."""
 
-    COUNTS = ("shadow_rays", "tri_tests")  # what a frame's counts may hold beside its segments
+    # what a frame's counts may hold beside its segments
+    COUNTS = ("shadow_rays", "tri_tests", "masked_visits")
 
     def __init__(self, device: torch.device):
         self.card = device.type == "cuda"
@@ -130,7 +133,8 @@ class _CountFence:
 
     def stage(self, rays: torch.Tensor, counts: dict) -> None:
         """Copy the frame's segments and the counts of ``COUNTS`` that
-        ``counts`` holds (NEE's shadow rays, a mesh's triangle tests) and,
+        ``counts`` holds (NEE's shadow rays, a mesh's triangle tests and
+        masked visits) and,
         on the card, mark the stream behind the copy."""
         self.keys = tuple(k for k in self.COUNTS if k in counts)
         src = (torch.stack((rays, *(counts[k] for k in self.keys))) if self.keys
@@ -226,9 +230,11 @@ class PathTraceRenderer:
         # NEE's shadow rays of the last fenced frame: 0 without NEE, None
         # where its kernel counts none (tape, mesh, a replayed frame)
         self.last_frame_shadow_rays = 0
-        # the triangle tests of the last fenced frame's path segments: None
-        # where it has no such count (a sphere or tape frame)
+        # the triangle tests of the last fenced frame's path segments, and
+        # their voxel visits the grid's occupancy mask answered: None where
+        # it has no such count (a sphere or tape frame)
         self.last_frame_tri_tests = None
+        self.last_frame_masked_visits = None
         self._sample_offset = sample_offset
         self._animate = animate
 
@@ -359,14 +365,16 @@ class PathTraceRenderer:
         """The frame's one wait, on its staged counts: its segments into
         ``last_frame_rays``, its shadow rays into
         ``last_frame_shadow_rays`` (0 without NEE, None where the kernel
-        counts none) and its triangle tests into ``last_frame_tri_tests``
-        (None where the kernel counts none)."""
+        counts none), its triangle tests into ``last_frame_tri_tests`` and
+        its masked visits into ``last_frame_masked_visits`` (None where the
+        kernel counts none)."""
         with profiling.span("render.fence"):
             got = self._fence.wait()
             self.last_frame_rays = got["rays"]
             self.last_frame_shadow_rays = got.get("shadow_rays",
                                                   None if self.config.nee else 0)
             self.last_frame_tri_tests = got.get("tri_tests")
+            self.last_frame_masked_visits = got.get("masked_visits")
 
     def draw_frame(self, time_sec: float) -> torch.Tensor:
         with profiling.frame("render.frame"):
@@ -547,8 +555,9 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
     tuple; an animated tape without one takes the global evaluation rather
     than clustering on device tensors. ``counts``: a dict to which a sphere
     frame's NEE work (``megakernel.render_image_kernel``) and a mesh
-    frame's triangle tests (``trimesh_kernel.render_image_mesh_kernel``)
-    are added; the tape wrapper counts none.
+    frame's triangle tests and masked visits
+    (``trimesh_kernel.render_image_mesh_kernel``) are added; the tape
+    wrapper counts none.
     """
     kw = dict(spp=cfg.spp, max_bounces=cfg.max_bounces, seed=cfg.seed, sky=cfg.sky, lens=cfg.lens,
               sample_offset=sample_base, nee=cfg.nee, jitter=cfg.jitter)
@@ -562,12 +571,14 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
                 False if animated else "auto")
         return tape_kernel.render_image_tape_kernel(scene, camera, cfg.width, cfg.height, **kw)
     if isinstance(scene, (MeshScene, trimesh_kernel.PackedMesh)):
-        # the triangle tests alone: the plain version counts shadow rays
-        # too, which the kernel does not, and a frame reads alike on both
+        # the path segments' triangle tests and masked visits alone: the
+        # plain version counts the walk's work too, which the kernel does
+        # not, and a frame reads alike on both
         mesh_counts = None if counts is None else {}
         out = trimesh_kernel.render_image_mesh_kernel(scene, camera, cfg.width, cfg.height,
                                                       counts=mesh_counts, **kw)
         if counts is not None:
-            counts["tri_tests"] = mesh_counts["tri_tests"]
+            for key in ("tri_tests", "masked_visits"):
+                counts[key] = mesh_counts[key]
         return out
     raise TypeError(f"unsupported scene type {type(scene).__name__}")

@@ -47,19 +47,41 @@
 //     (kShared = false): the launcher chooses by size;
 //   - persistent CTAs (persistent.cuh) take 16x2-pixel work units per warp
 //     from a per-launch counter, so the tables are staged once per CTA and
-//     the tail of a frame is balanced. CTAs that stage are larger (kStagedThreads),
-//     so the SM's shared memory holds fewer copies of the tables while its
-//     warps stay resident;
+//     the tail of a frame is balanced. CTAs are large (kStagedThreads,
+//     kGlobalThreads), so the SM's shared memory holds few copies of the
+//     tables or of the occupancy mask while its warps stay resident;
 //   - the walk keeps its per-axis state (voxel, next crossing, step) in
 //     scalars, not in arrays indexed by the axis it advances, so nothing of
-//     it lives in the local-memory stack frame.
+//     it lives in the local-memory stack frame;
+//   - the walk over tables in global memory first reads its voxel's bit in
+//     the grid's occupancy mask (tri_worklist.occupancy_mask: one bit per
+//     block of f x f x f voxels, set iff a voxel of the block lists a
+//     face), staged per CTA in shared memory, and loads the voxel's two
+//     CSR offsets from L2 only where the bit is set. Most voxels a walk
+//     crosses are empty (97.6% of the 102,402-face mesh's grid; the mask
+//     answers 96.8% of its visits), and each such step cost two dependent
+//     L2 loads before the DDA could advance.
+//     An unset bit means an empty list, so the walk visits the same voxels
+//     and tests the same faces in the same order as without the mask. f is
+//     the finest power-of-two block edge whose mask fits
+//     tri_worklist.MASK_BUDGET (62 KB, so the SM's shared memory stays
+//     within its 64 KB carveout and 192 KB of L1 stay for the records and
+//     lists the walk reads; f = 2 for the 102,402-face mesh's 257 x 67 x
+//     193 grid, f = 1, a bit per voxel, for the 15,362-face mesh's), a rule
+//     of the grid's dims, so a voxel's block coordinate is a shift (i >>
+//     mask_shift).
+//     The walk over staged tables has no mask: its offsets are already
+//     loads from shared memory, as a mask word would be.
 //
 // Every launch counts the Möller-Trumbore tests of its path segments (the
 // globals or every face, then the faces the walk lists: what the plain
-// version's counts call global_tests + face_tests) into one int64 word:
-// each pixel's count in a register, reduced over the warp's lanes at the
-// end of each work unit, added by one atomic. Shadow rays' tests are not
-// counted, as shadow rays are not counted in the segments.
+// version's counts call global_tests + face_tests) into one int64 word,
+// and the voxel visits of its path segments that the occupancy mask
+// answered (the plain walk's masked_visits; 0 where the walk has no mask)
+// into a second one: each pixel's counts in registers, reduced over the
+// warp's lanes at the end of each work unit, added by one atomic each.
+// Shadow rays' tests and visits are not counted, as shadow rays are not
+// counted in the segments.
 //
 // Numerics: the kernel repeats, operation for operation and in the same
 // order, the float arithmetic of its plain torch version
@@ -73,13 +95,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "path_common.cuh"
 #include "persistent.cuh"
 
 // The CTA's dynamic shared memory (smem_tables, persistent.cuh) holds the
 // staged tables as one block: the [F, 3] float4 MT table, then (grid mode)
 // the CSR offsets, the face ids and the globals, each at the byte offset
-// the packer gave it (kShared instantiations only).
+// the packer gave it (kShared instantiations); or (grid mode, kShared =
+// false) the grid's occupancy mask, uint32 words.
 
 namespace {
 
@@ -91,15 +116,19 @@ constexpr float kTMin = 1e-3f;     // hit epsilon along t
 constexpr int kFaceF4 = 5;         // float4 per shading record
 constexpr int kMtF4 = 3;           // float4 per MT record
 
-// CTA size and register budget (measured, PERF.md): CTAs that read global
-// memory are four warps, eight per SM (at most 64 registers a thread);
+// CTA size and register budget (measured, PERF.md): a CTA that reads
+// global memory is 32 warps, one per SM (at most 64 registers a thread),
+// so an SM stages one copy of the occupancy mask; with the mask, 16-spp
+// frames of 3,842 to 245,762 faces ran 4-6% faster than with two
+// sixteen-warp CTAs an SM, and those 2-5% faster than with eight four-warp
+// ones, whose eight copies of the mask an SM cost L1;
 // CTAs that stage the tables are sixteen warps, two per SM (64 registers;
 // 128-thread CTAs, three per SM under 65 KB of tables, ran the meshnight
 // grid-NEE frame 17% slower). The NEE kernels, which hold a path and a
 // shadow ray, are sixteen warps with no register budget: at 64 registers
 // the grid-NEE kernel spilled 352 bytes a thread and ran that frame 18%
 // slower.
-constexpr int kGlobalThreads = 128, kGlobalMinCtas = 8;
+constexpr int kGlobalThreads = 1024, kGlobalMinCtas = 1;
 constexpr int kStagedThreads = 512, kStagedMinCtas = 2;
 constexpr int kNeeThreads = 512, kNeeMinCtas = 1;
 
@@ -129,8 +158,21 @@ struct Params {
   float* out_rgb;         // [rows, W, 3]
   int* out_rays;          // [rows, W]
   int* work;              // the work-unit counter, zeroed before each launch
-  unsigned long long* out_tests;  // the launch's path-segment triangle tests, zeroed before it
+  unsigned long long* out_tests;  // [2]: the launch's path-segment triangle tests, then the
+                                  // voxel visits its mask answered; zeroed before it
 };
+
+// The launch parameters of a walk over tables in global memory: Params and
+// the grid's occupancy mask, block (bx, by, bz) of f^3 voxels being bit
+// b = (bx * mask_ny + by) * mask_nz + bz, bx = ix >> mask_shift (f =
+// 1 << mask_shift). The staged instantiations take Params alone.
+struct MaskedParams : Params {
+  const unsigned char* mask;
+  int mask_bytes, mask_shift, mask_ny, mask_nz;
+};
+
+template <bool kShared>
+using KernelParams = std::conditional_t<kShared, Params, MaskedParams>;
 
 struct Ray {
   float o[3], d[3];
@@ -171,6 +213,17 @@ __device__ __forceinline__ float tri_t(const Ray& r, float4 a, float4 b, float4 
   return (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin) ? t : kMiss;
 }
 
+// Whether the occupancy mask staged in shared memory marks the block of
+// voxel (ix, iy, iz) as holding a listed face.
+__device__ __forceinline__ bool block_occupied(const MaskedParams& p, int ix, int iy, int iz) {
+  const unsigned bx = static_cast<unsigned>(ix) >> p.mask_shift;
+  const unsigned by = static_cast<unsigned>(iy) >> p.mask_shift;
+  const unsigned bz = static_cast<unsigned>(iz) >> p.mask_shift;
+  const unsigned ny = static_cast<unsigned>(p.mask_ny), nz = static_cast<unsigned>(p.mask_nz);
+  const unsigned b = (bx * ny + by) * nz + bz;
+  return (reinterpret_cast<const uint32_t*>(smem_tables)[b >> 5] >> (b & 31u)) & 1u;
+}
+
 template <bool kShared>
 __device__ __forceinline__ float face_t(const Params& p, const Ray& r, int id) {
   return tri_t(r, mt_load<kShared>(p, kMtF4 * id), mt_load<kShared>(p, kMtF4 * id + 1),
@@ -197,11 +250,13 @@ __device__ __forceinline__ bool list_test(const Params& p, const Ray& r, int k, 
 // id_best) found by the globals. kAny: stop at the first t below t_best
 // (a shadow ray whose t_best starts at its bound) and return true then;
 // else every listed face of a visited voxel is tested, and their number
-// is added to ``tests``. kRolled runs each voxel's list as a rolled loop
-// (the compiler unrolls it otherwise).
+// is added to ``tests``, and the visits the occupancy mask answers
+// (!kShared) to ``masked``. kRolled runs each voxel's list as a rolled
+// loop (the compiler unrolls it otherwise).
 template <bool kAny, bool kShared, bool kRolled>
-__device__ __forceinline__ bool grid_walk(const Params& p, const Ray& r, float& t_best,
-                                          int& id_best, unsigned& tests) {
+__device__ __forceinline__ bool grid_walk(const KernelParams<kShared>& p, const Ray& r,
+                                          float& t_best, int& id_best, unsigned& tests,
+                                          unsigned& masked) {
   const int dims[3] = {p.nx, p.ny, p.nz};
   float t_in = kTMin, t_out = kBig;
 #pragma unroll
@@ -246,18 +301,24 @@ __device__ __forceinline__ bool grid_walk(const Params& p, const Ray& r, float& 
 
   const int max_steps = p.nx + p.ny + p.nz;
   for (int s = 0; s < max_steps; ++s) {
-    const int vox = (ix * p.ny + iy) * p.nz + iz;
-    const int k1 = int_load<kShared>(p, p.off_at, vox + 1);
-    const int k0 = int_load<kShared>(p, p.off_at, vox);
-    if constexpr (!kAny) tests += static_cast<unsigned>(k1 - k0);
-    if constexpr (kRolled) {
-#pragma unroll 1
-      for (int k = k0; k < k1; ++k) {
-        if (list_test<kAny, kShared>(p, r, k, t_best, id_best)) return true;
-      }
+    bool occupied = true;
+    if constexpr (!kShared) occupied = block_occupied(p, ix, iy, iz);
+    if (!occupied) {  // an empty block: no offsets to load
+      if constexpr (!kAny) ++masked;
     } else {
-      for (int k = k0; k < k1; ++k) {
-        if (list_test<kAny, kShared>(p, r, k, t_best, id_best)) return true;
+      const int vox = (ix * p.ny + iy) * p.nz + iz;
+      const int k1 = int_load<kShared>(p, p.off_at, vox + 1);
+      const int k0 = int_load<kShared>(p, p.off_at, vox);
+      if constexpr (!kAny) tests += static_cast<unsigned>(k1 - k0);
+      if constexpr (kRolled) {
+#pragma unroll 1
+        for (int k = k0; k < k1; ++k) {
+          if (list_test<kAny, kShared>(p, r, k, t_best, id_best)) return true;
+        }
+      } else {
+        for (int k = k0; k < k1; ++k) {
+          if (list_test<kAny, kShared>(p, r, k, t_best, id_best)) return true;
+        }
       }
     }
     const float t_next = fminf(fminf(tmx, tmy), tmz);
@@ -280,10 +341,12 @@ __device__ __forceinline__ bool grid_walk(const Params& p, const Ray& r, float& 
 }
 
 // The nearest hit: every face (brute), or the globals then the walk (grid);
-// the faces tested are added to ``tests``.
+// the faces tested are added to ``tests``, the walk's masked visits to
+// ``masked``.
 template <bool kGrid, bool kNee, bool kShared>
-__device__ __forceinline__ void nearest(const Params& p, const Ray& r, float& t_best,
-                                        int& id_best, unsigned& tests) {
+__device__ __forceinline__ void nearest(const KernelParams<kShared>& p, const Ray& r,
+                                        float& t_best, int& id_best, unsigned& tests,
+                                        unsigned& masked) {
   t_best = kMiss;
   id_best = 0;
   const int n = kGrid ? p.n_glob : p.n_faces;
@@ -296,7 +359,7 @@ __device__ __forceinline__ void nearest(const Params& p, const Ray& r, float& t_
       id_best = id;
     }
   }
-  if (kGrid) grid_walk<false, kShared, kNee>(p, r, t_best, id_best, tests);
+  if (kGrid) grid_walk<false, kShared, kNee>(p, r, t_best, id_best, tests, masked);
 }
 
 // The shadow rays' walk, kept out of line (ROADMAP C-7). Inlined into the
@@ -314,15 +377,16 @@ __device__ __forceinline__ void nearest(const Params& p, const Ray& r, float& t_
 // inlined walk is 1% faster on meshnight; the fault's cause is not shown,
 // so the walk stays out of line.
 template <bool kShared>
-__device__ __noinline__ bool shadow_walk(const Params& p, const Ray& r, float& t_best,
-                                         int& id_best) {
-  unsigned uncounted = 0;
-  return grid_walk<true, kShared, true>(p, r, t_best, id_best, uncounted);
+__device__ __noinline__ bool shadow_walk(const KernelParams<kShared>& p, const Ray& r,
+                                         float& t_best, int& id_best) {
+  unsigned uncounted = 0, unmasked = 0;
+  return grid_walk<true, kShared, true>(p, r, t_best, id_best, uncounted, unmasked);
 }
 
 // A shadow ray: true iff some face is hit below t_max.
 template <bool kGrid, bool kShared>
-__device__ __forceinline__ bool occluded(const Params& p, const Ray& r, float t_max) {
+__device__ __forceinline__ bool occluded(const KernelParams<kShared>& p, const Ray& r,
+                                         float t_max) {
   const int n = kGrid ? p.n_glob : p.n_faces;
   for (int i = 0; i < n; ++i) {
     if (face_t<kShared>(p, r, kGrid ? int_load<kShared>(p, p.glob_at, i) : i) < t_max) {
@@ -337,10 +401,11 @@ __device__ __forceinline__ bool occluded(const Params& p, const Ray& r, float t_
 
 // One pixel's spp paths, one after another, each up to max_bounces
 // segments; the radiance is summed in sample order. Returns the triangle
-// tests of the pixel's path segments.
+// tests of the pixel's path segments and adds their masked visits to
+// ``masked``.
 template <bool kGrid, bool kNee, bool kShared>
-__device__ __forceinline__ unsigned render_pixel(const Params& p, const float* cam, int x,
-                                                 int row) {
+__device__ __forceinline__ unsigned render_pixel(const KernelParams<kShared>& p, const float* cam,
+                                                 int x, int row, unsigned& masked) {
   const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
   const size_t out_pix = static_cast<size_t>(row) * p.width + x;
@@ -361,7 +426,7 @@ __device__ __forceinline__ unsigned render_pixel(const Params& p, const float* c
       const Ray ray = {{ox, oy, oz}, {dx, dy, dz}};
       float t_best;
       int id_best;
-      nearest<kGrid, kNee, kShared>(p, ray, t_best, id_best, tests);
+      nearest<kGrid, kNee, kShared>(p, ray, t_best, id_best, tests, masked);
 
       const float inv_len = csgr::inv_length(path);
       const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
@@ -428,39 +493,49 @@ __device__ __forceinline__ unsigned render_pixel(const Params& p, const float* c
   return tests;
 }
 
-// Adds the triangle tests of the lanes that call this together to the
-// launch's word: their sum over the warp, added by the lowest of them.
-__device__ __forceinline__ void add_tests(unsigned long long* out, unsigned tests) {
+// Adds the counts of the lanes that call this together to the launch's
+// word: their sum over the warp, added by the lowest of them.
+__device__ __forceinline__ void add_count(unsigned long long* out, unsigned count) {
   const unsigned lanes = __activemask();
-  const unsigned sum = __reduce_add_sync(lanes, tests);
+  const unsigned sum = __reduce_add_sync(lanes, count);
   if (static_cast<int>(threadIdx.x & 31) == __ffs(lanes) - 1) {
     atomicAdd(out, static_cast<unsigned long long>(sum));
   }
 }
 
 // Persistent CTAs (persistent.cuh): a CTA stages the tables once (kShared),
-// then each warp takes 16x2-pixel work units from the launch's counter and
-// adds the unit's triangle tests to the launch's word.
+// or in grid mode the occupancy mask, then each warp takes 16x2-pixel work
+// units from the launch's counter and adds the unit's triangle tests (and,
+// walking global memory, its masked visits) to the launch's words.
 template <bool kGrid, bool kNee, bool kShared>
 __global__ void __launch_bounds__(kThreads<kShared, kNee>, kMinCtas<kShared, kNee>)
-    trimesh_kernel(const Params p) {
-  if constexpr (kShared) csgr::stage_tables<1>({p.tables}, {p.table_bytes});
+    trimesh_kernel(const KernelParams<kShared> p) {
+  if constexpr (kShared) {
+    csgr::stage_tables<1>({p.tables}, {p.table_bytes});
+  } else if constexpr (kGrid) {
+    csgr::stage_tables<1>({p.mask}, {p.mask_bytes});
+  }
   float cam[csgr::kCamFloats];
 #pragma unroll
   for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
   csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
-    add_tests(p.out_tests, render_pixel<kGrid, kNee, kShared>(p, cam, x, row));
+    unsigned masked = 0;
+    add_count(p.out_tests, render_pixel<kGrid, kNee, kShared>(p, cam, x, row, masked));
+    if constexpr (kGrid && !kShared) add_count(p.out_tests + 1, masked);
   });
 }
 
 template <bool kGrid, bool kNee, bool kShared>
-cudaError_t launch(const Params& p, cudaStream_t st) {
+cudaError_t launch(const KernelParams<kShared>& p, cudaStream_t st) {
+  int smem = 0;
+  if constexpr (kShared) smem = p.table_bytes;
+  else if constexpr (kGrid) smem = p.mask_bytes;
   return csgr::launch_persistent(trimesh_kernel<kGrid, kNee, kShared>, p, kThreads<kShared, kNee>,
-                                 kShared ? p.table_bytes : 0, p.width, p.rows, p.work, st);
+                                 smem, p.width, p.rows, p.work, st);
 }
 
 template <bool kShared>
-cudaError_t launch_mode(const Params& p, bool grid, bool nee, cudaStream_t st) {
+cudaError_t launch_mode(const KernelParams<kShared>& p, bool grid, bool nee, cudaStream_t st) {
   if (grid) return nee ? launch<true, true, kShared>(p, st) : launch<true, false, kShared>(p, st);
   return nee ? launch<false, true, kShared>(p, st) : launch<false, false, kShared>(p, st);
 }
@@ -477,26 +552,37 @@ extern "C" int csgr_mesh_table_limit(int device) {
 // tables: the MT table [F, 3] float4, then (grid: offsets non-negative)
 // the CSR offsets, face ids and globals at byte offsets off_at, ids_at and
 // glob_at; table_bytes long, 16-byte aligned, a multiple of 16.
+// mask (grid mode): the occupancy mask, mask_bytes long (a multiple of 16,
+// 16-byte aligned), its blocks mask_ny x mask_nz along y and z, a voxel
+// coordinate's block i >> mask_shift; read where the tables are not
+// staged.
 // shared_tables: 1 stages them in shared memory (the caller has checked
 // that they fit csgr_mesh_table_limit), 0 reads them from global memory.
 // out_rays holds rows x width int32 segment counts and one int32 more: the
-// launch's work counter. out_tests is one uint64, which the launch zeroes
-// and then fills with its path segments' triangle tests.
+// launch's work counter. out_tests is two uint64, which the launch zeroes
+// and then fills with its path segments' triangle tests and the voxel
+// visits its mask answered.
 extern "C" int csgr_mesh_render(
     const void* cam, const void* faces, const void* tables, int table_bytes, int n_faces,
     int n_glob, int glob_at, int off_at, int ids_at, int nx, int ny, int nz, float x0, float y0,
-    float z0, float x1, float y1, float z1, float cell, float inv_cell, const void* lamps,
+    float z0, float x1, float y1, float z1, float cell, float inv_cell, const void* mask,
+    int mask_bytes, int mask_shift, int mask_ny, int mask_nz, const void* lamps,
     int n_lamps, int width, int height, int rows, int row_offset, int spp, int max_bounces,
     unsigned int seed, unsigned int sample_offset, int lens, int sky, int shared_tables,
     void* out_rgb, void* out_rays, void* out_tests, void* stream) {
+  const bool grid = off_at >= 0, nee = n_lamps > 0;
   if (rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
-      table_bytes % 16 != 0 || table_bytes < n_faces * kMtF4 * 16 || out_tests == nullptr) {
+      table_bytes % 16 != 0 || table_bytes < n_faces * kMtF4 * 16 || out_tests == nullptr ||
+      (grid && !shared_tables &&
+       (mask == nullptr || mask_bytes < 16 || mask_bytes % 16 != 0 || mask_shift < 0 ||
+        mask_shift > 30))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (reinterpret_cast<uintptr_t>(tables) % 16 != 0) {
-    return static_cast<int>(cudaErrorMisalignedAddress);  // the bulk copy and float4 loads
+  if (reinterpret_cast<uintptr_t>(tables) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(mask) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);  // the bulk copies and float4 loads
   }
-  Params p;
+  MaskedParams p;
   p.cam = static_cast<const float*>(cam);
   p.faces = static_cast<const float4*>(faces);
   p.tables = static_cast<const unsigned char*>(tables);
@@ -518,14 +604,17 @@ extern "C" int csgr_mesh_render(
   p.out_rays = static_cast<int*>(out_rays);
   p.work = p.out_rays + static_cast<size_t>(rows) * width;
   p.out_tests = static_cast<unsigned long long*>(out_tests);
+  p.mask = static_cast<const unsigned char*>(mask);
+  p.mask_bytes = mask_bytes; p.mask_shift = mask_shift;
+  p.mask_ny = mask_ny; p.mask_nz = mask_nz;
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // in stream order, before the launch
-  const cudaError_t z = cudaMemsetAsync(out_tests, 0, sizeof(unsigned long long), st);
+  const cudaError_t z = cudaMemsetAsync(out_tests, 0, 2 * sizeof(unsigned long long), st);
   if (z != cudaSuccess) return static_cast<int>(z);
-  const bool grid = off_at >= 0, nee = n_lamps > 0;
-  const cudaError_t e = shared_tables ? launch_mode<true>(p, grid, nee, st)
-                                      : launch_mode<false>(p, grid, nee, st);
+  const cudaError_t e = shared_tables
+                            ? launch_mode<true>(static_cast<const Params&>(p), grid, nee, st)
+                            : launch_mode<false>(p, grid, nee, st);
   return static_cast<int>(e);
 }
 

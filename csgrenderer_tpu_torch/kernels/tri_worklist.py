@@ -33,6 +33,22 @@ the globals' best t, a voxel's faces are tested before the advance, and
 the walk ends when it leaves the grid, passes ``t_out``, or the next voxel
 starts at or past the best t. It is the plain version of the CUDA mesh
 kernel's grid mode, which takes the same decisions in the same order.
+
+The occupancy mask: most voxels of a mesh's grid are empty (2.4% of the
+102,402-face demo mesh's 257 x 67 x 193 voxels hold a list), and a walk
+crosses dozens of them a segment. ``pack_tri_grid`` also stores one bit
+per block of f x f x f voxels (``TriGridPack.mask``), set iff some voxel
+of the block has a non-empty list. The kernel's walk over tables in global
+memory stages the mask in each CTA's shared memory and reads a voxel's
+two CSR offsets only where its block's bit is set; an unset bit means an
+empty list, so the walk visits and tests exactly what it did without the
+mask. The block edge f is the finest power of two whose mask fits
+``MASK_BUDGET`` bytes (``mask_block``): a fixed rule of the grid's dims.
+Where the tables fit a CTA's shared memory the kernel stages the offsets
+themselves, and a shared-memory load of an offset costs what one of a
+mask word would, so that walk has no mask. The plain walk counts the
+visits the mask answers (``masked_visits``), as the kernel's
+global-memory walk does.
 """
 
 from __future__ import annotations
@@ -58,6 +74,11 @@ N_SIDES = (4, 8, 16, 32, 64, 128, 256, 512, 1024)  # cells across the widest ext
 PAIR_CHUNK = 1 << 21  # (face, voxel) pairs tested per SAT pass
 LIST_SLAB = 32  # voxel-list entries tested per pass of the plain walk
 RAY_CHUNK = 1 << 20  # rays the plain walk takes at once
+# the most bytes of occupancy mask a CTA of the mesh kernel stages: with
+# the CTA's reserved 1 KB, one CTA of the global-memory walk an SM keeps
+# the H100's shared-memory carveout at 64 KB and 192 KB of its L1 for the
+# face records and lists (PERF.md)
+MASK_BUDGET = 62 * 1024
 
 
 class TriGridStatic(NamedTuple):
@@ -85,6 +106,24 @@ class TriGridStatic(NamedTuple):
         """A 3D DDA visits at most nx + ny + nz - 2 voxels; a walk is capped here."""
         return self.nx + self.ny + self.nz
 
+    @property
+    def mask_block(self) -> int:
+        """The occupancy mask's block edge f in voxels (``mask_block``)."""
+        return mask_block(self.dims)
+
+    @property
+    def mask_dims(self) -> tuple[int, int, int]:
+        """Blocks of the occupancy mask along x, y and z: the grid padded up
+        to a multiple of f."""
+        f = self.mask_block
+        return tuple(-(-n // f) for n in self.dims)
+
+    @property
+    def mask_shift(self) -> int:
+        """log2 of the block edge: voxel coordinate i lies in block
+        coordinate ``i >> mask_shift``."""
+        return self.mask_block.bit_length() - 1
+
     def f32_params(self) -> dict:
         """The walk's float constants, rounded to f32 as the JAX walk
         rounds them (each bound computed in f64 first)."""
@@ -97,11 +136,49 @@ class TriGridStatic(NamedTuple):
         )
 
 
+def mask_block(dims: tuple[int, int, int]) -> int:
+    """The finest power-of-two block edge f (voxels) whose occupancy mask,
+    one bit per f x f x f block of the grid padded up to a multiple of f,
+    fits ``MASK_BUDGET`` bytes."""
+    f = 1
+    while mask_bytes(dims, f) > MASK_BUDGET:
+        f *= 2
+    return f
+
+
+def mask_bytes(dims: tuple[int, int, int], f: int) -> int:
+    """Bytes of the occupancy mask of a ``dims`` grid in blocks of edge f:
+    one bit a block, in uint32 words, padded to a multiple of 16 bytes."""
+    blocks = int(np.prod([-(-n // f) for n in dims]))
+    return -(-blocks // 128) * 16
+
+
+def occupancy_mask(offsets: Tensor, static: TriGridStatic) -> Tensor:
+    """The grid's occupancy mask on the offsets' device: bit b of word w
+    (uint32) is set iff a voxel of block 32 w + b has a non-empty list.
+    Block (mx, my, mz) is ``(mx * My + my) * Mz + mz`` over
+    ``static.mask_dims`` (Mx, My, Mz); it holds voxels ``f mx`` to ``f mx +
+    f - 1`` along x (and so on), those past the grid's far faces empty."""
+    f = static.mask_block
+    (nx, ny, nz), (mx, my, mz) = static.dims, static.mask_dims
+    full = torch.zeros((mx * f, my * f, mz * f), dtype=torch.bool, device=offsets.device)
+    full[:nx, :ny, :nz] = (offsets[1:] > offsets[:-1]).view(nx, ny, nz)
+    occupied = full.view(mx, f, my, f, mz, f).any(dim=5).any(dim=3).any(dim=1).reshape(-1)
+    n_words = mask_bytes(static.dims, f) // 4
+    bits = torch.zeros(n_words * 32, dtype=torch.int64, device=offsets.device)
+    bits[:occupied.numel()] = occupied.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=offsets.device)
+    return (bits.view(n_words, 32) << shifts).sum(dim=1).to(torch.uint32)
+
+
 @dataclass(frozen=True)
 class TriGridPack:
     """A packed voxel grid. Voxel (ix, iy, iz) has id (ix * ny + iy) * nz
     + iz; its faces are ``face_ids[offsets[v]:offsets[v + 1]]``, ascending.
     ``globals_idx`` are the faces brute-forced for every ray, ascending.
+    ``mask`` is the occupancy mask (``occupancy_mask``: one bit per block
+    of ``static.mask_block`` cubed voxels, uint32 words, a multiple of 16
+    bytes), which the kernel's global-memory walk stages in shared memory.
     ``rungs`` records (n, dims, mean occupancy) of every cell size tried;
     ``pack_seconds`` the packer's wall time."""
 
@@ -109,6 +186,7 @@ class TriGridPack:
     offsets: Tensor  # [V + 1] int32
     face_ids: Tensor  # [P] int32
     globals_idx: Tensor  # [G] int32
+    mask: Tensor  # [W] uint32, W a multiple of 4
     rungs: tuple = ()
     pack_seconds: float = 0.0
 
@@ -126,7 +204,8 @@ class TriGridPack:
 
     def to(self, device) -> "TriGridPack":
         return TriGridPack(self.static, self.offsets.to(device), self.face_ids.to(device),
-                           self.globals_idx.to(device), self.rungs, self.pack_seconds)
+                           self.globals_idx.to(device), self.mask.to(device), self.rungs,
+                           self.pack_seconds)
 
 
 def _sum3(x: Tensor) -> Tensor:
@@ -262,9 +341,10 @@ def pack_tri_grid(mesh: MeshScene, cell: float | None = None) -> TriGridPack | N
     static = TriGridStatic(dims[0], dims[1], dims[2], g0[0], g0[1], g0[2], cell)
     globals_idx = torch.nonzero(big_face)[:, 0].to(torch.int32)
     face_ids = fi.to(torch.int32)
+    mask = occupancy_mask(offsets, static)
     if offsets.device.type == "cuda":
         torch.cuda.synchronize(offsets.device)
-    return TriGridPack(static, offsets, face_ids, globals_idx, tuple(rungs),
+    return TriGridPack(static, offsets, face_ids, globals_idx, mask, tuple(rungs),
                        time.perf_counter() - t_start)
 
 
@@ -277,7 +357,9 @@ def tri_grid_nearest_hit(pack: TriGridPack, mesh: MeshScene, o: Tensor, d: Tenso
     ``counts``: a dict to which the work is added (as in
     ``worklist.grid_nearest_hit``): the globals' face tests
     (``global_tests``), the rays that enter the grid (``walks``), voxels
-    visited (``voxel_visits``, empty ones included) and the walk's face
+    visited (``voxel_visits``, empty ones included), those of them whose
+    block's occupancy bit is unset (``masked_visits``: the visits the
+    kernel's global-memory walk answers from its mask) and the walk's face
     tests (``face_tests``): what the kernel's grid mode executes for these
     rays.
     """
@@ -347,6 +429,8 @@ def _walk(pack, mesh, o, d, eps, counts):
 
     offsets = pack.offsets.to(torch.int64)
     face_ids = pack.face_ids.to(torch.int64)
+    mask = pack.mask.to(torch.int64)
+    f_blk, (_, mask_ny, mask_nz) = gs.mask_block, gs.mask_dims
     fv0, fe1, fe2 = mesh.v0, mesh.e1, mesh.e2
     # the walk runs on the marching rays only; state below is indexed like ``lane``
     lane = torch.nonzero(march)[:, 0]
@@ -369,6 +453,8 @@ def _walk(pack, mesh, o, d, eps, counts):
         if counts is not None:
             add_count(counts, "voxel_visits", lane.numel())
             add_count(counts, "face_tests", length.sum())
+            blk = ((ix // f_blk) * mask_ny + iy // f_blk) * mask_nz + iz // f_blk
+            add_count(counts, "masked_visits", (((mask[blk >> 5] >> (blk & 31)) & 1) == 0).sum())
         max_len = int(length.max())
         for c0 in range(0, max_len, LIST_SLAB):
             sub = torch.nonzero(length > c0)[:, 0]

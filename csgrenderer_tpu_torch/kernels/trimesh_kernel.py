@@ -25,7 +25,12 @@ their path segments (the globals or every face, then the faces the walk
 lists; shadow rays' tests are not counted), which ``counts`` takes under
 ``"tri_tests"``: the kernel adds them into a device word of its own, the
 plain version takes them from its walk's counts (``global_tests +
-face_tests``) or, in brute mode, as faces x segments. ``LAUNCHES`` counts
+face_tests``) or, in brute mode, as faces x segments. Beside them,
+``"masked_visits"``: the voxel visits of the path segments' walks that the
+grid's occupancy mask (``tri_worklist.occupancy_mask``) answers without a
+load of the voxel's offsets; the kernel counts those its global-memory
+walk makes (0 where it stages the tables, whose walk has no mask, and in
+brute mode), the plain version those of its walk. ``LAUNCHES`` counts
 kernel launches (``LAUNCHES_BY_MODE`` per mode: brute, grid, brute-nee,
 grid-nee; ``LAUNCHES_BY_TABLES`` by where the launch read the tables a walk
 reads: staged in shared memory, or global memory when
@@ -86,6 +91,10 @@ class PackedMesh:
     ([F, 12] f32: v0, e1, e2 and a pad word, the floats of ``faces``
     columns 0-8), then in grid mode the CSR offsets, face ids and globals
     as int32, each at a 16-byte aligned offset and padded to 16 bytes.
+    The grid's occupancy mask (``grid.mask``), which the kernel stages in
+    place of the tables when it reads them from global memory, is apart
+    from this block, so ``table_bytes`` and the staged-or-global choice do
+    not depend on it.
     """
 
     mesh: MeshScene
@@ -261,21 +270,24 @@ def render_image_mesh_plain(
     """The plain torch version of the kernel, on any device. With ``nee``
     it renders with the packed lamp table as ``lights=``; ``counts`` as in
     ``integrator.trace_paths``, plus, in grid mode, the walk's work
-    (``tri_worklist.tri_grid_nearest_hit``, shadow rays included), plus
-    the path segments' triangle tests (``"tri_tests"``: ``global_tests +
-    face_tests`` of the path segments' walks, or faces x segments in brute
-    mode; shadow rays not included); ``rows``, ``row_offset``, ``jitter``
-    and ``sample_batch`` as in ``integrator.render_image``."""
+    (``tri_worklist.tri_grid_nearest_hit``, shadow rays included) but its
+    masked visits, plus the path segments' triangle tests
+    (``"tri_tests"``: ``global_tests + face_tests`` of the path segments'
+    walks, or faces x segments in brute mode) and masked visits
+    (``"masked_visits"``: 0 in brute mode), shadow rays included in
+    neither; ``rows``, ``row_offset``, ``jitter`` and ``sample_batch`` as
+    in ``integrator.render_image``."""
     if nee and packed.lamps is None:
         raise ValueError(_NO_LAMPS)
     # the path segments' walks are counted apart from the shadow rays'
     path_work = {} if counts is not None and packed.grid is not None else None
+    shadow_work = {} if path_work is not None and nee else None
     shadow_hit_fn = None
     if packed.grid is None:
         hit_fn = functools.partial(packed.mesh.nearest_hit, normals=packed.normals)
     else:
         hit_fn = _grid_hit_fn(packed, path_work)
-        shadow_hit_fn = _grid_hit_fn(packed, counts) if nee else None
+        shadow_hit_fn = _grid_hit_fn(packed, shadow_work) if nee else None
     image, rays = integrator.render_image(
         hit_fn, camera, width, height, spp=spp, max_bounces=max_bounces,
         seed=seed, sky=sky, jitter=jitter, lens=lens, sample_offset=sample_offset,
@@ -283,20 +295,24 @@ def render_image_mesh_plain(
         sample_batch=sample_batch, shadow_hit_fn=shadow_hit_fn,
     )
     if counts is not None:
+        masked = 0
         if path_work is None:
             tests = rays * packed.mesh.num_faces
         else:
-            for key, value in path_work.items():
-                add_count(counts, key, value)
+            for work in (path_work, shadow_work or {}):
+                for key, value in work.items():
+                    if key != "masked_visits":
+                        add_count(counts, key, value)
             tests = path_work.get("global_tests", 0) + path_work.get("face_tests", 0)
-        add_count(counts, "tri_tests", torch.as_tensor(tests, dtype=torch.int64,
-                                                       device=rays.device))
+            masked = path_work.get("masked_visits", 0)
+        for key, value in (("tri_tests", tests), ("masked_visits", masked)):
+            add_count(counts, key, torch.as_tensor(value, dtype=torch.int64, device=rays.device))
     return image, rays
 
 
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-_ARGTYPES = ((_VP, _VP, _VP) + (_I,) * 9 + (_F,) * 8 + (_VP,) + (_I,) * 7 + (_U, _U)
-             + (_I,) * 3 + (_VP, _VP, _VP))
+_ARGTYPES = ((_VP, _VP, _VP) + (_I,) * 9 + (_F,) * 8 + (_VP,) + (_I,) * 4 + (_VP,) + (_I,) * 7
+             + (_U, _U) + (_I,) * 3 + (_VP, _VP, _VP))
 _KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_mesh_render", _ARGTYPES, "mesh")
 _TABLE_LIMIT: dict[int, int] = {}  # device index -> the most table bytes a CTA can stage
 
@@ -322,7 +338,8 @@ def launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounc
                 sample_offset, lens, sky, nee, shared, out_rgb, out_rays, out_tests) -> tuple:
     """The arguments of ``csgr_mesh_render`` but the stream, after checking
     every tensor it passes (``out_rays``: rows x width + 1 int32;
-    ``out_tests``: one int64, which the launch zeroes and fills)."""
+    ``out_tests``: two int64, which the launch zeroes and fills with its
+    path segments' triangle tests and masked visits)."""
     dev = packed.device
     f = packed.mesh.num_faces
     lay = packed.layout
@@ -331,13 +348,17 @@ def launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounc
     build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
     build.check_tensor(out_rgb, "out_rgb", torch.float32, (rows, width, 3), dev)
     build.check_tensor(out_rays, "out_rays", torch.int32, (rows * width + 1,), dev)
-    build.check_tensor(out_tests, "out_tests", torch.int64, (), dev)
-    grid_args = [0, -1, -1, -1, 0, 0, 0] + [0.0] * 8
+    build.check_tensor(out_tests, "out_tests", torch.int64, (2,), dev)
+    grid_args = [0, -1, -1, -1, 0, 0, 0] + [0.0] * 8 + [None, 0, 0, 0, 0]
     if packed.grid is not None:
-        gs = packed.grid.static
+        g = packed.grid
+        gs = g.static
         p = gs.f32_params()
-        grid_args = [packed.grid.n_globals, lay.glob_at, lay.off_at, lay.ids_at, gs.nx, gs.ny,
-                     gs.nz] + [float(v) for v in (*p["lo"], *p["hi"], p["cell"], p["inv_cell"])]
+        build.check_tensor(g.mask, "mask", torch.uint32, (g.mask.numel(),), dev)
+        _, mask_ny, mask_nz = gs.mask_dims
+        grid_args = ([g.n_globals, lay.glob_at, lay.off_at, lay.ids_at, gs.nx, gs.ny, gs.nz]
+                     + [float(v) for v in (*p["lo"], *p["hi"], p["cell"], p["inv_cell"])]
+                     + [g.mask.data_ptr(), g.mask.numel() * 4, gs.mask_shift, mask_ny, mask_nz])
     lamp_args = [None, 0]
     if nee:
         n_lights = packed.lamps.shape[0]
@@ -355,18 +376,19 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     """Launch the kernel. Its tables are staged in shared memory when
     ``packed.table_bytes`` fits the device's limit, else read from global
     memory; ``force_global`` (tests only) reads them from global memory.
-    The launch counts its path segments' triangle tests into a device
-    word, which ``counts`` (a dict) takes under ``"tri_tests"``, added to
-    what it holds there."""
+    The launch counts its path segments' triangle tests and masked visits
+    into two device words, which ``counts`` (a dict) takes under
+    ``"tri_tests"`` and ``"masked_visits"``, added to what it holds
+    there."""
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
     _KERNEL.require_cuda(dev)
     out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
     out_rays = torch.empty(rows * width + 1, dtype=torch.int32, device=dev)  # + the work counter
-    # the launch zeroes it, then counts into it (int64: the kernel's uint64
-    # word, far from its sign bit)
-    tests = torch.empty((), dtype=torch.int64, device=dev)
+    # the launch zeroes them, then counts into them (int64: the kernel's
+    # uint64 words, far from their sign bit)
+    tests = torch.empty(2, dtype=torch.int64, device=dev)
     shared = not force_global and packed.table_bytes <= table_limit(dev.index)
     _KERNEL(dev, *launch_args(packed, cam_row, width, height, rows, row_offset, spp,
                               max_bounces, seed, sample_offset, lens, sky, nee, shared, out_rgb,
@@ -375,7 +397,8 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     LAUNCHES_BY_MODE[packed.mode + ("-nee" if nee else "")] += 1
     LAUNCHES_BY_TABLES["shared" if shared else "global"] += 1
     if counts is not None:
-        add_count(counts, "tri_tests", tests)
+        add_count(counts, "tri_tests", tests[0])
+        add_count(counts, "masked_visits", tests[1])
     return out_rgb, out_rays[:-1].sum(dtype=torch.int64)  # int32 per pixel, summed in int64
 
 
@@ -408,11 +431,11 @@ def render_image_mesh_kernel(
     (ValueError if it has none). ``rows``/``row_offset`` and ``jitter`` as
     in ``megakernel.render_image_kernel``: a full-width slab of the frame,
     and pixel centres on the CPU only. ``counts``: a dict to which the
-    frame's path-segment triangle tests are added under ``"tri_tests"``
-    as an int64 tensor (on the card a device word the launch fills:
-    nothing waits), and on the CPU every key of
-    ``render_image_mesh_plain``'s counts. Shadow rays' tests are never
-    part of ``"tri_tests"``.
+    frame's path-segment triangle tests and masked visits are added under
+    ``"tri_tests"`` and ``"masked_visits"`` as int64 tensors (on the card
+    device words the launch fills: nothing waits), and on the CPU every
+    key of ``render_image_mesh_plain``'s counts. Shadow rays' tests and
+    visits are never part of either.
     """
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")

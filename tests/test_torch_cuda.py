@@ -17,8 +17,9 @@ denoised frame replayed from a CUDA graph against the same frame enqueued
 eagerly; and progressive frames with the next frame queued behind each
 against the same frames rendered one at a time; the mesh kernel's
 triangle-test count against its plain version's, read by the renderer at
-its fence, and the mesh-720p16 cell's 102,402-face mesh through the
-renderer from global memory.
+its fence, its global-memory walk's count of the visits its occupancy
+mask answered against the plain walk's, and the mesh-720p16 cell's
+102,402-face mesh through the renderer from global memory.
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -676,6 +677,36 @@ def test_mesh_shared_and_global_tables_give_the_same_bytes(cuda, mode):
     assert torch.equal(shared, staged_global) and int(shared_rays) == int(global_rays)
 
 
+@pytest.mark.parametrize("mode", ["grid", "grid-nee"])
+def test_mesh_global_walk_counts_the_plain_versions_masked_visits(cuda, mode):
+    """The global-memory walk (forced) answers from the grid's occupancy
+    mask the voxel visits the plain walk counts as masked, on its path
+    segments; it tests the plain version's faces, renders its pinned
+    frame and matches the plain version's image. The grid mesh's 278,112
+    bytes of tables go to global memory by size anyway; meshnight's are
+    staged by size, and its staged walk, which has no mask, counts no
+    masked visit."""
+    make_packed, eye, extra = MESH_CASES[mode]
+    packed = make_packed(cuda)
+    cam = mk.pack_camera(_mesh_cam(eye, cuda)).contiguous()
+    args = (packed, cam, 64, 32, 2, 6, 2, 0, False, extra.get("sky", "rtiow"),
+            extra.get("nee", False))
+    counts, by_size, plain = {}, {}, {}
+    img, rays = tm._launch(*args, force_global=True, counts=counts)
+    tm._launch(*args, counts=by_size)
+    torch.cuda.synchronize()
+    ref, ref_rays = tm.render_image_mesh_plain(packed, _mesh_cam(eye, cuda), counts=plain,
+                                               **MESH_KW, **extra)
+    assert int(counts["tri_tests"]) == int(by_size["tri_tests"]) == int(plain["tri_tests"])
+    assert int(counts["masked_visits"]) == int(plain["masked_visits"]) > 0
+    staged = packed.table_bytes <= tm.table_limit(cuda.index or 0)
+    assert staged == (mode == "grid-nee")
+    assert int(by_size["masked_visits"]) == (0 if staged else int(counts["masked_visits"]))
+    _assert_close(ref, ref_rays, img, rays)
+    digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+    assert (digest, int(rays)) == PINNED_MESH_TAPE_FRAMES["mesh-" + mode]
+
+
 def test_mesh_over_the_limit_reads_global_memory(cuda):
     """mesh_demo_scene(4) (15,362 faces, 1,251,952 table bytes) exceeds a
     block's opt-in shared memory: the launcher picks global memory by size,
@@ -727,7 +758,9 @@ def test_mesh_kernel_counts_the_plain_versions_triangle_tests(cuda, mode):
 def test_the_renderer_reads_the_triangle_tests_at_its_fence(cuda):
     """``PathTraceRenderer.last_frame_tri_tests`` of a progressive mesh
     frame, queued behind the one before, is the kernel's count of that
-    frame, read at the fence with its segments; a sphere frame has none."""
+    frame, read at the fence with its segments, as is
+    ``last_frame_masked_visits`` (its 278,112 bytes of tables are read
+    from global memory); a sphere frame has neither."""
     scene = mesh_demo_scene(3, device=cuda)
     cam = _mesh_cam((0.0, 1.6, 2.2), cuda)
     frame = dict(width=64, height=32, spp=2, max_bounces=6, seed=2)
@@ -740,17 +773,21 @@ def test_the_renderer_reads_the_triangle_tests_at_its_fence(cuda):
                                               sample_offset=k * frame["spp"], **frame)
         assert r.last_frame_rays == int(rays)
         assert r.last_frame_tri_tests == int(counts["tri_tests"]) > 2 * int(rays)
+        assert r.last_frame_masked_visits == int(counts["masked_visits"]) > 0
     s = PathTraceRenderer(two_spheres_scene(device=cuda), cam, RenderConfig(**frame),
                           progressive=True, device=cuda)
     s.draw_frame(0.0)
     assert s.last_frame_tri_tests is None and s.last_frame_shadow_rays == 0
+    assert s.last_frame_masked_visits is None
 
 
 def test_the_102k_face_mesh_renders_through_the_renderer_from_global_tables(cuda):
     """mesh_demo_scene(5, 5), the mesh-720p16 cell's 102,402 faces: its
     19,925,808 bytes of tables (a 257 x 67 x 193 grid, two global faces) go
     to global memory, and the renderer's progressive frames (queued) match
-    the plain version's at a small frame."""
+    the plain version's at a small frame; the triangle tests and the
+    visits the occupancy mask (2 x 2 x 2 voxel blocks) answered, read at
+    the fence, are the kernel's and within 2e-3 of the plain version's."""
     scene = mesh_demo_scene(5, spheres=5, device=cuda)
     cam = _mesh_cam((0.0, 1.6, 2.2), cuda)
     frame = dict(width=128, height=64, spp=2, max_bounces=6, seed=2**31 + 11)
@@ -758,6 +795,7 @@ def test_the_102k_face_mesh_renders_through_the_renderer_from_global_tables(cuda
     packed = r._packed
     assert scene.num_faces == 102402 and packed.table_bytes == 19925808
     assert packed.grid.static.dims == (257, 67, 193) and packed.grid.n_globals == 2
+    assert packed.grid.static.mask_block == 2
     before = dict(tm.LAUNCHES_BY_TABLES)
     r.draw_frame(0.0)
     r.draw_frame(0.0)
@@ -768,11 +806,13 @@ def test_the_102k_face_mesh_renders_through_the_renderer_from_global_tables(cuda
     img, rays = tm.render_image_mesh_kernel(packed, cam, sample_offset=2, counts=counts, **frame)
     assert r.last_frame_rays == int(rays)
     assert r.last_frame_tri_tests == int(counts["tri_tests"])
+    assert r.last_frame_masked_visits == int(counts["masked_visits"])
     ref, ref_rays = tm.render_image_mesh_plain(packed, cam, counts=plain, sample_offset=2,
                                                **frame)
     _assert_close(ref, ref_rays, img, rays)
-    want = int(plain["tri_tests"])
-    assert abs(int(counts["tri_tests"]) - want) <= want * 2e-3
+    for key in ("tri_tests", "masked_visits"):
+        want = int(plain[key])
+        assert want > 0 and abs(int(counts[key]) - want) <= want * 2e-3
 
 
 # --- the a-trous filter ------------------------------------------------------

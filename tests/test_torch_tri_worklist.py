@@ -3,8 +3,12 @@ on the CPU: the SAT test against the JAX package's, the packer's
 invariants, the walk against brute Möller-Trumbore on seeded and awkward
 rays, and the plain grid render against JAX
 ``render_image(mesh.nearest_hit)`` at the bound of
-tests/test_tri_worklist.py (RMSE < 1.5e-3, rays exact).
+tests/test_tri_worklist.py (RMSE < 1.5e-3, rays exact); the occupancy
+mask's bits against the voxel lists, its block-edge rule, and the plain
+walk's count of the visits it answers.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -174,3 +178,138 @@ def test_plain_grid_render_matches_jax(sub):
     rmse = float(np.sqrt(np.mean((np.asarray(ref) - img.numpy()) ** 2)))
     assert rmse < 1.5e-3, rmse
     assert int(rays) == int(ref_rays)
+
+
+# --- the occupancy mask ------------------------------------------------------
+
+MASK_MESHES = {  # mesh, MASK_BUDGET (None: the module's), block edge
+    "demo7-102k": (lambda: mesh_demo_scene(5, 5), None, 2),
+    "demo-3842": (lambda: mesh_demo_scene(3), None, 1),
+    "demo-3842-coarse": (lambda: mesh_demo_scene(3), 128, 4),
+}
+
+
+@pytest.fixture(scope="module")
+def mask_packs():
+    """The packs of MASK_MESHES, built once (the 102,402-face mesh packs in
+    about 1.5 s)."""
+    return {}
+
+
+def _mask_pack(mask_packs, monkeypatch, name):
+    make, budget, _ = MASK_MESHES[name]
+    if budget is not None:
+        monkeypatch.setattr(tw, "MASK_BUDGET", budget)
+    if name not in mask_packs:
+        mesh = make()
+        mask_packs[name] = (mesh, tw.pack_tri_grid(mesh))
+    return mask_packs[name]
+
+
+@pytest.mark.parametrize("name", sorted(MASK_MESHES))
+def test_occupancy_mask_bits(mask_packs, monkeypatch, name):
+    """Every block's bit is set iff some voxel of the block has a non-empty
+    list, blocks that reach past the grid's far faces included; the words
+    past the last block are zero; the mask is uint32, 16-byte aligned, a
+    multiple of 16 bytes, within the budget."""
+    mesh, pack = _mask_pack(mask_packs, monkeypatch, name)
+    gs = pack.static
+    f = gs.mask_block
+    assert f == MASK_MESHES[name][2]
+    mx, my, mz = gs.mask_dims
+    assert (mx, my, mz) == tuple(-(-n // f) for n in gs.dims)
+    if f > 1:  # some blocks hang over a far face of the grid
+        assert any(n % f for n in gs.dims)
+    mask = pack.mask
+    assert mask.dtype == torch.uint32 and mask.data_ptr() % 16 == 0
+    assert mask.numel() * 4 == tw.mask_bytes(gs.dims, f) <= tw.MASK_BUDGET
+    assert mask.numel() % 4 == 0
+    # expected from the voxel lists directly, one non-empty voxel at a time
+    lens = (pack.offsets[1:] - pack.offsets[:-1]).numpy()
+    vox = np.nonzero(lens)[0]
+    ix, iy, iz = vox // (gs.ny * gs.nz), (vox // gs.nz) % gs.ny, vox % gs.nz
+    want = np.zeros(mask.numel() * 32, np.uint8)
+    want[((ix // f) * my + iy // f) * mz + iz // f] = 1
+    got = np.unpackbits(mask.view(torch.uint8).numpy(), bitorder="little")
+    assert np.array_equal(got, want)
+    assert got[mx * my * mz:].sum() == 0
+    assert 0 < got.sum() < mx * my * mz
+
+
+def test_mask_block_rule():
+    """The finest power-of-two block edge whose mask fits MASK_BUDGET: 2
+    for the 102,402-face mesh's 257 x 67 x 193 grid (415,424 bytes at 1,
+    53,184 at 2, 6,784 at 4), 1 for grids whose every voxel fits a bit;
+    each block coordinate is i >> mask_shift = i // f over the whole
+    grid."""
+    dims = (257, 67, 193)
+    assert [tw.mask_bytes(dims, f) for f in (1, 2, 4)] == [415_424, 53_184, 6_784]
+    assert tw.mask_block(dims) == 2
+    assert tw.mask_block((65, 27, 43)) == 1  # the 15,362-face bench mesh
+    for dims in ((257, 67, 193), (65, 27, 43), (1025, 700, 23), (256, 256, 256), (7, 1, 1)):
+        f = tw.mask_block(dims)
+        assert f & (f - 1) == 0 and tw.mask_bytes(dims, f) <= tw.MASK_BUDGET
+        assert f == 1 or tw.mask_bytes(dims, f // 2) > tw.MASK_BUDGET
+        gs = tw.TriGridStatic(*dims, 0.0, 0.0, 0.0, 0.1)
+        i = np.arange(max(dims), dtype=np.int64)
+        assert 1 << gs.mask_shift == f and np.array_equal(i >> gs.mask_shift, i // f)
+
+
+@pytest.mark.parametrize("name", ["demo7-102k", "demo-3842-coarse"])
+def test_plain_walk_counts_masked_visits(mask_packs, monkeypatch, name):
+    """The plain walk's masked visits are visits to voxels of empty blocks:
+    more than none on the demo 7 scene, at most its voxel visits; counting
+    them changes nothing else. A mask of every bit set (no block empty)
+    gives the same hits, voxel visits and face tests, and no masked
+    visit."""
+    mesh, pack = _mask_pack(mask_packs, monkeypatch, name)
+    o, d = (torch.from_numpy(x) for x in seeded_rays(1024, seed=11))
+    counts = {}
+    t, ids, hit = tw.tri_grid_nearest_hit(pack, mesh, o, d, counts=counts)
+    t0, ids0, hit0 = tw.tri_grid_nearest_hit(pack, mesh, o, d)
+    assert torch.equal(t, t0) and torch.equal(ids, ids0) and torch.equal(hit, hit0)
+    c = {k: int(v) for k, v in counts.items()}
+    assert 0 < c["masked_visits"] <= c["voxel_visits"]
+    full = dataclasses.replace(pack, mask=torch.full_like(pack.mask, 0xFFFFFFFF))
+    unmasked = {}
+    t1, ids1, _ = tw.tri_grid_nearest_hit(full, mesh, o, d, counts=unmasked)
+    assert torch.equal(t, t1) and torch.equal(ids, ids1)
+    u = {k: int(v) for k, v in unmasked.items()}
+    assert u.pop("masked_visits") == 0
+    assert u == {k: v for k, v in c.items() if k != "masked_visits"}
+
+
+def test_plain_render_counts_the_path_segments_masked_visits(monkeypatch):
+    """``render_image_mesh_plain(counts=)`` takes ``masked_visits`` from its
+    path segments' walks alone, as the kernel counts them: with NEE on the
+    meshnight scene, fewer than all its walks' (shadow rays' included);
+    without NEE, all of them; in brute mode 0."""
+    from csgrenderer_tpu_torch.camera import Camera
+    from csgrenderer_tpu_torch.models import mesh_night_scene
+
+    every = {}
+    walk = tm.tri_grid_nearest_hit
+
+    def counted_walk(*args, counts=None, **kw):
+        mine = {}
+        out = walk(*args, counts=mine, **kw)
+        tw.add_count(every, "masked_visits", mine["masked_visits"])
+        if counts is not None:
+            for key, value in mine.items():
+                tw.add_count(counts, key, value)
+        return out
+
+    monkeypatch.setattr(tm, "tri_grid_nearest_hit", counted_walk)
+    cam = Camera.look_at((0, 1.8, 2.4), (0.0, 0.7, -2.6), vfov_degrees=45.0, aspect_ratio=2.0)
+    frame = dict(width=24, height=12, spp=1, max_bounces=4, seed=3, sky="black")
+    packed = tm.pack_mesh(mesh_night_scene())
+    for nee in (True, False):
+        every.clear()
+        counts = {}
+        tm.render_image_mesh_plain(packed, cam, nee=nee, counts=counts, **frame)
+        path, walks = int(counts["masked_visits"]), int(every["masked_visits"])
+        assert 0 < path < walks if nee else 0 < path == walks
+    brute = {}
+    tm.render_image_mesh_plain(tm.pack_mesh(mesh_demo_scene(1), False), cam, counts=brute,
+                               **frame)
+    assert int(brute["masked_visits"]) == 0 and int(brute["tri_tests"]) > 0
