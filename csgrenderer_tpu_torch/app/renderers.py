@@ -6,8 +6,9 @@ camera and a ``RenderConfig`` and exposes ``draw_frame(time_sec) -> image``
 ``wo_renderer_draw_frame`` (renderer.h:20), plus ``last_frame_rays`` for
 the stats clock (and, on a ``PathTraceRenderer``,
 ``last_frame_shadow_rays``: NEE's shadow rays, ``last_frame_tri_tests``:
-a mesh frame's triangle tests, and ``last_frame_masked_visits``: the voxel
-visits its walk answered from the grid's occupancy mask, all read at the
+a mesh frame's triangle tests, ``last_frame_masked_visits``: the voxel
+visits its walk answered from the grid's occupancy mask, and
+``last_frame_leaf_tests``: a tape frame's leaf intervals, all read at the
 same fence).
 
 - ``WololoRenderer``: the milestone-01 animated frame (config 1), plain
@@ -123,7 +124,7 @@ class _CountFence:
     once."""
 
     # what a frame's counts may hold beside its segments
-    COUNTS = ("shadow_rays", "tri_tests", "masked_visits")
+    COUNTS = ("shadow_rays", "tri_tests", "masked_visits", "leaf_tests")
 
     def __init__(self, device: torch.device):
         self.card = device.type == "cuda"
@@ -134,8 +135,8 @@ class _CountFence:
     def stage(self, rays: torch.Tensor, counts: dict) -> None:
         """Copy the frame's segments and the counts of ``COUNTS`` that
         ``counts`` holds (NEE's shadow rays, a mesh's triangle tests and
-        masked visits) and,
-        on the card, mark the stream behind the copy."""
+        masked visits, a tape's leaf intervals) and, on the card, mark the
+        stream behind the copy."""
         self.keys = tuple(k for k in self.COUNTS if k in counts)
         src = (torch.stack((rays, *(counts[k] for k in self.keys))) if self.keys
                else rays.reshape(1))
@@ -235,6 +236,9 @@ class PathTraceRenderer:
         # it has no such count (a sphere or tape frame)
         self.last_frame_tri_tests = None
         self.last_frame_masked_visits = None
+        # the leaf intervals of the last fenced frame's path segments: None
+        # where it has no such count (a sphere or mesh frame)
+        self.last_frame_leaf_tests = None
         self._sample_offset = sample_offset
         self._animate = animate
 
@@ -296,9 +300,9 @@ class PathTraceRenderer:
 
     def _render(self, time_sec: float, partition=None, counts: dict | None = None):
         """One frame's (radiance [H, W, 3], rays int64 tensor) at the
-        current sample offset. The frame's NEE shadow rays and triangle
-        tests, where its kernel counts them, are added to ``counts``
-        (``_render_kernel``)."""
+        current sample offset. The frame's NEE shadow rays, triangle tests
+        and leaf intervals, where its kernel counts them, are added to
+        ``counts`` (``_render_kernel``)."""
         if self._animate is None:
             scene = self._packed
         else:
@@ -365,9 +369,10 @@ class PathTraceRenderer:
         """The frame's one wait, on its staged counts: its segments into
         ``last_frame_rays``, its shadow rays into
         ``last_frame_shadow_rays`` (0 without NEE, None where the kernel
-        counts none), its triangle tests into ``last_frame_tri_tests`` and
-        its masked visits into ``last_frame_masked_visits`` (None where the
-        kernel counts none)."""
+        counts none), its triangle tests into ``last_frame_tri_tests``, its
+        masked visits into ``last_frame_masked_visits`` and its leaf
+        intervals into ``last_frame_leaf_tests`` (None where the kernel
+        counts none)."""
         with profiling.span("render.fence"):
             got = self._fence.wait()
             self.last_frame_rays = got["rays"]
@@ -375,6 +380,7 @@ class PathTraceRenderer:
                                                   None if self.config.nee else 0)
             self.last_frame_tri_tests = got.get("tri_tests")
             self.last_frame_masked_visits = got.get("masked_visits")
+            self.last_frame_leaf_tests = got.get("leaf_tests")
 
     def draw_frame(self, time_sec: float) -> torch.Tensor:
         with profiling.frame("render.frame"):
@@ -554,10 +560,10 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
     ``scene`` may be packed. ``partition`` is an animated tape's cluster
     tuple; an animated tape without one takes the global evaluation rather
     than clustering on device tensors. ``counts``: a dict to which a sphere
-    frame's NEE work (``megakernel.render_image_kernel``) and a mesh
+    frame's NEE work (``megakernel.render_image_kernel``), a tape frame's
+    leaf intervals (``tape_kernel.render_image_tape_kernel``) and a mesh
     frame's triangle tests and masked visits
-    (``trimesh_kernel.render_image_mesh_kernel``) are added; the tape
-    wrapper counts none.
+    (``trimesh_kernel.render_image_mesh_kernel``) are added.
     """
     kw = dict(spp=cfg.spp, max_bounces=cfg.max_bounces, seed=cfg.seed, sky=cfg.sky, lens=cfg.lens,
               sample_offset=sample_base, nee=cfg.nee, jitter=cfg.jitter)
@@ -569,16 +575,16 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
         if isinstance(scene, CompiledTape):
             kw["partition"] = partition if partition is not None else (
                 False if animated else "auto")
-        return tape_kernel.render_image_tape_kernel(scene, camera, cfg.width, cfg.height, **kw)
-    if isinstance(scene, (MeshScene, trimesh_kernel.PackedMesh)):
-        # the path segments' triangle tests and masked visits alone: the
-        # plain version counts the walk's work too, which the kernel does
-        # not, and a frame reads alike on both
-        mesh_counts = None if counts is None else {}
-        out = trimesh_kernel.render_image_mesh_kernel(scene, camera, cfg.width, cfg.height,
-                                                      counts=mesh_counts, **kw)
-        if counts is not None:
-            for key in ("tri_tests", "masked_visits"):
-                counts[key] = mesh_counts[key]
-        return out
-    raise TypeError(f"unsupported scene type {type(scene).__name__}")
+        render, keys = tape_kernel.render_image_tape_kernel, ("leaf_tests",)
+    elif isinstance(scene, (MeshScene, trimesh_kernel.PackedMesh)):
+        render, keys = trimesh_kernel.render_image_mesh_kernel, ("tri_tests", "masked_visits")
+    else:
+        raise TypeError(f"unsupported scene type {type(scene).__name__}")
+    # the kernel's own counts alone: the plain versions count the walk's
+    # work and NEE's too, which the kernels do not, and a frame reads alike
+    # on both
+    own = None if counts is None else {}
+    out = render(scene, camera, cfg.width, cfg.height, counts=own, **kw)
+    if counts is not None:
+        counts.update((key, own[key]) for key in keys)
+    return out

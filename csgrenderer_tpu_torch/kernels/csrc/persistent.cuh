@@ -15,7 +15,10 @@
 //     geometry) at the tail of a frame;
 //   - launch_persistent: as many CTAs as the occupancy calculator fits on
 //     the device at once (no more than the units need), the counter zeroed
-//     by cudaMemsetAsync in stream order just before the launch.
+//     by cudaMemsetAsync in stream order just before the launch;
+//   - add_count: a launch's work counts (trimesh_kernel.cu's triangle
+//     tests, tape_kernel.cu's leaf intervals), each pixel's in a register,
+//     summed over the warp and added to one 64-bit word by one atomic.
 
 #pragma once
 
@@ -102,6 +105,16 @@ __device__ __forceinline__ void for_each_pixel(int* work, int width, int rows, R
     const int row = (tile / tiles_x) * kTileH + (unit % kStrips) * 2 + lane / kTileW;
     if (x < width && row < rows) render(x, row);
     __syncwarp();
+  }
+}
+
+// Adds the counts of the lanes that call this together to the launch's
+// word: their sum over the warp, added by the lowest of them.
+__device__ __forceinline__ void add_count(unsigned long long* out, unsigned count) {
+  const unsigned lanes = __activemask();
+  const unsigned sum = __reduce_add_sync(lanes, count);
+  if (static_cast<int>(threadIdx.x & 31) == __ffs(lanes) - 1) {
+    atomicAdd(out, static_cast<unsigned long long>(sum));
   }
 }
 

@@ -80,6 +80,13 @@
 //     were slower on the event flip).
 // Attribution still runs over all leaves at every hit.
 //
+// Every launch counts the leaf intervals its path segments compute (the
+// event flip's, cluster by cluster; the audit's, one a PUSH) into one
+// int64 word: each pixel's count in a register, summed over the warp's
+// lanes and added by one atomic (csgr::add_count). Shadow rays' intervals
+// and the attribution's leaf scores are not counted, as shadow rays are
+// not counted in the segments.
+//
 // Numerics: the kernel repeats, operation for operation, the float
 // arithmetic of its plain torch version (kernels/tape_kernel.py:
 // render_image_tape_plain), and is built with -fmad=false and without fast
@@ -143,6 +150,7 @@ struct Params {
   int* out_rays;           // [rows, W]
   int* out_over;           // audit mode: [rows, W] dropped spans over the pixel's segments
   int* work;               // the work-unit counter, zeroed before each launch
+  unsigned long long* out_tests;  // the launch's path-segment leaf intervals, zeroed before it
 };
 
 // v rotated by unit quaternion q: v + w t + u x t, t = 2 u x v
@@ -419,20 +427,22 @@ __device__ __forceinline__ bool candidate(const Tables& tb, int op_off, int op_n
 // cluster: the smallest candidate boundary tj with kEps < tj < kCut and
 // tj < t (t comes in as the bound: kTFar for a path ray), and `entering`,
 // the root's membership just above it. kAnyHit returns at the first flip
-// below the bound (a shadow ray needs no nearest one, nor attribution).
-// enter / exit_ are the caller's per-thread interval arrays. kRolled runs
-// the loops rolled, as the NEE kernels do (they hold two searches, the
-// path's and the shadow ray's; unrolled they ran 26-28% slower), else as
-// the compiler unrolls them (rolled, the event flip's deepcsg frame ran
-// 3-8% slower; unrolled four times, 10-15%).
+// below the bound (a shadow ray needs no nearest one, nor attribution);
+// else the intervals it computes (each cluster's leaves) are added to
+// ``tests``. enter / exit_ are the caller's per-thread interval arrays.
+// kRolled runs the loops rolled, as the NEE kernels do (they hold two
+// searches, the path's and the shadow ray's; unrolled they ran 26-28%
+// slower), else as the compiler unrolls them (rolled, the event flip's
+// deepcsg frame ran 3-8% slower; unrolled four times, 10-15%).
 template <bool kAnyHit, bool kRolled>
 __device__ __forceinline__ float nearest_flip(const Params& p, const Tables& tb, float ox,
                                               float oy, float oz, float dx, float dy, float dz,
                                               float t, bool& entering, float* enter,
-                                              float* exit_) {
+                                              float* exit_, unsigned& tests) {
   for (int c = 0; c < p.n_clusters; ++c) {
     const int op_off = tb.cl[4 * c], op_n = tb.cl[4 * c + 1];
     const int id_off = tb.cl[4 * c + 2], id_n = tb.cl[4 * c + 3];
+    if constexpr (!kAnyHit) tests += static_cast<unsigned>(id_n);
     const auto interval = [&](int j) {
       const int leaf = tb.ids[id_off + j];
       leaf_interval(tb.leaf + kLeafRow * leaf, tb.type[leaf], ox, oy, oz, dx, dy, dz, enter[j],
@@ -462,9 +472,11 @@ __device__ __forceinline__ float nearest_flip(const Params& p, const Tables& tb,
 // The audit mode's nearest surface along (o, d): the whole tape's postfix
 // ops over interval lists (tape_kernel.tape_hit_lists). Returns t (kTFar
 // where there is none) and sets `entering` and `dropped`, the spans the
-// k-slot capacity cut away.
+// k-slot capacity cut away; the leaf intervals it computes (one a PUSH)
+// are added to ``tests``.
 __device__ float list_hit(const Params& p, const Tables& tb, float ox, float oy, float oz,
-                          float dx, float dy, float dz, bool& entering, int& dropped) {
+                          float dx, float dy, float dz, bool& entering, int& dropped,
+                          unsigned& tests) {
   float l_in[kMaxStack * kMaxK], l_out[kMaxStack * kMaxK];  // the stack of lists
   int width[kMaxStack];
   float r_in[kMaxK], r_out[kMaxK], ev[4 * kMaxK + 1];
@@ -476,6 +488,7 @@ __device__ float list_hit(const Params& p, const Tables& tb, float ox, float oy,
     if (opc == kPush) {
       const int leaf = code >> 2;
       float enter, exit_;
+      ++tests;
       leaf_interval(tb.leaf + kLeafRow * leaf, tb.type[leaf], ox, oy, oz, dx, dy, dz, enter,
                     exit_);
       const float enter_c = clip_t(enter), exit_c = clip_t(exit_);
@@ -512,9 +525,10 @@ __device__ float list_hit(const Params& p, const Tables& tb, float ox, float oy,
 // One pixel's spp paths, one after another, each up to max_bounces
 // segments; the radiance is summed in sample order. kCap: slots of the
 // per-thread interval arrays (at least the largest cluster's leaves).
+// Returns the leaf intervals of the pixel's path segments.
 template <bool kNee, bool kLists, int kCap>
-__device__ __forceinline__ void render_pixel(const Params& p, const Tables& tb, const float* cam,
-                                             int x, int row) {
+__device__ __forceinline__ unsigned render_pixel(const Params& p, const Tables& tb,
+                                                 const float* cam, int x, int row) {
   const float* s_leaf = tb.leaf;
   const int* s_type = tb.type;
   const int* s_lamp = tb.lamp;
@@ -526,6 +540,7 @@ __device__ __forceinline__ void render_pixel(const Params& p, const Tables& tb, 
   csgr::Path path;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   int rays = 0, over = 0;
+  unsigned tests = 0;
   for (int k = 0; k < p.spp; ++k) {
     const uint32_t s = static_cast<uint32_t>(k) + p.sample_offset;
     csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
@@ -540,11 +555,11 @@ __device__ __forceinline__ void render_pixel(const Params& p, const Tables& tb, 
       float t;
       if (kLists) {
         int dropped;
-        t = list_hit(p, tb, ox, oy, oz, dx, dy, dz, entering, dropped);
+        t = list_hit(p, tb, ox, oy, oz, dx, dy, dz, entering, dropped, tests);
         over += dropped;
       } else {
         t = nearest_flip<false, kNee>(p, tb, ox, oy, oz, dx, dy, dz, kTFar, entering, enter,
-                                      exit_);
+                                      exit_, tests);
       }
 
       const float inv_len = csgr::inv_length(path);
@@ -615,8 +630,9 @@ __device__ __forceinline__ void render_pixel(const Params& p, const Tables& tb, 
                              p.n_lamps, u1, u2, ls)) {
           const float t_max = ls.tl * csgr::kShadowScale;
           bool unused;
+          unsigned uncounted = 0;
           if (!(nearest_flip<true, kNee>(p, tb, hx, hy, hz, ls.dx, ls.dy, ls.dz, t_max, unused,
-                                         enter, exit_) < t_max)) {
+                                         enter, exit_, uncounted) < t_max)) {
             path.sr += path.tr * ls.wr;
             path.sg += path.tg * ls.wg;
             path.sb += path.tb * ls.wb;
@@ -641,10 +657,12 @@ __device__ __forceinline__ void render_pixel(const Params& p, const Tables& tb, 
   out[2] = acc_b / spp;
   p.out_rays[out_pix] = rays;
   if (kLists) p.out_over[out_pix] = over;
+  return tests;
 }
 
 // Persistent CTAs (persistent.cuh): a CTA stages the tables once, then each
-// warp takes 16x2-pixel work units from the launch's counter.
+// warp takes 16x2-pixel work units from the launch's counter and adds each
+// pixel's leaf intervals to the launch's word.
 template <bool kNee, bool kLists, int kCap>
 __global__ void __launch_bounds__(kThreads, (kMinCtas<kNee, kLists>)) tape_kernel(const Params p) {
   csgr::stage_tables<1>({p.tables}, {p.table_bytes});
@@ -653,7 +671,7 @@ __global__ void __launch_bounds__(kThreads, (kMinCtas<kNee, kLists>)) tape_kerne
 #pragma unroll
   for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
   csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
-    render_pixel<kNee, kLists, kCap>(p, tb, cam, x, row);
+    csgr::add_count(p.out_tests, render_pixel<kNee, kLists, kCap>(p, tb, cam, x, row));
   });
 }
 
@@ -686,19 +704,21 @@ extern "C" int csgr_tape_max_k() { return kMaxK; }
 // aligned, a multiple of 16. cap: the interval arrays' slots (8, 32 or
 // 256), at least the largest cluster's leaves. list_at non-negative: the
 // audit mode, which writes out_over. out_rays holds rows x width int32
-// segment counts and one int32 more: the launch's work counter.
+// segment counts and one int32 more: the launch's work counter. out_tests
+// is one uint64, which the launch zeroes and then fills with its path
+// segments' leaf intervals.
 extern "C" int csgr_tape_render(
     const void* cam, const void* tables, int table_bytes, int type_at, int ops_at, int ids_at,
     int cl_at, int lamp_at, int list_at, int n_leaves, int n_ops, int n_clusters, int n_lamps,
     int n_list_ops, int k, int cap, int width, int height, int rows, int row_offset, int spp,
     int max_bounces, unsigned int seed, unsigned int sample_offset, int lens, int sky,
-    void* out_rgb, void* out_rays, void* out_over, void* stream) {
+    void* out_rgb, void* out_rays, void* out_over, void* out_tests, void* stream) {
   const bool lists = list_at >= 0;
   if (n_leaves < 1 || n_leaves > kMaxLeaves || n_clusters < 1 ||
       (cap != 8 && cap != 32 && cap != kMaxLeaves) ||
       (lists && (k < 1 || k > kMaxK || n_list_ops < 1 || out_over == nullptr)) ||
       rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
-      table_bytes % 16 != 0 || table_bytes < n_leaves * kLeafRow * 4) {
+      table_bytes % 16 != 0 || table_bytes < n_leaves * kLeafRow * 4 || out_tests == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reinterpret_cast<uintptr_t>(tables) % 16 != 0) {
@@ -724,9 +744,12 @@ extern "C" int csgr_tape_render(
   p.out_rays = static_cast<int*>(out_rays);
   p.out_over = static_cast<int*>(out_over);
   p.work = p.out_rays + static_cast<size_t>(rows) * width;
+  p.out_tests = static_cast<unsigned long long*>(out_tests);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  // in stream order, before the launch
+  cudaError_t err = cudaMemsetAsync(out_tests, 0, sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (n_lamps > 0) {
     err = lists ? launch_cap<true, true>(p, cap, st) : launch_cap<true, false>(p, cap, st);
   } else {

@@ -493,16 +493,6 @@ __device__ __forceinline__ unsigned render_pixel(const KernelParams<kShared>& p,
   return tests;
 }
 
-// Adds the counts of the lanes that call this together to the launch's
-// word: their sum over the warp, added by the lowest of them.
-__device__ __forceinline__ void add_count(unsigned long long* out, unsigned count) {
-  const unsigned lanes = __activemask();
-  const unsigned sum = __reduce_add_sync(lanes, count);
-  if (static_cast<int>(threadIdx.x & 31) == __ffs(lanes) - 1) {
-    atomicAdd(out, static_cast<unsigned long long>(sum));
-  }
-}
-
 // Persistent CTAs (persistent.cuh): a CTA stages the tables once (kShared),
 // or in grid mode the occupancy mask, then each warp takes 16x2-pixel work
 // units from the launch's counter and adds the unit's triangle tests (and,
@@ -520,8 +510,8 @@ __global__ void __launch_bounds__(kThreads<kShared, kNee>, kMinCtas<kShared, kNe
   for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
   csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
     unsigned masked = 0;
-    add_count(p.out_tests, render_pixel<kGrid, kNee, kShared>(p, cam, x, row, masked));
-    if constexpr (kGrid && !kShared) add_count(p.out_tests + 1, masked);
+    csgr::add_count(p.out_tests, render_pixel<kGrid, kNee, kShared>(p, cam, x, row, masked));
+    if constexpr (kGrid && !kShared) csgr::add_count(p.out_tests + 1, masked);
   });
 }
 

@@ -29,6 +29,12 @@ Where the tensors lie decides what runs:
 ``nee=True`` adds next-event estimation toward the tape's emissive sphere
 leaves (``render/lights.py``): the kernel reads each lamp's centre, radius
 and emission from its leaf table row, so a re-baked tape moves its lamps.
+Both count the leaf intervals their path segments compute (the event
+flip's, each cluster's leaves; the audit's, one a PUSH; shadow rays and the
+attribution are not counted), which ``counts`` takes under
+``"leaf_tests"``: the kernel adds them into a device word of its own, the
+plain version takes segments x leaves (the clusters partition the leaves,
+so every segment computes each leaf's interval once).
 ``LAUNCHES`` counts kernel launches (``LAUNCHES_BY_MODE`` per mode:
 "global" is one cluster covering the tape, "clustered" two or more,
 "audit" the interval-list mode, each also with "-nee"); only the launch
@@ -59,6 +65,7 @@ from ..scene.tape import OP_INTERSECT, OP_PUSH, OP_UNION, CompiledTape, stack_de
 from ..utils import profiling
 from . import build
 from .megakernel import CAM_SIZE, JITTER_ON_CPU_ONLY, pack_camera
+from .worklist import add_count
 
 KERNEL_SOURCE = "tape_kernel"
 LEAF_ROW = 16  # rot(4) pos(3) params(4) kind param albedo(3): the JAX layout
@@ -472,7 +479,9 @@ def render_image_tape_plain(
     """The plain torch version of the kernel, on any device. With ``nee``
     it renders with the packed lamps as ``lights=`` (a shadow ray is an
     event-flip ``tape_hit`` like any other); ``counts`` as in
-    ``integrator.trace_paths``. ``with_overflow``: path segments take the
+    ``integrator.trace_paths``, plus the path segments' leaf intervals
+    (``"leaf_tests"``: segments x leaves, what the kernel counts).
+    ``with_overflow``: path segments take the
     audit mode's interval lists, and the dropped spans of the segments
     traced are summed into a third result, ``over`` (int64 scalar).
     ``rows``, ``row_offset``, ``jitter`` and ``sample_batch`` as in
@@ -488,6 +497,8 @@ def render_image_tape_plain(
         lights=packed.lights if nee else None, counts=counts, shadow_hit_fn=events, rows=rows,
         row_offset=row_offset, sample_batch=sample_batch,
     )
+    if counts is not None:
+        add_count(counts, "leaf_tests", rays * packed.tape.n_leaves)
     if not with_overflow:
         return img, rays
     return img, rays, torch.stack(dropped).sum() if dropped else rays.new_zeros(())
@@ -499,7 +510,7 @@ def render_image_tape_plain(
 
 
 _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-_ARGTYPES = (_VP, _VP) + (_I,) * 20 + (_U, _U, _I, _I, _VP, _VP, _VP)
+_ARGTYPES = (_VP, _VP) + (_I,) * 20 + (_U, _U, _I, _I, _VP, _VP, _VP, _VP)
 
 
 def _check_limits(lib) -> None:
@@ -514,9 +525,10 @@ _KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_tape_render", _ARGTYPES, "tape",
 
 def launch_args(packed: PackedTape, cam_row, width, height, rows, row_offset, spp, max_bounces,
                 seed, sample_offset, lens, sky, nee, with_overflow, out_rgb, out_rays,
-                out_over) -> tuple:
+                out_over, out_tests) -> tuple:
     """The arguments of ``csgr_tape_render`` but the stream, after checking
-    every tensor it passes (``out_rays``: rows x width + 1 int32)."""
+    every tensor it passes (``out_rays``: rows x width + 1 int32;
+    ``out_tests``: one int64, which the launch zeroes and fills)."""
     dev = packed.device
     lay = packed.layout
     build.check_tensor(packed.tables, "tables", torch.float32, (lay.nbytes // 4,), dev)
@@ -525,6 +537,7 @@ def launch_args(packed: PackedTape, cam_row, width, height, rows, row_offset, sp
     build.check_tensor(out_rays, "out_rays", torch.int32, (rows * width + 1,), dev)
     if with_overflow:
         build.check_tensor(out_over, "out_over", torch.int32, (rows, width), dev)
+    build.check_tensor(out_tests, "out_tests", torch.int64, (), dev)
     n_lamps = packed.lamp_ids.numel() if nee else 0
     return (cam_row.data_ptr(), packed.tables.data_ptr(), lay.nbytes, lay.type_at, lay.ops_at,
             lay.ids_at, lay.cl_at, lay.lamp_at, lay.list_at if with_overflow else -1,
@@ -532,11 +545,14 @@ def launch_args(packed: PackedTape, cam_row, width, height, rows, row_offset, sp
             packed.list_ops.numel(), packed.tape.k, packed.interval_cap, width, height, rows,
             row_offset, spp, max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF,
             int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(), out_rays.data_ptr(),
-            None if out_over is None else out_over.data_ptr())
+            None if out_over is None else out_over.data_ptr(), out_tests.data_ptr())
 
 
 def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, sample_offset,
-            lens, sky, nee, with_overflow, rows=None, row_offset=0):
+            lens, sky, nee, with_overflow, rows=None, row_offset=0, counts=None):
+    """Launch the kernel. It counts its path segments' leaf intervals
+    into a device word, which ``counts`` (a dict) takes under
+    ``"leaf_tests"``, added to what it holds there."""
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
@@ -545,12 +561,17 @@ def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, 
                 else None)
     out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
     out_rays = torch.empty(rows * width + 1, dtype=torch.int32, device=dev)  # + the work counter
+    # the launch zeroes it, then counts into it (int64: the kernel's uint64
+    # word, far from its sign bit)
+    tests = torch.empty((), dtype=torch.int64, device=dev)
     _KERNEL(dev, *launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounces,
                               seed, sample_offset, lens, sky, nee, with_overflow, out_rgb,
-                              out_rays, out_over))
+                              out_rays, out_over, tests))
     LAUNCHES += 1
     mode = "audit" if with_overflow else packed.mode
     LAUNCHES_BY_MODE[mode + ("-nee" if nee else "")] += 1
+    if counts is not None:
+        add_count(counts, "leaf_tests", tests)
     rays = out_rays[:-1].sum(dtype=torch.int64)
     if with_overflow:
         return out_rgb, rays, out_over.sum(dtype=torch.int64)
@@ -574,6 +595,7 @@ def render_image_tape_kernel(
     partition: bool | str | tuple = "auto",
     rows: int | None = None,
     row_offset: int = 0,
+    counts: dict | None = None,
 ) -> tuple[Tensor, ...]:
     """Drop-in for ``integrator.render_image`` on a CSG tape.
 
@@ -591,7 +613,11 @@ def render_image_tape_kernel(
     Lambertian and glossy hit (ValueError if the tape has none).
     ``rows``/``row_offset`` and ``jitter`` as in
     ``megakernel.render_image_kernel``: a full-width slab of the frame, and
-    pixel centres on the CPU only.
+    pixel centres on the CPU only. ``counts``: a dict to which the frame's
+    path-segment leaf intervals are added under ``"leaf_tests"`` as an
+    int64 tensor (on the card a device word the launch fills: nothing
+    waits), and on the CPU every key of ``render_image_tape_plain``'s
+    counts. Shadow rays' intervals are never part of ``"leaf_tests"``.
     """
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")
@@ -612,11 +638,12 @@ def render_image_tape_kernel(
         return render_image_tape_plain(
             packed, camera, width, height, spp=spp, max_bounces=max_bounces,
             seed=seed, sky=sky, lens=lens, sample_offset=sample_offset, nee=nee,
-            with_overflow=with_overflow, rows=rows, row_offset=row_offset, jitter=jitter,
+            counts=counts, with_overflow=with_overflow, rows=rows, row_offset=row_offset,
+            jitter=jitter,
         )
     if not jitter:
         raise NotImplementedError(JITTER_ON_CPU_ONLY)
     return _launch(
         packed, pack_camera(camera).contiguous(), width, height, spp, max_bounces, int(seed),
-        int(sample_offset), lens, sky, nee, with_overflow, rows, int(row_offset),
+        int(sample_offset), lens, sky, nee, with_overflow, rows, int(row_offset), counts=counts,
     )

@@ -19,7 +19,9 @@ against the same frames rendered one at a time; the mesh kernel's
 triangle-test count against its plain version's, read by the renderer at
 its fence, its global-memory walk's count of the visits its occupancy
 mask answered against the plain walk's, and the mesh-720p16 cell's
-102,402-face mesh through the renderer from global memory.
+102,402-face mesh through the renderer from global memory; the tape
+kernel's leaf-interval count against its plain version's (deepcsg and the
+199-leaf many-objects scene), read by the renderer at its fence.
 
 Needs an NVIDIA GPU with nvcc: every test here carries the ``cuda`` marker
 and skips where ``torch.cuda.is_available()`` is false. The file imports
@@ -813,6 +815,82 @@ def test_the_102k_face_mesh_renders_through_the_renderer_from_global_tables(cuda
     for key in ("tri_tests", "masked_visits"):
         want = int(plain[key])
         assert want > 0 and abs(int(counts[key]) - want) <= want * 2e-3
+
+
+# --- the tape kernel's leaf-interval count ------------------------------------
+
+def _many_objects(dev):
+    return many_objects_scene(99).compile(k=4, device=dev)
+
+
+LEAF_CASES = {
+    # (tape, partition, camera, frame, mode options)
+    "deepcsg-clustered": (_deepcsg, "auto", ((0, 2.0, 7.0), (0.5, 0, 0), 40.0),
+                          dict(width=96, height=54, spp=2, max_bounces=5, seed=5), {}),
+    "deepcsg-audit": (_deepcsg, "auto", ((0, 2.0, 7.0), (0.5, 0, 0), 40.0),
+                      dict(width=96, height=54, spp=2, max_bounces=5, seed=5),
+                      dict(with_overflow=True)),
+    "manyobjects-clustered": (_many_objects, "auto", ((0, 7.0, 9.0), (0, 0.4, 0), 45.0),
+                              dict(width=128, height=72, spp=2, max_bounces=8, seed=2**31 + 11),
+                              {}),
+    "csgnight-clustered-nee": (lambda dev: csg_night_scene().compile(k=4, device=dev), "auto",
+                               ((4.5, 2.6, 4.8), (0.0, 0.8, 0.3), 38.0),
+                               dict(width=64, height=32, spp=2, max_bounces=6, seed=2,
+                                    sky="black"), dict(nee=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LEAF_CASES))
+def test_tape_kernel_counts_the_plain_versions_leaf_tests(cuda, case):
+    """The launch's leaf-interval word (an int64 tensor on the card, filled
+    with nothing waiting) is what the plain version counts, leaves x
+    segments, on deepcsg's 8 leaves (the event flip in 2 clusters and the
+    audit) and the many-objects scene's 199 (100 clusters); NEE's shadow
+    rays are not counted."""
+    make_tape, partition, (eye, at, vfov), frame, extra = LEAF_CASES[case]
+    packed = tk.pack_program(make_tape(cuda), partition)
+    cam = Camera.look_at(eye, at, vfov_degrees=vfov,
+                         aspect_ratio=frame["width"] / frame["height"], device=cuda)
+    counts, plain = {}, {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = tk.render_image_tape_kernel(packed, cam, counts=counts, **frame, **extra)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tests = counts["leaf_tests"]
+    assert tests.dtype == torch.int64 and tests.device.type == "cuda"
+    ref = tk.render_image_tape_plain(packed, cam, counts=plain, **frame, **extra)
+    leaves = packed.tape.n_leaves
+    assert int(tests) == int(out[1]) * leaves
+    assert int(plain["leaf_tests"]) == int(ref[1]) * leaves
+    _assert_close(ref[0], ref[1], out[0], out[1])
+
+
+@pytest.mark.parametrize("make_tape,eye,at,vfov,leaves",
+                         [(_many_objects, (0, 7.0, 9.0), (0, 0.4, 0), 45.0, 199),
+                          (_deepcsg, (0, 2.0, 7.0), (0.5, 0, 0), 40.0, 8)],
+                         ids=["manyobjects", "deepcsg"])
+def test_the_renderer_reads_the_leaf_tests_at_its_fence(cuda, make_tape, eye, at, vfov, leaves):
+    """``PathTraceRenderer.last_frame_leaf_tests`` of a progressive tape
+    frame, queued behind the one before, is the kernel's count of that
+    frame, leaves x segments, read at the fence with its segments; a mesh
+    frame has none."""
+    cam = Camera.look_at(eye, at, vfov_degrees=vfov, aspect_ratio=2.0, device=cuda)
+    frame = dict(width=64, height=32, spp=2, max_bounces=8, seed=2)
+    r = PathTraceRenderer(make_tape(cuda), cam, RenderConfig(**frame), progressive=True,
+                          device=cuda)
+    assert r._schedule == "queue" and r._packed.mode == "clustered"
+    for k in range(3):
+        r.draw_frame(0.0)
+        counts = {}
+        _, rays = tk.render_image_tape_kernel(r._packed, cam, counts=counts,
+                                              sample_offset=k * frame["spp"], **frame)
+        assert r.last_frame_rays == int(rays)
+        assert r.last_frame_leaf_tests == int(counts["leaf_tests"]) == leaves * int(rays)
+    s = PathTraceRenderer(mesh_demo_scene(2, device=cuda), cam, RenderConfig(**frame),
+                          progressive=True, device=cuda)
+    s.draw_frame(0.0)
+    assert s.last_frame_leaf_tests is None and s.last_frame_tri_tests > 0
 
 
 # --- the a-trous filter ------------------------------------------------------
