@@ -7,9 +7,10 @@ camera and a ``RenderConfig`` and exposes ``draw_frame(time_sec) -> image``
 the stats clock (and, on a ``PathTraceRenderer``,
 ``last_frame_shadow_rays``: NEE's shadow rays, ``last_frame_tri_tests``:
 a mesh frame's triangle tests, ``last_frame_masked_visits``: the voxel
-visits its walk answered from the grid's occupancy mask, and
-``last_frame_leaf_tests``: a tape frame's leaf intervals, all read at the
-same fence).
+visits its walk answered from the grid's occupancy mask,
+``last_frame_leaf_tests``: a tape frame's leaf intervals, and
+``last_frame_leaf_scores``: the leaf scores of its attribution through the
+cluster tree, all read at the same fence).
 
 - ``WololoRenderer``: the milestone-01 animated frame (config 1), plain
   torch ops on the renderer's device.
@@ -124,7 +125,7 @@ class _CountFence:
     once."""
 
     # what a frame's counts may hold beside its segments
-    COUNTS = ("shadow_rays", "tri_tests", "masked_visits", "leaf_tests")
+    COUNTS = ("shadow_rays", "tri_tests", "masked_visits", "leaf_tests", "leaf_scores")
 
     def __init__(self, device: torch.device):
         self.card = device.type == "cuda"
@@ -135,8 +136,8 @@ class _CountFence:
     def stage(self, rays: torch.Tensor, counts: dict) -> None:
         """Copy the frame's segments and the counts of ``COUNTS`` that
         ``counts`` holds (NEE's shadow rays, a mesh's triangle tests and
-        masked visits, a tape's leaf intervals) and, on the card, mark the
-        stream behind the copy."""
+        masked visits, a tape's leaf intervals and leaf scores) and, on the
+        card, mark the stream behind the copy."""
         self.keys = tuple(k for k in self.COUNTS if k in counts)
         src = (torch.stack((rays, *(counts[k] for k in self.keys))) if self.keys
                else rays.reshape(1))
@@ -236,9 +237,12 @@ class PathTraceRenderer:
         # it has no such count (a sphere or tape frame)
         self.last_frame_tri_tests = None
         self.last_frame_masked_visits = None
-        # the leaf intervals of the last fenced frame's path segments: None
-        # where it has no such count (a sphere or mesh frame)
+        # the leaf intervals of the last fenced frame's path segments, and
+        # the leaf scores of its attribution through the cluster tree: None
+        # where it has no such count (a sphere or mesh frame; no scores
+        # without the tree)
         self.last_frame_leaf_tests = None
+        self.last_frame_leaf_scores = None
         self._sample_offset = sample_offset
         self._animate = animate
 
@@ -370,9 +374,9 @@ class PathTraceRenderer:
         ``last_frame_rays``, its shadow rays into
         ``last_frame_shadow_rays`` (0 without NEE, None where the kernel
         counts none), its triangle tests into ``last_frame_tri_tests``, its
-        masked visits into ``last_frame_masked_visits`` and its leaf
-        intervals into ``last_frame_leaf_tests`` (None where the kernel
-        counts none)."""
+        masked visits into ``last_frame_masked_visits``, its leaf
+        intervals into ``last_frame_leaf_tests`` and its leaf scores into
+        ``last_frame_leaf_scores`` (None where the kernel counts none)."""
         with profiling.span("render.fence"):
             got = self._fence.wait()
             self.last_frame_rays = got["rays"]
@@ -381,6 +385,7 @@ class PathTraceRenderer:
             self.last_frame_tri_tests = got.get("tri_tests")
             self.last_frame_masked_visits = got.get("masked_visits")
             self.last_frame_leaf_tests = got.get("leaf_tests")
+            self.last_frame_leaf_scores = got.get("leaf_scores")
 
     def draw_frame(self, time_sec: float) -> torch.Tensor:
         with profiling.frame("render.frame"):
@@ -561,8 +566,8 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
     tuple; an animated tape without one takes the global evaluation rather
     than clustering on device tensors. ``counts``: a dict to which a sphere
     frame's NEE work (``megakernel.render_image_kernel``), a tape frame's
-    leaf intervals (``tape_kernel.render_image_tape_kernel``) and a mesh
-    frame's triangle tests and masked visits
+    leaf intervals and leaf scores (``tape_kernel.render_image_tape_kernel``)
+    and a mesh frame's triangle tests and masked visits
     (``trimesh_kernel.render_image_mesh_kernel``) are added.
     """
     kw = dict(spp=cfg.spp, max_bounces=cfg.max_bounces, seed=cfg.seed, sky=cfg.sky, lens=cfg.lens,
@@ -575,7 +580,7 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
         if isinstance(scene, CompiledTape):
             kw["partition"] = partition if partition is not None else (
                 False if animated else "auto")
-        render, keys = tape_kernel.render_image_tape_kernel, ("leaf_tests",)
+        render, keys = tape_kernel.render_image_tape_kernel, ("leaf_tests", "leaf_scores")
     elif isinstance(scene, (MeshScene, trimesh_kernel.PackedMesh)):
         render, keys = trimesh_kernel.render_image_mesh_kernel, ("tri_tests", "masked_visits")
     else:
@@ -586,5 +591,5 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
     own = None if counts is None else {}
     out = render(scene, camera, cfg.width, cfg.height, counts=own, **kw)
     if counts is not None:
-        counts.update((key, own[key]) for key in keys)
+        counts.update((key, own[key]) for key in keys if key in own)
     return out

@@ -28,8 +28,8 @@
 //     k_out, 0) to the segment's dropped-span count, which is summed per
 //     pixel into out_over. The hit is min(first enter, first exit) among
 //     boundaries in (kEps, kCut), entering iff the enter is not later;
-//   - attribution: the leaf whose surface lies nearest the hit point, over
-//     all leaves in index order (strict <), gives normal and material;
+//   - attribution: the leaf whose surface lies nearest the hit point (the
+//     first minimum in leaf order) gives normal and material;
 //   - RTIOW shading with `entering` as the dielectric's front face, PCG4D
 //     counters keyed by (pixel, sample, bounce, seed), per-pixel radiance
 //     over spp and the traced-segment count (path_common.cuh);
@@ -45,18 +45,19 @@
 //     segments.
 // A thread renders a pixel, looping over samples and bounces. The tape is
 // data, not code: the leaf table, leaf types, op tables, cluster table,
-// lamp ids and the audit's list ops are one block of tables that each CTA
-// stages in shared memory and interprets at run time, so a new tape or a
-// new clustering costs no build. Membership below and above a candidate
-// boundary is walked through the cluster's postfix ops with two bit
-// stacks (one uint64 each: stack depth <= 64).
+// lamp ids, the audit's list ops and the cluster tree are one block of
+// tables that each CTA stages in shared memory and interprets at run
+// time, so a new tape or a new clustering costs no build. Membership below
+// and above a candidate boundary is walked through the cluster's postfix
+// ops with two bit stacks (one uint64 each: stack depth <= 64).
 //
 // What bounds it on an H100: FP32 ALU work, O(sum L_c^2) for the flip
 // walks (two candidates per leaf, each a walk over the cluster's ops) and
-// O(L) for the attribution at every hit, plus warp divergence (threads of
-// a warp differ in bounce count, material and which candidates they can
-// skip). The audit mode adds O(k^2) per combine (every midpoint tested
-// against every slot of both operands) and keeps its list stack
+// O(L) for the attribution at every hit (through the cluster tree: the
+// clusters a ray reaches and the leaves near its hit), plus warp
+// divergence (threads of a warp differ in bounce count, material and which
+// candidates they can skip). The audit mode adds O(k^2) per combine (every
+// midpoint tested against every slot of both operands) and keeps its list stack
 // (kMaxStack x kMaxK pairs) and event buffer in per-thread local memory:
 // it is a correctness audit, slower than event-flip mode by design. What
 // the design does:
@@ -77,15 +78,36 @@
 //     tapes' clusters hold 2-9 leaves): the stack frame of the event flip
 //     is 96 bytes where one size of 256 slots made it 2,080 (measured
 //     neither faster nor slower; slots in shared memory, [slot][thread],
-//     were slower on the event flip).
-// Attribution still runs over all leaves at every hit.
+//     were slower on the event flip);
+//   - the cluster tree (tape_kernel_tree, the event flip without NEE on a
+//     tape the packer gave a tree: 16 or more bounded clusters). A walk
+//     over every cluster and an attribution over every leaf cost O(L) a
+//     segment whether a ray passes next to a solid or far from it, so the
+//     packer builds a binary tree of padded world boxes over the bounded
+//     clusters (kernels/tape_kernel.py: ClusterTree) and the kernel
+//     consults it twice. The flip search evaluates the unbounded clusters
+//     (a half-space's) first, then walks the tree front to back, entering
+//     a node only if its slab entry lies below the best flip so far; a
+//     candidate is taken if nearer, or as near and from an earlier
+//     cluster, so the flip is the flat loop's whatever order the clusters
+//     come in. The attribution scores the unbounded clusters' leaves and
+//     those of every cluster whose box holds the hit point, the first
+//     minimum in leaf order; a leaf scores at least its distance to its
+//     box, so one left out scores above the pad and cannot be the owner
+//     when the best score lies below half the pad (else every leaf is
+//     scored, as the flat loop does). A lane's walk runs to its next leaf
+//     node before the cluster is evaluated, so the lanes of a warp
+//     evaluate their clusters together (10% faster than each at its own
+//     step). A tape with fewer bounded clusters runs the flat loops (the
+//     threshold is conservative: the tree already wins at 8, PERF.md).
 //
 // Every launch counts the leaf intervals its path segments compute (the
 // event flip's, cluster by cluster; the audit's, one a PUSH) into one
 // int64 word: each pixel's count in a register, summed over the warp's
-// lanes and added by one atomic (csgr::add_count). Shadow rays' intervals
-// and the attribution's leaf scores are not counted, as shadow rays are
-// not counted in the segments.
+// lanes and added by one atomic (csgr::add_count). The tree kernel counts
+// the attribution's leaf scores into a second word. Shadow rays'
+// intervals are not counted, as shadow rays are not counted in the
+// segments.
 //
 // Numerics: the kernel repeats, operation for operation, the float
 // arithmetic of its plain torch version (kernels/tape_kernel.py:
@@ -106,8 +128,9 @@
 
 // The CTA's dynamic shared memory (smem_tables, persistent.cuh) holds the
 // staged tables as one block: the [L, 16] f32 leaf table, then the int32
-// leaf types, cluster ops, cluster leaf ids, [C, 4] cluster table, lamp ids
-// and (audit) list ops, each at the byte offset the packer gave it.
+// leaf types, cluster ops, cluster leaf ids, [C, 4] cluster table, lamp ids,
+// (audit) list ops, and (tree) the [M, 8] tree nodes and the unbounded
+// clusters' ids, each at the byte offset the packer gave it.
 
 namespace {
 
@@ -119,10 +142,13 @@ constexpr float kTFar = 1e9f;    // "no boundary"
 constexpr float kCut = 5e8f;     // boundaries at or past this are not surfaces
 constexpr float kEps = 1e-3f;    // hit epsilon along t
 constexpr int kThreads = 128;    // a CTA: four warps
+constexpr int kTreeStack = 16;   // the tree walks' stacks: the packer's trees are shallower
+constexpr float kFlatDir = 1e-20f;  // |d| below this: the ray runs along a box's slab
 // CTAs per SM the register budget allows, per mode (measured, PERF.md):
 // the event flip 80 registers, with NEE 64, the audit 64, the audit with
-// NEE 64.
+// NEE 64, the event flip through the cluster tree 64 (at 80, 4% slower).
 constexpr int kFlipMinCtas = 6, kFlipNeeMinCtas = 8, kAuditMinCtas = 8, kAuditNeeMinCtas = 8;
+constexpr int kTreeMinCtas = 8;
 
 template <bool kNee, bool kLists>
 constexpr int kMinCtas = kLists ? (kNee ? kAuditNeeMinCtas : kAuditMinCtas)
@@ -150,7 +176,16 @@ struct Params {
   int* out_rays;           // [rows, W]
   int* out_over;           // audit mode: [rows, W] dropped spans over the pixel's segments
   int* work;               // the work-unit counter, zeroed before each launch
-  unsigned long long* out_tests;  // the launch's path-segment leaf intervals, zeroed before it
+  unsigned long long* out_tests;  // [2]: the launch's path-segment leaf intervals and (tree)
+                                  // the attribution's leaf scores, zeroed before it
+};
+
+// The tree kernel's parameters: the others' and the cluster tree's (the
+// others take Params alone, so their code stays as it was).
+struct TreeParams : Params {
+  int node_at, free_at;  // byte offsets of the nodes and the unbounded clusters' ids
+  int n_free;            // the clusters holding an unbounded leaf
+  float score_bound;     // half the boxes' pad: a best score below it stands
 };
 
 // v rotated by unit quaternion q: v + w t + u x t, t = 2 u x v
@@ -522,6 +557,174 @@ __device__ float list_hit(const Params& p, const Tables& tb, float ox, float oy,
   return fminf(t_enter, t_exit);
 }
 
+// The cluster tree in shared memory: node i is two float4, (lo, link0)
+// and (hi, link1), the link words' int32 bits. An inner node's link0 is its
+// left child and link1 its right child << 2 | the split axis; a leaf's
+// link0 is ~cluster. Node 0 is the root.
+struct Tree {
+  const float4* nodes;
+  const int* free;  // the clusters holding an unbounded leaf, in cluster order
+};
+
+__device__ __forceinline__ Tree staged_tree(const TreeParams& p) {
+  return Tree{reinterpret_cast<const float4*>(smem_tables + p.node_at),
+              reinterpret_cast<const int*>(smem_tables + p.free_at)};
+}
+
+// One slab of a node's box along the ray: [lo, hi] against o + t d, with
+// inv = 1/d, or a flat axis (|d| < kFlatDir) inside or outside the slab.
+__device__ __forceinline__ void box_slab(float lo, float hi, float o, float inv, bool flat,
+                                         float& tn, float& tf) {
+  const float ta = (lo - o) * inv, tb = (hi - o) * inv;
+  float n = fminf(ta, tb), f = fmaxf(ta, tb);
+  if (flat) {
+    const bool inside = lo <= o && o <= hi;
+    n = inside ? -kTFar : kTFar;
+    f = inside ? kTFar : -kTFar;
+  }
+  tn = fmaxf(tn, n);
+  tf = fminf(tf, f);
+}
+
+// Cluster c's candidates against the best flip so far, t from cluster tc:
+// a candidate is taken if nearer, or as near and from an earlier cluster
+// (within one cluster strict <, as candidate()), so the walk's flip is the
+// flat loop's in whatever order the clusters come. The cluster's leaf
+// intervals are added to ``tests``.
+__device__ __forceinline__ void tree_cluster(const Tables& tb, int c, float ox, float oy,
+                                             float oz, float dx, float dy, float dz, float& t,
+                                             int& tc, bool& entering, float* enter, float* exit_,
+                                             unsigned& tests) {
+  const int op_off = tb.cl[4 * c], op_n = tb.cl[4 * c + 1];
+  const int id_off = tb.cl[4 * c + 2], id_n = tb.cl[4 * c + 3];
+  tests += static_cast<unsigned>(id_n);
+  for (int j = 0; j < id_n; ++j) {
+    const int leaf = tb.ids[id_off + j];
+    leaf_interval(tb.leaf + kLeafRow * leaf, tb.type[leaf], ox, oy, oz, dx, dy, dz, enter[j],
+                  exit_[j]);
+  }
+  for (int cand = 0; cand < 2 * id_n; ++cand) {
+    const float tj = (cand & 1) ? exit_[cand >> 1] : enter[cand >> 1];
+    if (!(tj > kEps && tj < kCut && (tj < t || (tj == t && c < tc)))) continue;
+    uint64_t below = 0, above = 0;
+    for (int i = 0; i < op_n; ++i) op_step(tb.ops[op_off + i], enter, exit_, tj, below, above);
+    if (!((below ^ above) & 1ull)) continue;
+    t = tj;
+    tc = c;
+    entering = (above & 1ull) != 0;
+  }
+}
+
+// The nearest flip of a path ray through the cluster tree: the unbounded
+// clusters, then the tree front to back (the child on the ray's side of
+// the split first), a node entered only if its box's slab entry lies below
+// the best flip so far and its exit at or past kEps. The same t and
+// `entering` as nearest_flip<false, false> over every cluster.
+__device__ __forceinline__ float tree_flip(const TreeParams& p, const Tables& tb, float ox,
+                                           float oy, float oz, float dx, float dy, float dz,
+                                           bool& entering, float* enter, float* exit_,
+                                           unsigned& tests) {
+  const Tree tr = staged_tree(p);
+  float t = kTFar;
+  int tc = p.n_clusters;
+  for (int u = 0; u < p.n_free; ++u) {
+    tree_cluster(tb, tr.free[u], ox, oy, oz, dx, dy, dz, t, tc, entering, enter, exit_, tests);
+  }
+  const bool fx = fabsf(dx) < kFlatDir, fy = fabsf(dy) < kFlatDir, fz = fabsf(dz) < kFlatDir;
+  const float ix = 1.0f / (fx ? 1.0f : dx), iy = 1.0f / (fy ? 1.0f : dy),
+              iz = 1.0f / (fz ? 1.0f : dz);
+  int stack[kTreeStack];
+  int sp = 0;
+  stack[sp++] = 0;
+  for (;;) {
+    // the walk to this lane's next cluster, then the cluster: the lanes of
+    // a warp evaluate their clusters together, not each at its own step
+    int c = -1;
+    while (sp > 0) {
+      const int i = stack[--sp];
+      const float4 lo = tr.nodes[2 * i], hi = tr.nodes[2 * i + 1];
+      float tn = -kTFar, tf = kTFar;
+      box_slab(lo.x, hi.x, ox, ix, fx, tn, tf);
+      box_slab(lo.y, hi.y, oy, iy, fy, tn, tf);
+      box_slab(lo.z, hi.z, oz, iz, fz, tn, tf);
+      if (!(tn <= tf && tf >= kEps && tn < t)) continue;
+      const int link0 = __float_as_int(lo.w), link1 = __float_as_int(hi.w);
+      if (link0 < 0) {
+        c = ~link0;
+        break;
+      }
+      const int axis = link1 & 3;
+      const bool back = (axis == 0 ? dx : (axis == 1 ? dy : dz)) < 0.0f;
+      stack[sp++] = back ? link0 : link1 >> 2;  // the far child, taken after the near one
+      stack[sp++] = back ? link1 >> 2 : link0;
+    }
+    if (c < 0) return t;
+    tree_cluster(tb, c, ox, oy, oz, dx, dy, dz, t, tc, entering, enter, exit_, tests);
+  }
+}
+
+// Leaf l's score at the hit point h and its outward normal in the world,
+// taken if the score is below best, or equal with a lower leaf index: the
+// first minimum in leaf order, in whatever order the leaves come.
+__device__ __forceinline__ void score_leaf(const Tables& tb, int l, float hx, float hy,
+                                           float hz, float& best, int& owner, float& nwx,
+                                           float& nwy, float& nwz) {
+  const float* c = tb.leaf + kLeafRow * l;
+  const float qw = c[0], qx = c[1], qy = c[2], qz = c[3];
+  float lx, ly, lz, nlx, nly, nlz;
+  rotate(qw, qx, qy, qz, hx - c[4], hy - c[5], hz - c[6], lx, ly, lz);
+  const float score = leaf_score(c, tb.type[l], lx, ly, lz, nlx, nly, nlz);
+  if (score < best || (score == best && l < owner)) {
+    best = score;
+    owner = l;
+    rotate(qw, -qx, -qy, -qz, nlx, nly, nlz, nwx, nwy, nwz);  // local -> world
+  }
+}
+
+// The attribution through the cluster tree: the leaves of the unbounded
+// clusters and of every cluster whose box holds h. A leaf left out lies
+// more than the pad from h, and scores so; if the best score is not below
+// half the pad, every leaf is scored. Sets the owner and its world normal
+// (those of the loop over every leaf) and returns the leaves scored.
+__device__ __forceinline__ unsigned tree_owner(const TreeParams& p, const Tables& tb, float hx,
+                                               float hy, float hz, int& owner, float& nwx,
+                                               float& nwy, float& nwz) {
+  const Tree tr = staged_tree(p);
+  float best = INFINITY;
+  unsigned scores = 0;
+  const auto cluster = [&](int c) {
+    const int id_off = tb.cl[4 * c + 2], id_n = tb.cl[4 * c + 3];
+    scores += static_cast<unsigned>(id_n);
+    for (int j = 0; j < id_n; ++j) {
+      score_leaf(tb, tb.ids[id_off + j], hx, hy, hz, best, owner, nwx, nwy, nwz);
+    }
+  };
+  for (int u = 0; u < p.n_free; ++u) cluster(tr.free[u]);
+  int stack[kTreeStack];
+  int sp = 0;
+  stack[sp++] = 0;
+  while (sp > 0) {
+    const int i = stack[--sp];
+    const float4 lo = tr.nodes[2 * i], hi = tr.nodes[2 * i + 1];
+    if (!(lo.x <= hx && hx <= hi.x && lo.y <= hy && hy <= hi.y && lo.z <= hz && hz <= hi.z)) {
+      continue;
+    }
+    const int link0 = __float_as_int(lo.w), link1 = __float_as_int(hi.w);
+    if (link0 < 0) {
+      cluster(~link0);
+      continue;
+    }
+    stack[sp++] = link1 >> 2;
+    stack[sp++] = link0;
+  }
+  if (!(best < p.score_bound)) {  // no leaf near enough: score them all
+    best = INFINITY;
+    scores += static_cast<unsigned>(p.n_leaves);
+    for (int l = 0; l < p.n_leaves; ++l) score_leaf(tb, l, hx, hy, hz, best, owner, nwx, nwy, nwz);
+  }
+  return scores;
+}
+
 // One pixel's spp paths, one after another, each up to max_bounces
 // segments; the radiance is summed in sample order. kCap: slots of the
 // per-thread interval arrays (at least the largest cluster's leaves).
@@ -660,6 +863,66 @@ __device__ __forceinline__ unsigned render_pixel(const Params& p, const Tables& 
   return tests;
 }
 
+// One pixel's spp paths through the cluster tree (the event flip without
+// NEE): render_pixel's loop with tree_flip and tree_owner in place of the
+// loops over every cluster and every leaf, the same operations otherwise.
+// Returns the leaf intervals of the pixel's path segments and adds their
+// leaf scores to ``scores``.
+template <int kCap>
+__device__ __forceinline__ unsigned render_pixel_tree(const TreeParams& p, const Tables& tb,
+                                                      const float* cam, int x, int row,
+                                                      unsigned& scores) {
+  const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
+  const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
+  const size_t out_pix = static_cast<size_t>(row) * p.width + x;
+
+  float enter[kCap], exit_[kCap];  // one cluster's leaves, by slot
+  csgr::Path path;
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  int rays = 0;
+  unsigned tests = 0;
+  for (int k = 0; k < p.spp; ++k) {
+    const uint32_t s = static_cast<uint32_t>(k) + p.sample_offset;
+    csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
+    path.sr = 0.0f; path.sg = 0.0f; path.sb = 0.0f;
+    for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
+      ++rays;
+      const float ox = path.ox, oy = path.oy, oz = path.oz;
+      const float dx = path.dx, dy = path.dy, dz = path.dz;
+      bool entering = false;
+      const float t = tree_flip(p, tb, ox, oy, oz, dx, dy, dz, entering, enter, exit_, tests);
+      const float inv_len = csgr::inv_length(path);
+      const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
+      if (!(t < kCut)) {  // miss: sky, path ends
+        csgr::add_sky(path, p.sky, udy);
+        break;
+      }
+      const float hx = ox + t * dx, hy = oy + t * dy, hz = oz + t * dz;
+      float nwx = 0.0f, nwy = 0.0f, nwz = 0.0f;
+      int owner = 0;
+      scores += tree_owner(p, tb, hx, hy, hz, owner, nwx, nwy, nwz);
+      const float* w = tb.leaf + kLeafRow * owner;
+      // face-forward the leaf normal against the ray
+      const float sgn = dx * nwx + dy * nwy + dz * nwz > 0.0f ? -1.0f : 1.0f;
+      if (!csgr::shade(path, hx, hy, hz, nwx * sgn, nwy * sgn, nwz * sgn, entering,
+                       static_cast<int>(w[11]), w[12], w[13], w[14], w[15], udx, udy, udz, pix,
+                       s, static_cast<uint32_t>(bounce), p.seed)) {
+        break;
+      }
+    }
+    acc_r += path.sr;
+    acc_g += path.sg;
+    acc_b += path.sb;
+  }
+  const float spp = static_cast<float>(p.spp);
+  float* out = p.out_rgb + 3 * out_pix;
+  out[0] = acc_r / spp;
+  out[1] = acc_g / spp;
+  out[2] = acc_b / spp;
+  p.out_rays[out_pix] = rays;
+  return tests;
+}
+
 // Persistent CTAs (persistent.cuh): a CTA stages the tables once, then each
 // warp takes 16x2-pixel work units from the launch's counter and adds each
 // pixel's leaf intervals to the launch's word.
@@ -675,10 +938,32 @@ __global__ void __launch_bounds__(kThreads, (kMinCtas<kNee, kLists>)) tape_kerne
   });
 }
 
+// The event flip through the cluster tree: each pixel's leaf intervals to
+// the launch's first word, its leaf scores to the second.
+template <int kCap>
+__global__ void __launch_bounds__(kThreads, kTreeMinCtas) tape_kernel_tree(const TreeParams p) {
+  csgr::stage_tables<1>({p.tables}, {p.table_bytes});
+  const Tables tb = staged_tables(p);
+  float cam[csgr::kCamFloats];
+#pragma unroll
+  for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
+  csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
+    unsigned scores = 0;
+    csgr::add_count(p.out_tests, render_pixel_tree<kCap>(p, tb, cam, x, row, scores));
+    csgr::add_count(p.out_tests + 1, scores);
+  });
+}
+
 template <bool kNee, bool kLists, int kCap>
 cudaError_t launch(const Params& p, cudaStream_t st) {
   return csgr::launch_persistent(tape_kernel<kNee, kLists, kCap>, p, kThreads, p.table_bytes,
                                  p.width, p.rows, p.work, st);
+}
+
+cudaError_t launch_tree(const TreeParams& p, int cap, cudaStream_t st) {
+  const auto kernel = cap == 8 ? tape_kernel_tree<8>
+                               : (cap == 32 ? tape_kernel_tree<32> : tape_kernel_tree<kMaxLeaves>);
+  return csgr::launch_persistent(kernel, p, kThreads, p.table_bytes, p.width, p.rows, p.work, st);
 }
 
 // The audit without NEE holds no cluster intervals: one small cap serves.
@@ -699,22 +984,28 @@ extern "C" int csgr_tape_max_stack() { return kMaxStack; }
 extern "C" int csgr_tape_max_k() { return kMaxK; }
 
 // tables: the leaf table [L, 16] f32, then int32 leaf types, cluster ops,
-// cluster leaf ids, the [C, 4] cluster table, lamp ids and (audit) list
-// ops at byte offsets type_at ... list_at; table_bytes long, 16-byte
-// aligned, a multiple of 16. cap: the interval arrays' slots (8, 32 or
-// 256), at least the largest cluster's leaves. list_at non-negative: the
-// audit mode, which writes out_over. out_rays holds rows x width int32
-// segment counts and one int32 more: the launch's work counter. out_tests
-// is one uint64, which the launch zeroes and then fills with its path
-// segments' leaf intervals.
+// cluster leaf ids, the [C, 4] cluster table, lamp ids, (audit) list ops,
+// the [n_nodes, 8] tree nodes and the n_free unbounded clusters' ids at
+// byte offsets type_at ... free_at; table_bytes long, 16-byte aligned, a
+// multiple of 16. cap: the interval arrays' slots (8, 32 or 256), at least
+// the largest cluster's leaves. list_at non-negative: the audit mode, which
+// writes out_over. n_nodes positive: the tape has a cluster tree, which the
+// event flip without NEE walks (score_bound: half the boxes' pad). out_rays
+// holds rows x width int32 segment counts and one int32 more: the launch's
+// work counter. out_tests is two uint64, which the launch zeroes and then
+// fills with its path segments' leaf intervals and (tree) the
+// attribution's leaf scores.
 extern "C" int csgr_tape_render(
     const void* cam, const void* tables, int table_bytes, int type_at, int ops_at, int ids_at,
-    int cl_at, int lamp_at, int list_at, int n_leaves, int n_ops, int n_clusters, int n_lamps,
-    int n_list_ops, int k, int cap, int width, int height, int rows, int row_offset, int spp,
-    int max_bounces, unsigned int seed, unsigned int sample_offset, int lens, int sky,
+    int cl_at, int lamp_at, int list_at, int node_at, int free_at, int n_leaves, int n_ops,
+    int n_clusters, int n_lamps, int n_list_ops, int n_nodes, int n_free, int k, int cap,
+    int width, int height, int rows, int row_offset, int spp, int max_bounces,
+    unsigned int seed, unsigned int sample_offset, int lens, int sky, float score_bound,
     void* out_rgb, void* out_rays, void* out_over, void* out_tests, void* stream) {
   const bool lists = list_at >= 0;
+  const bool tree = n_nodes > 0 && !lists && n_lamps == 0;
   if (n_leaves < 1 || n_leaves > kMaxLeaves || n_clusters < 1 ||
+      (n_nodes > 0 && (n_free < 0 || node_at % 16 != 0 || free_at < node_at + 32 * n_nodes)) ||
       (cap != 8 && cap != 32 && cap != kMaxLeaves) ||
       (lists && (k < 1 || k > kMaxK || n_list_ops < 1 || out_over == nullptr)) ||
       rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
@@ -724,7 +1015,7 @@ extern "C" int csgr_tape_render(
   if (reinterpret_cast<uintptr_t>(tables) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);  // the bulk copy
   }
-  Params p;
+  TreeParams p;
   p.cam = static_cast<const float*>(cam);
   p.tables = static_cast<const unsigned char*>(tables);
   p.table_bytes = table_bytes;
@@ -745,12 +1036,17 @@ extern "C" int csgr_tape_render(
   p.out_over = static_cast<int*>(out_over);
   p.work = p.out_rays + static_cast<size_t>(rows) * width;
   p.out_tests = static_cast<unsigned long long*>(out_tests);
+  p.node_at = node_at; p.free_at = free_at;
+  p.n_free = n_free;
+  p.score_bound = score_bound;
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // in stream order, before the launch
-  cudaError_t err = cudaMemsetAsync(out_tests, 0, sizeof(unsigned long long), st);
+  cudaError_t err = cudaMemsetAsync(out_tests, 0, 2 * sizeof(unsigned long long), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_lamps > 0) {
+  if (tree) {
+    err = launch_tree(p, cap, st);
+  } else if (n_lamps > 0) {
     err = lists ? launch_cap<true, true>(p, cap, st) : launch_cap<true, false>(p, cap, st);
   } else {
     err = lists ? launch_cap<false, true>(p, cap, st) : launch_cap<false, false>(p, cap, st);

@@ -17,7 +17,15 @@ evaluations:
   (0: every evaluation was exact). Away from overflow it gives the event
   flip's image.
 
-Attribution (normal and material) always runs over all leaves.
+Attribution (normal and material) is the leaf whose surface lies nearest
+the hit point. On a tape of ``TREE_MIN_CLUSTERS`` or more bounded clusters
+the packer also builds a ``ClusterTree``, a binary tree of padded world
+boxes over them, and the kernel's event flip without NEE walks it: a ray
+evaluates the clusters holding an unbounded leaf and those whose boxes it
+reaches nearer than its best flip so far, and a hit scores the leaves of
+the unbounded clusters and of the clusters whose boxes hold it (every leaf
+where none scores below half the pad). The image is the one of a walk over
+every cluster and a score of every leaf, which the plain version computes.
 
 Where the tensors lie decides what runs:
 
@@ -30,15 +38,18 @@ Where the tensors lie decides what runs:
 leaves (``render/lights.py``): the kernel reads each lamp's centre, radius
 and emission from its leaf table row, so a re-baked tape moves its lamps.
 Both count the leaf intervals their path segments compute (the event
-flip's, each cluster's leaves; the audit's, one a PUSH; shadow rays and the
-attribution are not counted), which ``counts`` takes under
-``"leaf_tests"``: the kernel adds them into a device word of its own, the
-plain version takes segments x leaves (the clusters partition the leaves,
-so every segment computes each leaf's interval once).
+flip's, each cluster's leaves; the audit's, one a PUSH; shadow rays are not
+counted), which ``counts`` takes under ``"leaf_tests"``: the kernel adds
+them into a device word of its own, the plain version takes segments x
+leaves (the clusters partition the leaves, so every segment computes each
+leaf's interval once). Through the cluster tree the kernel also counts the
+attribution's leaf scores into a second word (``"leaf_scores"``), and the
+plain version replays the tree's walks to count both as the kernel does.
 ``LAUNCHES`` counts kernel launches (``LAUNCHES_BY_MODE`` per mode:
 "global" is one cluster covering the tape, "clustered" two or more,
-"audit" the interval-list mode, each also with "-nee"); only the launch
-site adds to them.
+"audit" the interval-list mode, each also with "-nee";
+``LAUNCHES_BY_SEARCH``: "tree" where the launch walked the cluster tree,
+else "flat"); only the launch site adds to them.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -60,7 +72,7 @@ from ..render.intersect import T_FAR
 from ..render.interval import SURFACE_CUTOFF as CUT
 from ..render.lights import SphereLights, extract_tape_lights
 from ..scene.graph import NodeType
-from ..scene.partition import partition_tape
+from ..scene.partition import leaf_bounds, partition_tape
 from ..scene.tape import OP_INTERSECT, OP_PUSH, OP_UNION, CompiledTape, stack_depth
 from ..utils import profiling
 from . import build
@@ -74,15 +86,122 @@ MAX_STACK = 64  # the kernel's membership bit stacks and audit list stack (csrc 
 MAX_K = 16  # the audit mode's slots per interval list (csrc kMaxK)
 INTERVAL_CAPS = (8, 32, MAX_LEAVES)  # the kernel's interval-array sizes (csrc launch_cap)
 EPS = 1e-3  # hit epsilon along t
+TREE_MIN_CLUSTERS = 16  # bounded clusters from which the packer builds a cluster tree
+TREE_STACK = 16  # the kernel's tree walks' stack (csrc kTreeStack)
+TREE_PAD = 1e-3  # the tree's boxes' pad, a share of the bounded clusters' diagonal
+FLAT_DIR = 1e-20  # |d| below this: the ray runs along a box's slab (csrc kFlatDir)
 # candidate-by-leaf membership elements per chunk of the plain version
 _PLAIN_CHUNK = 1 << 26
 
 LAUNCHES = 0
 LAUNCHES_BY_MODE = {"global": 0, "clustered": 0, "global-nee": 0, "clustered-nee": 0,
                     "audit": 0, "audit-nee": 0}
-build.count_launches(__name__, "LAUNCHES", "LAUNCHES_BY_MODE")
+LAUNCHES_BY_SEARCH = {"flat": 0, "tree": 0}
+build.count_launches(__name__, "LAUNCHES", "LAUNCHES_BY_MODE", "LAUNCHES_BY_SEARCH")
 
 _NO_LAMPS = "nee=True but the tape has no emissive sphere leaves"
+
+
+class ClusterTree(NamedTuple):
+    """A binary tree of padded world boxes over a tape's bounded clusters,
+    as the kernel walks it (``cluster_tree``).
+
+    - ``lo``, ``hi`` [M, 3] f32: node i's box. A leaf node's is the union of
+      its cluster's leaves' AABBs (``partition.leaf_bounds``) widened by
+      ``pad`` and rounded outward, an inner node's the union of its
+      children's. Node 0 is the root; the nodes are in depth-first order.
+    - ``link`` [M, 2] int32: an inner node's left child, and its right
+      child << 2 | the axis its clusters were split on; a leaf node's
+      ~cluster, and 0.
+    - ``free`` [U] int32: the clusters holding an unbounded leaf (a
+      half-space), in cluster order, which every ray evaluates and every hit
+      scores.
+    - ``pad``: the boxes' pad in world units; ``score_bound``, half of it
+      in float32, the best score below which the leaves near a hit stand
+      for all.
+    """
+
+    lo: Tensor
+    hi: Tensor
+    link: Tensor
+    free: Tensor
+    pad: float
+    score_bound: float
+
+    def to(self, device) -> "ClusterTree":
+        return self._replace(**{f: getattr(self, f).to(device)
+                                for f in ("lo", "hi", "link", "free")})
+
+    @property
+    def words(self) -> Tensor:
+        """The nodes as the kernel stages them: [M, 8] int32, (lo, link0,
+        hi, link1) with the boxes' float32 bits."""
+        return torch.cat([self.lo.view(torch.int32), self.link[:, :1],
+                          self.hi.view(torch.int32), self.link[:, 1:]], dim=1)
+
+
+def _round_out(x: np.ndarray, down: bool) -> np.ndarray:
+    """float64 x as float32, rounded toward -inf (``down``) or +inf."""
+    y = x.astype(np.float32)
+    step = np.nextafter(y, np.float32(-np.inf if down else np.inf))
+    return np.where(y > x, step, y) if down else np.where(y < x, step, y)
+
+
+def cluster_tree(tape: CompiledTape, clusters) -> ClusterTree | None:
+    """The cluster tree over ``clusters`` (``PackedTape.clusters``), or None
+    when fewer than ``TREE_MIN_CLUSTERS`` of them are bounded (a
+    conservative threshold: the tree already wins from 8, PERF.md §6).
+
+    A cluster is bounded when all its leaves are; its box is their AABBs'
+    union (the subtracted leaves too, which the attribution scores), padded
+    by ``TREE_PAD`` of the bounded boxes' diagonal. The tree splits its
+    clusters at the median of their boxes' centres along the axis where the
+    centres spread widest, down to one cluster a leaf node.
+    """
+    bounds = leaf_bounds(tape)
+    boxes, free = {}, []
+    for c, (_, leaves) in enumerate(clusters):
+        own = [bounds[leaf] for leaf in leaves]
+        if any(b is None for b in own):
+            free.append(c)
+            continue
+        boxes[c] = (np.min([b[0] for b in own], axis=0), np.max([b[1] for b in own], axis=0))
+    if len(boxes) < TREE_MIN_CLUSTERS:
+        return None
+    lo_all = np.min([b[0] for b in boxes.values()], axis=0)
+    hi_all = np.max([b[1] for b in boxes.values()], axis=0)
+    pad = TREE_PAD * float(np.linalg.norm(hi_all - lo_all))
+    centre = {c: (lo + hi) / 2 for c, (lo, hi) in boxes.items()}
+    nodes: list = []
+
+    def build(ids, depth):
+        if depth >= TREE_STACK:
+            raise ValueError(f"the cluster tree is deeper than the kernel's {TREE_STACK} levels")
+        at = len(nodes)
+        nodes.append(None)
+        if len(ids) == 1:
+            lo, hi = boxes[ids[0]]
+            nodes[at] = (_round_out(lo - pad, True), _round_out(hi + pad, False), ~ids[0], 0)
+            return at
+        spread = np.ptp([centre[c] for c in ids], axis=0)
+        axis = int(np.argmax(spread))
+        order = sorted(ids, key=lambda c: (centre[c][axis], c))
+        left = build(order[:len(order) // 2], depth + 1)
+        right = build(order[len(order) // 2:], depth + 1)
+        nodes[at] = (np.minimum(nodes[left][0], nodes[right][0]),
+                     np.maximum(nodes[left][1], nodes[right][1]), left, right << 2 | axis)
+        return at
+
+    build(sorted(boxes), 0)
+    dev = tape.device
+    return ClusterTree(
+        lo=torch.tensor(np.stack([n[0] for n in nodes]), dtype=torch.float32, device=dev),
+        hi=torch.tensor(np.stack([n[1] for n in nodes]), dtype=torch.float32, device=dev),
+        link=torch.tensor([n[2:] for n in nodes], dtype=torch.int32, device=dev),
+        free=torch.tensor(free, dtype=torch.int32, device=dev),
+        pad=pad,
+        score_bound=float(np.float32(pad / 2)),
+    )
 
 
 @dataclass(frozen=True)
@@ -103,10 +222,13 @@ class PackedTape:
       (``extract_tape_lights``), or None when the tape has none;
     - ``list_ops`` [len(tape.ops)] int32, the whole tape as the audit mode
       runs it: ``opcode | leaf << 2``;
+    - ``tree``: the ``ClusterTree`` over the bounded clusters, or None
+      (fewer than ``TREE_MIN_CLUSTERS`` of them);
     - ``tables``: all of the above but the clusters' host tuple, in one
       block the kernel stages in shared memory (``table_layout``): the leaf
-      table's f32 words, then the int32 tables, each at a 16-byte aligned
-      offset and padded to 16 bytes.
+      table's f32 words, then the int32 tables (the tree's nodes as
+      ``ClusterTree.words`` and its unbounded clusters), each at a 16-byte
+      aligned offset and padded to 16 bytes.
     """
 
     tape: CompiledTape
@@ -119,6 +241,7 @@ class PackedTape:
     lamp_ids: Tensor | None
     list_ops: Tensor
     tables: Tensor  # [table_bytes / 4] f32 (int32 words past the leaf table)
+    tree: ClusterTree | None = None
 
     @property
     def mode(self) -> str:
@@ -155,10 +278,11 @@ class PackedTape:
 
     def to(self, device) -> "PackedTape":
         lamp_ids = None if self.lamp_ids is None else self.lamp_ids.to(device)
+        tree = None if self.tree is None else self.tree.to(device)
         return PackedTape(self.tape.to(device), self.clusters, *(
             getattr(self, f).to(device)
             for f in ("leaf_table", "leaf_types", "ops", "cluster_table", "leaf_ids")
-        ), lamp_ids, self.list_ops.to(device), self.tables.to(device))
+        ), lamp_ids, self.list_ops.to(device), self.tables.to(device), tree)
 
 
 class TableLayout(NamedTuple):
@@ -171,6 +295,8 @@ class TableLayout(NamedTuple):
     cl_at: int
     lamp_at: int
     list_at: int
+    node_at: int
+    free_at: int
     nbytes: int
 
 
@@ -181,7 +307,9 @@ def _pad16(nbytes: int) -> int:
 def table_layout(packed: PackedTape) -> TableLayout:
     """Where ``PackedTape.tables`` holds what: the [L, 16] f32 leaf table
     from byte 0, then the leaf types, cluster ops, cluster leaf ids, [C, 4]
-    cluster table, lamp ids and list ops, each padded to 16 bytes."""
+    cluster table, lamp ids, list ops, the tree's [M, 8] nodes and its
+    unbounded clusters (both empty without a tree), each padded to 16
+    bytes."""
     at = [packed.leaf_table.numel() * 4]
     for t in _int_tables(packed):
         at.append(at[-1] + _pad16(4 * t.numel()))
@@ -189,9 +317,12 @@ def table_layout(packed: PackedTape) -> TableLayout:
 
 
 def _int_tables(packed: PackedTape) -> tuple:
-    lamps = packed.leaf_types.new_zeros(0) if packed.lamp_ids is None else packed.lamp_ids
+    none = packed.leaf_types.new_zeros(0)
+    lamps = none if packed.lamp_ids is None else packed.lamp_ids
+    tree = packed.tree
+    nodes, free = (none, none) if tree is None else (tree.words.reshape(-1), tree.free)
     return (packed.leaf_types, packed.ops, packed.leaf_ids, packed.cluster_table.reshape(-1),
-            lamps, packed.list_ops)
+            lamps, packed.list_ops, nodes, free)
 
 
 def _tables(packed: PackedTape) -> Tensor:
@@ -199,7 +330,7 @@ def _tables(packed: PackedTape) -> Tensor:
     tab = torch.zeros(lay.nbytes // 4, dtype=torch.float32, device=packed.leaf_table.device)
     tab[:packed.leaf_table.numel()] = packed.leaf_table.reshape(-1)
     words = tab.view(torch.int32)
-    for at, t in zip(lay[:6], _int_tables(packed)):
+    for at, t in zip(lay[:-1], _int_tables(packed)):
         words[at // 4:at // 4 + t.numel()] = t
     return tab
 
@@ -223,7 +354,9 @@ def pack_program(tape: CompiledTape, partition: bool | str | tuple = "auto") -> 
     when nothing splits); False forces the global evaluation; a tuple is a
     precomputed ``partition_tape`` result taken as it is (the empty tuple
     means global). Raises ValueError past the kernel's limits: more than
-    ``MAX_LEAVES`` leaves or a stack deeper than ``MAX_STACK``.
+    ``MAX_LEAVES`` leaves or a stack deeper than ``MAX_STACK``. The
+    ``ClusterTree`` is built here too, from the leaves read on the host (a
+    tape on the card is copied once).
     """
     if tape.k < 1:
         raise ValueError(f"interval capacity k must be >= 1, got {tape.k}")
@@ -271,6 +404,7 @@ def pack_program(tape: CompiledTape, partition: bool | str | tuple = "auto") -> 
             lamp_ids=i32(lamp_ids.tolist()) if lamp_ids.size else None,
             list_ops=i32([opc | (arg << 2) if opc == OP_PUSH else opc for opc, arg in tape.ops]),
             tables=torch.zeros(0, dtype=torch.float32, device=dev),
+            tree=cluster_tree(tape, clusters) if len(clusters) > 1 else None,
         )
         return dataclasses.replace(packed, tables=_tables(packed))
 
@@ -329,19 +463,23 @@ def _fold(c_ops, mem: Tensor) -> Tensor:
     return stack[0]
 
 
-def tape_hit_events(packed: PackedTape, o: Tensor, d: Tensor) -> tuple[Tensor, Tensor]:
+def tape_hit_events(packed: PackedTape, o: Tensor, d: Tensor,
+                    flips: list | None = None) -> tuple[Tensor, Tensor]:
     """Event-flip nearest surface of rays [N, 3]: (t [N], entering [N]).
 
     t is T_FAR where nothing flips. Candidates go cluster by cluster, and
     in each the leaves in order, enter before exit; the first strictly
     nearest candidate wins (two candidates at one t give the same tree
     values, so within a cluster a first-minimum argmin is the same rule).
+    ``flips``: a list to which each cluster's nearest flip [N] (T_FAR where
+    it has none) is appended, in cluster order.
     """
     enter, exit_ = _leaf_intervals(packed, o, d)
     n = o.shape[0]
     t = torch.full((n,), T_FAR, dtype=torch.float32, device=o.device)
     entering = torch.zeros((n,), dtype=torch.bool, device=o.device)
     for c_ops, c_leaves in packed.clusters:
+        own = torch.full((n,), T_FAR, dtype=torch.float32, device=o.device)
         slot = {leaf: j for j, leaf in enumerate(c_leaves)}
         local_ops = [(opc, slot[arg] if opc == OP_PUSH else 0) for opc, arg in c_ops]
         e, x = enter[:, list(c_leaves)], exit_[:, list(c_leaves)]  # [N, Lc]
@@ -360,7 +498,90 @@ def tape_hit_events(packed: PackedTape, o: Tensor, d: Tensor) -> tuple[Tensor, T
             better = best < t
             t = torch.where(better, best, t)
             entering = torch.where(better, torch.gather(above, -1, first)[:, 0], entering)
+            own = torch.minimum(own, best)
+        if flips is not None:
+            flips.append(own)
     return t, entering
+
+
+def _node_slabs(lo: Tensor, hi: Tensor, o: Tensor, inv: Tensor, flat: Tensor):
+    """(entry, exit) [K] of boxes [K, 3] along rays [K, 3], with inv = 1/d
+    and the flat axes (|d| < FLAT_DIR) as the kernel's box_slab takes them."""
+    ta, tb = (lo - o) * inv, (hi - o) * inv
+    inside = (lo <= o) & (o <= hi)
+    near = torch.where(flat, torch.where(inside, -T_FAR, T_FAR), torch.minimum(ta, tb))
+    far = torch.where(flat, torch.where(inside, T_FAR, -T_FAR), torch.maximum(ta, tb))
+    return (torch.clamp(near.amax(dim=-1), min=-T_FAR),
+            torch.clamp(far.amin(dim=-1), max=T_FAR))
+
+
+def tree_flip_tests(packed: PackedTape, o: Tensor, d: Tensor, flips: Tensor) -> Tensor:
+    """The leaf intervals [N] int64 that the kernel's walk of the cluster
+    tree computes for rays [N, 3], given each cluster's nearest flip
+    ``flips`` [N, C] (``tape_hit_events(flips=)``): the walk replayed on
+    every ray at once, with the kernel's slab arithmetic, child order and
+    prune comparison, the best flip after a cluster the lesser of the two."""
+    tree = packed.tree
+    dev, n = o.device, o.shape[0]
+    size = packed.cluster_table[:, 3].to(device=dev, dtype=torch.int64)
+    t = torch.full((n,), T_FAR, dtype=torch.float32, device=dev)
+    tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    for c in tree.free.tolist():
+        t = torch.minimum(t, flips[:, c])
+        tests += size[c]
+    flat = torch.abs(d) < FLAT_DIR
+    inv = 1.0 / torch.where(flat, 1.0, d)
+    link = tree.link.to(torch.int64)
+    stack = torch.zeros((n, TREE_STACK), dtype=torch.int64, device=dev)  # the root on each
+    sp = torch.ones(n, dtype=torch.int64, device=dev)
+    while True:
+        live = torch.nonzero(sp > 0)[:, 0]
+        if live.numel() == 0:
+            return tests
+        sp[live] -= 1
+        node = stack[live, sp[live]]
+        tn, tf = _node_slabs(tree.lo[node], tree.hi[node], o[live], inv[live], flat[live])
+        enter = (tn <= tf) & (tf >= EPS) & (tn < t[live])
+        link0, link1 = link[node, 0], link[node, 1]
+        leaf = enter & (link0 < 0)
+        rays, c = live[leaf], ~link0[leaf]
+        t[rays] = torch.minimum(t[rays], flips[rays, c])
+        tests[rays] += size[c]
+        inner = enter & (link0 >= 0)
+        rays, left, right = live[inner], link0[inner], link1[inner] >> 2
+        back = d[rays, link1[inner] & 3] < 0.0
+        stack[rays, sp[rays]] = torch.where(back, left, right)  # the far child
+        stack[rays, sp[rays] + 1] = torch.where(back, right, left)
+        sp[rays] += 2
+
+
+def tree_candidates(packed: PackedTape, p: Tensor) -> Tensor:
+    """The leaves [N, L] (bool) the kernel's attribution through the tree
+    scores first at points p [N, 3]: those of the unbounded clusters and
+    of every cluster whose box holds the point (a leaf node is reached iff
+    its box holds it: every box above holds the box)."""
+    tree = packed.tree
+    leaf_nodes = torch.nonzero(tree.link[:, 0] < 0)[:, 0]
+    holds = ((tree.lo[leaf_nodes] <= p[:, None]) & (p[:, None] <= tree.hi[leaf_nodes])).all(-1)
+    near = torch.zeros((p.shape[0], len(packed.clusters)), dtype=torch.bool, device=p.device)
+    near[:, (~tree.link[leaf_nodes, 0]).long()] = holds
+    near[:, tree.free.long()] = True
+    cluster_of = [0] * packed.tape.n_leaves
+    for c, (_, leaves) in enumerate(packed.clusters):
+        for leaf in leaves:
+            cluster_of[leaf] = c
+    return near[:, cluster_of]
+
+
+def tree_score_counts(packed: PackedTape, p: Tensor, score: Tensor) -> Tensor:
+    """The leaf scores [N] int64 the kernel's attribution through the tree
+    computes at hit points p [N, 3] whose leaves score ``score`` [N, L]:
+    ``tree_candidates``, and every leaf again where none of them scores
+    below ``ClusterTree.score_bound``."""
+    cand = tree_candidates(packed, p)
+    best = torch.where(cand, score, torch.inf).amin(dim=-1)
+    every = torch.where(best < packed.tree.score_bound, 0, packed.tape.n_leaves)
+    return cand.sum(dim=-1) + every
 
 
 def _leaf_scores(packed: PackedTape, p: Tensor) -> tuple[Tensor, Tensor]:
@@ -421,25 +642,37 @@ def tape_hit_lists(packed: PackedTape, o: Tensor, d: Tensor) -> tuple[Tensor, Te
     return t, entering, dropped
 
 
-def tape_hit(packed: PackedTape, o: Tensor, d: Tensor, dropped: list | None = None) -> SurfaceHit:
+def tape_hit(packed: PackedTape, o: Tensor, d: Tensor, dropped: list | None = None,
+             counts: dict | None = None) -> SurfaceHit:
     """The kernel's hit, as a ``SurfaceHit`` of rays [..., 3].
 
     The normal is the owning leaf's, face-forwarded by ``dot(d, n) > 0``;
     ``front_face`` is the solid-level ``entering`` flag. ``dropped``: a
     list given for the audit mode, which takes t and ``entering`` from the
     interval lists (``tape_hit_lists``) and appends the rays' dropped-span
-    total (int64 tensor); without it, the event flip.
+    total (int64 tensor); without it, the event flip. ``counts``: a dict to
+    which the leaf intervals and leaf scores the kernel's walks of the
+    packed cluster tree compute for these rays are added (``"leaf_tests"``,
+    ``"leaf_scores"``: ``tree_flip_tests``, ``tree_score_counts``); t,
+    ``entering`` and the owner are those of every cluster and leaf all the
+    same.
     """
     batch = o.shape[:-1]
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    flips = [] if counts is not None else None
     if dropped is None:
-        t, entering = tape_hit_events(packed, o, d)
+        t, entering = tape_hit_events(packed, o, d, flips)
     else:
         t, entering, drop = tape_hit_lists(packed, o, d)
         dropped.append(drop.sum(dtype=torch.int64))
     hit = t < CUT
     t_safe = torch.where(hit, t, 1.0)
-    score, normal = _leaf_scores(packed, o + t_safe[:, None] * d)
+    p = o + t_safe[:, None] * d
+    score, normal = _leaf_scores(packed, p)
+    if counts is not None:
+        flips = torch.stack(flips, dim=-1) if flips else t.new_zeros((t.shape[0], 0))
+        add_count(counts, "leaf_tests", tree_flip_tests(packed, o, d, flips).sum())
+        add_count(counts, "leaf_scores", tree_score_counts(packed, p[hit], score[hit]).sum())
     owner = torch.argmin(score, dim=-1)  # first minimum: strict < in leaf order
     nl = torch.gather(normal, 1, owner[:, None, None].expand(-1, 1, 3))[:, 0]
     rows = packed.leaf_table[owner]
@@ -480,7 +713,9 @@ def render_image_tape_plain(
     it renders with the packed lamps as ``lights=`` (a shadow ray is an
     event-flip ``tape_hit`` like any other); ``counts`` as in
     ``integrator.trace_paths``, plus the path segments' leaf intervals
-    (``"leaf_tests"``: segments x leaves, what the kernel counts).
+    (``"leaf_tests"``: segments x leaves, what the kernel counts; where the
+    kernel walks the cluster tree, ``uses_tree``, what its walks compute,
+    and the attribution's leaf scores, ``"leaf_scores"``).
     ``with_overflow``: path segments take the
     audit mode's interval lists, and the dropped spans of the segments
     traced are summed into a third result, ``over`` (int64 scalar).
@@ -490,14 +725,22 @@ def render_image_tape_plain(
         raise ValueError(_NO_LAMPS)
     events = functools.partial(tape_hit, packed)
     dropped: list = []
+    walks = {} if counts is not None and uses_tree(packed, nee, with_overflow) else None
+    if with_overflow:
+        path = functools.partial(tape_hit, packed, dropped=dropped)
+    else:
+        path = functools.partial(tape_hit, packed, counts=walks)
     img, rays = integrator.render_image(
-        functools.partial(tape_hit, packed, dropped=dropped) if with_overflow else events,
-        camera, width, height, spp=spp, max_bounces=max_bounces, seed=seed, sky=sky,
+        path, camera, width, height, spp=spp, max_bounces=max_bounces, seed=seed, sky=sky,
         jitter=jitter, lens=lens, sample_offset=sample_offset,
         lights=packed.lights if nee else None, counts=counts, shadow_hit_fn=events, rows=rows,
         row_offset=row_offset, sample_batch=sample_batch,
     )
-    if counts is not None:
+    if walks is not None:
+        for key in ("leaf_tests", "leaf_scores"):
+            add_count(counts, key, torch.as_tensor(walks.get(key, 0), dtype=torch.int64,
+                                                   device=rays.device))
+    elif counts is not None:
         add_count(counts, "leaf_tests", rays * packed.tape.n_leaves)
     if not with_overflow:
         return img, rays
@@ -509,8 +752,8 @@ def render_image_tape_plain(
 # ---------------------------------------------------------------------------
 
 
-_VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-_ARGTYPES = (_VP, _VP) + (_I,) * 20 + (_U, _U, _I, _I, _VP, _VP, _VP, _VP)
+_VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_ARGTYPES = (_VP, _VP) + (_I,) * 24 + (_U, _U, _I, _I, _F, _VP, _VP, _VP, _VP)
 
 
 def _check_limits(lib) -> None:
@@ -523,36 +766,47 @@ _KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_tape_render", _ARGTYPES, "tape",
                        check_library=_check_limits)
 
 
+def uses_tree(packed: PackedTape, nee: bool, with_overflow: bool) -> bool:
+    """Whether the kernel walks the tape's cluster tree: the event flip
+    without NEE on a tape that has one (the launcher's choice)."""
+    return packed.tree is not None and not nee and not with_overflow
+
+
 def launch_args(packed: PackedTape, cam_row, width, height, rows, row_offset, spp, max_bounces,
                 seed, sample_offset, lens, sky, nee, with_overflow, out_rgb, out_rays,
                 out_over, out_tests) -> tuple:
     """The arguments of ``csgr_tape_render`` but the stream, after checking
     every tensor it passes (``out_rays``: rows x width + 1 int32;
-    ``out_tests``: one int64, which the launch zeroes and fills)."""
+    ``out_tests``: two int64, which the launch zeroes and fills)."""
     dev = packed.device
     lay = packed.layout
+    tree = packed.tree
     build.check_tensor(packed.tables, "tables", torch.float32, (lay.nbytes // 4,), dev)
     build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
     build.check_tensor(out_rgb, "out_rgb", torch.float32, (rows, width, 3), dev)
     build.check_tensor(out_rays, "out_rays", torch.int32, (rows * width + 1,), dev)
     if with_overflow:
         build.check_tensor(out_over, "out_over", torch.int32, (rows, width), dev)
-    build.check_tensor(out_tests, "out_tests", torch.int64, (), dev)
+    build.check_tensor(out_tests, "out_tests", torch.int64, (2,), dev)
     n_lamps = packed.lamp_ids.numel() if nee else 0
     return (cam_row.data_ptr(), packed.tables.data_ptr(), lay.nbytes, lay.type_at, lay.ops_at,
             lay.ids_at, lay.cl_at, lay.lamp_at, lay.list_at if with_overflow else -1,
-            packed.tape.n_leaves, packed.ops.numel(), len(packed.clusters), n_lamps,
-            packed.list_ops.numel(), packed.tape.k, packed.interval_cap, width, height, rows,
-            row_offset, spp, max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF,
-            int(lens), SKY_MODES.index(sky), out_rgb.data_ptr(), out_rays.data_ptr(),
-            None if out_over is None else out_over.data_ptr(), out_tests.data_ptr())
+            lay.node_at, lay.free_at, packed.tape.n_leaves, packed.ops.numel(),
+            len(packed.clusters), n_lamps, packed.list_ops.numel(),
+            0 if tree is None else tree.lo.shape[0], 0 if tree is None else tree.free.numel(),
+            packed.tape.k, packed.interval_cap, width, height, rows, row_offset, spp,
+            max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens),
+            SKY_MODES.index(sky), 0.0 if tree is None else tree.score_bound, out_rgb.data_ptr(),
+            out_rays.data_ptr(), None if out_over is None else out_over.data_ptr(),
+            out_tests.data_ptr())
 
 
 def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, sample_offset,
             lens, sky, nee, with_overflow, rows=None, row_offset=0, counts=None):
     """Launch the kernel. It counts its path segments' leaf intervals
     into a device word, which ``counts`` (a dict) takes under
-    ``"leaf_tests"``, added to what it holds there."""
+    ``"leaf_tests"``, added to what it holds there, and through the cluster
+    tree its attribution's leaf scores into a second, ``"leaf_scores"``."""
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
@@ -561,17 +815,21 @@ def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, 
                 else None)
     out_rgb = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
     out_rays = torch.empty(rows * width + 1, dtype=torch.int32, device=dev)  # + the work counter
-    # the launch zeroes it, then counts into it (int64: the kernel's uint64
-    # word, far from its sign bit)
-    tests = torch.empty((), dtype=torch.int64, device=dev)
+    # the launch zeroes them, then counts into them (int64: the kernel's
+    # uint64 words, far from their sign bits)
+    tests = torch.empty(2, dtype=torch.int64, device=dev)
     _KERNEL(dev, *launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounces,
                               seed, sample_offset, lens, sky, nee, with_overflow, out_rgb,
                               out_rays, out_over, tests))
     LAUNCHES += 1
     mode = "audit" if with_overflow else packed.mode
     LAUNCHES_BY_MODE[mode + ("-nee" if nee else "")] += 1
+    tree = uses_tree(packed, nee, with_overflow)
+    LAUNCHES_BY_SEARCH["tree" if tree else "flat"] += 1
     if counts is not None:
-        add_count(counts, "leaf_tests", tests)
+        add_count(counts, "leaf_tests", tests[0])
+        if tree:
+            add_count(counts, "leaf_scores", tests[1])
     rays = out_rays[:-1].sum(dtype=torch.int64)
     if with_overflow:
         return out_rgb, rays, out_over.sum(dtype=torch.int64)
@@ -616,8 +874,10 @@ def render_image_tape_kernel(
     pixel centres on the CPU only. ``counts``: a dict to which the frame's
     path-segment leaf intervals are added under ``"leaf_tests"`` as an
     int64 tensor (on the card a device word the launch fills: nothing
-    waits), and on the CPU every key of ``render_image_tape_plain``'s
-    counts. Shadow rays' intervals are never part of ``"leaf_tests"``.
+    waits), where the kernel walks the cluster tree (``uses_tree``) its
+    attribution's leaf scores under ``"leaf_scores"``, and on the CPU every
+    key of ``render_image_tape_plain``'s counts. Shadow rays' intervals are
+    never part of ``"leaf_tests"``.
     """
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")

@@ -188,6 +188,16 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def leaf_bounds(tape) -> list:
+    """World AABB (lo, hi) of each of ``tape``'s leaves (``_leaf_aabb``,
+    float64), None for an unbounded one (a half-space)."""
+    pos = _host(tape.leaf_pos).astype(np.float64)
+    rot = _host(tape.leaf_rot).astype(np.float64)
+    params = _host(tape.leaf_params).astype(np.float64)
+    return [_leaf_aabb(NodeType(kind), pos[i], rot[i], params[i])
+            for i, kind in enumerate(tape.leaf_types)]
+
+
 def _aabb_overlaps(a, b, tol):
     return bool(np.all(a[0] - tol <= b[1]) and np.all(b[0] - tol <= a[1]))
 

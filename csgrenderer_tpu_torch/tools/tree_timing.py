@@ -3,7 +3,8 @@ frames (kernel rows 1-2), the RTIOW bench frame, the realtime loop and the
 shard canary's launch path (kernel row 9); its NEE frames (row 3), the
 night488 frame at 64 spp, the same frames without NEE as a bound, and the
 night488 bench frame; the tape kernel's frames (rows
-4a-4c) and the deepcsg, csgnight and manyobjects bench frames; the mesh
+4a-4c, many-object scenes around the cluster tree's threshold) and the
+deepcsg, csgnight and manyobjects bench frames; the mesh
 kernel's frames (row 5, its four modes) and the mesh and meshnight bench
 frames; the mesh face-count ladder; and the denoise path (kernel row 10,
 the renderer's denoise step and the denoised realtime loop).
@@ -34,7 +35,11 @@ Measured per tree, CUDA events unless named otherwise, for the groups
   the NEE kernel's walks could come to);
 - tape: rows 4a-4c (config5 at t = 1.0, 1920x1080, 2 spp, 5 bounces,
   clustered, global and the audit at k = 4; csgnight at 960x540, 2 spp, 6
-  bounces, black sky, clustered-nee, global-nee and audit-nee);
+  bounces, black sky, clustered-nee, global-nee and audit-nee), and
+  many_objects_scene(n) for n of ``MANY_OBJECTS`` at the manyobjects-720p16
+  cell's frame (1280x720, 16 spp, 8 bounces, camera (0, 7, 9) -> (0, 0.4,
+  0)): 99 is the cell's scene, the others cuts around the cluster tree's
+  threshold (``tape_kernel.TREE_MIN_CLUSTERS`` bounded clusters);
 - mesh: row 5 (mesh_demo_scene(2) forced brute and mesh_demo_scene(4) grid
   at 1280x720, 2 spp, 6 bounces; tests/test_nee.py's 82-face lamp scene
   brute-nee and mesh_night_scene() grid-nee at 960x540, 2 spp, 6 bounces,
@@ -94,6 +99,7 @@ BENCH_SCENES = {"sphere": ("rtiow",), "nee": ("night488",),
                 "tape": ("deepcsg", "csgnight", "manyobjects"), "mesh": ("mesh", "meshnight"),
                 "ladder": (), "denoise": ()}
 LADDER = ((2, 3), (3, 3), (4, 3), (5, 3), (5, 5), (6, 3))  # (subdiv, spheres) of mesh_demo_scene
+MANY_OBJECTS = (8, 12, 16, 99)  # objects of many_objects_scene in the tape group
 
 
 def _frames(dev, groups):
@@ -105,8 +111,9 @@ def _frames(dev, groups):
     from csgrenderer_tpu_torch.kernels import tape_kernel as tk
     from csgrenderer_tpu_torch.kernels import trimesh_kernel as tm
     from csgrenderer_tpu_torch.models import (animated_csg_scene, csg_night_scene,
-                                              mesh_demo_scene, mesh_night_scene, night_scene,
-                                              rtiow_final_scene, two_spheres_scene)
+                                              many_objects_scene, mesh_demo_scene,
+                                              mesh_night_scene, night_scene, rtiow_final_scene,
+                                              two_spheres_scene)
     from csgrenderer_tpu_torch.render.trimesh import concat_meshes, icosphere, quad
     from csgrenderer_tpu_torch.scene import Material
 
@@ -173,6 +180,11 @@ def _frames(dev, groups):
             "4c global-nee csgnight 960x540 spp2 b6": tape(tk.pack_program(night_tape, False),
                                                            csg_cam, **night),
         })
+        many_cam = cam((0, 7.0, 9.0), (0, 0.4, 0), 45.0, 1280 / 720)
+        for n in MANY_OBJECTS:
+            frames[f"4a manyobjects({n}) 1280x720 spp16 b8"] = tape(
+                tk.pack_program(many_objects_scene(n).compile(k=4, device=dev)), many_cam,
+                width=1280, height=720, spp=16, max_bounces=8, seed=0)
     if "mesh" in groups or "ladder" in groups:
         mesh = functools.partial(frame, tm.render_image_mesh_kernel)
         kwm = dict(width=1280, height=720, spp=2, max_bounces=6, seed=0)

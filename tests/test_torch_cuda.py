@@ -843,12 +843,20 @@ LEAF_CASES = {
 @pytest.mark.parametrize("case", sorted(LEAF_CASES))
 def test_tape_kernel_counts_the_plain_versions_leaf_tests(cuda, case):
     """The launch's leaf-interval word (an int64 tensor on the card, filled
-    with nothing waiting) is what the plain version counts, leaves x
-    segments, on deepcsg's 8 leaves (the event flip in 2 clusters and the
-    audit) and the many-objects scene's 199 (100 clusters); NEE's shadow
-    rays are not counted."""
+    with nothing waiting) is what the plain version counts: leaves x
+    segments on deepcsg's 8 leaves (the event flip in 2 clusters and the
+    audit), and on the many-objects scene's 199 leaves in 100 clusters,
+    whose event flip walks the cluster tree, the plain version's replay of
+    the walks, fewer than leaves x segments, with the attribution's leaf
+    scores in a second word; NEE's shadow rays are not counted. The replay
+    equals the kernel's words exactly on the same segments (the frame's
+    first bounce); over eight bounces the two sides' paths part on a few
+    pixels (one row of this frame: 6 segments, 18 intervals), so there the
+    words agree within 2e-3, as the mesh kernel's walk counts do."""
     make_tape, partition, (eye, at, vfov), frame, extra = LEAF_CASES[case]
     packed = tk.pack_program(make_tape(cuda), partition)
+    tree = tk.uses_tree(packed, extra.get("nee", False), extra.get("with_overflow", False))
+    assert tree == (case == "manyobjects-clustered")
     cam = Camera.look_at(eye, at, vfov_degrees=vfov,
                          aspect_ratio=frame["width"] / frame["height"], device=cuda)
     counts, plain = {}, {}
@@ -861,9 +869,43 @@ def test_tape_kernel_counts_the_plain_versions_leaf_tests(cuda, case):
     assert tests.dtype == torch.int64 and tests.device.type == "cuda"
     ref = tk.render_image_tape_plain(packed, cam, counts=plain, **frame, **extra)
     leaves = packed.tape.n_leaves
-    assert int(tests) == int(out[1]) * leaves
-    assert int(plain["leaf_tests"]) == int(ref[1]) * leaves
+    if tree:
+        assert int(tests) < int(out[1]) * leaves
+        for key in ("leaf_tests", "leaf_scores"):
+            want = int(plain[key])
+            assert want > 0 and abs(int(counts[key]) - want) <= want * 2e-3
+        first, first_plain = {}, {}
+        one = {**frame, "max_bounces": 1}
+        _, rays = tk.render_image_tape_kernel(packed, cam, counts=first, **one)
+        _, ref_rays = tk.render_image_tape_plain(packed, cam, counts=first_plain, **one)
+        assert int(rays) == int(ref_rays) == frame["width"] * frame["height"] * frame["spp"]
+        assert int(first["leaf_tests"]) == int(first_plain["leaf_tests"]) < int(rays) * leaves
+        assert int(first["leaf_scores"]) == int(first_plain["leaf_scores"]) > 0
+    else:
+        assert int(tests) == int(out[1]) * leaves
+        assert int(plain["leaf_tests"]) == int(ref[1]) * leaves
+        assert "leaf_scores" not in counts
     _assert_close(ref[0], ref[1], out[0], out[1])
+
+
+# sha256 of the float32 image bytes and the ray count of the 99-object
+# scene's event-flip frame, as the flat loops over every cluster and every
+# leaf rendered it on an H100: the walks through the cluster tree must keep
+# giving it
+PINNED_TREE_FRAME = ("19d0f349f87b95bbe7531fa28d5532fb442b6dc27c1b1261ce799f536b586b5d", 43484)
+
+
+def test_the_cluster_tree_keeps_the_flat_loops_frame(cuda):
+    packed = tk.pack_program(_many_objects(cuda))
+    assert packed.tree is not None
+    cam = Camera.look_at((0, 7.0, 9.0), (0, 0.4, 0), vfov_degrees=45.0, aspect_ratio=128 / 72,
+                         device=cuda)
+    before = dict(tk.LAUNCHES_BY_SEARCH)
+    img, rays = tk.render_image_tape_kernel(packed, cam, 128, 72, spp=2, max_bounces=8, seed=7)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES_BY_SEARCH == {**before, "tree": before["tree"] + 1}
+    digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+    assert (digest, int(rays)) == PINNED_TREE_FRAME
 
 
 @pytest.mark.parametrize("make_tape,eye,at,vfov,leaves",
@@ -873,20 +915,33 @@ def test_tape_kernel_counts_the_plain_versions_leaf_tests(cuda, case):
 def test_the_renderer_reads_the_leaf_tests_at_its_fence(cuda, make_tape, eye, at, vfov, leaves):
     """``PathTraceRenderer.last_frame_leaf_tests`` of a progressive tape
     frame, queued behind the one before, is the kernel's count of that
-    frame, leaves x segments, read at the fence with its segments; a mesh
+    frame, read at the fence with its segments: leaves x segments on
+    deepcsg; on the many-objects scene, whose event flip walks the cluster
+    tree, the plain version's replay of the walks, fewer, with the leaf
+    scores in ``last_frame_leaf_scores`` (None without the tree); a mesh
     frame has none."""
     cam = Camera.look_at(eye, at, vfov_degrees=vfov, aspect_ratio=2.0, device=cuda)
     frame = dict(width=64, height=32, spp=2, max_bounces=8, seed=2)
     r = PathTraceRenderer(make_tape(cuda), cam, RenderConfig(**frame), progressive=True,
                           device=cuda)
     assert r._schedule == "queue" and r._packed.mode == "clustered"
+    tree = r._packed.tree is not None
+    assert tree == (leaves == 199)
     for k in range(3):
         r.draw_frame(0.0)
-        counts = {}
+        counts, plain = {}, {}
         _, rays = tk.render_image_tape_kernel(r._packed, cam, counts=counts,
                                               sample_offset=k * frame["spp"], **frame)
         assert r.last_frame_rays == int(rays)
-        assert r.last_frame_leaf_tests == int(counts["leaf_tests"]) == leaves * int(rays)
+        if not tree:
+            assert r.last_frame_leaf_tests == int(counts["leaf_tests"]) == leaves * int(rays)
+            assert r.last_frame_leaf_scores is None
+            continue
+        tk.render_image_tape_plain(r._packed, cam, counts=plain, sample_offset=k * frame["spp"],
+                                   **frame)
+        assert r.last_frame_leaf_tests == int(counts["leaf_tests"]) == int(plain["leaf_tests"])
+        assert r.last_frame_leaf_tests < leaves * int(rays)
+        assert r.last_frame_leaf_scores == int(counts["leaf_scores"]) == int(plain["leaf_scores"])
     s = PathTraceRenderer(mesh_demo_scene(2, device=cuda), cam, RenderConfig(**frame),
                           progressive=True, device=cuda)
     s.draw_frame(0.0)

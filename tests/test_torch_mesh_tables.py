@@ -153,7 +153,8 @@ def test_tape_interval_cap(name):
 @pytest.mark.parametrize("name", sorted(TAPES))
 def test_tape_staged_block(name):
     """Every section of the tape's staged block holds its tensor, at a
-    16-byte aligned offset; the block is a multiple of 16 bytes."""
+    16-byte aligned offset (the 99-object scene's cluster tree too); the
+    block is a multiple of 16 bytes."""
     make, partition, _, _ = TAPES[name]
     packed = tk.pack_program(make(), partition)
     lay = packed.layout
@@ -162,9 +163,14 @@ def test_tape_staged_block(name):
     n_leaf_words = packed.leaf_table.numel()
     assert torch.equal(packed.tables[:n_leaf_words].view_as(packed.leaf_table), packed.leaf_table)
     words = packed.tables.view(torch.int32)
-    lamps = packed.leaf_types.new_zeros(0) if packed.lamp_ids is None else packed.lamp_ids
-    for at, t in zip(lay[:6], (packed.leaf_types, packed.ops, packed.leaf_ids,
-                              packed.cluster_table.reshape(-1), lamps, packed.list_ops)):
+    none = packed.leaf_types.new_zeros(0)
+    lamps = none if packed.lamp_ids is None else packed.lamp_ids
+    tree = packed.tree
+    assert (tree is not None) == (name == "manyobjects-clustered")
+    nodes, free = (none, none) if tree is None else (tree.words.reshape(-1), tree.free)
+    for at, t in zip(lay[:-1], (packed.leaf_types, packed.ops, packed.leaf_ids,
+                                packed.cluster_table.reshape(-1), lamps, packed.list_ops, nodes,
+                                free)):
         assert torch.equal(words[at // 4:at // 4 + t.numel()], t)
     assert lay.nbytes <= 48 * 1024  # every tape the kernel takes fits without opting in
 
