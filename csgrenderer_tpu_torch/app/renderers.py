@@ -64,6 +64,22 @@ pack records ``scene.pack`` when the renderer is made), ``render.fence``,
 replayed frame records ``render.replay`` (the replay and the copy of its
 outputs) in place of the last three, and a frame that queues the next one
 ``render.prelaunch`` (the next frame's ``render.launch`` inside it).
+
+A fenced frame also records its kernel's work counts while recording is
+on, as counter samples (``profiling.count``) of its own frame number, at
+its fence: ``kernel.segments`` on every such frame; ``kernel.leaf_scores``
+and ``kernel.masked_visits`` where the kernel counts them; and on a stats
+frame, whose launch ran the kernel's stats instantiation (one launch in
+``kernels.build.STATS_EVERY`` of those that can, chosen at the launch),
+the words of its stats block (``kernel.segment_warp_steps``,
+``kernel.walk_warp_steps``, ``kernel.walk_lane_steps`` and, with NEE,
+``kernel.shadow_lane_steps``). A frame queued behind another carries its
+own block. A replayed frame is never a stats frame: the graph replays a
+launch captured without counts. On the CPU the plain versions have no
+warps: every recorded frame records the lane turns of its walk as they
+count them (the sphere grid's cell visits, the mesh grid's voxel visits,
+the cluster tree's node visits) as ``kernel.walk_lane_steps``, and no
+warp word.
 """
 
 from __future__ import annotations
@@ -75,7 +91,7 @@ import numpy as np
 import torch
 
 from ..io.checkpoint import Accumulator
-from ..kernels import megakernel, tape_kernel, trimesh_kernel
+from ..kernels import build, megakernel, tape_kernel, trimesh_kernel
 from ..render import integrator
 from ..render.aov import render_aovs
 from ..render.denoise import atrous_denoise
@@ -124,30 +140,39 @@ class _CountFence:
     was enqueued after it keeps the card busy; on the CPU they are read at
     once."""
 
-    # what a frame's counts may hold beside its segments
-    COUNTS = ("shadow_rays", "tri_tests", "masked_visits", "leaf_tests", "leaf_scores")
+    # what a frame's counts may hold beside its segments (walk_lane_steps:
+    # the plain walk's count on the CPU)
+    COUNTS = ("shadow_rays", "tri_tests", "masked_visits", "leaf_tests", "leaf_scores",
+              "walk_lane_steps")
 
     def __init__(self, device: torch.device):
         self.card = device.type == "cuda"
-        self.host = torch.empty(1 + len(self.COUNTS), dtype=torch.int64, pin_memory=self.card)
+        self.host = torch.empty(1 + len(self.COUNTS) + len(build.STATS_WORDS), dtype=torch.int64,
+                                pin_memory=self.card)
         self.event = torch.cuda.Event() if self.card else None
         self.keys = ()
 
     def stage(self, rays: torch.Tensor, counts: dict) -> None:
-        """Copy the frame's segments and the counts of ``COUNTS`` that
+        """Copy the frame's segments, the counts of ``COUNTS`` that
         ``counts`` holds (NEE's shadow rays, a mesh's triangle tests and
-        masked visits, a tape's leaf intervals and leaf scores) and, on the
-        card, mark the stream behind the copy."""
+        masked visits, a tape's leaf intervals and leaf scores, the plain
+        walk's lane turns) and a stats launch's block (``"stats"``: the
+        first words of ``build.STATS_WORDS``) and, on the card, mark the
+        stream behind the copy."""
         self.keys = tuple(k for k in self.COUNTS if k in counts)
         src = (torch.stack((rays, *(counts[k] for k in self.keys))) if self.keys
                else rays.reshape(1))
+        stats = counts.get("stats")
+        if stats is not None:
+            self.keys += build.STATS_WORDS[:stats.numel()]
+            src = torch.cat((src, stats))
         self.host[:src.numel()].copy_(src, non_blocking=self.card)
         if self.card:
             self.event.record(torch.cuda.current_stream(src.device))
 
     def wait(self) -> dict[str, int]:
         """The staged counts, once the event has passed: ``"rays"`` and
-        each staged key."""
+        each staged key, a stats block's by its words' names."""
         if self.card:
             self.event.synchronize()
         return dict(zip(("rays",) + self.keys, self.host[:1 + len(self.keys)].tolist()))
@@ -376,7 +401,9 @@ class PathTraceRenderer:
         counts none), its triangle tests into ``last_frame_tri_tests``, its
         masked visits into ``last_frame_masked_visits``, its leaf
         intervals into ``last_frame_leaf_tests`` and its leaf scores into
-        ``last_frame_leaf_scores`` (None where the kernel counts none)."""
+        ``last_frame_leaf_scores`` (None where the kernel counts none).
+        While recording is on, the counts named in ``RECORDED`` are
+        recorded as counter samples of this frame (module docstring)."""
         with profiling.span("render.fence"):
             got = self._fence.wait()
             self.last_frame_rays = got["rays"]
@@ -386,6 +413,11 @@ class PathTraceRenderer:
             self.last_frame_masked_visits = got.get("masked_visits")
             self.last_frame_leaf_tests = got.get("leaf_tests")
             self.last_frame_leaf_scores = got.get("leaf_scores")
+            if profiling.RECORDER.on:
+                profiling.count("kernel.segments", got["rays"])
+                for key in RECORDED:
+                    if key in got:
+                        profiling.count("kernel." + key, got[key])
 
     def draw_frame(self, time_sec: float) -> torch.Tensor:
         with profiling.frame("render.frame"):
@@ -565,24 +597,28 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
     ``scene`` may be packed. ``partition`` is an animated tape's cluster
     tuple; an animated tape without one takes the global evaluation rather
     than clustering on device tensors. ``counts``: a dict to which a sphere
-    frame's NEE work (``megakernel.render_image_kernel``), a tape frame's
+    frame's shadow rays (``megakernel.render_image_kernel``), a tape frame's
     leaf intervals and leaf scores (``tape_kernel.render_image_tape_kernel``)
     and a mesh frame's triangle tests and masked visits
-    (``trimesh_kernel.render_image_mesh_kernel``) are added.
+    (``trimesh_kernel.render_image_mesh_kernel``) are added, and a stats
+    launch's block (``"stats"``) or, on the CPU, the lane turns of the
+    plain walk (``"walk_lane_steps"``: the sphere grid's cell visits, the
+    mesh grid's voxel visits, the cluster tree's node visits).
     """
     kw = dict(spp=cfg.spp, max_bounces=cfg.max_bounces, seed=cfg.seed, sky=cfg.sky, lens=cfg.lens,
               sample_offset=sample_base, nee=cfg.nee, jitter=cfg.jitter)
     if isinstance(scene, (SphereScene, megakernel.PackedScene)):
-        return megakernel.render_image_kernel(scene, camera, cfg.width, cfg.height,
-                                              offset_buffer=offset_buffer,
-                                              counts=counts if cfg.nee else None, **kw)
-    if isinstance(scene, (CompiledTape, tape_kernel.PackedTape)):
+        render = functools.partial(megakernel.render_image_kernel, offset_buffer=offset_buffer)
+        keys, walk = ("shadow_rays",), "cell_visits"
+    elif isinstance(scene, (CompiledTape, tape_kernel.PackedTape)):
         if isinstance(scene, CompiledTape):
             kw["partition"] = partition if partition is not None else (
                 False if animated else "auto")
-        render, keys = tape_kernel.render_image_tape_kernel, ("leaf_tests", "leaf_scores")
+        render = tape_kernel.render_image_tape_kernel
+        keys, walk = ("leaf_tests", "leaf_scores"), "node_visits"
     elif isinstance(scene, (MeshScene, trimesh_kernel.PackedMesh)):
-        render, keys = trimesh_kernel.render_image_mesh_kernel, ("tri_tests", "masked_visits")
+        render = trimesh_kernel.render_image_mesh_kernel
+        keys, walk = ("tri_tests", "masked_visits"), "voxel_visits"
     else:
         raise TypeError(f"unsupported scene type {type(scene).__name__}")
     # the kernel's own counts alone: the plain versions count the walk's
@@ -591,5 +627,13 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
     own = None if counts is None else {}
     out = render(scene, camera, cfg.width, cfg.height, counts=own, **kw)
     if counts is not None:
-        counts.update((key, own[key]) for key in keys if key in own)
+        counts.update((key, own[key]) for key in keys + ("stats",) if key in own)
+        if walk in own:
+            counts["walk_lane_steps"] = torch.as_tensor(own[walk], dtype=torch.int64,
+                                                        device=out[1].device)
     return out
+
+
+# the counts a fenced frame records as counter samples ("kernel." + key),
+# where it has them, beside its segments
+RECORDED = ("leaf_scores", "masked_visits") + build.STATS_WORDS

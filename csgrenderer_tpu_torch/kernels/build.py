@@ -19,6 +19,11 @@ Each kernel module registers its launch counters (``count_launches``);
 ``launch_counts`` reads them all at once and ``add_launch_counts`` adds
 the difference of two readings back, as a frame replayed from a CUDA
 graph does with the launches its capture counted.
+
+``stats_launch`` is where a wrapper asks whether a launch that could
+count its work stats (``STATS_WORDS``: the kernels' compiled-in stats
+mode) does: one launch in ``STATS_EVERY`` while the program's spans
+record (``utils/profiling.py``), none while they do not.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -51,6 +58,22 @@ NVCC_FLAGS = (
 # every kernel module's launch counters, (module, name): an int, or a dict
 # of ints by mode
 LAUNCH_COUNTERS: list = []
+
+# while spans record, the first launch that could count its stats and every
+# STATS_EVERY-th after it run the kernel's stats instantiation
+STATS_EVERY = 8
+# the int64 words of a stats launch, in the order the kernels write them:
+# the warp turns of the segment (bounce) loop, the warp turns of the walk
+# loop, the walk's turns summed over the lanes that take them, and the part
+# of those lane turns that NEE's shadow rays take
+STATS_WORDS = ("segment_warp_steps", "walk_warp_steps", "walk_lane_steps", "shadow_lane_steps")
+
+
+def stats_launch() -> bool:
+    """Whether this launch, which could count its stats, does: the first
+    such launch while the spans record and every ``STATS_EVERY``-th after
+    it (``profiling.sample``); never while they do not."""
+    return profiling.sample(STATS_EVERY)
 
 
 def count_launches(module_name: str, *names: str) -> None:

@@ -18,7 +18,20 @@
 //     by cudaMemsetAsync in stream order just before the launch;
 //   - add_count: a launch's work counts (trimesh_kernel.cu's triangle
 //     tests, tape_kernel.cu's leaf intervals), each pixel's in a register,
-//     summed over the warp and added to one 64-bit word by one atomic.
+//     summed over the warp and added to one 64-bit word by one atomic;
+//   - the stats mode (the kernels' kStats instantiations, which the
+//     launchers run where the caller hands them a stats block): Stats, a
+//     lane's counts of a work unit in registers (the warp turns of the
+//     segment loop and of the walk loop, each counted by the lowest active
+//     lane of the warp, count_warp_turn; the walk's turns of each lane, and
+//     the part of them NEE's shadow rays take), added to the launch's
+//     kStatsWords int64 words (WithStats::stats, zeroed before the launch)
+//     by add_stats at the end of each work unit, one add_count a word. The
+//     device functions that the plain and the stats instantiations share
+//     take a pack ``Stats&... st``: empty in the plain ones, whose code is
+//     then what it is without the hooks (each sits under ``if constexpr
+//     (sizeof...(Stats) > 0)``, so their SASS does not change), and the
+//     lane's one Stats in the stats ones.
 
 #pragma once
 
@@ -26,6 +39,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 // A CTA's dynamic shared memory: the tables stage_tables copies, one after
 // another in the order given (kernels that stage only).
@@ -116,6 +130,57 @@ __device__ __forceinline__ void add_count(unsigned long long* out, unsigned coun
   if (static_cast<int>(threadIdx.x & 31) == __ffs(lanes) - 1) {
     atomicAdd(out, static_cast<unsigned long long>(sum));
   }
+}
+
+// The stats block's words, in order: the segment loop's warp turns, the walk
+// loop's warp turns, the walk loop's lane turns, the shadow rays' part of
+// those lane turns (kernels/build.py: STATS_WORDS).
+constexpr int kStatsWords = 4;
+
+// A stats launch's parameters: the kernel's own, then its stats block. The
+// other launches take P alone, so their code stays as it is.
+template <class P>
+struct WithStats : P {
+  unsigned long long* stats;  // [kStatsWords], zeroed before the launch
+};
+
+template <class P, bool kStats>
+using StatsParams = std::conditional_t<kStats, WithStats<P>, P>;
+
+// One lane's counts of a work unit in a stats launch.
+struct Stats {
+  unsigned segment_warp = 0;  // segment-loop turns this lane counted for its warp
+  unsigned walk_warp = 0;     // walk-loop turns this lane counted for its warp
+  unsigned walk_lane = 0;     // walk-loop turns this lane took
+  unsigned shadow_lane = 0;   // of those, the turns of its shadow rays' walks
+};
+
+// Counts one turn of a loop for the lanes that take it together: the
+// lowest of them adds it to its ``turns``, so the warp's turns add up once.
+__device__ __forceinline__ void count_warp_turn(unsigned& turns) {
+  const unsigned lanes = __activemask();
+  if (static_cast<int>(threadIdx.x & 31) == __ffs(lanes) - 1) ++turns;
+}
+
+// The hooks: one turn of a segment loop, the warp's; one turn of a walk
+// loop, the warp's and this lane's; the lane's Stats out of a pack of one.
+__device__ __forceinline__ void segment_turn(Stats& st) { count_warp_turn(st.segment_warp); }
+
+__device__ __forceinline__ void walk_turn(Stats& st) {
+  count_warp_turn(st.walk_warp);
+  ++st.walk_lane;
+}
+
+__device__ __forceinline__ Stats& lane_stats(Stats& st) { return st; }
+
+// Adds the first kWords of the lanes' counts (segment_warp, walk_warp,
+// walk_lane, shadow_lane) to the launch's stats words, one add_count each.
+template <int kWords>
+__device__ __forceinline__ void add_stats(unsigned long long* out, const Stats& st) {
+  add_count(out, st.segment_warp);
+  if constexpr (kWords > 1) add_count(out + 1, st.walk_warp);
+  if constexpr (kWords > 2) add_count(out + 2, st.walk_lane);
+  if constexpr (kWords > 3) add_count(out + 3, st.shadow_lane);
 }
 
 // Launches ``kernel`` (a persistent kernel over for_each_pixel) with

@@ -77,6 +77,13 @@
 //     loop) was measured slower here; it mixes camera rays, whose walks are
 //     long and coherent, with bounce rays in one warp.
 //
+// Stats mode (kStats, grid mode from staged tables: the rtiow and night
+// cells' instantiations): the same image and counts, and per launch a block
+// of work counts (persistent.cuh): the segment loop's warp turns, the grid
+// walk's cell-loop turns by warp and by lane, and with NEE the shadow
+// queries' part of the lane turns. The launcher runs it where out_stats is
+// not null; the other launches compile as if it were not there.
+//
 // The G-buffer mode (sphere_gbuffer, csgr_sphere_gbuffer) replaces no
 // Pallas kernel: it is the port's kernel for the JAX package's jnp AOV cast
 // (csgrenderer_tpu/render/aov.py::render_aovs, which XLA fuses). One
@@ -241,9 +248,11 @@ __device__ __forceinline__ void slot_test(const Params& p, const Ray& r, int id,
 // tests are unrolled: 13% faster than a rolled loop on the grid frame,
 // and 15-24% in the NEE query loop. Every kernel calls the walk from one
 // site (the NEE instantiations from their query loop, for path and shadow
-// rays alike).
-template <bool kShared>
-__device__ void grid_walk(const Params& p, const Ray& r, float& t_best, int& id_best) {
+// rays alike). A stats instantiation passes its lane's Stats, in which
+// each step's turn is counted (csgr::walk_turn); the others pass none.
+template <bool kShared, class... Stats>
+__device__ void grid_walk(const Params& p, const Ray& r, float& t_best, int& id_best,
+                          Stats&... st) {
   const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
   const float inv_dx = 1.0f / dx, inv_dy = 1.0f / dy, inv_dz = 1.0f / dz;
   float tx_lo, tx_hi, ty_lo, ty_hi, tz_lo, tz_hi;
@@ -272,6 +281,7 @@ __device__ void grid_walk(const Params& p, const Ray& r, float& t_best, int& id_
   const float tdz = flat_z ? kBig : fabsf(p.cell * inv_dz);
 
   for (int step = 0; step < p.max_steps; ++step) {
+    if constexpr (sizeof...(Stats) > 0) csgr::walk_turn(st...);
     const int q = (ix * p.cz + iz) * (kSlots / 4);  // the cell's list: two int4, both loaded
     const int4 a = cell_quad<kShared>(p, q), b = cell_quad<kShared>(p, q + 1);
     const int ids[kSlots] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
@@ -391,10 +401,10 @@ __device__ __forceinline__ bool shade_vertex(const Params& p, csgr::Path& path, 
 
 // One path segment of pixel ``pix``, sample ``s``, at ``bounce`` (the
 // instantiations without NEE): the nearest hit, then its vertex. Returns
-// false when the path ends here.
-template <bool kGrid, bool kShared>
+// false when the path ends here. ``st``: as grid_walk's.
+template <bool kGrid, bool kShared, class... Stats>
 __device__ __forceinline__ bool trace_segment(const Params& p, csgr::Path& path, uint32_t pix,
-                                              uint32_t s, int bounce) {
+                                              uint32_t s, int bounce, Stats&... st) {
   const Ray ray = make_ray(path.ox, path.oy, path.oz, path.dx, path.dy, path.dz);
 
   // nearest hit: brute pass (all spheres, or the globals), then the walk
@@ -407,7 +417,7 @@ __device__ __forceinline__ bool trace_segment(const Params& p, csgr::Path& path,
       id_best = i;
     }
   }
-  if (kGrid) grid_walk<kShared>(p, ray, t_best, id_best);
+  if (kGrid) grid_walk<kShared>(p, ray, t_best, id_best, st...);
   float prev_pdf;  // NEE state, not read without NEE
   ShadowQuery sq;
   return shade_vertex<false, kShared>(p, path, t_best, id_best, pix, s, bounce, prev_pdf, sq);
@@ -421,10 +431,11 @@ __device__ __forceinline__ bool trace_segment(const Params& p, csgr::Path& path,
 // before the path's next segment; a Lambertian or glossy vertex's scatter
 // adds no radiance, so its contribution lands where it would if it were
 // traced at the vertex, and the sum keeps its order. Adds the segments
-// traced to ``rays``.
-template <bool kGrid, bool kShared>
+// traced to ``rays``. ``st``: as grid_walk's; a stats instantiation also
+// counts the segment turns and the shadow queries' part of the walk turns.
+template <bool kGrid, bool kShared, class... Stats>
 __device__ __forceinline__ void trace_nee_sample(const Params& p, csgr::Path& path, uint32_t pix,
-                                                 uint32_t s, int& rays) {
+                                                 uint32_t s, int& rays, Stats&... st) {
   float prev_pdf = 0.0f;  // pdf of the scatter that made the path's ray, 0 on camera rays
   ShadowQuery sq;
   sq.t_max = kBig;
@@ -445,7 +456,14 @@ __device__ __forceinline__ void trace_nee_sample(const Params& p, csgr::Path& pa
       }
     }
     if (kGrid && !(shadow && t_best < sq.t_max)) {
-      grid_walk<kShared>(p, ray, t_best, id_best);
+      if constexpr (sizeof...(Stats) > 0) {
+        csgr::Stats& lane = csgr::lane_stats(st...);
+        const unsigned before = lane.walk_lane;
+        grid_walk<kShared>(p, ray, t_best, id_best, lane);
+        if (shadow) lane.shadow_lane += lane.walk_lane - before;
+      } else {
+        grid_walk<kShared>(p, ray, t_best, id_best);
+      }
     }
     if (shadow) {
       if (!(t_best < sq.t_max)) {
@@ -456,6 +474,7 @@ __device__ __forceinline__ void trace_nee_sample(const Params& p, csgr::Path& pa
       sq.t_max = kBig;
       continue;
     }
+    if constexpr (sizeof...(Stats) > 0) csgr::segment_turn(st...);
     ++rays;
     live = shade_vertex<true, kShared>(p, path, t_best, id_best, pix, s, bounce, prev_pdf, sq);
     live = live && ++bounce < p.max_bounces;
@@ -463,10 +482,12 @@ __device__ __forceinline__ void trace_nee_sample(const Params& p, csgr::Path& pa
 }
 
 // One pixel's spp paths, one after another, each up to max_bounces
-// segments; the radiance is summed in sample order.
-template <bool kGrid, bool kNee, bool kShared>
+// segments; the radiance is summed in sample order. ``st``: as grid_walk's;
+// a stats instantiation also counts the segment loop's turns.
+template <bool kGrid, bool kNee, bool kShared, class... Stats>
 __device__ __forceinline__ void render_pixel(const Params& p, const float* cam,
-                                             uint32_t sample_offset, int x, int row) {
+                                             uint32_t sample_offset, int x, int row,
+                                             Stats&... st) {
   const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
   const size_t out_pix = static_cast<size_t>(row) * p.width + x;
@@ -478,11 +499,12 @@ __device__ __forceinline__ void render_pixel(const Params& p, const float* cam,
     csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
     path.sr = 0.0f; path.sg = 0.0f; path.sb = 0.0f;
     if constexpr (kNee) {
-      trace_nee_sample<kGrid, kShared>(p, path, pix, s, rays);
+      trace_nee_sample<kGrid, kShared>(p, path, pix, s, rays, st...);
     } else {
       for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
+        if constexpr (sizeof...(Stats) > 0) csgr::segment_turn(st...);
         ++rays;
-        if (!trace_segment<kGrid, kShared>(p, path, pix, s, bounce)) break;
+        if (!trace_segment<kGrid, kShared>(p, path, pix, s, bounce, st...)) break;
       }
     }
     acc_r += path.sr;
@@ -501,10 +523,12 @@ __device__ __forceinline__ void render_pixel(const Params& p, const float* cam,
 // once (kShared), then each warp takes 16x2-pixel work units from the
 // launch's counter until the slab is done (16x8 tiles per CTA measured 6%
 // slower on the grid frame). The NEE instantiations count the CTA's shadow
-// rays in shared memory and add them to out_shadow at the end.
-template <bool kGrid, bool kNee, bool kShared>
+// rays in shared memory and add them to out_shadow at the end. A stats
+// launch (kStats: grid mode from staged tables) adds each work unit's
+// stats to its block, the shadow word with NEE only.
+template <bool kGrid, bool kNee, bool kShared, bool kStats>
 __global__ void __launch_bounds__(kThreads, (kCtasPerSm<kGrid, kNee>))
-    sphere_megakernel(const Params p) {
+    sphere_megakernel(const csgr::StatsParams<Params, kStats> p) {
   if constexpr (kNee) {
     if (threadIdx.x == 0) cta_shadow_rays() = 0;
     __syncthreads();
@@ -516,7 +540,13 @@ __global__ void __launch_bounds__(kThreads, (kCtasPerSm<kGrid, kNee>))
   const uint32_t sample_offset =
       p.sample_offset_at != nullptr ? __ldg(p.sample_offset_at) : p.sample_offset;
   csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
-    render_pixel<kGrid, kNee, kShared>(p, cam, sample_offset, x, row);
+    if constexpr (kStats) {
+      csgr::Stats st;
+      render_pixel<kGrid, kNee, kShared>(p, cam, sample_offset, x, row, st);
+      csgr::add_stats<kNee ? 4 : 3>(p.stats, st);
+    } else {
+      render_pixel<kGrid, kNee, kShared>(p, cam, sample_offset, x, row);
+    }
   });
   if constexpr (kNee) {
     __syncthreads();
@@ -526,17 +556,21 @@ __global__ void __launch_bounds__(kThreads, (kCtasPerSm<kGrid, kNee>))
   }
 }
 
-template <bool kGrid, bool kNee, bool kShared>
-cudaError_t launch(const Params& p, cudaStream_t st) {
+template <bool kGrid, bool kNee, bool kShared, bool kStats>
+cudaError_t launch(const csgr::StatsParams<Params, kStats>& p, cudaStream_t st) {
   const int smem = kShared ? p.geo_bytes + p.cell_bytes : 0;
-  return csgr::launch_persistent(sphere_megakernel<kGrid, kNee, kShared>, p, kThreads, smem,
-                                 p.width, p.rows, p.work, st);
+  return csgr::launch_persistent(sphere_megakernel<kGrid, kNee, kShared, kStats>, p, kThreads,
+                                 smem, p.width, p.rows, p.work, st);
 }
 
 template <bool kShared>
 cudaError_t launch_mode(const Params& p, bool grid, bool nee, cudaStream_t st) {
-  if (grid) return nee ? launch<true, true, kShared>(p, st) : launch<true, false, kShared>(p, st);
-  return nee ? launch<false, true, kShared>(p, st) : launch<false, false, kShared>(p, st);
+  if (grid) {
+    return nee ? launch<true, true, kShared, false>(p, st)
+               : launch<true, false, kShared, false>(p, st);
+  }
+  return nee ? launch<false, true, kShared, false>(p, st)
+             : launch<false, false, kShared, false>(p, st);
 }
 
 // The G-buffer mode's outputs, beside the scene (p.width x p.height pixels).
@@ -658,7 +692,7 @@ cudaError_t scene_params(Params& p, const void* cam, const void* spheres, const 
 // ``device``: its opt-in shared memory per block less the kernel's static
 // shared memory; a negative CUDA error code on failure.
 extern "C" int csgr_sphere_table_limit(int device) {
-  return csgr::table_limit(sphere_megakernel<true, true, true>, device);
+  return csgr::table_limit(sphere_megakernel<true, true, true, false>, device);
 }
 
 // shared_tables: 1 stages the geometry and cell tables in shared memory
@@ -668,7 +702,9 @@ extern "C" int csgr_sphere_table_limit(int device) {
 // out_rays holds rows x width int32 segment counts and one int32 more: the
 // launch's work counter. out_shadow (NEE: n_lamps > 0) is one uint64 that
 // the launch zeroes, then sets to the shadow rays it traces; null
-// otherwise, when it is not read.
+// otherwise, when it is not read. out_stats: null, or (grid mode from
+// staged tables only) csgr::kStatsWords uint64 that the launch zeroes and
+// fills through the stats instantiation (the shadow word with NEE only).
 extern "C" int csgr_sphere_render(
     const void* cam, const void* spheres, const void* geometry, int n_spheres, int n_brute,
     const void* cell_ids, int cx, int cz, int m, int max_steps, float x0, float z0, float x1,
@@ -676,13 +712,14 @@ extern "C" int csgr_sphere_render(
     int width, int height, int rows, int row_offset,
     int spp, int max_bounces, unsigned int seed, unsigned int sample_offset,
     const void* sample_offset_at, int lens, int sky, int shared_tables, void* out_rgb,
-    void* out_rays, void* out_shadow, void* stream) {
+    void* out_rays, void* out_shadow, void* out_stats, void* stream) {
   const bool nee = n_lamps > 0;
   if (rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
-      (nee && out_shadow == nullptr)) {
+      (nee && out_shadow == nullptr) ||
+      (out_stats != nullptr && (cell_ids == nullptr || !shared_tables))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p;
+  csgr::WithStats<Params> p;
   const cudaError_t bad = scene_params(p, cam, spheres, geometry, n_spheres, n_brute, cell_ids,
                                        cx, cz, m, max_steps, x0, z0, x1, z1, y_lo, y_hi, cell,
                                        inv_cell);
@@ -698,15 +735,24 @@ extern "C" int csgr_sphere_render(
   p.out_rays = static_cast<int*>(out_rays);
   p.work = p.out_rays + static_cast<size_t>(rows) * width;
   p.out_shadow = static_cast<unsigned long long*>(out_shadow);
+  p.stats = static_cast<unsigned long long*>(out_stats);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nee) {  // in stream order, before the launch
     const cudaError_t z = cudaMemsetAsync(out_shadow, 0, sizeof(unsigned long long), st);
     if (z != cudaSuccess) return static_cast<int>(z);
   }
+  if (out_stats != nullptr) {
+    const cudaError_t z =
+        cudaMemsetAsync(out_stats, 0, csgr::kStatsWords * sizeof(unsigned long long), st);
+    if (z != cudaSuccess) return static_cast<int>(z);
+    return static_cast<int>(nee ? launch<true, true, true, true>(p, st)
+                                : launch<true, false, true, true>(p, st));
+  }
   const bool grid = cell_ids != nullptr;
-  const cudaError_t e = shared_tables ? launch_mode<true>(p, grid, nee, st)
-                                      : launch_mode<false>(p, grid, nee, st);
+  const Params& plain = p;
+  const cudaError_t e = shared_tables ? launch_mode<true>(plain, grid, nee, st)
+                                      : launch_mode<false>(plain, grid, nee, st);
   return static_cast<int>(e);
 }
 

@@ -109,6 +109,14 @@
 // intervals are not counted, as shadow rays are not counted in the
 // segments.
 //
+// Stats mode (kStats, the event flip without NEE at cap 8, flat or through
+// the tree: the deepcsg and manyobjects cells' instantiations): the same
+// image and counts, and per launch a block of work counts (persistent.cuh):
+// the bounce loop's warp turns and, through the tree, the node loop's turns
+// by warp and by lane (the flat flip has no walk). The launcher runs it
+// where out_stats is not null; the other launches compile as if it were not
+// there.
+//
 // Numerics: the kernel repeats, operation for operation, the float
 // arithmetic of its plain torch version (kernels/tape_kernel.py:
 // render_image_tape_plain), and is built with -fmad=false and without fast
@@ -619,11 +627,14 @@ __device__ __forceinline__ void tree_cluster(const Tables& tb, int c, float ox, 
 // clusters, then the tree front to back (the child on the ray's side of
 // the split first), a node entered only if its box's slab entry lies below
 // the best flip so far and its exit at or past kEps. The same t and
-// `entering` as nearest_flip<false, false> over every cluster.
+// `entering` as nearest_flip<false, false> over every cluster. A stats
+// instantiation passes its lane's Stats, in which each node visit's turn is
+// counted (csgr::walk_turn); the others pass none.
+template <class... Stats>
 __device__ __forceinline__ float tree_flip(const TreeParams& p, const Tables& tb, float ox,
                                            float oy, float oz, float dx, float dy, float dz,
                                            bool& entering, float* enter, float* exit_,
-                                           unsigned& tests) {
+                                           unsigned& tests, Stats&... st) {
   const Tree tr = staged_tree(p);
   float t = kTFar;
   int tc = p.n_clusters;
@@ -641,6 +652,7 @@ __device__ __forceinline__ float tree_flip(const TreeParams& p, const Tables& tb
     // a warp evaluate their clusters together, not each at its own step
     int c = -1;
     while (sp > 0) {
+      if constexpr (sizeof...(Stats) > 0) csgr::walk_turn(st...);
       const int i = stack[--sp];
       const float4 lo = tr.nodes[2 * i], hi = tr.nodes[2 * i + 1];
       float tn = -kTFar, tf = kTFar;
@@ -728,10 +740,13 @@ __device__ __forceinline__ unsigned tree_owner(const TreeParams& p, const Tables
 // One pixel's spp paths, one after another, each up to max_bounces
 // segments; the radiance is summed in sample order. kCap: slots of the
 // per-thread interval arrays (at least the largest cluster's leaves).
-// Returns the leaf intervals of the pixel's path segments.
-template <bool kNee, bool kLists, int kCap>
+// Returns the leaf intervals of the pixel's path segments. ``st``: none,
+// or a stats instantiation's lane Stats, which counts the segment loop's
+// turns.
+template <bool kNee, bool kLists, int kCap, class... Stats>
 __device__ __forceinline__ unsigned render_pixel(const Params& p, const Tables& tb,
-                                                 const float* cam, int x, int row) {
+                                                 const float* cam, int x, int row,
+                                                 Stats&... st) {
   const float* s_leaf = tb.leaf;
   const int* s_type = tb.type;
   const int* s_lamp = tb.lamp;
@@ -750,6 +765,7 @@ __device__ __forceinline__ unsigned render_pixel(const Params& p, const Tables& 
     path.sr = 0.0f; path.sg = 0.0f; path.sb = 0.0f;
     float prev_pdf = 0.0f;  // NEE: pdf of the scatter that made this ray, 0 on camera rays
     for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
+      if constexpr (sizeof...(Stats) > 0) csgr::segment_turn(st...);
       ++rays;
       const float ox = path.ox, oy = path.oy, oz = path.oz;
       const float dx = path.dx, dy = path.dy, dz = path.dz;
@@ -867,11 +883,12 @@ __device__ __forceinline__ unsigned render_pixel(const Params& p, const Tables& 
 // NEE): render_pixel's loop with tree_flip and tree_owner in place of the
 // loops over every cluster and every leaf, the same operations otherwise.
 // Returns the leaf intervals of the pixel's path segments and adds their
-// leaf scores to ``scores``.
-template <int kCap>
+// leaf scores to ``scores``. ``st``: as tree_flip's, where a stats
+// instantiation also counts the segment loop's turns.
+template <int kCap, class... Stats>
 __device__ __forceinline__ unsigned render_pixel_tree(const TreeParams& p, const Tables& tb,
                                                       const float* cam, int x, int row,
-                                                      unsigned& scores) {
+                                                      unsigned& scores, Stats&... st) {
   const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
   const size_t out_pix = static_cast<size_t>(row) * p.width + x;
@@ -886,11 +903,13 @@ __device__ __forceinline__ unsigned render_pixel_tree(const TreeParams& p, const
     csgr::camera_ray(cam, x, y, pix, s, p.seed, p.width, p.height, p.lens, path);
     path.sr = 0.0f; path.sg = 0.0f; path.sb = 0.0f;
     for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
+      if constexpr (sizeof...(Stats) > 0) csgr::segment_turn(st...);
       ++rays;
       const float ox = path.ox, oy = path.oy, oz = path.oz;
       const float dx = path.dx, dy = path.dy, dz = path.dz;
       bool entering = false;
-      const float t = tree_flip(p, tb, ox, oy, oz, dx, dy, dz, entering, enter, exit_, tests);
+      const float t =
+          tree_flip(p, tb, ox, oy, oz, dx, dy, dz, entering, enter, exit_, tests, st...);
       const float inv_len = csgr::inv_length(path);
       const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
       if (!(t < kCut)) {  // miss: sky, path ends
@@ -925,23 +944,34 @@ __device__ __forceinline__ unsigned render_pixel_tree(const TreeParams& p, const
 
 // Persistent CTAs (persistent.cuh): a CTA stages the tables once, then each
 // warp takes 16x2-pixel work units from the launch's counter and adds each
-// pixel's leaf intervals to the launch's word.
-template <bool kNee, bool kLists, int kCap>
-__global__ void __launch_bounds__(kThreads, (kMinCtas<kNee, kLists>)) tape_kernel(const Params p) {
+// pixel's leaf intervals to the launch's word; a stats launch (kStats: the
+// event flip without NEE at cap 8) adds the unit's segment-loop turns to
+// its block (it has no walk).
+template <bool kNee, bool kLists, int kCap, bool kStats>
+__global__ void __launch_bounds__(kThreads, (kMinCtas<kNee, kLists>))
+    tape_kernel(const csgr::StatsParams<Params, kStats> p) {
   csgr::stage_tables<1>({p.tables}, {p.table_bytes});
   const Tables tb = staged_tables(p);
   float cam[csgr::kCamFloats];
 #pragma unroll
   for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
   csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
-    csgr::add_count(p.out_tests, render_pixel<kNee, kLists, kCap>(p, tb, cam, x, row));
+    if constexpr (kStats) {
+      csgr::Stats st;
+      csgr::add_count(p.out_tests, render_pixel<kNee, kLists, kCap>(p, tb, cam, x, row, st));
+      csgr::add_stats<1>(p.stats, st);
+    } else {
+      csgr::add_count(p.out_tests, render_pixel<kNee, kLists, kCap>(p, tb, cam, x, row));
+    }
   });
 }
 
 // The event flip through the cluster tree: each pixel's leaf intervals to
-// the launch's first word, its leaf scores to the second.
-template <int kCap>
-__global__ void __launch_bounds__(kThreads, kTreeMinCtas) tape_kernel_tree(const TreeParams p) {
+// the launch's first word, its leaf scores to the second; a stats launch
+// (kStats, at cap 8) adds the unit's stats to its block.
+template <int kCap, bool kStats>
+__global__ void __launch_bounds__(kThreads, kTreeMinCtas)
+    tape_kernel_tree(const csgr::StatsParams<TreeParams, kStats> p) {
   csgr::stage_tables<1>({p.tables}, {p.table_bytes});
   const Tables tb = staged_tables(p);
   float cam[csgr::kCamFloats];
@@ -949,30 +979,38 @@ __global__ void __launch_bounds__(kThreads, kTreeMinCtas) tape_kernel_tree(const
   for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
   csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
     unsigned scores = 0;
-    csgr::add_count(p.out_tests, render_pixel_tree<kCap>(p, tb, cam, x, row, scores));
-    csgr::add_count(p.out_tests + 1, scores);
+    if constexpr (kStats) {
+      csgr::Stats st;
+      csgr::add_count(p.out_tests, render_pixel_tree<kCap>(p, tb, cam, x, row, scores, st));
+      csgr::add_count(p.out_tests + 1, scores);
+      csgr::add_stats<3>(p.stats, st);
+    } else {
+      csgr::add_count(p.out_tests, render_pixel_tree<kCap>(p, tb, cam, x, row, scores));
+      csgr::add_count(p.out_tests + 1, scores);
+    }
   });
 }
 
-template <bool kNee, bool kLists, int kCap>
-cudaError_t launch(const Params& p, cudaStream_t st) {
-  return csgr::launch_persistent(tape_kernel<kNee, kLists, kCap>, p, kThreads, p.table_bytes,
-                                 p.width, p.rows, p.work, st);
+template <bool kNee, bool kLists, int kCap, bool kStats>
+cudaError_t launch(const csgr::StatsParams<Params, kStats>& p, cudaStream_t st) {
+  return csgr::launch_persistent(tape_kernel<kNee, kLists, kCap, kStats>, p, kThreads,
+                                 p.table_bytes, p.width, p.rows, p.work, st);
 }
 
 cudaError_t launch_tree(const TreeParams& p, int cap, cudaStream_t st) {
-  const auto kernel = cap == 8 ? tape_kernel_tree<8>
-                               : (cap == 32 ? tape_kernel_tree<32> : tape_kernel_tree<kMaxLeaves>);
+  const auto kernel = cap == 8 ? tape_kernel_tree<8, false>
+                               : (cap == 32 ? tape_kernel_tree<32, false>
+                                            : tape_kernel_tree<kMaxLeaves, false>);
   return csgr::launch_persistent(kernel, p, kThreads, p.table_bytes, p.width, p.rows, p.work, st);
 }
 
 // The audit without NEE holds no cluster intervals: one small cap serves.
 template <bool kNee, bool kLists>
 cudaError_t launch_cap(const Params& p, int cap, cudaStream_t st) {
-  if (kLists && !kNee) return launch<kNee, kLists, 8>(p, st);
-  if (cap == 8) return launch<kNee, kLists, 8>(p, st);
-  if (cap == 32) return launch<kNee, kLists, 32>(p, st);
-  return launch<kNee, kLists, kMaxLeaves>(p, st);
+  if (kLists && !kNee) return launch<kNee, kLists, 8, false>(p, st);
+  if (cap == 8) return launch<kNee, kLists, 8, false>(p, st);
+  if (cap == 32) return launch<kNee, kLists, 32, false>(p, st);
+  return launch<kNee, kLists, kMaxLeaves, false>(p, st);
 }
 
 }  // namespace
@@ -994,14 +1032,18 @@ extern "C" int csgr_tape_max_k() { return kMaxK; }
 // holds rows x width int32 segment counts and one int32 more: the launch's
 // work counter. out_tests is two uint64, which the launch zeroes and then
 // fills with its path segments' leaf intervals and (tree) the
-// attribution's leaf scores.
+// attribution's leaf scores. out_stats: null, or (the event flip without
+// NEE at cap 8, flat or through the tree) csgr::kStatsWords uint64 that the
+// launch zeroes and fills through the stats instantiation (the segment word
+// alone where it walks no tree).
 extern "C" int csgr_tape_render(
     const void* cam, const void* tables, int table_bytes, int type_at, int ops_at, int ids_at,
     int cl_at, int lamp_at, int list_at, int node_at, int free_at, int n_leaves, int n_ops,
     int n_clusters, int n_lamps, int n_list_ops, int n_nodes, int n_free, int k, int cap,
     int width, int height, int rows, int row_offset, int spp, int max_bounces,
     unsigned int seed, unsigned int sample_offset, int lens, int sky, float score_bound,
-    void* out_rgb, void* out_rays, void* out_over, void* out_tests, void* stream) {
+    void* out_rgb, void* out_rays, void* out_over, void* out_tests, void* out_stats,
+    void* stream) {
   const bool lists = list_at >= 0;
   const bool tree = n_nodes > 0 && !lists && n_lamps == 0;
   if (n_leaves < 1 || n_leaves > kMaxLeaves || n_clusters < 1 ||
@@ -1009,13 +1051,14 @@ extern "C" int csgr_tape_render(
       (cap != 8 && cap != 32 && cap != kMaxLeaves) ||
       (lists && (k < 1 || k > kMaxK || n_list_ops < 1 || out_over == nullptr)) ||
       rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
-      table_bytes % 16 != 0 || table_bytes < n_leaves * kLeafRow * 4 || out_tests == nullptr) {
+      table_bytes % 16 != 0 || table_bytes < n_leaves * kLeafRow * 4 || out_tests == nullptr ||
+      (out_stats != nullptr && (lists || n_lamps > 0 || cap != 8))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reinterpret_cast<uintptr_t>(tables) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);  // the bulk copy
   }
-  TreeParams p;
+  csgr::WithStats<TreeParams> p;
   p.cam = static_cast<const float*>(cam);
   p.tables = static_cast<const unsigned char*>(tables);
   p.table_bytes = table_bytes;
@@ -1039,12 +1082,25 @@ extern "C" int csgr_tape_render(
   p.node_at = node_at; p.free_at = free_at;
   p.n_free = n_free;
   p.score_bound = score_bound;
+  p.stats = static_cast<unsigned long long*>(out_stats);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // in stream order, before the launch
   cudaError_t err = cudaMemsetAsync(out_tests, 0, 2 * sizeof(unsigned long long), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (tree) {
+  if (out_stats != nullptr) {
+    err = cudaMemsetAsync(out_stats, 0, csgr::kStatsWords * sizeof(unsigned long long), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (tree) {
+      err = csgr::launch_persistent(tape_kernel_tree<8, true>, p, kThreads, p.table_bytes,
+                                    p.width, p.rows, p.work, st);
+    } else {
+      csgr::WithStats<Params> flat;
+      static_cast<Params&>(flat) = p;
+      flat.stats = p.stats;
+      err = launch<false, false, 8, true>(flat, st);
+    }
+  } else if (tree) {
     err = launch_tree(p, cap, st);
   } else if (n_lamps > 0) {
     err = lists ? launch_cap<true, true>(p, cap, st) : launch_cap<true, false>(p, cap, st);

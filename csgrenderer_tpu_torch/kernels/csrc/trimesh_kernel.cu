@@ -83,6 +83,12 @@
 // Shadow rays' tests and visits are not counted, as shadow rays are not
 // counted in the segments.
 //
+// Stats mode (kStats, the grid walk over global memory without NEE: the
+// mesh cell's instantiation): the same image and counts, and per launch a
+// block of work counts (persistent.cuh): the bounce loop's warp turns and
+// the DDA voxel loop's turns by warp and by lane. The launcher runs it where
+// out_stats is not null; the other launches compile as if it were not there.
+//
 // Numerics: the kernel repeats, operation for operation and in the same
 // order, the float arithmetic of its plain torch version
 // (render/trimesh.mt_t, tri_worklist._walk, render/lights.py), and is
@@ -252,11 +258,13 @@ __device__ __forceinline__ bool list_test(const Params& p, const Ray& r, int k, 
 // else every listed face of a visited voxel is tested, and their number
 // is added to ``tests``, and the visits the occupancy mask answers
 // (!kShared) to ``masked``. kRolled runs each voxel's list as a rolled
-// loop (the compiler unrolls it otherwise).
-template <bool kAny, bool kShared, bool kRolled>
+// loop (the compiler unrolls it otherwise). A stats instantiation passes
+// its lane's Stats, in which each voxel step's turn is counted
+// (csgr::walk_turn); the others pass none.
+template <bool kAny, bool kShared, bool kRolled, class... Stats>
 __device__ __forceinline__ bool grid_walk(const KernelParams<kShared>& p, const Ray& r,
                                           float& t_best, int& id_best, unsigned& tests,
-                                          unsigned& masked) {
+                                          unsigned& masked, Stats&... st) {
   const int dims[3] = {p.nx, p.ny, p.nz};
   float t_in = kTMin, t_out = kBig;
 #pragma unroll
@@ -301,6 +309,7 @@ __device__ __forceinline__ bool grid_walk(const KernelParams<kShared>& p, const 
 
   const int max_steps = p.nx + p.ny + p.nz;
   for (int s = 0; s < max_steps; ++s) {
+    if constexpr (sizeof...(Stats) > 0) csgr::walk_turn(st...);
     bool occupied = true;
     if constexpr (!kShared) occupied = block_occupied(p, ix, iy, iz);
     if (!occupied) {  // an empty block: no offsets to load
@@ -342,11 +351,11 @@ __device__ __forceinline__ bool grid_walk(const KernelParams<kShared>& p, const 
 
 // The nearest hit: every face (brute), or the globals then the walk (grid);
 // the faces tested are added to ``tests``, the walk's masked visits to
-// ``masked``.
-template <bool kGrid, bool kNee, bool kShared>
+// ``masked``; ``st``: as grid_walk's.
+template <bool kGrid, bool kNee, bool kShared, class... Stats>
 __device__ __forceinline__ void nearest(const KernelParams<kShared>& p, const Ray& r,
                                         float& t_best, int& id_best, unsigned& tests,
-                                        unsigned& masked) {
+                                        unsigned& masked, Stats&... st) {
   t_best = kMiss;
   id_best = 0;
   const int n = kGrid ? p.n_glob : p.n_faces;
@@ -359,7 +368,7 @@ __device__ __forceinline__ void nearest(const KernelParams<kShared>& p, const Ra
       id_best = id;
     }
   }
-  if (kGrid) grid_walk<false, kShared, kNee>(p, r, t_best, id_best, tests, masked);
+  if (kGrid) grid_walk<false, kShared, kNee>(p, r, t_best, id_best, tests, masked, st...);
 }
 
 // The shadow rays' walk, kept out of line (ROADMAP C-7). Inlined into the
@@ -402,10 +411,12 @@ __device__ __forceinline__ bool occluded(const KernelParams<kShared>& p, const R
 // One pixel's spp paths, one after another, each up to max_bounces
 // segments; the radiance is summed in sample order. Returns the triangle
 // tests of the pixel's path segments and adds their masked visits to
-// ``masked``.
-template <bool kGrid, bool kNee, bool kShared>
+// ``masked``; ``st``: as grid_walk's, where a stats instantiation also
+// counts the segment loop's turns.
+template <bool kGrid, bool kNee, bool kShared, class... Stats>
 __device__ __forceinline__ unsigned render_pixel(const KernelParams<kShared>& p, const float* cam,
-                                                 int x, int row, unsigned& masked) {
+                                                 int x, int row, unsigned& masked,
+                                                 Stats&... st) {
   const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
   const size_t out_pix = static_cast<size_t>(row) * p.width + x;
@@ -420,13 +431,14 @@ __device__ __forceinline__ unsigned render_pixel(const KernelParams<kShared>& p,
     path.sr = 0.0f; path.sg = 0.0f; path.sb = 0.0f;
     float prev_pdf = 0.0f;  // NEE: pdf of the scatter that made this ray, 0 on camera rays
     for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
+      if constexpr (sizeof...(Stats) > 0) csgr::segment_turn(st...);
       ++rays;
       const float ox = path.ox, oy = path.oy, oz = path.oz;
       const float dx = path.dx, dy = path.dy, dz = path.dz;
       const Ray ray = {{ox, oy, oz}, {dx, dy, dz}};
       float t_best;
       int id_best;
-      nearest<kGrid, kNee, kShared>(p, ray, t_best, id_best, tests, masked);
+      nearest<kGrid, kNee, kShared>(p, ray, t_best, id_best, tests, masked, st...);
 
       const float inv_len = csgr::inv_length(path);
       const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
@@ -496,10 +508,12 @@ __device__ __forceinline__ unsigned render_pixel(const KernelParams<kShared>& p,
 // Persistent CTAs (persistent.cuh): a CTA stages the tables once (kShared),
 // or in grid mode the occupancy mask, then each warp takes 16x2-pixel work
 // units from the launch's counter and adds the unit's triangle tests (and,
-// walking global memory, its masked visits) to the launch's words.
-template <bool kGrid, bool kNee, bool kShared>
+// walking global memory, its masked visits) to the launch's words; a stats
+// launch (kStats: the grid walk over global memory without NEE) adds the
+// unit's stats to its block.
+template <bool kGrid, bool kNee, bool kShared, bool kStats>
 __global__ void __launch_bounds__(kThreads<kShared, kNee>, kMinCtas<kShared, kNee>)
-    trimesh_kernel(const KernelParams<kShared> p) {
+    trimesh_kernel(const csgr::StatsParams<KernelParams<kShared>, kStats> p) {
   if constexpr (kShared) {
     csgr::stage_tables<1>({p.tables}, {p.table_bytes});
   } else if constexpr (kGrid) {
@@ -510,24 +524,35 @@ __global__ void __launch_bounds__(kThreads<kShared, kNee>, kMinCtas<kShared, kNe
   for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
   csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
     unsigned masked = 0;
-    csgr::add_count(p.out_tests, render_pixel<kGrid, kNee, kShared>(p, cam, x, row, masked));
-    if constexpr (kGrid && !kShared) csgr::add_count(p.out_tests + 1, masked);
+    if constexpr (kStats) {
+      csgr::Stats st;
+      csgr::add_count(p.out_tests, render_pixel<kGrid, kNee, kShared>(p, cam, x, row, masked, st));
+      if constexpr (kGrid && !kShared) csgr::add_count(p.out_tests + 1, masked);
+      csgr::add_stats<3>(p.stats, st);
+    } else {
+      csgr::add_count(p.out_tests, render_pixel<kGrid, kNee, kShared>(p, cam, x, row, masked));
+      if constexpr (kGrid && !kShared) csgr::add_count(p.out_tests + 1, masked);
+    }
   });
 }
 
-template <bool kGrid, bool kNee, bool kShared>
-cudaError_t launch(const KernelParams<kShared>& p, cudaStream_t st) {
+template <bool kGrid, bool kNee, bool kShared, bool kStats>
+cudaError_t launch(const csgr::StatsParams<KernelParams<kShared>, kStats>& p, cudaStream_t st) {
   int smem = 0;
   if constexpr (kShared) smem = p.table_bytes;
   else if constexpr (kGrid) smem = p.mask_bytes;
-  return csgr::launch_persistent(trimesh_kernel<kGrid, kNee, kShared>, p, kThreads<kShared, kNee>,
-                                 smem, p.width, p.rows, p.work, st);
+  return csgr::launch_persistent(trimesh_kernel<kGrid, kNee, kShared, kStats>, p,
+                                 kThreads<kShared, kNee>, smem, p.width, p.rows, p.work, st);
 }
 
 template <bool kShared>
 cudaError_t launch_mode(const KernelParams<kShared>& p, bool grid, bool nee, cudaStream_t st) {
-  if (grid) return nee ? launch<true, true, kShared>(p, st) : launch<true, false, kShared>(p, st);
-  return nee ? launch<false, true, kShared>(p, st) : launch<false, false, kShared>(p, st);
+  if (grid) {
+    return nee ? launch<true, true, kShared, false>(p, st)
+               : launch<true, false, kShared, false>(p, st);
+  }
+  return nee ? launch<false, true, kShared, false>(p, st)
+             : launch<false, false, kShared, false>(p, st);
 }
 
 }  // namespace
@@ -536,7 +561,7 @@ cudaError_t launch_mode(const KernelParams<kShared>& p, bool grid, bool nee, cud
 // its opt-in shared memory per block less the kernel's static shared
 // memory; a negative CUDA error code on failure.
 extern "C" int csgr_mesh_table_limit(int device) {
-  return csgr::table_limit(trimesh_kernel<true, true, true>, device);
+  return csgr::table_limit(trimesh_kernel<true, true, true, false>, device);
 }
 
 // tables: the MT table [F, 3] float4, then (grid: offsets non-negative)
@@ -551,7 +576,9 @@ extern "C" int csgr_mesh_table_limit(int device) {
 // out_rays holds rows x width int32 segment counts and one int32 more: the
 // launch's work counter. out_tests is two uint64, which the launch zeroes
 // and then fills with its path segments' triangle tests and the voxel
-// visits its mask answered.
+// visits its mask answered. out_stats: null, or (the grid walk over global
+// memory without NEE only) csgr::kStatsWords uint64 that the launch zeroes
+// and fills through the stats instantiation (no shadow word).
 extern "C" int csgr_mesh_render(
     const void* cam, const void* faces, const void* tables, int table_bytes, int n_faces,
     int n_glob, int glob_at, int off_at, int ids_at, int nx, int ny, int nz, float x0, float y0,
@@ -559,10 +586,11 @@ extern "C" int csgr_mesh_render(
     int mask_bytes, int mask_shift, int mask_ny, int mask_nz, const void* lamps,
     int n_lamps, int width, int height, int rows, int row_offset, int spp, int max_bounces,
     unsigned int seed, unsigned int sample_offset, int lens, int sky, int shared_tables,
-    void* out_rgb, void* out_rays, void* out_tests, void* stream) {
+    void* out_rgb, void* out_rays, void* out_tests, void* out_stats, void* stream) {
   const bool grid = off_at >= 0, nee = n_lamps > 0;
   if (rows < 1 || row_offset < 0 || row_offset + rows > height || spp < 1 || max_bounces < 0 ||
       table_bytes % 16 != 0 || table_bytes < n_faces * kMtF4 * 16 || out_tests == nullptr ||
+      (out_stats != nullptr && (!grid || nee || shared_tables)) ||
       (grid && !shared_tables &&
        (mask == nullptr || mask_bytes < 16 || mask_bytes % 16 != 0 || mask_shift < 0 ||
         mask_shift > 30))) {
@@ -572,7 +600,7 @@ extern "C" int csgr_mesh_render(
       reinterpret_cast<uintptr_t>(mask) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);  // the bulk copies and float4 loads
   }
-  MaskedParams p;
+  csgr::WithStats<MaskedParams> p;
   p.cam = static_cast<const float*>(cam);
   p.faces = static_cast<const float4*>(faces);
   p.tables = static_cast<const unsigned char*>(tables);
@@ -597,14 +625,22 @@ extern "C" int csgr_mesh_render(
   p.mask = static_cast<const unsigned char*>(mask);
   p.mask_bytes = mask_bytes; p.mask_shift = mask_shift;
   p.mask_ny = mask_ny; p.mask_nz = mask_nz;
+  p.stats = static_cast<unsigned long long*>(out_stats);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // in stream order, before the launch
   const cudaError_t z = cudaMemsetAsync(out_tests, 0, 2 * sizeof(unsigned long long), st);
   if (z != cudaSuccess) return static_cast<int>(z);
+  if (out_stats != nullptr) {
+    const cudaError_t zs =
+        cudaMemsetAsync(out_stats, 0, csgr::kStatsWords * sizeof(unsigned long long), st);
+    if (zs != cudaSuccess) return static_cast<int>(zs);
+    return static_cast<int>(launch<true, false, false, true>(p, st));
+  }
   const cudaError_t e = shared_tables
                             ? launch_mode<true>(static_cast<const Params&>(p), grid, nee, st)
-                            : launch_mode<false>(p, grid, nee, st);
+                            : launch_mode<false>(static_cast<const MaskedParams&>(p), grid, nee,
+                                                 st);
   return static_cast<int>(e);
 }
 

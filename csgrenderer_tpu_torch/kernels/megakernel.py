@@ -22,6 +22,16 @@ same rule, and keep them out of the segment count ``rays``: the kernel
 into a device word of its own, which ``counts`` hands back as a tensor
 without waiting for the device (see ``render_image_kernel``).
 
+A launch in grid mode from staged tables that is handed ``counts`` may
+run the kernel's stats instantiation (``build.stats_launch``: one such
+launch in ``build.STATS_EVERY`` while the program's spans record): the
+same image, segments and shadow rays, and a block of work counts
+(``build.STATS_WORDS``: the segment loop's and the walk loop's warp turns,
+the walk's lane turns and, with NEE, the shadow rays' part of them) that
+``counts`` takes under ``"stats"``. The plain version's grid walk counts
+its cell visits (``worklist.grid_nearest_hit``), the lane turns of the
+kernel's walk.
+
 ``render_aovs_kernel`` is the kernel's G-buffer mode: the AOV cast of
 ``render/aov.py::render_aovs`` (one centred primary ray a pixel, the
 denoiser's edge stops) over the same packed tables, CUDA tensors only; its
@@ -47,7 +57,7 @@ from ..render.aov import AOVs, render_aovs
 from ..render.integrator import SKY_MODES, SphereScene, SurfaceHit
 from ..render.lights import SphereLights, extract_lights
 from . import build
-from .worklist import GridPack, grid_nearest_hit, pack_grid
+from .worklist import GridPack, add_count, grid_nearest_hit, pack_grid
 
 GRID_MIN_SPHERES = 256  # the JAX package's measured brute/grid crossover (TPU)
 SPHERE_WORDS = 12  # floats per sphere record in the kernel's table
@@ -240,7 +250,7 @@ def render_image_plain(
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _SCENE_ARGTYPES = (_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I) + (_F,) * 8
 _KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_sphere_render", _SCENE_ARGTYPES + (_VP, _I)
-                       + (_I,) * 6 + (_U, _U, _VP, _I, _I, _I, _VP, _VP, _VP), "sphere")
+                       + (_I,) * 6 + (_U, _U, _VP, _I, _I, _I, _VP, _VP, _VP, _VP), "sphere")
 _GBUFFER = build.Kernel(KERNEL_SOURCE, "csgr_sphere_gbuffer", _SCENE_ARGTYPES + (_I,) * 4
                         + (_VP,) * 5, "sphere G-buffer")
 _TABLE_LIMIT: dict[int, int] = {}  # device index -> the most table bytes a CTA can stage
@@ -293,7 +303,11 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     launch runs: a launch captured in a CUDA graph takes each replay's
     offset from it. With ``nee`` the launch counts its shadow rays into a
     device word, which ``counts`` (a dict) takes under ``"shadow_rays"``,
-    added to what it holds there."""
+    added to what it holds there. A launch in grid mode from staged tables
+    that is given ``counts`` runs the stats instantiation where
+    ``build.stats_launch()`` says so, and ``counts`` takes its block under
+    ``"stats"`` (the first three of ``build.STATS_WORDS``, all four with
+    NEE)."""
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
@@ -315,11 +329,14 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     # kernel's uint64 word, far from its sign bit)
     shadow = torch.empty((), dtype=torch.int64, device=dev) if nee else None
     shared = not force_global and packed.table_bytes <= table_limit(dev.index)
+    stats = (torch.empty(len(build.STATS_WORDS), dtype=torch.int64, device=dev)
+             if counts is not None and shared and packed.grid is not None
+             and build.stats_launch() else None)
     _KERNEL(
         dev, *scene_args, *lamp_args, width, height, rows, row_offset, spp,
         max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, offset_at, int(lens),
         SKY_MODES.index(sky), int(shared), out_rgb.data_ptr(), out_rays.data_ptr(),
-        None if shadow is None else shadow.data_ptr(),
+        None if shadow is None else shadow.data_ptr(), None if stats is None else stats.data_ptr(),
     )
     LAUNCHES += 1
     LAUNCHES_BY_MODE[packed.mode + ("-nee" if nee else "")] += 1
@@ -327,6 +344,8 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     if shadow is not None and counts is not None:
         counts["shadow_rays"] = shadow if "shadow_rays" not in counts else (
             counts["shadow_rays"] + shadow)
+    if stats is not None:
+        add_count(counts, "stats", stats if nee else stats[:3])
     # int64 sum: one call can pass 2**31 segments (a 1080p/64-spp frame
     # traces ~3.4e8; 4K at a few hundred spp overflows int32)
     return out_rgb, out_rays[:-1].sum(dtype=torch.int64)
@@ -370,8 +389,9 @@ def render_image_kernel(
     holds the sample offset the kernel reads when it runs. ``counts``: a
     dict to which the frame's NEE work is added as int64 tensors, by the
     plain version's rule: on the card the shadow rays traced
-    (``"shadow_rays"``, in a device word the launch fills: nothing waits),
-    on the CPU every key of ``integrator.trace_paths`` and the grid walk's
+    (``"shadow_rays"``, in a device word the launch fills: nothing waits)
+    and, on a stats launch (``_launch``), the stats block (``"stats"``), on
+    the CPU every key of ``integrator.trace_paths`` and the grid walk's
     (``render_image_plain``). Shadow rays are never part of ``rays``.
     """
     if sky not in SKY_MODES:

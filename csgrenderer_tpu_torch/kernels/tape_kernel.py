@@ -50,6 +50,16 @@ plain version replays the tree's walks to count both as the kernel does.
 "audit" the interval-list mode, each also with "-nee";
 ``LAUNCHES_BY_SEARCH``: "tree" where the launch walked the cluster tree,
 else "flat"); only the launch site adds to them.
+
+A launch of the event flip without NEE at interval cap 8 that is handed
+``counts`` may run the kernel's stats instantiation (``build.stats_launch``:
+one such launch in ``build.STATS_EVERY`` while the program's spans
+record): the same image and counts, and a block of work counts that
+``counts`` takes under ``"stats"``: the segment loop's warp turns and,
+through the cluster tree, the tree walk's warp turns and node visits
+(the first one or three of ``build.STATS_WORDS``). The plain version's
+replay of the tree walks counts the same node visits (``"node_visits"``,
+``tree_walk``).
 """
 
 from __future__ import annotations
@@ -515,17 +525,20 @@ def _node_slabs(lo: Tensor, hi: Tensor, o: Tensor, inv: Tensor, flat: Tensor):
             torch.clamp(far.amin(dim=-1), max=T_FAR))
 
 
-def tree_flip_tests(packed: PackedTape, o: Tensor, d: Tensor, flips: Tensor) -> Tensor:
-    """The leaf intervals [N] int64 that the kernel's walk of the cluster
-    tree computes for rays [N, 3], given each cluster's nearest flip
+def tree_walk(packed: PackedTape, o: Tensor, d: Tensor, flips: Tensor) -> tuple[Tensor, Tensor]:
+    """(leaf intervals [N], node visits [N]), int64, of the kernel's walk of
+    the cluster tree for rays [N, 3], given each cluster's nearest flip
     ``flips`` [N, C] (``tape_hit_events(flips=)``): the walk replayed on
     every ray at once, with the kernel's slab arithmetic, child order and
-    prune comparison, the best flip after a cluster the lesser of the two."""
+    prune comparison, the best flip after a cluster the lesser of the two.
+    A node visit is a node taken off a ray's stack, a turn of the kernel's
+    node loop."""
     tree = packed.tree
     dev, n = o.device, o.shape[0]
     size = packed.cluster_table[:, 3].to(device=dev, dtype=torch.int64)
     t = torch.full((n,), T_FAR, dtype=torch.float32, device=dev)
     tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    visits = torch.zeros(n, dtype=torch.int64, device=dev)
     for c in tree.free.tolist():
         t = torch.minimum(t, flips[:, c])
         tests += size[c]
@@ -537,7 +550,8 @@ def tree_flip_tests(packed: PackedTape, o: Tensor, d: Tensor, flips: Tensor) -> 
     while True:
         live = torch.nonzero(sp > 0)[:, 0]
         if live.numel() == 0:
-            return tests
+            return tests, visits
+        visits[live] += 1
         sp[live] -= 1
         node = stack[live, sp[live]]
         tn, tf = _node_slabs(tree.lo[node], tree.hi[node], o[live], inv[live], flat[live])
@@ -651,11 +665,11 @@ def tape_hit(packed: PackedTape, o: Tensor, d: Tensor, dropped: list | None = No
     list given for the audit mode, which takes t and ``entering`` from the
     interval lists (``tape_hit_lists``) and appends the rays' dropped-span
     total (int64 tensor); without it, the event flip. ``counts``: a dict to
-    which the leaf intervals and leaf scores the kernel's walks of the
-    packed cluster tree compute for these rays are added (``"leaf_tests"``,
-    ``"leaf_scores"``: ``tree_flip_tests``, ``tree_score_counts``); t,
-    ``entering`` and the owner are those of every cluster and leaf all the
-    same.
+    which the leaf intervals, node visits and leaf scores the kernel's
+    walks of the packed cluster tree compute for these rays are added
+    (``"leaf_tests"``, ``"node_visits"``: ``tree_walk``; ``"leaf_scores"``:
+    ``tree_score_counts``); t, ``entering`` and the owner are those of
+    every cluster and leaf all the same.
     """
     batch = o.shape[:-1]
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
@@ -671,7 +685,9 @@ def tape_hit(packed: PackedTape, o: Tensor, d: Tensor, dropped: list | None = No
     score, normal = _leaf_scores(packed, p)
     if counts is not None:
         flips = torch.stack(flips, dim=-1) if flips else t.new_zeros((t.shape[0], 0))
-        add_count(counts, "leaf_tests", tree_flip_tests(packed, o, d, flips).sum())
+        tests, visits = tree_walk(packed, o, d, flips)
+        add_count(counts, "leaf_tests", tests.sum())
+        add_count(counts, "node_visits", visits.sum())
         add_count(counts, "leaf_scores", tree_score_counts(packed, p[hit], score[hit]).sum())
     owner = torch.argmin(score, dim=-1)  # first minimum: strict < in leaf order
     nl = torch.gather(normal, 1, owner[:, None, None].expand(-1, 1, 3))[:, 0]
@@ -715,7 +731,8 @@ def render_image_tape_plain(
     ``integrator.trace_paths``, plus the path segments' leaf intervals
     (``"leaf_tests"``: segments x leaves, what the kernel counts; where the
     kernel walks the cluster tree, ``uses_tree``, what its walks compute,
-    and the attribution's leaf scores, ``"leaf_scores"``).
+    their node visits, ``"node_visits"``, and the attribution's leaf
+    scores, ``"leaf_scores"``).
     ``with_overflow``: path segments take the
     audit mode's interval lists, and the dropped spans of the segments
     traced are summed into a third result, ``over`` (int64 scalar).
@@ -737,7 +754,7 @@ def render_image_tape_plain(
         row_offset=row_offset, sample_batch=sample_batch,
     )
     if walks is not None:
-        for key in ("leaf_tests", "leaf_scores"):
+        for key in ("leaf_tests", "node_visits", "leaf_scores"):
             add_count(counts, key, torch.as_tensor(walks.get(key, 0), dtype=torch.int64,
                                                    device=rays.device))
     elif counts is not None:
@@ -753,7 +770,7 @@ def render_image_tape_plain(
 
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_ARGTYPES = (_VP, _VP) + (_I,) * 24 + (_U, _U, _I, _I, _F, _VP, _VP, _VP, _VP)
+_ARGTYPES = (_VP, _VP) + (_I,) * 24 + (_U, _U, _I, _I, _F, _VP, _VP, _VP, _VP, _VP)
 
 
 def _check_limits(lib) -> None:
@@ -774,10 +791,12 @@ def uses_tree(packed: PackedTape, nee: bool, with_overflow: bool) -> bool:
 
 def launch_args(packed: PackedTape, cam_row, width, height, rows, row_offset, spp, max_bounces,
                 seed, sample_offset, lens, sky, nee, with_overflow, out_rgb, out_rays,
-                out_over, out_tests) -> tuple:
+                out_over, out_tests, out_stats=None) -> tuple:
     """The arguments of ``csgr_tape_render`` but the stream, after checking
     every tensor it passes (``out_rays``: rows x width + 1 int32;
-    ``out_tests``: two int64, which the launch zeroes and fills)."""
+    ``out_tests``: two int64, which the launch zeroes and fills;
+    ``out_stats``: None, or the stats block, ``len(build.STATS_WORDS)``
+    int64, which a stats launch zeroes and fills)."""
     dev = packed.device
     lay = packed.layout
     tree = packed.tree
@@ -788,6 +807,8 @@ def launch_args(packed: PackedTape, cam_row, width, height, rows, row_offset, sp
     if with_overflow:
         build.check_tensor(out_over, "out_over", torch.int32, (rows, width), dev)
     build.check_tensor(out_tests, "out_tests", torch.int64, (2,), dev)
+    if out_stats is not None:
+        build.check_tensor(out_stats, "out_stats", torch.int64, (len(build.STATS_WORDS),), dev)
     n_lamps = packed.lamp_ids.numel() if nee else 0
     return (cam_row.data_ptr(), packed.tables.data_ptr(), lay.nbytes, lay.type_at, lay.ops_at,
             lay.ids_at, lay.cl_at, lay.lamp_at, lay.list_at if with_overflow else -1,
@@ -798,7 +819,7 @@ def launch_args(packed: PackedTape, cam_row, width, height, rows, row_offset, sp
             max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens),
             SKY_MODES.index(sky), 0.0 if tree is None else tree.score_bound, out_rgb.data_ptr(),
             out_rays.data_ptr(), None if out_over is None else out_over.data_ptr(),
-            out_tests.data_ptr())
+            out_tests.data_ptr(), None if out_stats is None else out_stats.data_ptr())
 
 
 def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, sample_offset,
@@ -806,7 +827,11 @@ def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, 
     """Launch the kernel. It counts its path segments' leaf intervals
     into a device word, which ``counts`` (a dict) takes under
     ``"leaf_tests"``, added to what it holds there, and through the cluster
-    tree its attribution's leaf scores into a second, ``"leaf_scores"``."""
+    tree its attribution's leaf scores into a second, ``"leaf_scores"``.
+    A launch of the event flip without NEE at cap 8 that is given
+    ``counts`` runs the stats instantiation where ``build.stats_launch()``
+    says so, and ``counts`` takes its block under ``"stats"`` (the segment
+    word, and through the tree the walk's two words too)."""
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
@@ -818,18 +843,23 @@ def _launch(packed: PackedTape, cam_row, width, height, spp, max_bounces, seed, 
     # the launch zeroes them, then counts into them (int64: the kernel's
     # uint64 words, far from their sign bits)
     tests = torch.empty(2, dtype=torch.int64, device=dev)
+    tree = uses_tree(packed, nee, with_overflow)
+    stats = (torch.empty(len(build.STATS_WORDS), dtype=torch.int64, device=dev)
+             if counts is not None and not nee and not with_overflow
+             and packed.interval_cap == 8 and build.stats_launch() else None)
     _KERNEL(dev, *launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounces,
                               seed, sample_offset, lens, sky, nee, with_overflow, out_rgb,
-                              out_rays, out_over, tests))
+                              out_rays, out_over, tests, stats))
     LAUNCHES += 1
     mode = "audit" if with_overflow else packed.mode
     LAUNCHES_BY_MODE[mode + ("-nee" if nee else "")] += 1
-    tree = uses_tree(packed, nee, with_overflow)
     LAUNCHES_BY_SEARCH["tree" if tree else "flat"] += 1
     if counts is not None:
         add_count(counts, "leaf_tests", tests[0])
         if tree:
             add_count(counts, "leaf_scores", tests[1])
+    if stats is not None:
+        add_count(counts, "stats", stats[:3] if tree else stats[:1])
     rays = out_rays[:-1].sum(dtype=torch.int64)
     if with_overflow:
         return out_rgb, rays, out_over.sum(dtype=torch.int64)
@@ -875,9 +905,10 @@ def render_image_tape_kernel(
     path-segment leaf intervals are added under ``"leaf_tests"`` as an
     int64 tensor (on the card a device word the launch fills: nothing
     waits), where the kernel walks the cluster tree (``uses_tree``) its
-    attribution's leaf scores under ``"leaf_scores"``, and on the CPU every
-    key of ``render_image_tape_plain``'s counts. Shadow rays' intervals are
-    never part of ``"leaf_tests"``.
+    attribution's leaf scores under ``"leaf_scores"``, a stats launch's
+    block under ``"stats"`` (see ``_launch``), and on the CPU every key of
+    ``render_image_tape_plain``'s counts. Shadow rays' intervals are never
+    part of ``"leaf_tests"``.
     """
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")

@@ -36,6 +36,15 @@ grid-nee; ``LAUNCHES_BY_TABLES`` by where the launch read the tables a walk
 reads: staged in shared memory, or global memory when
 ``PackedMesh.table_bytes`` exceeds ``table_limit``); only the launch site
 adds to them.
+
+A launch in grid mode without NEE over tables in global memory that is
+handed ``counts`` may run the kernel's stats instantiation
+(``build.stats_launch``: one such launch in ``build.STATS_EVERY`` while
+the program's spans record): the same image and counts, and a block of
+work counts (the first three of ``build.STATS_WORDS``: the segment loop's
+and the voxel walk's warp turns and the walk's lane turns) that
+``counts`` takes under ``"stats"``. The plain version's walk counts its
+voxel visits (``"voxel_visits"``), the lane turns of the kernel's walk.
 """
 
 from __future__ import annotations
@@ -312,7 +321,7 @@ def render_image_mesh_plain(
 
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _ARGTYPES = ((_VP, _VP, _VP) + (_I,) * 9 + (_F,) * 8 + (_VP,) + (_I,) * 4 + (_VP,) + (_I,) * 7
-             + (_U, _U) + (_I,) * 3 + (_VP, _VP, _VP))
+             + (_U, _U) + (_I,) * 3 + (_VP, _VP, _VP, _VP))
 _KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_mesh_render", _ARGTYPES, "mesh")
 _TABLE_LIMIT: dict[int, int] = {}  # device index -> the most table bytes a CTA can stage
 
@@ -335,11 +344,14 @@ def table_limit(index: int) -> int:
 
 
 def launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounces, seed,
-                sample_offset, lens, sky, nee, shared, out_rgb, out_rays, out_tests) -> tuple:
+                sample_offset, lens, sky, nee, shared, out_rgb, out_rays, out_tests,
+                out_stats=None) -> tuple:
     """The arguments of ``csgr_mesh_render`` but the stream, after checking
     every tensor it passes (``out_rays``: rows x width + 1 int32;
     ``out_tests``: two int64, which the launch zeroes and fills with its
-    path segments' triangle tests and masked visits)."""
+    path segments' triangle tests and masked visits; ``out_stats``: None,
+    or the stats block, ``len(build.STATS_WORDS)`` int64, which a stats
+    launch zeroes and fills)."""
     dev = packed.device
     f = packed.mesh.num_faces
     lay = packed.layout
@@ -349,6 +361,8 @@ def launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounc
     build.check_tensor(out_rgb, "out_rgb", torch.float32, (rows, width, 3), dev)
     build.check_tensor(out_rays, "out_rays", torch.int32, (rows * width + 1,), dev)
     build.check_tensor(out_tests, "out_tests", torch.int64, (2,), dev)
+    if out_stats is not None:
+        build.check_tensor(out_stats, "out_stats", torch.int64, (len(build.STATS_WORDS),), dev)
     grid_args = [0, -1, -1, -1, 0, 0, 0] + [0.0] * 8 + [None, 0, 0, 0, 0]
     if packed.grid is not None:
         g = packed.grid
@@ -368,7 +382,7 @@ def launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounc
             lay.nbytes, f, *grid_args, *lamp_args, width, height, rows, row_offset, spp,
             max_bounces, seed & 0xFFFFFFFF, sample_offset & 0xFFFFFFFF, int(lens),
             SKY_MODES.index(sky), int(shared), out_rgb.data_ptr(), out_rays.data_ptr(),
-            out_tests.data_ptr())
+            out_tests.data_ptr(), None if out_stats is None else out_stats.data_ptr())
 
 
 def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offset, lens, sky,
@@ -379,7 +393,10 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     The launch counts its path segments' triangle tests and masked visits
     into two device words, which ``counts`` (a dict) takes under
     ``"tri_tests"`` and ``"masked_visits"``, added to what it holds
-    there."""
+    there. A launch in grid mode without NEE from global memory that is
+    given ``counts`` runs the stats instantiation where
+    ``build.stats_launch()`` says so, and ``counts`` takes its block under
+    ``"stats"`` (the first three of ``build.STATS_WORDS``)."""
     global LAUNCHES
     rows = height if rows is None else rows
     dev = packed.device
@@ -390,15 +407,20 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     # uint64 words, far from their sign bit)
     tests = torch.empty(2, dtype=torch.int64, device=dev)
     shared = not force_global and packed.table_bytes <= table_limit(dev.index)
+    stats = (torch.empty(len(build.STATS_WORDS), dtype=torch.int64, device=dev)
+             if counts is not None and packed.grid is not None and not nee and not shared
+             and build.stats_launch() else None)
     _KERNEL(dev, *launch_args(packed, cam_row, width, height, rows, row_offset, spp,
                               max_bounces, seed, sample_offset, lens, sky, nee, shared, out_rgb,
-                              out_rays, tests))
+                              out_rays, tests, stats))
     LAUNCHES += 1
     LAUNCHES_BY_MODE[packed.mode + ("-nee" if nee else "")] += 1
     LAUNCHES_BY_TABLES["shared" if shared else "global"] += 1
     if counts is not None:
         add_count(counts, "tri_tests", tests[0])
         add_count(counts, "masked_visits", tests[1])
+    if stats is not None:
+        add_count(counts, "stats", stats[:3])
     return out_rgb, out_rays[:-1].sum(dtype=torch.int64)  # int32 per pixel, summed in int64
 
 
@@ -433,9 +455,10 @@ def render_image_mesh_kernel(
     and pixel centres on the CPU only. ``counts``: a dict to which the
     frame's path-segment triangle tests and masked visits are added under
     ``"tri_tests"`` and ``"masked_visits"`` as int64 tensors (on the card
-    device words the launch fills: nothing waits), and on the CPU every
-    key of ``render_image_mesh_plain``'s counts. Shadow rays' tests and
-    visits are never part of either.
+    device words the launch fills: nothing waits; a stats launch's block
+    under ``"stats"``, see ``_launch``), and on the CPU every key of
+    ``render_image_mesh_plain``'s counts. Shadow rays' tests and visits are
+    never part of either.
     """
     if sky not in SKY_MODES:
         raise ValueError(f"unknown sky mode {sky!r}")

@@ -6,11 +6,12 @@ night488 bench frame; the tape kernel's frames (rows
 4a-4c, many-object scenes around the cluster tree's threshold) and the
 deepcsg, csgnight and manyobjects bench frames; the mesh
 kernel's frames (row 5, its four modes) and the mesh and meshnight bench
-frames; the mesh face-count ladder; and the denoise path (kernel row 10,
-the renderer's denoise step and the denoised realtime loop).
+frames; the mesh face-count ladder; the denoise path (kernel row 10,
+the renderer's denoise step and the denoised realtime loop); and the five
+offline cells' frames through their kernels' stats instantiations.
 
     python -m csgrenderer_tpu_torch.tools.tree_timing --trees parent=DIR,change=DIR [--out DIR]
-        [--groups sphere,nee,tape,mesh,ladder,denoise]
+        [--groups sphere,nee,tape,mesh,ladder,denoise,stats]
     PYTHONPATH=DIR python csgrenderer_tpu_torch/tools/tree_timing.py --label NAME [--json FILE]
 
 ``--trees`` takes ``label=directory`` pairs, each directory the root of a
@@ -23,7 +24,7 @@ measurement beside the first tree's. ``--label`` measures the package found
 on ``sys.path`` and writes one JSON file; ``--trees`` runs it so.
 
 Measured per tree, CUDA events unless named otherwise, for the groups
-``--groups`` names (all of them by default):
+``--groups`` names (all of them but stats by default):
 
 - sphere: kernel rows 1-2 at the frames of PERF.md's kernel table (grid:
   the RTIOW final scene at 1920x1080, 2 spp, 8 bounces, lens; brute: the
@@ -53,6 +54,15 @@ Measured per tree, CUDA events unless named otherwise, for the groups
   at 997x563, 5 passes; and the renderer's denoise step
   (``PathTraceRenderer.denoise_image``: the AOV cast and the 4 passes) at
   1280x720;
+- stats (only when named: trees whose kernels have a stats mode,
+  ``kernels.build.STATS_EVERY``):
+  the frames of the five offline cells (rtiow 1920x1080, 64 spp, lens;
+  deepcsg 1920x1080, 64 spp; night488 960x540, 64 spp, NEE; the
+  102,402-face mesh and the 99-object scene at 1280x720, 16 spp), each
+  launched plain and through its kernel's stats instantiation (every
+  launch a stats launch, under ``profiling.recording()``), the stats
+  frame's image and segments held to the plain frame's and its stats
+  block reported beside them;
 
 each frame: the median ms of ``REPS`` back-to-back launches after a
 warm-up, and the sha256 of the last frame's f32 bytes with its ray count
@@ -93,11 +103,12 @@ LADDER_REPS = 5  # timed launches per ladder rung
 CANARY_CALLS, CANARY_ROUNDS = 1000, 5
 REALTIME_FRAMES, REALTIME_RUNS = 200, 3
 DENOISED_FRAMES = 50  # frames a run of the denoised realtime loop
-GROUPS = ("sphere", "nee", "tape", "mesh", "ladder", "denoise")
+GROUPS = ("sphere", "nee", "tape", "mesh", "ladder", "denoise", "stats")
 KERNEL_SOURCES = ("sphere_megakernel", "shard_canary", "tape_kernel", "trimesh_kernel", "atrous")
 BENCH_SCENES = {"sphere": ("rtiow",), "nee": ("night488",),
                 "tape": ("deepcsg", "csgnight", "manyobjects"), "mesh": ("mesh", "meshnight"),
-                "ladder": (), "denoise": ()}
+                "ladder": (), "denoise": (), "stats": ()}
+STATS_SUFFIX = " [stats]"  # a stats group frame through the stats instantiation
 LADDER = ((2, 3), (3, 3), (4, 3), (5, 3), (5, 5), (6, 3))  # (subdiv, spheres) of mesh_demo_scene
 MANY_OBJECTS = (8, 12, 16, 99)  # objects of many_objects_scene in the tape group
 
@@ -208,11 +219,70 @@ def _frames(dev, groups):
         })
     if "denoise" in groups:
         frames.update(_denoise_frames(dev, cam))
+    if "stats" in groups:
+        frames.update(_stats_frames(dev, cam))
     if "ladder" in groups:
         for sub, spheres in LADDER:
             packed = tm.pack_mesh(mesh_demo_scene(sub, spheres, device=dev))
             frames[f"ladder {packed.mesh.num_faces} faces 1280x720 spp16 b6"] = mesh(
                 packed, cam_m, LADDER_REPS, **{**kwm, "spp": 16})
+    return frames
+
+
+def _stats_frames(dev, cam):
+    """The stats group's frames: each cell's frame plain and, named with
+    ``STATS_SUFFIX``, through its kernel's stats instantiation (every
+    launch a stats launch), returning (image, rays[, stats words])."""
+    from csgrenderer_tpu_torch.kernels import build
+    from csgrenderer_tpu_torch.kernels import megakernel as mk
+    from csgrenderer_tpu_torch.kernels import tape_kernel as tk
+    from csgrenderer_tpu_torch.kernels import trimesh_kernel as tm
+    from csgrenderer_tpu_torch.models import (animated_csg_scene, many_objects_scene,
+                                              mesh_demo_scene, night_scene, rtiow_final_scene)
+    from csgrenderer_tpu_torch.utils import profiling
+
+    build.STATS_EVERY = 1  # in this process, every launch that can count its stats does
+
+    graph5, animate5 = animated_csg_scene(8)
+    cells = {
+        "rtiow 1920x1080 spp64 b8 lens": (
+            mk.render_image_kernel, mk.pack_scene(rtiow_final_scene(device=dev)),
+            cam((13, 2, 3), (0, 0, 0), 20.0, 1920 / 1080, aperture=0.1, focus_dist=10.0),
+            dict(width=1920, height=1080, spp=64, max_bounces=8, lens=True)),
+        "deepcsg 1920x1080 spp64 b5": (
+            tk.render_image_tape_kernel,
+            tk.pack_program(animate5(graph5.compile(k=4, device=dev), 1.0)),
+            cam((0, 2.0, 7.0), (0.5, 0, 0), 40.0, 1920 / 1080),
+            dict(width=1920, height=1080, spp=64, max_bounces=5)),
+        "night488 960x540 spp64 b6 nee": (
+            mk.render_image_kernel, mk.pack_scene(night_scene(grid=11, device=dev)),
+            cam((6.5, 2.2, 6.5), (0.0, 0.6, 0.0), 32.0, 960 / 540),
+            dict(width=960, height=540, spp=64, max_bounces=6, sky="black", nee=True)),
+        "mesh102k 1280x720 spp16 b6": (
+            tm.render_image_mesh_kernel, tm.pack_mesh(mesh_demo_scene(5, 5, device=dev)),
+            cam((0.0, 1.6, 2.2), (0.0, 0.7, -2.6), 45.0, 1280 / 720),
+            dict(width=1280, height=720, spp=16, max_bounces=6)),
+        "manyobjects(99) 1280x720 spp16 b8": (
+            tk.render_image_tape_kernel,
+            tk.pack_program(many_objects_scene(99).compile(k=4, device=dev)),
+            cam((0, 7.0, 9.0), (0, 0.4, 0), 45.0, 1280 / 720),
+            dict(width=1280, height=720, spp=16, max_bounces=8)),
+    }
+    frames = {}
+    for name, (render, packed, camera, kw) in cells.items():
+        def plain(render=render, packed=packed, camera=camera, kw=kw):
+            return render(packed, camera, seed=0, **kw)
+
+        def stats(render=render, packed=packed, camera=camera, kw=kw, name=name):
+            counts = {}
+            with profiling.recording():
+                img, rays = render(packed, camera, seed=0, counts=counts, **kw)
+            if "stats" not in counts:
+                raise RuntimeError(f"{name}: the launch ran no stats instantiation")
+            return (img, rays, *counts["stats"])
+
+        frames[name] = (plain, REPS)
+        frames[name + STATS_SUFFIX] = (stats, REPS)
     return frames
 
 
@@ -300,6 +370,10 @@ def measure(label: str, groups=GROUPS) -> dict:
         digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
         out["frames"][name] = dict(ms=ms, each_ms=each, sha256=digest,
                                    rays=[int(c) for c in counts])
+        if name.endswith(STATS_SUFFIX):  # held to the plain frame measured just before it
+            plain = out["frames"][name[:-len(STATS_SUFFIX)]]
+            if (digest, int(counts[0])) != (plain["sha256"], plain["rays"][0]):
+                raise RuntimeError(f"{name}: the stats frame differs from the plain frame")
 
     out["bench"] = {}
     for scene in (s for g in groups for s in BENCH_SCENES[g]):
@@ -439,7 +513,7 @@ def main(argv=None) -> int:
     ap.add_argument("--label", help="measure the package on sys.path under this label")
     ap.add_argument("--json", help="with --label: write the result here")
     ap.add_argument("--out", default="_scratch/tree_timing", help="with --trees: results")
-    ap.add_argument("--groups", default=",".join(GROUPS),
+    ap.add_argument("--groups", default=",".join(g for g in GROUPS if g != "stats"),
                     help=f"comma-separated, of {', '.join(GROUPS)}")
     args = ap.parse_args(argv)
     groups = tuple(g for g in args.groups.split(",") if g)

@@ -15,13 +15,23 @@ timer; the port keeps ``trace`` and records spans in place of the timer.
   and when a span opens outside any recorded span; spans inside a frame
   read that answer. Off, ``span`` and ``frame`` return one shared no-op
   and allocate nothing.
-- The spans are kept in memory, at most ``CAPACITY`` of them; past that,
-  ``dropped()`` counts the spans left out. ``spans()`` returns them and
-  ``clear()`` empties the record.
+- ``count(name, value)``: one sample of a counter (``Count``: name,
+  value, the frame number it lies in, and the time in ``time.time_ns()``),
+  kept while recording is on; off, it returns at once and allocates
+  nothing. The renderer records its kernels' work counts so, at each
+  frame's fence.
+- ``sample(every)``: while recording is on, true for the first call since
+  the last ``clear()`` and every ``every``-th after it; false while off.
+  The kernel wrappers ask it whether a launch counts its stats.
+- The spans and the counter samples are kept in memory, at most
+  ``CAPACITY`` of each; past that, ``dropped()`` counts what was left
+  out. ``spans()`` and ``counters()`` return them and ``clear()`` empties
+  the record.
 - ``trace(dir)``: a context manager around ``torch.profiler`` that writes
   a Chrome trace (``trace.json``, viewable in Perfetto) of the CPU and,
   where there is one, the CUDA timeline, with the spans recorded inside
-  the block on a thread of their own.
+  the block on a thread of their own and the counter samples as counter
+  tracks of the same process, on the same clock.
 
 The spans are not ``torch.profiler.record_function`` ranges: the profiler
 mirrors each such range onto the device's timeline, where it would read
@@ -37,7 +47,7 @@ import time
 
 import torch
 
-CAPACITY = 1 << 20  # spans held at most
+CAPACITY = 1 << 20  # spans held at most, and counter samples
 SPAN_THREAD = "program spans"  # the spans' thread in trace.json
 SPAN_TID = 2**31 - 1  # its thread id: above any the kernel hands out
 _profiler_enabled = torch.autograd._profiler_enabled  # looked up once: poll() runs every frame
@@ -92,6 +102,16 @@ class _Off:
 OFF = _Off()
 
 
+class Count:
+    """One recorded sample of a counter: ``value`` of ``name`` in frame
+    ``frame`` (0 before the first), taken at ``time_ns``."""
+
+    __slots__ = ("name", "value", "frame", "time_ns")
+
+    def __init__(self, name: str, value: int, frame: int, time_ns: int):
+        self.name, self.value, self.frame, self.time_ns = name, value, frame, time_ns
+
+
 class Recorder:
     """The process's record of spans (one: ``RECORDER``)."""
 
@@ -102,8 +122,10 @@ class Recorder:
         self.forced = 0  # depth of recording() blocks
         self.records: list[Span] = []
         self.open: list[Span] = []  # the recorded spans still open, innermost last
+        self.counts: list[Count] = []
         self.frames = 0
         self.dropped = 0
+        self.samples = 0  # sample()'s calls while on since the last clear()
 
     def new(self, name: str, begins: bool):
         if len(self.records) >= self.capacity:
@@ -154,25 +176,56 @@ def recording():
         poll()
 
 
+def count(name: str, value: int) -> None:
+    """Record ``value`` of the counter ``name`` in the current frame, if
+    recording is on (the answer spans read)."""
+    rec = RECORDER
+    if not rec.on:
+        return
+    if len(rec.counts) >= rec.capacity:
+        rec.dropped += 1
+        return
+    rec.counts.append(Count(name, value, rec.frames, rec.clock()))
+
+
+def sample(every: int) -> bool:
+    """While recording is on, true for the first call since the last
+    ``clear()`` and every ``every``-th call after it; false, and not
+    counted, while off."""
+    rec = RECORDER
+    if not rec.on:
+        return False
+    n = rec.samples
+    rec.samples = n + 1
+    return n % every == 0
+
+
 def spans() -> list[Span]:
     """The recorded spans, in the order they opened."""
     return list(RECORDER.records)
 
 
+def counters() -> list[Count]:
+    """The recorded counter samples, in the order they were taken."""
+    return list(RECORDER.counts)
+
+
 def dropped() -> int:
-    """Spans left out since the last ``clear()``: the record was full."""
+    """Spans and counter samples left out since the last ``clear()``: the
+    record was full."""
     return RECORDER.dropped
 
 
 def clear() -> None:
     rec = RECORDER
-    rec.records, rec.open = [], []
-    rec.frames = rec.dropped = 0
+    rec.records, rec.open, rec.counts = [], [], []
+    rec.frames = rec.dropped = rec.samples = 0
 
 
-def _chrome_events(recorded, base_ns: int, pid: int) -> list[dict]:
+def _chrome_events(recorded, base_ns: int, pid: int, samples=()) -> list[dict]:
     """``recorded`` spans as Chrome trace events on thread ``SPAN_TID`` of
-    ``pid``, in microseconds from ``base_ns``."""
+    ``pid``, and the counter ``samples`` as counter events of ``pid`` (a
+    track a counter), in microseconds from ``base_ns``."""
     out = [{"ph": "M", "name": "thread_name", "pid": pid, "tid": SPAN_TID,
             "args": {"name": SPAN_THREAD}}]
     for s in recorded:
@@ -182,13 +235,18 @@ def _chrome_events(recorded, base_ns: int, pid: int) -> list[dict]:
                     "tid": SPAN_TID, "ts": (s.start_ns - base_ns) / 1e3,
                     "dur": (s.end_ns - s.start_ns) / 1e3,
                     "args": {"frame": s.frame, "parent": s.parent}})
+    for c in samples:
+        out.append({"ph": "C", "cat": "program_counter", "name": c.name, "pid": pid,
+                    "tid": SPAN_TID, "ts": (c.time_ns - base_ns) / 1e3,
+                    "args": {"value": c.value}})
     return out
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = "csgr-trace"):
     """Capture a trace of the block into ``log_dir/trace.json``, the
-    program's spans of the block beside the profiler's events."""
+    program's spans and counter samples of the block beside the profiler's
+    events."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -209,6 +267,6 @@ def trace(log_dir: str = "csgr-trace"):
     # the profiler writes its times in microseconds from this base, or
     # from the epoch where it names none
     doc["traceEvents"] += _chrome_events(spans(), int(doc.get("baseTimeNanoseconds", 0)),
-                                         os.getpid())
+                                         os.getpid(), counters())
     with open(path, "w") as f:
         json.dump(doc, f)

@@ -7,11 +7,11 @@
   the nodes and the unbounded clusters. The rule of ``TREE_MIN_CLUSTERS``
   bounded clusters leaves deepcsg (config 5), config 3, csgnight and the
   4-, 8- and 12-object cuts flat, and engages from 16 objects.
-- The plain version's replay of the kernel's walks (``tree_flip_tests``)
-  against a one-ray-at-a-time walk written out here in float32, on a few
-  hundred rays of the 99-object scene (some parallel to an axis); the walk
-  keeps every cluster's nearest flip that could win, so its t is the flat
-  loop's.
+- The plain version's replay of the kernel's walks (``tree_walk``: leaf
+  intervals and node visits) against a one-ray-at-a-time walk written out
+  here in float32, on a few hundred rays of the 99-object scene (some
+  parallel to an axis); the walk keeps every cluster's nearest flip that
+  could win, so its t is the flat loop's.
 - The attribution: at hit points and at random points, the first minimum
   over the leaves the tree keeps (``tree_candidates``) is the first
   minimum over every leaf wherever it lies below the score bound.
@@ -142,8 +142,8 @@ def _rays(n, seed):
 
 
 def _naive_walk(packed, o, d, flips):
-    """(leaf intervals, t) of one ray's walk as the kernel's tree_flip
-    does it, in float32 scalars."""
+    """(leaf intervals, t, node visits) of one ray's walk as the kernel's
+    tree_flip does it, in float32 scalars."""
     f32 = np.float32
     tree = packed.tree
     lo, hi, link = tree.lo.numpy(), tree.hi.numpy(), tree.link.numpy()
@@ -153,9 +153,10 @@ def _naive_walk(packed, o, d, flips):
         t, tests = min(t, flips[c]), tests + size[c]
     flat = [abs(x) < f32(tk.FLAT_DIR) for x in d]
     inv = [f32(1.0) / (f32(1.0) if flat[a] else d[a]) for a in range(3)]
-    stack = [0]
+    stack, visits = [0], 0
     while stack:
         i = stack.pop()
+        visits += 1
         tn, tf = f32(-T_FAR), f32(T_FAR)
         for a in range(3):
             if flat[a]:
@@ -173,7 +174,7 @@ def _naive_walk(packed, o, d, flips):
             continue
         back = d[right & 3] < 0
         stack += [left, right >> 2] if back else [right >> 2, left]  # the near child on top
-    return tests, t
+    return tests, t, visits
 
 
 @pytest.mark.parametrize("seed", [3, 2**31 + 29])
@@ -185,11 +186,11 @@ def test_the_replayed_walk_is_one_ray_at_a_time(packs, seed):
     flips = torch.stack(flips, dim=-1)
     assert flips.shape == (300, len(packed.clusters))
     assert torch.equal(flips.amin(dim=-1), t)
-    tests = tk.tree_flip_tests(packed, o, d, flips)
+    tests, visits = tk.tree_walk(packed, o, d, flips)
     on, fn = o.numpy(), flips.numpy()
     for r, dr in enumerate(d.numpy()):
-        n, t_walk = _naive_walk(packed, on[r], dr, fn[r])
-        assert int(tests[r]) == n
+        n, t_walk, v = _naive_walk(packed, on[r], dr, fn[r])
+        assert int(tests[r]) == n and int(visits[r]) == v >= 1
         assert t_walk == t[r]  # the walk skips no cluster whose flip could win
     assert int(tests.sum()) < 300 * packed.tape.n_leaves / 10
 

@@ -43,7 +43,7 @@ import torch
 
 from csgrenderer_tpu_torch.app import App, PathTraceRenderer, StatsClock, frame_graph, renderers
 from csgrenderer_tpu_torch.camera import Camera
-from csgrenderer_tpu_torch.kernels import atrous
+from csgrenderer_tpu_torch.kernels import atrous, build
 from csgrenderer_tpu_torch.kernels import megakernel as mk
 from csgrenderer_tpu_torch.kernels import shard_canary as sc
 from csgrenderer_tpu_torch.kernels import tape_kernel as tk
@@ -60,10 +60,11 @@ from csgrenderer_tpu_torch.models import (
     two_spheres_scene,
 )
 from csgrenderer_tpu_torch.parallel import render_scene_sharded, single_device_mesh
-from csgrenderer_tpu_torch.render import denoise, render_aovs
+from csgrenderer_tpu_torch.render import denoise, integrator, render_aovs
 from csgrenderer_tpu_torch.render.trimesh import concat_meshes, icosphere, quad
 from csgrenderer_tpu_torch.scene import Material
 from csgrenderer_tpu_torch.tools import common, exp_dot_k, exp_gather, exp_slab
+from csgrenderer_tpu_torch.utils import profiling
 from csgrenderer_tpu_torch.utils.config import RenderConfig
 from test_torch_tape_fuzz import SEEDS as FUZZ_SEEDS
 from test_torch_tape_fuzz import port_tree as fuzz_tree
@@ -1369,3 +1370,182 @@ def test_a_replayed_draw_frame_waits_on_its_event_alone(cuda, monkeypatch):
     assert r._schedule == "replay" and r._graph is not None
     _assert_frames_equal(got, _eager_frames(cuda, monkeypatch, r.camera,
                                             [k * LIVE.spp for k in range(5)]))
+
+
+# --- the kernels' stats mode ------------------------------------------------------
+
+STATS_CASES = {
+    # (kernel wrapper, packed scene, camera, frame, the pinned frame it renders, the
+    # stats words it writes, the plain walk's key in its plain version's counts)
+    "rtiow-grid": (mk.render_image_kernel, lambda dev: mk.pack_scene(rtiow_final_scene(device=dev)),
+                   lambda dev: _rtiow_camera(2.0, dev),
+                   dict(width=64, height=32, spp=2, max_bounces=8, seed=11, lens=True),
+                   PINNED_FRAMES["grid"], 3, "cell_visits"),
+    "night488-grid-nee": (mk.render_image_kernel, NEE_CASES["grid-nee"][0], _night_cam, NEE_KW,
+                          PINNED_NEE_FRAMES["grid-nee"], 4, "cell_visits"),
+    "deepcsg-flat": (tk.render_image_tape_kernel, lambda dev: tk.pack_program(_deepcsg(dev)),
+                     lambda dev: Camera.look_at((0, 2.0, 7.0), (0.5, 0, 0), vfov_degrees=40.0,
+                                                aspect_ratio=96 / 54, device=dev),
+                     dict(width=96, height=54, spp=2, max_bounces=5, seed=5),
+                     PINNED_FRAMES["clustered"], 1, None),
+    "manyobjects-tree": (tk.render_image_tape_kernel,
+                         lambda dev: tk.pack_program(_many_objects(dev)),
+                         lambda dev: Camera.look_at((0, 7.0, 9.0), (0, 0.4, 0), vfov_degrees=45.0,
+                                                    aspect_ratio=128 / 72, device=dev),
+                         dict(width=128, height=72, spp=2, max_bounces=8, seed=7),
+                         PINNED_TREE_FRAME, 3, "node_visits"),
+    "mesh-global-grid": (tm.render_image_mesh_kernel, MESH_CASES["grid"][0],
+                         lambda dev: _mesh_cam(MESH_CASES["grid"][1], dev), MESH_KW,
+                         PINNED_MESH_TAPE_FRAMES["mesh-grid"], 3, "voxel_visits"),
+}
+STATS_WORDS = build.STATS_WORDS
+
+
+def _stats_pair(case, dev, **frame):
+    """(stats launch's (image, rays, counts), the next launch's), both of
+    case's frame (with ``frame`` over it) under recording: the first launch
+    after ``profiling.clear()`` is a stats launch, the second is not."""
+    render, make_packed, make_cam, kw, _, _, _ = STATS_CASES[case]
+    packed, cam = make_packed(dev), make_cam(dev)
+    out = []
+    with profiling.recording():
+        profiling.clear()
+        for _ in range(2):
+            counts = {}
+            img, rays = render(packed, cam, counts=counts, **{**kw, **frame})
+            out.append((img, rays, counts))
+    profiling.clear()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(STATS_CASES))
+def test_a_stats_launch_renders_the_plain_launchs_frame_and_counts(cuda, case):
+    """The stats instantiation (the first launch while spans record) gives
+    the pinned image and segments and the counts of the launch without
+    stats bit for bit, and a block of the case's words whose lane shares
+    lie in (0, 100%]: segments over 32 x the segment loop's warp turns,
+    the walk's lane turns over 32 x its warp turns."""
+    _, _, _, _, pinned, n_words, walk = STATS_CASES[case]
+    (img, rays, counts), (img2, rays2, counts2) = _stats_pair(case, cuda)
+    assert "stats" in counts and "stats" not in counts2
+    assert torch.equal(img, img2) and int(rays) == int(rays2)
+    assert counts.keys() - {"stats"} == counts2.keys()
+    for key in counts2:
+        assert int(counts[key]) == int(counts2[key]), key
+    digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+    assert (digest, int(rays)) == pinned[:2]
+    stats = counts["stats"]
+    assert stats.dtype == torch.int64 and stats.device.type == "cuda"
+    words = dict(zip(STATS_WORDS, stats.tolist()))
+    assert len(words) == n_words
+    assert 0 < int(rays) <= 32 * words["segment_warp_steps"]
+    assert words["segment_warp_steps"] <= int(rays)
+    if walk is not None:
+        assert 0 < words["walk_warp_steps"] <= words["walk_lane_steps"]
+        assert words["walk_lane_steps"] <= 32 * words["walk_warp_steps"]
+    if n_words == 4:
+        assert 0 < words["shadow_lane_steps"] < words["walk_lane_steps"]
+
+
+def _plain_walk(case, dev, path_only=False, **frame):
+    """The plain version's walk count of case's frame (with ``frame`` over
+    it): the key of its counts, or with ``path_only`` (NEE) the path
+    segments' walks and the shadow rays' apart."""
+    render, make_packed, make_cam, kw, _, _, walk = STATS_CASES[case]
+    packed, cam = make_packed(dev), make_cam(dev)
+    kw = {**kw, **frame}
+    if not path_only:
+        plain = {}
+        if render is mk.render_image_kernel:
+            mk.render_image_plain(packed, cam, counts=plain, **kw)
+        elif render is tm.render_image_mesh_kernel:
+            tm.render_image_mesh_plain(packed, cam, counts=plain, **kw)
+        else:
+            tk.render_image_tape_plain(packed, cam, counts=plain, **kw)
+        return int(plain[walk])
+    path, shadow = {}, {}
+    integrator.render_image(mk.plain_hit_fn(packed, path), cam, kw["width"], kw["height"],
+                            spp=kw["spp"], max_bounces=kw["max_bounces"], seed=kw["seed"],
+                            sky=kw["sky"], lights=packed.lights,
+                            shadow_hit_fn=mk.plain_hit_fn(packed, shadow))
+    return int(path[walk]), int(shadow[walk])
+
+
+@pytest.mark.parametrize("case", ["rtiow-grid", "manyobjects-tree", "mesh-global-grid"])
+def test_a_stats_launch_counts_the_plain_walks_visits(cuda, case):
+    """The stats block's walk lane turns are the plain version's walk
+    count (the sphere grid's cell visits, the cluster tree's node visits,
+    the mesh grid's voxel visits): exactly on the frame's first bounce,
+    where both sides trace the same camera rays, and over the whole frame
+    within the bound the segments are held to (``_assert_close``): the two
+    sides' paths part on a few pixels where a scatter rounds apart (the
+    leaf-test count of the tree frame differs by 18 of its intervals so);
+    the mesh frame's walks, whose counts the mesh tests hold equal, agree
+    exactly."""
+    one = {"max_bounces": 1}
+    (_, rays, counts), _ = _stats_pair(case, cuda, **one)
+    walk = int(counts["stats"][2])
+    assert walk == _plain_walk(case, cuda, **one) > 0
+    (_, rays, counts), _ = _stats_pair(case, cuda)
+    walk, want = int(counts["stats"][2]), _plain_walk(case, cuda)
+    if case == "mesh-global-grid":
+        assert walk == want
+    assert want > 0 and abs(walk - want) <= max(want * 2e-3, 8)
+
+
+def test_a_nee_stats_launch_counts_the_plain_walks_of_its_path_segments(cuda):
+    """In the grid-NEE query loop the walk's lane turns less the shadow
+    rays' are the plain version's path-segment cell visits (exactly on the
+    first bounce, within the segments' bound over six). The shadow rays'
+    walks cannot match the plain version's: a shadow ray's walk in the
+    kernel starts its best t at the lamp's bound and is skipped where a
+    global sphere occludes, while the plain version walks every shadow ray
+    to its nearest hit, those of ended paths too; so the kernel's shadow
+    turns lie above 0 and at most the plain shadow walks' visits."""
+    for frame in ({"max_bounces": 1}, {}):
+        (_, rays, counts), _ = _stats_pair("night488-grid-nee", cuda, **frame)
+        words = dict(zip(STATS_WORDS, counts["stats"].tolist()))
+        path, shadow = _plain_walk("night488-grid-nee", cuda, path_only=True, **frame)
+        got = words["walk_lane_steps"] - words["shadow_lane_steps"]
+        if frame:
+            assert got == path
+        assert path > 0 and abs(got - path) <= max(path * 2e-3, 8)
+        assert 0 < words["shadow_lane_steps"] <= shadow
+
+
+def test_the_renderer_records_the_stats_block_of_its_stats_launches(cuda, monkeypatch):
+    """A progressive renderer under recording records, at each frame's fence,
+    the frame's segments, and on the frames whose launch was a stats launch
+    (the first and every ``STATS_EVERY``-th after it; every second here)
+    the block that launch wrote, equal to a stats launch of the same frame
+    made directly; the queued frames carry their own blocks."""
+    monkeypatch.setattr(build, "STATS_EVERY", 2)
+    render, make_packed, make_cam, kw, _, _, _ = STATS_CASES["rtiow-grid"]
+    cam = make_cam(cuda)
+    frame = {k: v for k, v in kw.items() if k != "lens"}
+    r = PathTraceRenderer(rtiow_final_scene(device=cuda), cam,
+                          RenderConfig(**frame, lens=True), progressive=True, device=cuda)
+    assert r._schedule == "queue"
+    profiling.clear()
+    with profiling.recording():
+        for _ in range(4):
+            r.draw_frame(0.0)
+    by_frame = {}
+    for c in profiling.counters():
+        by_frame.setdefault(c.frame, {})[c.name] = c.value
+    profiling.clear()
+    assert sorted(by_frame) == [1, 2, 3, 4]
+    for k in range(4):
+        got = by_frame[k + 1]
+        with profiling.recording():
+            profiling.clear()
+            counts = {}
+            _, rays = render(r._packed, cam, counts=counts, sample_offset=k * frame["spp"], **kw)
+        profiling.clear()
+        assert got["kernel.segments"] == int(rays)
+        if k % 2:
+            assert "kernel.segment_warp_steps" not in got
+            continue
+        assert [got["kernel." + w] for w in STATS_WORDS[:3]] == counts["stats"].tolist()
+        assert "kernel.shadow_lane_steps" not in got

@@ -107,8 +107,8 @@ def test_staged_or_global_by_size(monkeypatch, packed_meshes, limit):
     monkeypatch.setattr(tm, "table_limit", lambda index: limit)
     cam = torch.zeros(mk.CAM_SIZE)
     before = dict(tm.LAUNCHES_BY_TABLES)
-    # ..., lens, sky, shared_tables, out_rgb, out_rays, out_tests
-    shared_arg = len(tm._ARGTYPES) - 4
+    # ..., lens, sky, shared_tables, out_rgb, out_rays, out_tests, out_stats
+    shared_arg = len(tm._ARGTYPES) - 5
     expect = []
     for name in ("meshnight", "bench-mesh", "brute"):
         packed = packed_meshes[name]
