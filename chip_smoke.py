@@ -333,6 +333,8 @@ OPS = {
     "walk_setup": 35,  # the 3D walk's three slab ranges and its march test
     "walk_start": 51,  # the first voxel and each axis' step, tmax and td (a ray that enters)
     "walk_step": 8,  # one advance: the next crossing, its axis, the exit tests
+    "walk_skip": 36,  # a coarse block left in one turn: its three far-face crossings, the
+                      # least, the other axes' crossings before it, the exit tests
     "tri_sample": 48,  # lamp pick, area sample, direction, cosine-lobe pdf, |cos_l|, tests
     "tri_weight": 13,  # q and the MIS-weighted contribution of a traced sample
     "tri_partner": 26,  # the lamp's q from the previous vertex, q / (q + 1)
@@ -497,7 +499,7 @@ def mesh_ops(packed, rays, width, height, spp, sky="rtiow", walk=None):
     """A mesh frame's path-segment work: in brute mode every face tested
     per segment; in grid mode the globals, the walk's set-up, and from
     ``walk`` (the plain walk's counts of the same segments) the walks,
-    voxel visits and face tests it executes."""
+    voxel visits, coarse skips and face tests it executes."""
     hits = hits_floor(rays, width, height, spp)
     per_segment = OPS["segment"]
     ops = 0
@@ -506,6 +508,7 @@ def mesh_ops(packed, rays, width, height, spp, sky="rtiow", walk=None):
     else:
         per_segment += packed.grid.n_globals * OPS["mt_test"] + OPS["walk_setup"]
         ops = (walk["walks"] * OPS["walk_start"] + walk["voxel_visits"] * OPS["walk_step"]
+               + walk.get("coarse_skips", 0) * OPS["walk_skip"]
                + walk["face_tests"] * OPS["mt_test"])
     return (ops + int(rays) * per_segment + hits * OPS["mesh_hit"]
             + (int(rays) - hits) * miss_ops(sky))

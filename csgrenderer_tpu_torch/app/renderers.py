@@ -8,7 +8,8 @@ the stats clock (and, on a ``PathTraceRenderer``,
 ``last_frame_shadow_rays``: NEE's shadow rays, ``last_frame_tri_tests``:
 a mesh frame's triangle tests, ``last_frame_masked_visits``: the voxel
 visits its walk answered from the grid's occupancy mask,
-``last_frame_leaf_tests``: a tape frame's leaf intervals, and
+``last_frame_coarse_skips``: the turns its walk skipped an empty coarse
+block in, ``last_frame_leaf_tests``: a tape frame's leaf intervals, and
 ``last_frame_leaf_scores``: the leaf scores of its attribution through the
 cluster tree, all read at the same fence).
 
@@ -67,8 +68,9 @@ outputs) in place of the last three, and a frame that queues the next one
 
 A fenced frame also records its kernel's work counts while recording is
 on, as counter samples (``profiling.count``) of its own frame number, at
-its fence: ``kernel.segments`` on every such frame; ``kernel.leaf_scores``
-and ``kernel.masked_visits`` where the kernel counts them; and on a stats
+its fence: ``kernel.segments`` on every such frame; ``kernel.leaf_scores``,
+``kernel.masked_visits`` and ``kernel.coarse_skips`` where the kernel
+counts them; and on a stats
 frame, whose launch ran the kernel's stats instantiation (one launch in
 ``kernels.build.STATS_EVERY`` of those that can, chosen at the launch),
 the words of its stats block (``kernel.segment_warp_steps``,
@@ -77,9 +79,9 @@ the words of its stats block (``kernel.segment_warp_steps``,
 own block. A replayed frame is never a stats frame: the graph replays a
 launch captured without counts. On the CPU the plain versions have no
 warps: every recorded frame records the lane turns of its walk as they
-count them (the sphere grid's cell visits, the mesh grid's voxel visits,
-the cluster tree's node visits) as ``kernel.walk_lane_steps``, and no
-warp word.
+count them (the sphere grid's cell visits, the mesh grid's voxel visits
+and coarse skips, the cluster tree's node visits) as
+``kernel.walk_lane_steps``, and no warp word.
 """
 
 from __future__ import annotations
@@ -142,8 +144,8 @@ class _CountFence:
 
     # what a frame's counts may hold beside its segments (walk_lane_steps:
     # the plain walk's count on the CPU)
-    COUNTS = ("shadow_rays", "tri_tests", "masked_visits", "leaf_tests", "leaf_scores",
-              "walk_lane_steps")
+    COUNTS = ("shadow_rays", "tri_tests", "masked_visits", "coarse_skips", "leaf_tests",
+              "leaf_scores", "walk_lane_steps")
 
     def __init__(self, device: torch.device):
         self.card = device.type == "cuda"
@@ -154,8 +156,8 @@ class _CountFence:
 
     def stage(self, rays: torch.Tensor, counts: dict) -> None:
         """Copy the frame's segments, the counts of ``COUNTS`` that
-        ``counts`` holds (NEE's shadow rays, a mesh's triangle tests and
-        masked visits, a tape's leaf intervals and leaf scores, the plain
+        ``counts`` holds (NEE's shadow rays, a mesh's triangle tests,
+        masked visits and coarse skips, a tape's leaf intervals and leaf scores, the plain
         walk's lane turns) and a stats launch's block (``"stats"``: the
         first words of ``build.STATS_WORDS``) and, on the card, mark the
         stream behind the copy."""
@@ -257,11 +259,13 @@ class PathTraceRenderer:
         # NEE's shadow rays of the last fenced frame: 0 without NEE, None
         # where its kernel counts none (tape, mesh, a replayed frame)
         self.last_frame_shadow_rays = 0
-        # the triangle tests of the last fenced frame's path segments, and
-        # their voxel visits the grid's occupancy mask answered: None where
-        # it has no such count (a sphere or tape frame)
+        # the triangle tests of the last fenced frame's path segments, their
+        # voxel visits the grid's occupancy mask answered and their walks'
+        # coarse skips: None where it has no such count (a sphere or tape
+        # frame)
         self.last_frame_tri_tests = None
         self.last_frame_masked_visits = None
+        self.last_frame_coarse_skips = None
         # the leaf intervals of the last fenced frame's path segments, and
         # the leaf scores of its attribution through the cluster tree: None
         # where it has no such count (a sphere or mesh frame; no scores
@@ -399,7 +403,8 @@ class PathTraceRenderer:
         ``last_frame_rays``, its shadow rays into
         ``last_frame_shadow_rays`` (0 without NEE, None where the kernel
         counts none), its triangle tests into ``last_frame_tri_tests``, its
-        masked visits into ``last_frame_masked_visits``, its leaf
+        masked visits into ``last_frame_masked_visits``, its coarse skips
+        into ``last_frame_coarse_skips``, its leaf
         intervals into ``last_frame_leaf_tests`` and its leaf scores into
         ``last_frame_leaf_scores`` (None where the kernel counts none).
         While recording is on, the counts named in ``RECORDED`` are
@@ -411,6 +416,7 @@ class PathTraceRenderer:
                                                   None if self.config.nee else 0)
             self.last_frame_tri_tests = got.get("tri_tests")
             self.last_frame_masked_visits = got.get("masked_visits")
+            self.last_frame_coarse_skips = got.get("coarse_skips")
             self.last_frame_leaf_tests = got.get("leaf_tests")
             self.last_frame_leaf_scores = got.get("leaf_scores")
             if profiling.RECORDER.on:
@@ -599,26 +605,28 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
     than clustering on device tensors. ``counts``: a dict to which a sphere
     frame's shadow rays (``megakernel.render_image_kernel``), a tape frame's
     leaf intervals and leaf scores (``tape_kernel.render_image_tape_kernel``)
-    and a mesh frame's triangle tests and masked visits
+    and a mesh frame's triangle tests, masked visits and coarse skips
     (``trimesh_kernel.render_image_mesh_kernel``) are added, and a stats
     launch's block (``"stats"``) or, on the CPU, the lane turns of the
     plain walk (``"walk_lane_steps"``: the sphere grid's cell visits, the
-    mesh grid's voxel visits, the cluster tree's node visits).
+    mesh grid's voxel visits and coarse skips, the cluster tree's node
+    visits).
     """
     kw = dict(spp=cfg.spp, max_bounces=cfg.max_bounces, seed=cfg.seed, sky=cfg.sky, lens=cfg.lens,
               sample_offset=sample_base, nee=cfg.nee, jitter=cfg.jitter)
     if isinstance(scene, (SphereScene, megakernel.PackedScene)):
         render = functools.partial(megakernel.render_image_kernel, offset_buffer=offset_buffer)
-        keys, walk = ("shadow_rays",), "cell_visits"
+        keys, walk = ("shadow_rays",), ("cell_visits",)
     elif isinstance(scene, (CompiledTape, tape_kernel.PackedTape)):
         if isinstance(scene, CompiledTape):
             kw["partition"] = partition if partition is not None else (
                 False if animated else "auto")
         render = tape_kernel.render_image_tape_kernel
-        keys, walk = ("leaf_tests", "leaf_scores"), "node_visits"
+        keys, walk = ("leaf_tests", "leaf_scores"), ("node_visits",)
     elif isinstance(scene, (MeshScene, trimesh_kernel.PackedMesh)):
         render = trimesh_kernel.render_image_mesh_kernel
-        keys, walk = ("tri_tests", "masked_visits"), "voxel_visits"
+        keys = ("tri_tests", "masked_visits", "coarse_skips")
+        walk = ("voxel_visits", "coarse_skips")
     else:
         raise TypeError(f"unsupported scene type {type(scene).__name__}")
     # the kernel's own counts alone: the plain versions count the walk's
@@ -628,12 +636,12 @@ def _render_kernel(scene, camera, cfg: RenderConfig, sample_base: int, animated:
     out = render(scene, camera, cfg.width, cfg.height, counts=own, **kw)
     if counts is not None:
         counts.update((key, own[key]) for key in keys + ("stats",) if key in own)
-        if walk in own:
-            counts["walk_lane_steps"] = torch.as_tensor(own[walk], dtype=torch.int64,
-                                                        device=out[1].device)
+        if walk[0] in own:
+            counts["walk_lane_steps"] = torch.as_tensor(sum(own.get(k, 0) for k in walk),
+                                                        dtype=torch.int64, device=out[1].device)
     return out
 
 
 # the counts a fenced frame records as counter samples ("kernel." + key),
 # where it has them, beside its segments
-RECORDED = ("leaf_scores", "masked_visits") + build.STATS_WORDS
+RECORDED = ("leaf_scores", "masked_visits", "coarse_skips") + build.STATS_WORDS

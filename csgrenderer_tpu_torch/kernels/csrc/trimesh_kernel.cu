@@ -71,23 +71,46 @@
 //     of the grid's dims, so a voxel's block coordinate is a shift (i >>
 //     mask_shift).
 //     The walk over staged tables has no mask: its offsets are already
-//     loads from shared memory, as a mask word would be.
+//     loads from shared memory, as a mask word would be;
+//   - on a grid of f > 1 that walk is two-level: a coarse mask (one bit
+//     per block of C x C x C voxels, C = 4f: 8 for the 102,402-face mesh, a
+//     33 x 9 x 25 mask in 944 bytes; tri_worklist.coarse_block), staged
+//     after the fine one in the same bulk copy, is read first at each turn.
+//     In an empty coarse block the turn leaves the block (a skip): its exit
+//     is the least of its three far-face crossings, each the voxel's next
+//     crossing plus the voxels left in the block times the axis's step in
+//     t; the axis it leaves by moves to the next block's first voxel, and
+//     each other axis by the crossings it has before the exit, a count that
+//     errs low (follow_axis), so no rounding steps past a voxel the ray
+//     crosses. In an occupied block the turn is the flat walk's step. Both
+//     kinds share one advance (two_level_step: a fine step is a block of
+//     one voxel), so a warp whose lanes mix them runs one loop and one
+//     advance, not two. Empty space, 97% of a walk's visits on the
+//     102,402-face mesh, is crossed in a quarter of the turns; every face
+//     is still tested in every voxel the ray crosses, so the hits are the
+//     flat walk's. The two-level walk is its own instantiation (kCoarse),
+//     launched where the grid has a coarse level (coarse_shift > 0). A grid
+//     of f = 1 has none: there a skip saves at most three fine steps and
+//     costs more than it saves, so its walk is the flat one, as over staged
+//     tables.
 //
 // Every launch counts the Möller-Trumbore tests of its path segments (the
 // globals or every face, then the faces the walk lists: what the plain
 // version's counts call global_tests + face_tests) into one int64 word,
-// and the voxel visits of its path segments that the occupancy mask
-// answered (the plain walk's masked_visits; 0 where the walk has no mask)
-// into a second one: each pixel's counts in registers, reduced over the
-// warp's lanes at the end of each work unit, added by one atomic each.
+// the voxel visits of its path segments that the occupancy mask answered
+// (the plain walk's masked_visits; 0 where the walk has no mask) into a
+// second one and the turns that skipped a coarse block (coarse_skips) into
+// a third: each pixel's counts in registers, reduced over the warp's lanes
+// at the end of each work unit, added by one atomic each.
 // Shadow rays' tests and visits are not counted, as shadow rays are not
 // counted in the segments.
 //
 // Stats mode (kStats, the grid walk over global memory without NEE: the
 // mesh cell's instantiation): the same image and counts, and per launch a
 // block of work counts (persistent.cuh): the bounce loop's warp turns and
-// the DDA voxel loop's turns by warp and by lane. The launcher runs it where
-// out_stats is not null; the other launches compile as if it were not there.
+// the walk loop's turns (fine steps and coarse skips) by warp and by lane.
+// The launcher runs it where out_stats is not null; the other launches
+// compile as if it were not there.
 //
 // Numerics: the kernel repeats, operation for operation and in the same
 // order, the float arithmetic of its plain torch version
@@ -110,7 +133,8 @@
 // staged tables as one block: the [F, 3] float4 MT table, then (grid mode)
 // the CSR offsets, the face ids and the globals, each at the byte offset
 // the packer gave it (kShared instantiations); or (grid mode, kShared =
-// false) the grid's occupancy mask, uint32 words.
+// false) the grid's occupancy masks, uint32 words: the fine one, then the
+// coarse one at byte coarse_at.
 
 namespace {
 
@@ -164,21 +188,35 @@ struct Params {
   float* out_rgb;         // [rows, W, 3]
   int* out_rays;          // [rows, W]
   int* work;              // the work-unit counter, zeroed before each launch
-  unsigned long long* out_tests;  // [2]: the launch's path-segment triangle tests, then the
-                                  // voxel visits its mask answered; zeroed before it
+  unsigned long long* out_tests;  // [3]: the launch's path-segment triangle tests, the voxel
+                                  // visits its mask answered and its coarse skips; zeroed
+                                  // before it
 };
 
 // The launch parameters of a walk over tables in global memory: Params and
-// the grid's occupancy mask, block (bx, by, bz) of f^3 voxels being bit
+// the grid's occupancy masks, block (bx, by, bz) of f^3 voxels being bit
 // b = (bx * mask_ny + by) * mask_nz + bz, bx = ix >> mask_shift (f =
-// 1 << mask_shift). The staged instantiations take Params alone.
+// 1 << mask_shift), and the coarse mask's the same at byte coarse_at over
+// blocks of C^3 voxels (C = 1 << coarse_shift; coarse_shift 0: the grid
+// has no coarse level). The staged instantiations take Params alone.
 struct MaskedParams : Params {
-  const unsigned char* mask;
+  const unsigned char* mask;  // both masks
   int mask_bytes, mask_shift, mask_ny, mask_nz;
+  int coarse_at, coarse_shift, coarse_ny, coarse_nz;
 };
 
 template <bool kShared>
 using KernelParams = std::conditional_t<kShared, Params, MaskedParams>;
+
+// What a walk counts beside its triangle tests: over tables in global
+// memory the visits the fine mask answered and the coarse skips; over
+// staged tables an unused word.
+struct MaskCounts {
+  unsigned masked = 0, coarse = 0;
+};
+
+template <bool kShared>
+using WalkCounts = std::conditional_t<kShared, unsigned, MaskCounts>;
 
 struct Ray {
   float o[3], d[3];
@@ -219,15 +257,31 @@ __device__ __forceinline__ float tri_t(const Ray& r, float4 a, float4 b, float4 
   return (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin) ? t : kMiss;
 }
 
-// Whether the occupancy mask staged in shared memory marks the block of
-// voxel (ix, iy, iz) as holding a listed face.
+// The bit of voxel (ix, iy, iz)'s block in the mask at byte ``at`` of the
+// staged masks, blocks of 2^shift voxels on an edge, ny x nz along y and z.
+__device__ __forceinline__ bool mask_bit(int at, int shift, int ny, int nz, int ix, int iy,
+                                         int iz) {
+  const unsigned bx = static_cast<unsigned>(ix) >> shift;
+  const unsigned by = static_cast<unsigned>(iy) >> shift;
+  const unsigned bz = static_cast<unsigned>(iz) >> shift;
+  const unsigned b = (bx * static_cast<unsigned>(ny) + by) * static_cast<unsigned>(nz) + bz;
+  return (reinterpret_cast<const uint32_t*>(smem_tables + at)[b >> 5] >> (b & 31u)) & 1u;
+}
+
+// Whether the occupancy mask marks the block of voxel (ix, iy, iz) as
+// holding a listed face.
 __device__ __forceinline__ bool block_occupied(const MaskedParams& p, int ix, int iy, int iz) {
-  const unsigned bx = static_cast<unsigned>(ix) >> p.mask_shift;
-  const unsigned by = static_cast<unsigned>(iy) >> p.mask_shift;
-  const unsigned bz = static_cast<unsigned>(iz) >> p.mask_shift;
-  const unsigned ny = static_cast<unsigned>(p.mask_ny), nz = static_cast<unsigned>(p.mask_nz);
-  const unsigned b = (bx * ny + by) * nz + bz;
-  return (reinterpret_cast<const uint32_t*>(smem_tables)[b >> 5] >> (b & 31u)) & 1u;
+  return mask_bit(0, p.mask_shift, p.mask_ny, p.mask_nz, ix, iy, iz);
+}
+
+// The same for the coarse block of voxel (ix, iy, iz).
+__device__ __forceinline__ bool coarse_occupied(const MaskedParams& p, int ix, int iy, int iz) {
+  return mask_bit(p.coarse_at, p.coarse_shift, p.coarse_ny, p.coarse_nz, ix, iy, iz);
+}
+
+// Voxels past voxel i in its coarse block along a step s (edge = C - 1).
+__device__ __forceinline__ int left_in_block(int i, int s, int edge) {
+  return s > 0 ? edge - (i & edge) : (i & edge);
 }
 
 template <bool kShared>
@@ -252,19 +306,84 @@ __device__ __forceinline__ bool list_test(const Params& p, const Ray& r, int k, 
   return false;
 }
 
-// 3D DDA over the voxel lists (tri_worklist._walk), refining (t_best,
-// id_best) found by the globals. kAny: stop at the first t below t_best
+// On a skip, an axis the block is not left by follows the ray to the exit
+// t_exit: it takes the crossings it has before t_exit, the voxel's next
+// crossing tm and every step td after it, at most the voxels ``left`` in
+// the block, and moves its voxel and next crossing by as many. Their count
+// is their span in t times |d| / cell, rounded up, and one fewer where the
+// last of them, tm + (m - 1) td as the exit is summed, does not come
+// before t_exit: the count errs low, as an undercount only adds a visit
+// and an overcount would step past a voxel the ray crosses (the rounding
+// is far below one step, so one check does). A flat axis (tm at kBig)
+// takes none.
+template <int kAx>
+__device__ __forceinline__ void follow_axis(const MaskedParams& p, const Ray& r, float t_exit,
+                                            int left, int s, float td, int& i, float& tm) {
+  const float n = ceilf((t_exit - tm) * (fabsf(r.d[kAx]) * p.inv_cell));
+  float m = fminf(fmaxf(n, 0.0f), static_cast<float>(left));
+  if (m > 0.0f && tm + (m - 1.0f) * td >= t_exit) m -= 1.0f;
+  i += s * static_cast<int>(m);
+  tm = tm + m * td;
+}
+
+// The advance of a two-level turn over a block of edge + 1 voxels (edge 0:
+// the voxel, a fine step; C - 1: an empty coarse block, a skip). Along each
+// axis the block's far face is crossed at the voxel's next crossing plus
+// the voxels left in the block times the axis's step in t; the least of
+// the three (ties as the flat walk takes them: x, then y) is the turn's
+// exit, which it returns. On a skip the two other axes follow the ray
+// there (follow_axis); the axis the block is left by moves to the next
+// block's first voxel. A fine step is the flat walk's, bit for bit.
+__device__ __forceinline__ float two_level_step(const MaskedParams& p, const Ray& r,
+                                                const int (&step)[3], const float (&td)[3],
+                                                int edge, int& ix, int& iy, int& iz, float& tmx,
+                                                float& tmy, float& tmz) {
+  int lx = 0, ly = 0, lz = 0;
+  float ex = tmx, ey = tmy, ez = tmz;
+  if (edge != 0) {
+    lx = left_in_block(ix, step[0], edge);
+    ly = left_in_block(iy, step[1], edge);
+    lz = left_in_block(iz, step[2], edge);
+    ex = tmx + static_cast<float>(lx) * td[0];
+    ey = tmy + static_cast<float>(ly) * td[1];
+    ez = tmz + static_cast<float>(lz) * td[2];
+  }
+  const float t_exit = fminf(fminf(ex, ey), ez);
+  const bool go_x = ex <= ey && ex <= ez;
+  const bool go_y = !go_x && ey <= ez;
+  if (edge != 0) {
+    if (!go_x) follow_axis<0>(p, r, t_exit, lx, step[0], td[0], ix, tmx);
+    if (!go_y) follow_axis<1>(p, r, t_exit, ly, step[1], td[1], iy, tmy);
+    if (go_x || go_y) follow_axis<2>(p, r, t_exit, lz, step[2], td[2], iz, tmz);
+  }
+  if (go_x) {
+    ix += step[0] * (lx + 1);
+    tmx = ex + td[0];
+  } else if (go_y) {
+    iy += step[1] * (ly + 1);
+    tmy = ey + td[1];
+  } else {
+    iz += step[2] * (lz + 1);
+    tmz = ez + td[2];
+  }
+  return t_exit;
+}
+
+// 3D DDA over the voxel lists (tri_worklist._walk; over tables in global
+// memory two-level, tri_worklist._walk_two_level), refining (t_best,
+// id_best) found by the globals; kCoarse (!kShared, a grid with a coarse
+// level): two-level. kAny: stop at the first t below t_best
 // (a shadow ray whose t_best starts at its bound) and return true then;
 // else every listed face of a visited voxel is tested, and their number
-// is added to ``tests``, and the visits the occupancy mask answers
-// (!kShared) to ``masked``. kRolled runs each voxel's list as a rolled
-// loop (the compiler unrolls it otherwise). A stats instantiation passes
-// its lane's Stats, in which each voxel step's turn is counted
+// is added to ``tests``, and (!kShared) the visits the occupancy mask
+// answers and the coarse skips to ``masked``. kRolled runs each voxel's
+// list as a rolled loop (the compiler unrolls it otherwise). A stats
+// instantiation passes its lane's Stats, in which each turn is counted
 // (csgr::walk_turn); the others pass none.
-template <bool kAny, bool kShared, bool kRolled, class... Stats>
+template <bool kAny, bool kShared, bool kCoarse, bool kRolled, class... Stats>
 __device__ __forceinline__ bool grid_walk(const KernelParams<kShared>& p, const Ray& r,
                                           float& t_best, int& id_best, unsigned& tests,
-                                          unsigned& masked, Stats&... st) {
+                                          WalkCounts<kShared>& masked, Stats&... st) {
   const int dims[3] = {p.nx, p.ny, p.nz};
   float t_in = kTMin, t_out = kBig;
 #pragma unroll
@@ -310,10 +429,17 @@ __device__ __forceinline__ bool grid_walk(const KernelParams<kShared>& p, const 
   const int max_steps = p.nx + p.ny + p.nz;
   for (int s = 0; s < max_steps; ++s) {
     if constexpr (sizeof...(Stats) > 0) csgr::walk_turn(st...);
+    [[maybe_unused]] int edge = 0;  // kCoarse: the turn's block's edge less one voxel
     bool occupied = true;
-    if constexpr (!kShared) occupied = block_occupied(p, ix, iy, iz);
+    if constexpr (kCoarse) {
+      if (!coarse_occupied(p, ix, iy, iz)) {  // an empty coarse block: a skip
+        edge = (1 << p.coarse_shift) - 1;
+        if constexpr (!kAny) ++masked.coarse;
+      }
+    }
+    if constexpr (!kShared) occupied = edge == 0 && block_occupied(p, ix, iy, iz);
     if (!occupied) {  // an empty block: no offsets to load
-      if constexpr (!kAny) ++masked;
+      if constexpr (!kAny && !kShared) masked.masked += edge == 0;
     } else {
       const int vox = (ix * p.ny + iy) * p.nz + iz;
       const int k1 = int_load<kShared>(p, p.off_at, vox + 1);
@@ -329,6 +455,12 @@ __device__ __forceinline__ bool grid_walk(const KernelParams<kShared>& p, const 
           if (list_test<kAny, kShared>(p, r, k, t_best, id_best)) return true;
         }
       }
+    }
+    if constexpr (kCoarse) {
+      const float t_next = two_level_step(p, r, step, td, edge, ix, iy, iz, tmx, tmy, tmz);
+      const bool in_grid = ix >= 0 && ix < p.nx && iy >= 0 && iy < p.ny && iz >= 0 && iz < p.nz;
+      if (!(in_grid && t_next <= t_out && t_next < t_best)) break;
+      continue;
     }
     const float t_next = fminf(fminf(tmx, tmy), tmz);
     const bool go_x = tmx <= tmy && tmx <= tmz;
@@ -350,12 +482,12 @@ __device__ __forceinline__ bool grid_walk(const KernelParams<kShared>& p, const 
 }
 
 // The nearest hit: every face (brute), or the globals then the walk (grid);
-// the faces tested are added to ``tests``, the walk's masked visits to
-// ``masked``; ``st``: as grid_walk's.
-template <bool kGrid, bool kNee, bool kShared, class... Stats>
+// the faces tested are added to ``tests``, the walk's masked visits and
+// coarse skips to ``masked``; ``st``: as grid_walk's.
+template <bool kGrid, bool kNee, bool kShared, bool kCoarse, class... Stats>
 __device__ __forceinline__ void nearest(const KernelParams<kShared>& p, const Ray& r,
                                         float& t_best, int& id_best, unsigned& tests,
-                                        unsigned& masked, Stats&... st) {
+                                        WalkCounts<kShared>& masked, Stats&... st) {
   t_best = kMiss;
   id_best = 0;
   const int n = kGrid ? p.n_glob : p.n_faces;
@@ -368,7 +500,7 @@ __device__ __forceinline__ void nearest(const KernelParams<kShared>& p, const Ra
       id_best = id;
     }
   }
-  if (kGrid) grid_walk<false, kShared, kNee>(p, r, t_best, id_best, tests, masked, st...);
+  if (kGrid) grid_walk<false, kShared, kCoarse, kNee>(p, r, t_best, id_best, tests, masked, st...);
 }
 
 // The shadow rays' walk, kept out of line (ROADMAP C-7). Inlined into the
@@ -385,15 +517,16 @@ __device__ __forceinline__ void nearest(const KernelParams<kShared>& p, const Ra
 // axis-indexed arrays) traces it right three times out of three, and the
 // inlined walk is 1% faster on meshnight; the fault's cause is not shown,
 // so the walk stays out of line.
-template <bool kShared>
+template <bool kShared, bool kCoarse>
 __device__ __noinline__ bool shadow_walk(const KernelParams<kShared>& p, const Ray& r,
                                          float& t_best, int& id_best) {
-  unsigned uncounted = 0, unmasked = 0;
-  return grid_walk<true, kShared, true>(p, r, t_best, id_best, uncounted, unmasked);
+  unsigned uncounted = 0;
+  WalkCounts<kShared> unmasked{};
+  return grid_walk<true, kShared, kCoarse, true>(p, r, t_best, id_best, uncounted, unmasked);
 }
 
 // A shadow ray: true iff some face is hit below t_max.
-template <bool kGrid, bool kShared>
+template <bool kGrid, bool kShared, bool kCoarse>
 __device__ __forceinline__ bool occluded(const KernelParams<kShared>& p, const Ray& r,
                                          float t_max) {
   const int n = kGrid ? p.n_glob : p.n_faces;
@@ -405,17 +538,17 @@ __device__ __forceinline__ bool occluded(const KernelParams<kShared>& p, const R
   if (!kGrid) return false;
   float t_best = t_max;
   int id_best = 0;
-  return shadow_walk<kShared>(p, r, t_best, id_best);
+  return shadow_walk<kShared, kCoarse>(p, r, t_best, id_best);
 }
 
 // One pixel's spp paths, one after another, each up to max_bounces
 // segments; the radiance is summed in sample order. Returns the triangle
-// tests of the pixel's path segments and adds their masked visits to
-// ``masked``; ``st``: as grid_walk's, where a stats instantiation also
-// counts the segment loop's turns.
-template <bool kGrid, bool kNee, bool kShared, class... Stats>
+// tests of the pixel's path segments and adds their masked visits and
+// coarse skips to ``masked``; ``st``: as grid_walk's, where a stats
+// instantiation also counts the segment loop's turns.
+template <bool kGrid, bool kNee, bool kShared, bool kCoarse, class... Stats>
 __device__ __forceinline__ unsigned render_pixel(const KernelParams<kShared>& p, const float* cam,
-                                                 int x, int row, unsigned& masked,
+                                                 int x, int row, WalkCounts<kShared>& masked,
                                                  Stats&... st) {
   const int y = row + p.row_offset;  // in the frame: camera and RNG keys are global
   const uint32_t pix = static_cast<uint32_t>(y) * static_cast<uint32_t>(p.width) + x;
@@ -438,7 +571,7 @@ __device__ __forceinline__ unsigned render_pixel(const KernelParams<kShared>& p,
       const Ray ray = {{ox, oy, oz}, {dx, dy, dz}};
       float t_best;
       int id_best;
-      nearest<kGrid, kNee, kShared>(p, ray, t_best, id_best, tests, masked, st...);
+      nearest<kGrid, kNee, kShared, kCoarse>(p, ray, t_best, id_best, tests, masked, st...);
 
       const float inv_len = csgr::inv_length(path);
       const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
@@ -478,7 +611,7 @@ __device__ __forceinline__ unsigned render_pixel(const KernelParams<kShared>& p,
         if (csgr::nee_sample_tri(hx, hy, hz, nx, ny, nz, lambertian, param, udx, udy, udz, ar, ag,
                                  ab, p.lamps + 4 * li, p.n_lamps, u1, u2, ls)) {
           const Ray shadow = {{hx, hy, hz}, {ls.dx, ls.dy, ls.dz}};
-          if (!occluded<kGrid, kShared>(p, shadow, ls.tl * csgr::kShadowScale)) {
+          if (!occluded<kGrid, kShared, kCoarse>(p, shadow, ls.tl * csgr::kShadowScale)) {
             path.sr += path.tr * ls.wr;
             path.sg += path.tg * ls.wg;
             path.sb += path.tb * ls.wb;
@@ -505,13 +638,22 @@ __device__ __forceinline__ unsigned render_pixel(const KernelParams<kShared>& p,
   return tests;
 }
 
+// A pixel's masked visits and coarse skips into the launch's second and
+// third words.
+__device__ __forceinline__ void add_walk_counts(unsigned long long* out_tests,
+                                                const MaskCounts& c) {
+  csgr::add_count(out_tests + 1, c.masked);
+  csgr::add_count(out_tests + 2, c.coarse);
+}
+
 // Persistent CTAs (persistent.cuh): a CTA stages the tables once (kShared),
-// or in grid mode the occupancy mask, then each warp takes 16x2-pixel work
+// or in grid mode the occupancy masks, then each warp takes 16x2-pixel work
 // units from the launch's counter and adds the unit's triangle tests (and,
-// walking global memory, its masked visits) to the launch's words; a stats
-// launch (kStats: the grid walk over global memory without NEE) adds the
-// unit's stats to its block.
-template <bool kGrid, bool kNee, bool kShared, bool kStats>
+// walking global memory, its masked visits and coarse skips) to the
+// launch's words; a stats launch (kStats: the grid walk over global memory
+// without NEE) adds the unit's stats to its block. kCoarse: the two-level
+// walk (a grid over global memory with a coarse level).
+template <bool kGrid, bool kNee, bool kShared, bool kStats, bool kCoarse = false>
 __global__ void __launch_bounds__(kThreads<kShared, kNee>, kMinCtas<kShared, kNee>)
     trimesh_kernel(const csgr::StatsParams<KernelParams<kShared>, kStats> p) {
   if constexpr (kShared) {
@@ -523,30 +665,38 @@ __global__ void __launch_bounds__(kThreads<kShared, kNee>, kMinCtas<kShared, kNe
 #pragma unroll
   for (int i = 0; i < csgr::kCamFloats; ++i) cam[i] = __ldg(p.cam + i);
   csgr::for_each_pixel(p.work, p.width, p.rows, [&](int x, int row) {
-    unsigned masked = 0;
+    WalkCounts<kShared> masked{};
     if constexpr (kStats) {
       csgr::Stats st;
-      csgr::add_count(p.out_tests, render_pixel<kGrid, kNee, kShared>(p, cam, x, row, masked, st));
-      if constexpr (kGrid && !kShared) csgr::add_count(p.out_tests + 1, masked);
+      csgr::add_count(p.out_tests,
+                      render_pixel<kGrid, kNee, kShared, kCoarse>(p, cam, x, row, masked, st));
+      if constexpr (kGrid && !kShared) add_walk_counts(p.out_tests, masked);
       csgr::add_stats<3>(p.stats, st);
     } else {
-      csgr::add_count(p.out_tests, render_pixel<kGrid, kNee, kShared>(p, cam, x, row, masked));
-      if constexpr (kGrid && !kShared) csgr::add_count(p.out_tests + 1, masked);
+      csgr::add_count(p.out_tests,
+                      render_pixel<kGrid, kNee, kShared, kCoarse>(p, cam, x, row, masked));
+      if constexpr (kGrid && !kShared) add_walk_counts(p.out_tests, masked);
     }
   });
 }
 
-template <bool kGrid, bool kNee, bool kShared, bool kStats>
+template <bool kGrid, bool kNee, bool kShared, bool kStats, bool kCoarse = false>
 cudaError_t launch(const csgr::StatsParams<KernelParams<kShared>, kStats>& p, cudaStream_t st) {
   int smem = 0;
   if constexpr (kShared) smem = p.table_bytes;
   else if constexpr (kGrid) smem = p.mask_bytes;
-  return csgr::launch_persistent(trimesh_kernel<kGrid, kNee, kShared, kStats>, p,
+  return csgr::launch_persistent(trimesh_kernel<kGrid, kNee, kShared, kStats, kCoarse>, p,
                                  kThreads<kShared, kNee>, smem, p.width, p.rows, p.work, st);
 }
 
 template <bool kShared>
 cudaError_t launch_mode(const KernelParams<kShared>& p, bool grid, bool nee, cudaStream_t st) {
+  if constexpr (!kShared) {
+    if (grid && p.coarse_shift != 0) {
+      return nee ? launch<true, true, false, false, true>(p, st)
+                 : launch<true, false, false, false, true>(p, st);
+    }
+  }
   if (grid) {
     return nee ? launch<true, true, kShared, false>(p, st)
                : launch<true, false, kShared, false>(p, st);
@@ -567,23 +717,27 @@ extern "C" int csgr_mesh_table_limit(int device) {
 // tables: the MT table [F, 3] float4, then (grid: offsets non-negative)
 // the CSR offsets, face ids and globals at byte offsets off_at, ids_at and
 // glob_at; table_bytes long, 16-byte aligned, a multiple of 16.
-// mask (grid mode): the occupancy mask, mask_bytes long (a multiple of 16,
-// 16-byte aligned), its blocks mask_ny x mask_nz along y and z, a voxel
-// coordinate's block i >> mask_shift; read where the tables are not
-// staged.
+// mask (grid mode): the occupancy masks, mask_bytes long (a multiple of
+// 16, 16-byte aligned): the fine one, its blocks mask_ny x mask_nz along y
+// and z, a voxel coordinate's block i >> mask_shift; then from byte
+// coarse_at (a multiple of 16) the coarse one, coarse_ny x coarse_nz, block
+// i >> coarse_shift (coarse_shift > mask_shift), or coarse_shift 0 where the
+// grid has none; read where the tables are not staged.
 // shared_tables: 1 stages them in shared memory (the caller has checked
 // that they fit csgr_mesh_table_limit), 0 reads them from global memory.
 // out_rays holds rows x width int32 segment counts and one int32 more: the
-// launch's work counter. out_tests is two uint64, which the launch zeroes
-// and then fills with its path segments' triangle tests and the voxel
-// visits its mask answered. out_stats: null, or (the grid walk over global
-// memory without NEE only) csgr::kStatsWords uint64 that the launch zeroes
-// and fills through the stats instantiation (no shadow word).
+// launch's work counter. out_tests is three uint64, which the launch zeroes
+// and then fills with its path segments' triangle tests, the voxel visits
+// its mask answered and its coarse skips. out_stats: null, or (the grid
+// walk over global memory without NEE only) csgr::kStatsWords uint64 that
+// the launch zeroes and fills through the stats instantiation (no shadow
+// word).
 extern "C" int csgr_mesh_render(
     const void* cam, const void* faces, const void* tables, int table_bytes, int n_faces,
     int n_glob, int glob_at, int off_at, int ids_at, int nx, int ny, int nz, float x0, float y0,
     float z0, float x1, float y1, float z1, float cell, float inv_cell, const void* mask,
-    int mask_bytes, int mask_shift, int mask_ny, int mask_nz, const void* lamps,
+    int mask_bytes, int mask_shift, int mask_ny, int mask_nz, int coarse_at, int coarse_shift,
+    int coarse_ny, int coarse_nz, const void* lamps,
     int n_lamps, int width, int height, int rows, int row_offset, int spp, int max_bounces,
     unsigned int seed, unsigned int sample_offset, int lens, int sky, int shared_tables,
     void* out_rgb, void* out_rays, void* out_tests, void* out_stats, void* stream) {
@@ -593,7 +747,10 @@ extern "C" int csgr_mesh_render(
       (out_stats != nullptr && (!grid || nee || shared_tables)) ||
       (grid && !shared_tables &&
        (mask == nullptr || mask_bytes < 16 || mask_bytes % 16 != 0 || mask_shift < 0 ||
-        mask_shift > 30))) {
+        mask_shift > 30 ||
+        (coarse_shift != 0 && (coarse_shift <= mask_shift || coarse_shift > 30 ||
+                               coarse_at < 16 || coarse_at % 16 != 0 ||
+                               coarse_at >= mask_bytes))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reinterpret_cast<uintptr_t>(tables) % 16 != 0 ||
@@ -625,17 +782,20 @@ extern "C" int csgr_mesh_render(
   p.mask = static_cast<const unsigned char*>(mask);
   p.mask_bytes = mask_bytes; p.mask_shift = mask_shift;
   p.mask_ny = mask_ny; p.mask_nz = mask_nz;
+  p.coarse_at = coarse_at; p.coarse_shift = coarse_shift;
+  p.coarse_ny = coarse_ny; p.coarse_nz = coarse_nz;
   p.stats = static_cast<unsigned long long*>(out_stats);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // in stream order, before the launch
-  const cudaError_t z = cudaMemsetAsync(out_tests, 0, 2 * sizeof(unsigned long long), st);
+  const cudaError_t z = cudaMemsetAsync(out_tests, 0, 3 * sizeof(unsigned long long), st);
   if (z != cudaSuccess) return static_cast<int>(z);
   if (out_stats != nullptr) {
     const cudaError_t zs =
         cudaMemsetAsync(out_stats, 0, csgr::kStatsWords * sizeof(unsigned long long), st);
     if (zs != cudaSuccess) return static_cast<int>(zs);
-    return static_cast<int>(launch<true, false, false, true>(p, st));
+    return static_cast<int>(coarse_shift != 0 ? launch<true, false, false, true, true>(p, st)
+                                              : launch<true, false, false, true>(p, st));
   }
   const cudaError_t e = shared_tables
                             ? launch_mode<true>(static_cast<const Params&>(p), grid, nee, st)

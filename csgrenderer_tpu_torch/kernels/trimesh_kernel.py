@@ -30,7 +30,13 @@ face_tests``) or, in brute mode, as faces x segments. Beside them,
 grid's occupancy mask (``tri_worklist.occupancy_mask``) answers without a
 load of the voxel's offsets; the kernel counts those its global-memory
 walk makes (0 where it stages the tables, whose walk has no mask, and in
-brute mode), the plain version those of its walk. ``LAUNCHES`` counts
+brute mode), the plain version those of its walk. And ``"coarse_skips"``:
+the turns of those walks that jumped an empty block of the grid's coarse
+mask. The kernel walks a grid that has a coarse level in two levels
+(``tri_worklist`` module docstring; such a grid's tables are always read
+from global memory), any other flat, and so does the plain version
+(``tri_grid_nearest_hit(two_level=True)``): both count the same visits.
+``LAUNCHES`` counts
 kernel launches (``LAUNCHES_BY_MODE`` per mode: brute, grid, brute-nee,
 grid-nee; ``LAUNCHES_BY_TABLES`` by where the launch read the tables a walk
 reads: staged in shared memory, or global memory when
@@ -100,10 +106,11 @@ class PackedMesh:
     ([F, 12] f32: v0, e1, e2 and a pad word, the floats of ``faces``
     columns 0-8), then in grid mode the CSR offsets, face ids and globals
     as int32, each at a 16-byte aligned offset and padded to 16 bytes.
-    The grid's occupancy mask (``grid.mask``), which the kernel stages in
-    place of the tables when it reads them from global memory, is apart
+    The grid's occupancy masks (``masks``: ``grid.mask``, then
+    ``grid.coarse_mask`` at byte ``mask_bytes``), which the kernel stages
+    in place of the tables when it reads them from global memory, are apart
     from this block, so ``table_bytes`` and the staged-or-global choice do
-    not depend on it.
+    not depend on them.
     """
 
     mesh: MeshScene
@@ -111,6 +118,7 @@ class PackedMesh:
     grid: TriGridPack | None
     lamps: Tensor | None  # [n_lights, 16] f32
     tables: Tensor  # [table_bytes / 4] f32 (int32 words in grid mode's sections)
+    masks: Tensor | None  # grid mode: [W + Wc] uint32, the two masks' words; brute: None
 
     @property
     def mode(self) -> str:
@@ -150,8 +158,9 @@ class PackedMesh:
     def to(self, device) -> "PackedMesh":
         grid = None if self.grid is None else self.grid.to(device)
         lamps = None if self.lamps is None else self.lamps.to(device)
+        masks = None if self.masks is None else self.masks.to(device)
         return PackedMesh(self.mesh.to(device), self.faces.to(device), grid, lamps,
-                          self.tables.to(device))
+                          self.tables.to(device), masks)
 
 
 class TableLayout(NamedTuple):
@@ -244,14 +253,17 @@ def pack_mesh(mesh: MeshScene, worklist: bool | str = "auto", cell: float | None
                 raise ValueError("worklist=True but the mesh is not griddable "
                                  "(under 192 faces to grid)")
         faces = _face_table(mesh)
-        return PackedMesh(mesh, faces, grid, _lamp_table(mesh), _tables(mesh, faces, grid))
+        masks = None if grid is None else torch.cat([grid.mask, grid.coarse_mask])
+        return PackedMesh(mesh, faces, grid, _lamp_table(mesh), _tables(mesh, faces, grid),
+                          masks)
 
 
 def _grid_hit_fn(packed: PackedMesh, counts: dict | None):
     def hit_fn(o: Tensor, d: Tensor) -> SurfaceHit:
         batch = o.shape[:-1]
         flat_o, flat_d = o.reshape(-1, 3), d.reshape(-1, 3)
-        t, idx, _ = tri_grid_nearest_hit(packed.grid, packed.mesh, flat_o, flat_d, counts=counts)
+        t, idx, _ = tri_grid_nearest_hit(packed.grid, packed.mesh, flat_o, flat_d, counts=counts,
+                                         two_level=True)
         h = packed.mesh.surface_hit(flat_d, t, idx, packed.normals)
         return SurfaceHit(*(x.reshape(batch + x.shape[1:]) for x in h))
 
@@ -280,12 +292,14 @@ def render_image_mesh_plain(
     it renders with the packed lamp table as ``lights=``; ``counts`` as in
     ``integrator.trace_paths``, plus, in grid mode, the walk's work
     (``tri_worklist.tri_grid_nearest_hit``, shadow rays included) but its
-    masked visits, plus the path segments' triangle tests
+    masked visits and coarse skips, plus the path segments' triangle tests
     (``"tri_tests"``: ``global_tests + face_tests`` of the path segments'
-    walks, or faces x segments in brute mode) and masked visits
-    (``"masked_visits"``: 0 in brute mode), shadow rays included in
-    neither; ``rows``, ``row_offset``, ``jitter`` and ``sample_batch`` as
-    in ``integrator.render_image``."""
+    walks, or faces x segments in brute mode), masked visits
+    (``"masked_visits"``: 0 in brute mode) and coarse skips
+    (``"coarse_skips"``: 0 in brute mode and where the walk is flat),
+    shadow rays included in none; ``rows``, ``row_offset``, ``jitter`` and
+    ``sample_batch`` as in ``integrator.render_image``. The grid is walked
+    in two levels where it has a coarse level, as the kernel walks it."""
     if nee and packed.lamps is None:
         raise ValueError(_NO_LAMPS)
     # the path segments' walks are counted apart from the shadow rays'
@@ -304,23 +318,25 @@ def render_image_mesh_plain(
         sample_batch=sample_batch, shadow_hit_fn=shadow_hit_fn,
     )
     if counts is not None:
-        masked = 0
+        masked = skips = 0
         if path_work is None:
             tests = rays * packed.mesh.num_faces
         else:
             for work in (path_work, shadow_work or {}):
                 for key, value in work.items():
-                    if key != "masked_visits":
+                    if key not in ("masked_visits", "coarse_skips"):
                         add_count(counts, key, value)
             tests = path_work.get("global_tests", 0) + path_work.get("face_tests", 0)
             masked = path_work.get("masked_visits", 0)
-        for key, value in (("tri_tests", tests), ("masked_visits", masked)):
+            skips = path_work.get("coarse_skips", 0)
+        for key, value in (("tri_tests", tests), ("masked_visits", masked),
+                           ("coarse_skips", skips)):
             add_count(counts, key, torch.as_tensor(value, dtype=torch.int64, device=rays.device))
     return image, rays
 
 
 _VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-_ARGTYPES = ((_VP, _VP, _VP) + (_I,) * 9 + (_F,) * 8 + (_VP,) + (_I,) * 4 + (_VP,) + (_I,) * 7
+_ARGTYPES = ((_VP, _VP, _VP) + (_I,) * 9 + (_F,) * 8 + (_VP,) + (_I,) * 8 + (_VP,) + (_I,) * 7
              + (_U, _U) + (_I,) * 3 + (_VP, _VP, _VP, _VP))
 _KERNEL = build.Kernel(KERNEL_SOURCE, "csgr_mesh_render", _ARGTYPES, "mesh")
 _TABLE_LIMIT: dict[int, int] = {}  # device index -> the most table bytes a CTA can stage
@@ -348,8 +364,9 @@ def launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounc
                 out_stats=None) -> tuple:
     """The arguments of ``csgr_mesh_render`` but the stream, after checking
     every tensor it passes (``out_rays``: rows x width + 1 int32;
-    ``out_tests``: two int64, which the launch zeroes and fills with its
-    path segments' triangle tests and masked visits; ``out_stats``: None,
+    ``out_tests``: three int64, which the launch zeroes and fills with its
+    path segments' triangle tests, masked visits and coarse skips;
+    ``out_stats``: None,
     or the stats block, ``len(build.STATS_WORDS)`` int64, which a stats
     launch zeroes and fills)."""
     dev = packed.device
@@ -360,19 +377,23 @@ def launch_args(packed, cam_row, width, height, rows, row_offset, spp, max_bounc
     build.check_tensor(cam_row, "camera", torch.float32, (CAM_SIZE,), dev)
     build.check_tensor(out_rgb, "out_rgb", torch.float32, (rows, width, 3), dev)
     build.check_tensor(out_rays, "out_rays", torch.int32, (rows * width + 1,), dev)
-    build.check_tensor(out_tests, "out_tests", torch.int64, (2,), dev)
+    build.check_tensor(out_tests, "out_tests", torch.int64, (3,), dev)
     if out_stats is not None:
         build.check_tensor(out_stats, "out_stats", torch.int64, (len(build.STATS_WORDS),), dev)
-    grid_args = [0, -1, -1, -1, 0, 0, 0] + [0.0] * 8 + [None, 0, 0, 0, 0]
+    grid_args = [0, -1, -1, -1, 0, 0, 0] + [0.0] * 8 + [None] + [0] * 8
     if packed.grid is not None:
         g = packed.grid
         gs = g.static
         p = gs.f32_params()
-        build.check_tensor(g.mask, "mask", torch.uint32, (g.mask.numel(),), dev)
+        masks = packed.masks
+        build.check_tensor(masks, "masks", torch.uint32,
+                           (g.mask.numel() + g.coarse_mask.numel(),), dev)
         _, mask_ny, mask_nz = gs.mask_dims
+        _, coarse_ny, coarse_nz = gs.coarse_dims
         grid_args = ([g.n_globals, lay.glob_at, lay.off_at, lay.ids_at, gs.nx, gs.ny, gs.nz]
                      + [float(v) for v in (*p["lo"], *p["hi"], p["cell"], p["inv_cell"])]
-                     + [g.mask.data_ptr(), g.mask.numel() * 4, gs.mask_shift, mask_ny, mask_nz])
+                     + [masks.data_ptr(), masks.numel() * 4, gs.mask_shift, mask_ny, mask_nz,
+                        g.mask.numel() * 4, gs.coarse_shift, coarse_ny, coarse_nz])
     lamp_args = [None, 0]
     if nee:
         n_lights = packed.lamps.shape[0]
@@ -390,10 +411,10 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     """Launch the kernel. Its tables are staged in shared memory when
     ``packed.table_bytes`` fits the device's limit, else read from global
     memory; ``force_global`` (tests only) reads them from global memory.
-    The launch counts its path segments' triangle tests and masked visits
-    into two device words, which ``counts`` (a dict) takes under
-    ``"tri_tests"`` and ``"masked_visits"``, added to what it holds
-    there. A launch in grid mode without NEE from global memory that is
+    The launch counts its path segments' triangle tests, masked visits and
+    coarse skips into three device words, which ``counts`` (a dict) takes
+    under ``"tri_tests"``, ``"masked_visits"`` and ``"coarse_skips"``,
+    added to what it holds there. A launch in grid mode without NEE from global memory that is
     given ``counts`` runs the stats instantiation where
     ``build.stats_launch()`` says so, and ``counts`` takes its block under
     ``"stats"`` (the first three of ``build.STATS_WORDS``)."""
@@ -405,7 +426,7 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     out_rays = torch.empty(rows * width + 1, dtype=torch.int32, device=dev)  # + the work counter
     # the launch zeroes them, then counts into them (int64: the kernel's
     # uint64 words, far from their sign bit)
-    tests = torch.empty(2, dtype=torch.int64, device=dev)
+    tests = torch.empty(3, dtype=torch.int64, device=dev)
     shared = not force_global and packed.table_bytes <= table_limit(dev.index)
     stats = (torch.empty(len(build.STATS_WORDS), dtype=torch.int64, device=dev)
              if counts is not None and packed.grid is not None and not nee and not shared
@@ -419,6 +440,7 @@ def _launch(packed, cam_row, width, height, spp, max_bounces, seed, sample_offse
     if counts is not None:
         add_count(counts, "tri_tests", tests[0])
         add_count(counts, "masked_visits", tests[1])
+        add_count(counts, "coarse_skips", tests[2])
     if stats is not None:
         add_count(counts, "stats", stats[:3])
     return out_rgb, out_rays[:-1].sum(dtype=torch.int64)  # int32 per pixel, summed in int64
@@ -453,8 +475,9 @@ def render_image_mesh_kernel(
     (ValueError if it has none). ``rows``/``row_offset`` and ``jitter`` as
     in ``megakernel.render_image_kernel``: a full-width slab of the frame,
     and pixel centres on the CPU only. ``counts``: a dict to which the
-    frame's path-segment triangle tests and masked visits are added under
-    ``"tri_tests"`` and ``"masked_visits"`` as int64 tensors (on the card
+    frame's path-segment triangle tests, masked visits and coarse skips are
+    added under ``"tri_tests"``, ``"masked_visits"`` and ``"coarse_skips"``
+    as int64 tensors (on the card
     device words the launch fills: nothing waits; a stats launch's block
     under ``"stats"``, see ``_launch``), and on the CPU every key of
     ``render_image_mesh_plain``'s counts. Shadow rays' tests and visits are

@@ -66,8 +66,9 @@ Measured per tree, CUDA events unless named otherwise, for the groups
 
 each frame: the median ms of ``REPS`` back-to-back launches after a
 warm-up, and the sha256 of the last frame's f32 bytes with its ray count
-(and the audit's dropped spans, or the NEE frames' shadow rays), so the
-trees' images are held to each other bit for bit;
+(and the audit's dropped spans, the NEE frames' shadow rays, or the mesh
+frames' triangle tests), so the trees' images are held to each other bit
+for bit;
 
 - the bench frames (``bench.run_bench``, 5 frames each): rtiow (sphere
   group; 1920x1080, 64 spp, 8 bounces), night488 (nee group; 960x540, 64
@@ -115,8 +116,8 @@ MANY_OBJECTS = (8, 12, 16, 99)  # objects of many_objects_scene in the tape grou
 
 def _frames(dev, groups):
     """label -> (render, reps): the kernel table's frames of ``groups``,
-    each a function of no arguments returning (image, rays[, dropped or
-    shadow rays])."""
+    each a function of no arguments returning (image, rays[, dropped
+    spans, shadow rays or triangle tests])."""
     from csgrenderer_tpu_torch.camera import Camera
     from csgrenderer_tpu_torch.kernels import megakernel as mk
     from csgrenderer_tpu_torch.kernels import tape_kernel as tk
@@ -197,7 +198,13 @@ def _frames(dev, groups):
                 tk.pack_program(many_objects_scene(n).compile(k=4, device=dev)), many_cam,
                 width=1280, height=720, spp=16, max_bounces=8, seed=0)
     if "mesh" in groups or "ladder" in groups:
-        mesh = functools.partial(frame, tm.render_image_mesh_kernel)
+        def mesh(packed, camera, reps=REPS, **kw):  # (image, rays, triangle tests)
+            def run():
+                counts = {}
+                img, rays = tm.render_image_mesh_kernel(packed, camera, counts=counts, **kw)
+                return img, rays, counts["tri_tests"]
+            return run, reps
+
         kwm = dict(width=1280, height=720, spp=2, max_bounces=6, seed=0)
         cam_m = cam((0.0, 1.6, 2.2), (0.0, 0.7, -2.6), 45.0, 1280 / 720)
     if "mesh" in groups:

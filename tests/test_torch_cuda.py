@@ -688,7 +688,8 @@ def test_mesh_global_walk_counts_the_plain_versions_masked_visits(cuda, mode):
     frame and matches the plain version's image. The grid mesh's 278,112
     bytes of tables go to global memory by size anyway; meshnight's are
     staged by size, and its staged walk, which has no mask, counts no
-    masked visit."""
+    masked visit. Neither grid (f = 1) has a coarse level: no walk of
+    either skips."""
     make_packed, eye, extra = MESH_CASES[mode]
     packed = make_packed(cuda)
     cam = mk.pack_camera(_mesh_cam(eye, cuda)).contiguous()
@@ -702,6 +703,8 @@ def test_mesh_global_walk_counts_the_plain_versions_masked_visits(cuda, mode):
                                                **MESH_KW, **extra)
     assert int(counts["tri_tests"]) == int(by_size["tri_tests"]) == int(plain["tri_tests"])
     assert int(counts["masked_visits"]) == int(plain["masked_visits"]) > 0
+    assert packed.grid.static.coarse_block == 0
+    assert int(counts["coarse_skips"]) == int(by_size["coarse_skips"]) == 0
     staged = packed.table_bytes <= tm.table_limit(cuda.index or 0)
     assert staged == (mode == "grid-nee")
     assert int(by_size["masked_visits"]) == (0 if staged else int(counts["masked_visits"]))
@@ -761,9 +764,11 @@ def test_mesh_kernel_counts_the_plain_versions_triangle_tests(cuda, mode):
 def test_the_renderer_reads_the_triangle_tests_at_its_fence(cuda):
     """``PathTraceRenderer.last_frame_tri_tests`` of a progressive mesh
     frame, queued behind the one before, is the kernel's count of that
-    frame, read at the fence with its segments, as is
-    ``last_frame_masked_visits`` (its 278,112 bytes of tables are read
-    from global memory); a sphere frame has neither."""
+    frame, read at the fence with its segments, as are
+    ``last_frame_masked_visits`` and ``last_frame_coarse_skips`` (its
+    278,112 bytes of tables are read from global memory; its grid, f = 1,
+    has no coarse level, so its walk skips nothing); a sphere frame has
+    none of them."""
     scene = mesh_demo_scene(3, device=cuda)
     cam = _mesh_cam((0.0, 1.6, 2.2), cuda)
     frame = dict(width=64, height=32, spp=2, max_bounces=6, seed=2)
@@ -777,20 +782,22 @@ def test_the_renderer_reads_the_triangle_tests_at_its_fence(cuda):
         assert r.last_frame_rays == int(rays)
         assert r.last_frame_tri_tests == int(counts["tri_tests"]) > 2 * int(rays)
         assert r.last_frame_masked_visits == int(counts["masked_visits"]) > 0
+        assert r.last_frame_coarse_skips == int(counts["coarse_skips"]) == 0
     s = PathTraceRenderer(two_spheres_scene(device=cuda), cam, RenderConfig(**frame),
                           progressive=True, device=cuda)
     s.draw_frame(0.0)
     assert s.last_frame_tri_tests is None and s.last_frame_shadow_rays == 0
-    assert s.last_frame_masked_visits is None
+    assert s.last_frame_masked_visits is None and s.last_frame_coarse_skips is None
 
 
 def test_the_102k_face_mesh_renders_through_the_renderer_from_global_tables(cuda):
     """mesh_demo_scene(5, 5), the mesh-720p16 cell's 102,402 faces: its
     19,925,808 bytes of tables (a 257 x 67 x 193 grid, two global faces) go
     to global memory, and the renderer's progressive frames (queued) match
-    the plain version's at a small frame; the triangle tests and the
-    visits the occupancy mask (2 x 2 x 2 voxel blocks) answered, read at
-    the fence, are the kernel's and within 2e-3 of the plain version's."""
+    the plain version's at a small frame; the triangle tests, the visits
+    the occupancy mask (2 x 2 x 2 voxel blocks) answered and the coarse
+    skips (8 x 8 x 8 voxel blocks), read at the fence, are the kernel's and
+    within 2e-3 of the plain version's."""
     scene = mesh_demo_scene(5, spheres=5, device=cuda)
     cam = _mesh_cam((0.0, 1.6, 2.2), cuda)
     frame = dict(width=128, height=64, spp=2, max_bounces=6, seed=2**31 + 11)
@@ -798,7 +805,7 @@ def test_the_102k_face_mesh_renders_through_the_renderer_from_global_tables(cuda
     packed = r._packed
     assert scene.num_faces == 102402 and packed.table_bytes == 19925808
     assert packed.grid.static.dims == (257, 67, 193) and packed.grid.n_globals == 2
-    assert packed.grid.static.mask_block == 2
+    assert packed.grid.static.mask_block == 2 and packed.grid.static.coarse_block == 8
     before = dict(tm.LAUNCHES_BY_TABLES)
     r.draw_frame(0.0)
     r.draw_frame(0.0)
@@ -810,12 +817,77 @@ def test_the_102k_face_mesh_renders_through_the_renderer_from_global_tables(cuda
     assert r.last_frame_rays == int(rays)
     assert r.last_frame_tri_tests == int(counts["tri_tests"])
     assert r.last_frame_masked_visits == int(counts["masked_visits"])
+    assert r.last_frame_coarse_skips == int(counts["coarse_skips"])
     ref, ref_rays = tm.render_image_mesh_plain(packed, cam, counts=plain, sample_offset=2,
                                                **frame)
     _assert_close(ref, ref_rays, img, rays)
-    for key in ("tri_tests", "masked_visits"):
+    for key in ("tri_tests", "masked_visits", "coarse_skips"):
         want = int(plain[key])
         assert want > 0 and abs(int(counts[key]) - want) <= want * 2e-3
+
+
+def _lamp_lit(mesh, dev):
+    """``mesh`` under a 1.6 x 1.2 emissive quad above its middle spheres
+    (two faces, brute-forced as globals)."""
+    return concat_meshes(mesh, quad((-0.8, 2.6, -3.6), (0.8, 2.6, -3.6), (0.8, 2.6, -2.4),
+                                    (-0.8, 2.6, -2.4), Material.emissive((12.0, 10.0, 8.0)), dev))
+
+
+TWO_LEVEL_CASES = {
+    # meshes whose tables the kernel reads from global memory: the 15,362-face
+    # grid (f = 1) has no coarse level, the 102,402-face one (f = 2) has
+    "15k": (lambda dev: mesh_demo_scene(4, device=dev), {}),
+    "15k-nee": (lambda dev: _lamp_lit(mesh_demo_scene(4, device=dev), dev),
+                dict(sky="black", nee=True)),
+    "102k": (lambda dev: mesh_demo_scene(5, spheres=5, device=dev), {}),
+    "102k-nee": (lambda dev: _lamp_lit(mesh_demo_scene(5, spheres=5, device=dev), dev),
+                 dict(sky="black", nee=True)),
+}
+# sha256 of the float32 image bytes and the ray count of each case's
+# MESH_KW frame, as the flat walk (the kernel before its coarse level)
+# rendered them on an H100
+PINNED_TWO_LEVEL_FRAMES = {
+    "15k": ("d1574e0797c899f0e7cf6fd51cf1814773c0bec4a982075e51a6503dababbdf5", 7431),
+    "15k-nee": ("39dcbbede2a51f8eccb20b99428a909b7157dcb9be0340c7e5400eec1596df53", 7431),
+    "102k": ("0c9aa884767c1db94431d716558502bb164321ba8e4a83e411afdbb9d083cde0", 7649),
+    "102k-nee": ("b87292fcfb47652123681501aa6fbaf96d60812c1b826270d381f5b8343ecacd", 7649),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TWO_LEVEL_CASES))
+def test_the_two_level_walk_matches_its_plain_version(cuda, case):
+    """The kernel's walk over tables in global memory (15,362 and 102,402
+    faces, with and without NEE): flat on the grid without a coarse level,
+    two-level on the one with (blocks of 8 voxels on an edge). On the
+    frame's first bounce, where both sides trace the same camera rays, its
+    segments, triangle tests, masked visits and coarse skips are the plain
+    walk's exactly, and it skips where the grid has a coarse level and
+    nowhere else; over six bounces its image is the plain version's within
+    ``_assert_close`` and its counts within the segments' 2e-3; and its
+    frame is bit for bit the one the flat walk rendered."""
+    make, extra = TWO_LEVEL_CASES[case]
+    packed = tm.pack_mesh(make(cuda))
+    assert packed.table_bytes > tm.table_limit(cuda.index or 0)
+    two_level = not case.startswith("15k")
+    assert packed.grid.static.coarse_block == (8 if two_level else 0)
+    cam = _mesh_cam((0.0, 1.6, 2.2), cuda)
+    for bounces in (1, MESH_KW["max_bounces"]):
+        kw = {**MESH_KW, **extra, "max_bounces": bounces}
+        counts, plain = {}, {}
+        img, rays = tm.render_image_mesh_kernel(packed, cam, counts=counts, **kw)
+        ref, ref_rays = tm.render_image_mesh_plain(packed, cam, counts=plain, **kw)
+        torch.cuda.synchronize()
+        _assert_close(ref, ref_rays, img, rays)
+        keys = ("tri_tests", "masked_visits", "coarse_skips")
+        if bounces == 1:
+            assert int(rays) == int(ref_rays)
+            assert [int(counts[k]) for k in keys] == [int(plain[k]) for k in keys]
+        for key in keys:
+            want = int(plain[key])
+            assert (want > 0 or (key == "coarse_skips" and not two_level)), key
+            assert abs(int(counts[key]) - want) <= want * 2e-3, key
+    digest = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+    assert (digest, int(rays)) == PINNED_TWO_LEVEL_FRAMES[case]
 
 
 # --- the tape kernel's leaf-interval count ------------------------------------
@@ -1461,6 +1533,7 @@ def _plain_walk(case, dev, path_only=False, **frame):
             mk.render_image_plain(packed, cam, counts=plain, **kw)
         elif render is tm.render_image_mesh_kernel:
             tm.render_image_mesh_plain(packed, cam, counts=plain, **kw)
+            return int(plain[walk]) + int(plain["coarse_skips"])  # a turn either kind
         else:
             tk.render_image_tape_plain(packed, cam, counts=plain, **kw)
         return int(plain[walk])
@@ -1476,7 +1549,8 @@ def _plain_walk(case, dev, path_only=False, **frame):
 def test_a_stats_launch_counts_the_plain_walks_visits(cuda, case):
     """The stats block's walk lane turns are the plain version's walk
     count (the sphere grid's cell visits, the cluster tree's node visits,
-    the mesh grid's voxel visits): exactly on the frame's first bounce,
+    the mesh grid's voxel visits and coarse skips): exactly on the frame's
+    first bounce,
     where both sides trace the same camera rays, and over the whole frame
     within the bound the segments are held to (``_assert_close``): the two
     sides' paths part on a few pixels where a scatter rounds apart (the

@@ -293,11 +293,13 @@ def test_a_recorded_plain_frame_records_its_segments_and_its_walk(case):
     assert sorted(by_frame) == [1, 2]
     for k, got in enumerate(by_frame[f] for f in (1, 2)):
         assert set(got) <= {"kernel.segments", "kernel.walk_lane_steps", "kernel.leaf_scores",
-                            "kernel.masked_visits"}
+                            "kernel.masked_visits", "kernel.coarse_skips"}
         plain = {}
         _, rays = render(r._packed, cam, sample_offset=k * frame["spp"], counts=plain, **frame)
         assert got["kernel.segments"] == int(rays) > 0
-        assert got["kernel.walk_lane_steps"] == int(plain[walk_key]) > 0
+        # a mesh walk's turns: its fine visits and its coarse skips
+        walked = int(plain[walk_key]) + int(plain.get("coarse_skips", 0))
+        assert got["kernel.walk_lane_steps"] == walked > 0
     assert r.last_frame_rays == by_frame[2]["kernel.segments"]
     profiling.clear()
     r.draw_frame(0.0)
